@@ -1,0 +1,51 @@
+"""Framework CLI of the port: ``python -m kanodes_tpu_torch <command> [args...]``.
+
+Each command forwards argv unchanged to its module's own CLI, as
+``python -m kanodes_tpu`` does: ``python -m kanodes_tpu_torch lv
+--iters=2000`` is ``python -m kanodes_tpu_torch.experiments.lv
+--iters=2000``. Only the commands of the ported slices exist.
+"""
+
+from __future__ import annotations
+
+import runpy
+import sys
+
+# command -> (module run as __main__, one-line help)
+MODULE_COMMANDS: dict[str, tuple[str, str]] = {
+    "lv": ("kanodes_tpu_torch.experiments.lv",
+           "LV KAN-ODE training (KANODE_LV_* env + --key=value "
+           "overrides, --device=cuda|cpu, default cuda)"),
+}
+
+
+def _usage() -> str:
+    lines = ["usage: python -m kanodes_tpu_torch <command> [args...]", "",
+             "commands:"]
+    for name, (_, help_line) in sorted(MODULE_COMMANDS.items()):
+        lines.append(f"  {name:<12} {help_line}")
+    return "\n".join(lines)
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv:
+        print(_usage())
+        return 2
+    cmd, rest = argv[0], argv[1:]
+    if cmd in ("-h", "--help", "help"):
+        print(_usage())
+        return 0
+    if cmd in MODULE_COMMANDS:
+        module = MODULE_COMMANDS[cmd][0]
+        # the module mains read sys.argv[1:]; alter_sys restores it after
+        sys.argv = [module] + rest
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+        return 0
+    print(f"unknown command: {cmd!r}\n", file=sys.stderr)
+    print(_usage(), file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,212 @@
+"""The LV slice of the PyTorch port as a whole, held against the JAX
+package: data, loss, gradient and eval in fixed and shooting modes with
+impl xla and fused, and a short Adam run from JAX's own init.
+
+JAX's fused path runs its Pallas kernels in interpret mode on the CPU;
+the port's fused path runs the plain versions of its CUDA kernels on CPU
+tensors. Tolerances: forward rtol 1e-5 / atol 1e-6, gradients rtol 5e-4
+/ atol 1e-6 (the JAX suite's, tests/test_rk_fused.py:36,62).
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from kanodes_tpu.experiments import lv as J
+from kanodes_tpu.train.loop import TrainConfig as JTrainConfig
+from kanodes_tpu.train.loop import train as jtrain
+from kanodes_tpu_torch.experiments import lv as T
+from kanodes_tpu_torch.interop import (chain_params_from_numpy,
+                                       chain_params_to_numpy)
+from kanodes_tpu_torch.train.loop import TrainConfig, train
+
+torch.set_num_threads(1)
+
+FWD = dict(rtol=1e-5, atol=1e-6)
+GRAD = dict(rtol=5e-4, atol=1e-6)
+MODES = [("fixed", 1), ("shooting", 1), ("shooting", 4)]
+
+
+def to_numpy(params):
+    return [{k: np.asarray(v) for k, v in p.items()} for p in params]
+
+
+def test_make_data_equals_jax():
+    want = J.make_data(J.LVConfig())
+    got = T.make_data(T.LVConfig(), device="cpu")
+    assert got["n_train"] == want["n_train"] == 35
+    np.testing.assert_array_equal(got["ts"].numpy(), np.asarray(want["ts"]))
+    np.testing.assert_array_equal(got["X"].numpy(), np.asarray(want["X"]))
+    np.testing.assert_array_equal(got["ts_host"], np.asarray(want["ts"]))
+
+
+@pytest.mark.parametrize("impl", ["xla", "fused"])
+@pytest.mark.parametrize("mode,seg", MODES)
+def test_loss_grad_eval_match_jax(mode, seg, impl):
+    jcfg = J.LVConfig(solve_mode=mode, segment_len=seg, impl=impl)
+    tcfg = T.LVConfig(solve_mode=mode, segment_len=seg, impl=impl)
+    jm = J.make_model(jcfg)
+    # JAX's LV init, scaled up from the 1e-5 start so every term matters
+    jp = jax.tree_util.tree_map(lambda a: a * 2e4,
+                                J.init_params(jcfg, jm))
+    jloss, jeval, _ = J.make_ode_fns(jcfg, jm, J.make_data(jcfg))
+    lj, gj = jax.value_and_grad(jloss)(jp)
+
+    tm = T.make_model(tcfg, device="cpu")
+    chain_params_from_numpy(tm, to_numpy(jp))
+    tloss, teval, _ = T.make_ode_fns(tcfg, tm, T.make_data(tcfg, "cpu"))
+    lt = tloss(tm)
+    lt.backward()
+    np.testing.assert_allclose(float(lt.detach()), float(lj), **FWD)
+    for layer, g in zip(tm.layers, gj):
+        for k in ("C", "W"):
+            np.testing.assert_allclose(getattr(layer, k).grad.numpy(),
+                                       np.asarray(g[k]), **GRAD)
+    with torch.no_grad():
+        np.testing.assert_allclose(float(teval(tm)), float(jeval(jp)), **FWD)
+
+
+@pytest.mark.parametrize("mode,impl,lr", [("shooting", "fused", 1.5e-2),
+                                          ("fixed", "fused", 5e-3)])
+def test_train_tracks_jax(mode, impl, lr):
+    """20 Adam iterations from JAX's LV init, eval every 10: the loss
+    history tracks JAX within rtol 1e-4, final params within 2*lr (one
+    Adam sign flip on a noise-level gradient moves a param by ~lr)."""
+    jcfg = J.LVConfig(solve_mode=mode, impl=impl, lr=lr)
+    tcfg = T.LVConfig(solve_mode=mode, impl=impl, lr=lr)
+    jm = J.make_model(jcfg)
+    jp = J.init_params(jcfg, jm)
+    jloss, jeval, _ = J.make_ode_fns(jcfg, jm, J.make_data(jcfg))
+    jout = jtrain(jloss, jp, JTrainConfig(lr=lr, iters=20, eval_every=10),
+                  eval_fn=jeval)
+
+    tm = T.make_model(tcfg, device="cpu")
+    chain_params_from_numpy(tm, to_numpy(jp))
+    tloss, teval, _ = T.make_ode_fns(tcfg, tm, T.make_data(tcfg, "cpu"))
+    tout = train(tloss, tm, TrainConfig(lr=lr, iters=20, eval_every=10),
+                 eval_fn=teval)
+
+    assert tout["loss_history"].shape == (20,)
+    assert tout["eval_history"].shape == (2,)
+    np.testing.assert_allclose(tout["loss_history"].numpy(),
+                               np.asarray(jout["loss_history"]), rtol=1e-4)
+    np.testing.assert_allclose(tout["eval_history"].numpy(),
+                               np.asarray(jout["eval_history"]), rtol=1e-4)
+    np.testing.assert_allclose(float(tout["best_loss"]),
+                               float(jout["best_loss"]), rtol=1e-4)
+    for a, b in zip(chain_params_to_numpy(tm), jout["params"]):
+        for k in ("C", "W"):
+            np.testing.assert_allclose(a[k], np.asarray(b[k]), rtol=0,
+                                       atol=2 * lr)
+
+
+def test_train_best_params_are_pre_update_and_blocks_round_up():
+    """best_params is the point best_loss was measured at; iters round
+    up to whole eval blocks as in the JAX loop (25 iters, eval_every 10:
+    2 blocks of 12, run twice -> 4 evals, history cut to 25)."""
+    target = torch.tensor([1.0, -2.0, 0.5])
+    model = torch.nn.Linear(1, 3, bias=False)
+    with torch.no_grad():
+        model.weight.zero_()
+
+    def loss(m):
+        return torch.sum((m.weight[:, 0] - target) ** 2)
+
+    out = train(loss, model, TrainConfig(lr=0.4, iters=25, eval_every=10),
+                eval_fn=loss, record_history=True)
+    assert out["loss_history"].shape == (25,)
+    assert out["eval_history"].shape == (4,)
+    assert len(out["param_history"]) == 4
+    model.load_state_dict(out["best_params"])
+    with torch.no_grad():
+        assert float(loss(model)) == float(out["best_loss"])
+    # the rounded-up iterations past iters count for best tracking too
+    assert float(out["best_loss"]) <= float(out["loss_history"].min())
+
+
+def test_train_grad_clip_and_opt_state_resume():
+    target = torch.tensor([3.0, -1.0])
+    lin = torch.nn.Linear(2, 1, bias=False)
+
+    def loss(m):
+        return torch.sum((m.weight[0] - target) ** 2)
+
+    cfg = TrainConfig(lr=0.1, iters=30, eval_every=10, grad_clip=0.5)
+    out = train(loss, lin, cfg)
+    assert float(out["loss_history"][-1]) < float(out["loss_history"][0])
+    again = train(loss, lin, cfg, opt_state=out["opt_state"])
+    assert again["opt_state"]["state"][0]["step"] == 60
+
+
+def test_run_end_to_end_on_cpu():
+    cfg = T.LVConfig(impl="fused", solve_mode="shooting", lr=1.5e-2,
+                     iters=6, eval_every=3)
+    out = T.run(cfg, device="cpu",
+                generator=torch.Generator().manual_seed(0))
+    assert out["loss_history"].shape == (6,)
+    assert out["eval_history"].shape == (2,)
+    assert bool(torch.isfinite(out["loss_history"]).all())
+    assert float(out["best_loss"]) < float(out["loss_history"][0])
+    # the same init handed over as numpy (as a JAX init is) repeats it
+    init = T.init_params(cfg, T.make_model(cfg, "cpu"),
+                         torch.Generator().manual_seed(0))
+    same = T.run(cfg, chain_params_to_numpy(init), device="cpu")
+    assert torch.equal(same["loss_history"], out["loss_history"])
+
+
+def test_default_device_is_cuda_and_never_falls_back():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card error cannot "
+                    "occur")
+    with pytest.raises(RuntimeError, match="cuda"):
+        T.run(T.LVConfig(iters=1))
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(solve_mode="adaptive"), "M7"),
+    (dict(model="mlp"), "M8"),
+    (dict(model="bspline_kan"), "M13"),
+    (dict(impl="fused_wide"), "fused_wide"),
+    (dict(impl="pallas"), "K1"),
+    (dict(sparse_on=True), "M12"),
+    (dict(bwd_precision="bf16", impl="fused", iters=1), "bf16"),
+])
+def test_outside_the_slice_raises_naming_roadmap(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        T.run(T.LVConfig(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(checkpoint_dir="ckpt"), "M8"),
+    (dict(prune_threshold=0.1), "M12"),
+])
+def test_run_options_outside_the_slice_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        T.run(T.LVConfig(iters=1), device="cpu", **kw)
+
+
+def test_cli_runs_lv_on_cpu():
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root)] + [p for p in [env.get("PYTHONPATH")] if p])
+    proc = subprocess.run(
+        [sys.executable, "-m", "kanodes_tpu_torch", "lv", "--device=cpu",
+         "--iters=2", "--eval_every=2", "--impl=fused",
+         "--solve_mode=shooting"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "train loss" in proc.stdout and "on cpu" in proc.stdout
+
+
+def test_cli_usage():
+    from kanodes_tpu_torch.__main__ import main
+    assert main([]) == 2
+    assert main(["--help"]) == 0
+    assert main(["nope"]) == 2

@@ -5,10 +5,12 @@
 
 Builds the hand-written CUDA kernels from `kanodes_tpu_torch/csrc/`,
 holds each against its plain PyTorch version on the card, drives the LV
-KAN-ODE trainer (the port's main path) in shooting and fixed mode through
-`kanodes_tpu_torch.experiments.lv.run(..., device="cuda")`, checks from
-the launch counters that both runs went through the kernels, and times
-each kernel against its plain version with CUDA events.
+KAN-ODE trainer (the port's main path) through
+`kanodes_tpu_torch.experiments.lv.run(..., device="cuda")` in four
+configurations (fused shooting, fused fixed, fused adaptive, pallas
+shooting), checks from the launch counters that each run went through
+its kernels, and times each kernel against its plain version with CUDA
+events.
 
 Every phase prints one JSON line. The line before the last two is the
 kernel table, then the card's `nvidia-smi` name and power limit, and the
@@ -34,15 +36,22 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FWD_TOL = dict(rtol=1e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=5e-4, atol=1e-6)
 
-# Pallas kernel each CUDA kernel replaces
+# kernel -> (the Pallas kernel it replaces, its CUDA source)
+_RK = "kanodes_tpu_torch/csrc/rk_fused.cu"
+_K1 = "kanodes_tpu_torch/csrc/kan_chain_apply.cu"
+_K4 = "kanodes_tpu_torch/csrc/rk_adaptive.cu"
 KERNELS = {
-    "fused_rk_step_fwd": "kanodes_tpu/ops/rk_fused.py:144",
-    "fused_rk_step_bwd": "kanodes_tpu/ops/rk_fused.py:167",
-    "fused_rk_multistep_fwd": "kanodes_tpu/ops/rk_fused.py:311",
-    "fused_rk_multistep_bwd": "kanodes_tpu/ops/rk_fused.py:346",
+    "fused_rk_step_fwd": ("kanodes_tpu/ops/rk_fused.py:144", _RK),
+    "fused_rk_step_bwd": ("kanodes_tpu/ops/rk_fused.py:167", _RK),
+    "fused_rk_multistep_fwd": ("kanodes_tpu/ops/rk_fused.py:311", _RK),
+    "fused_rk_multistep_bwd": ("kanodes_tpu/ops/rk_fused.py:346", _RK),
+    "kan_chain_apply_fwd": ("kanodes_tpu/ops/kdense_pallas.py:213", _K1),
+    "kan_chain_apply_bwd": ("kanodes_tpu/ops/kdense_pallas.py:223", _K1),
+    "fused_adaptive_odeint_fwd": (
+        "kanodes_tpu/ops/rk_adaptive_fused.py:131", _K4),
+    "fused_adaptive_odeint_bwd": (
+        "kanodes_tpu/ops/rk_adaptive_fused.py:236", _K4),
 }
-SOURCE = "kanodes_tpu_torch/csrc/rk_fused.cu"
-
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -56,14 +65,46 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def lv_inputs(rng, torch, K, scale=0.3):
+def lv_inputs(rng, torch, K, scale=0.3, device="cuda"):
     """LV-width chain params [2,10,2], G=5, and K states, on the card."""
     def t(a):
-        return torch.tensor(a, dtype=torch.float32, device="cuda")
+        return torch.tensor(a, dtype=torch.float32, device=device)
     params = [t(rng.uniform(-scale, scale, s))
               for s in ((10, 10), (2, 10), (50, 2), (10, 2))]
     x = t(rng.uniform(0.3, 2.0, (K, 2)))
     return x, params
+
+
+# K4 cases: (solver, K, rtol, atol, max_steps, inputs). Kernel and plain
+# version must take the same steps, so every case is one whose step
+# sequence ulp-level differences cannot change (tests/
+# test_torch_rk_adaptive_fused.py checks that on the CPU by perturbing
+# every chain evaluation of the plain version by one ulp). At the LV
+# tolerances (1e-6 / 1e-8) random weights fail that: once the
+# controller, not the save times, sets the steps, the f32 error estimate
+# is rounding noise. The LV model at its glorot init from u0 passes.
+ADAPTIVE_CASES = (("tsit5", 1, 1e-6, 1e-8, 256, "lv"),
+                  ("tsit5", 1, 1e-3, 1e-6, 256, "uniform"),
+                  ("bs3", 1, 1e-3, 1e-6, 256, "uniform"),
+                  ("tsit5", 3, 1e-3, 1e-6, 256, "uniform"),
+                  ("tsit5", 1, 1e-6, 1e-8, 8, "lv"))
+
+
+def adaptive_case_inputs(torch, index, device="cuda"):
+    """(x0 [K, 2], params) of ADAPTIVE_CASES[index]: "lv" is the LV
+    model's glorot init (torch seed 0) from u0 = (1, 1); "uniform" draws
+    +-0.3 weights and states from numpy seed 100 + index."""
+    import numpy as np
+    from kanodes_tpu_torch.models.kdense import KANChain
+    from kanodes_tpu_torch.ops.kdense_pallas import fused_params
+    _, K, _, _, _, kind = ADAPTIVE_CASES[index]
+    if kind == "uniform":
+        return lv_inputs(np.random.default_rng(100 + index), torch, K,
+                         device=device)
+    model = KANChain.mlp_like([2, 10, 2], grid_len=5, device=device)
+    model.init(torch.Generator().manual_seed(0))
+    params = [p.detach().contiguous() for p in fused_params(model)]
+    return torch.ones((K, 2), device=device), params
 
 
 def assert_close(failures, name, got, want, tol):
@@ -78,10 +119,46 @@ def assert_close(failures, name, got, want, tol):
     return err
 
 
-def phase_kernels(torch, rk, spec, rng):
-    """Kernel vs plain version on the card, values and all gradients."""
-    failures, max_err, cases = [], {k: 0.0 for k in KERNELS}, []
-    k3f_detail = []
+def check_grads(failures, max_err, key, label, got, plain, auto):
+    """Kernel gradients against the plain backward and against autograd
+    through the plain forward."""
+    names = ("dx", "dc1", "dw1", "dc2", "dw2")
+    for name, a, b, c in zip(names, got, plain, auto):
+        e = assert_close(failures, f"{label} {name}", a, b, GRAD_TOL)
+        assert_close(failures, f"{label} {name} vs autograd", a, c,
+                     GRAD_TOL)
+        max_err[key] = max(max_err[key], e)
+
+
+def f64_rule(failures, label, ys, ys_ref, ys64):
+    """A long chain of steps carries two f32 implementations apart at the
+    f32 floor, so the forward is held to the plain version run in
+    float64: the kernel must be as accurate as the plain f32 version
+    (error <= 2x its error + atol). The elementwise result is reported
+    beside it."""
+    err_k = float((ys.double() - ys64).abs().max())
+    err_p = float((ys_ref.double() - ys64).abs().max())
+    if err_k > 2 * err_p + FWD_TOL["atol"]:
+        failures.append(f"{label}: error vs float64 {err_k:.3e} > 2 x "
+                        f"plain f32's {err_p:.3e} + atol")
+    return {"max_abs_err": float((ys - ys_ref).abs().max()),
+            "elementwise_fwd_tol": bool(
+                ((ys - ys_ref).abs() <= FWD_TOL["atol"]
+                 + FWD_TOL["rtol"] * ys_ref.abs()).all()),
+            "kernel_err_vs_f64": err_k, "plain_f32_err_vs_f64": err_p}
+
+
+def finish_phase(line, failures):
+    line["failures"] = failures
+    emit(line)
+    if failures:
+        raise AssertionError("kernel disagrees with its plain version:\n"
+                             + "\n".join(failures))
+
+
+def phase_kernels(torch, rk, spec, rng, max_err):
+    """K2/K3 vs their plain versions on the card, values and gradients."""
+    failures, cases, k3f_detail = [], [], []
     for solver in ("tsit5", "rk4"):
         x, params = lv_inputs(rng, torch, 34)
         gy = torch.tensor(rng.standard_normal((34, 2)), dtype=torch.float32,
@@ -97,14 +174,8 @@ def phase_kernels(torch, rk, spec, rng):
         xs = [t.clone().requires_grad_() for t in (x, *params)]
         g_auto = torch.autograd.grad(
             rk.fused_rk_step_reference(spec, solver, 0.1, *xs), xs, gy)
-        for name, a, b, c in zip(("dx", "dc1", "dw1", "dc2", "dw2"),
-                                 g, g_ref, g_auto):
-            e = assert_close(failures, f"K2b {solver} {name}", a, b,
-                             GRAD_TOL)
-            assert_close(failures, f"K2b {solver} {name} vs autograd", a, c,
-                         GRAD_TOL)
-            max_err["fused_rk_step_bwd"] = max(max_err["fused_rk_step_bwd"],
-                                               e)
+        check_grads(failures, max_err, "fused_rk_step_bwd", f"K2b {solver}",
+                    g, g_ref, g_auto)
         cases.append(f"K2 K=34 {solver}")
     for n, K in ((34, 1), (140, 1), (12, 3)):
         x0, params = lv_inputs(rng, torch, K)
@@ -114,29 +185,12 @@ def phase_kernels(torch, rk, spec, rng):
         ys = rk._launch_multistep_fwd(k, n, x0, params)
         ys_ref = rk.fused_rk_multistep_reference(spec, "tsit5", 0.1, n, x0,
                                                  *params)
-        # Many chained steps carry two f32 implementations apart at the
-        # f32 floor (on the CPU, JAX and the plain torch version differ by
-        # 4e-5 after 140 steps of the trained LV model, each 2e-5 from a
-        # float64 run), so an elementwise rtol of 1e-5 cannot hold between
-        # them. The multistep forward is held instead to the plain version
-        # run in float64: the kernel must be as accurate as the plain f32
-        # version (error <= 2x its error + atol).
         ys64 = rk.fused_rk_multistep_reference(
             spec, "tsit5", 0.1, n, x0.double(), *(p.double() for p in params))
-        err_k = float((ys.double() - ys64).abs().max())
-        err_p = float((ys_ref.double() - ys64).abs().max())
-        if err_k > 2 * err_p + FWD_TOL["atol"]:
-            failures.append(f"K3f n={n} K={K}: error vs float64 {err_k:.3e} "
-                            f"> 2 x plain f32's {err_p:.3e} + atol")
-        e = float((ys - ys_ref).abs().max())
-        elementwise = bool(((ys - ys_ref).abs() <= FWD_TOL["atol"]
-                            + FWD_TOL["rtol"] * ys_ref.abs()).all())
-        k3f_detail.append({"n": n, "K": K, "max_abs_err": e,
-                           "elementwise_fwd_tol": elementwise,
-                           "kernel_err_vs_f64": err_k,
-                           "plain_f32_err_vs_f64": err_p})
+        detail = f64_rule(failures, f"K3f n={n} K={K}", ys, ys_ref, ys64)
+        k3f_detail.append({"n": n, "K": K, **detail})
         max_err["fused_rk_multistep_fwd"] = max(
-            max_err["fused_rk_multistep_fwd"], e)
+            max_err["fused_rk_multistep_fwd"], detail["max_abs_err"])
         g = rk._launch_multistep_bwd(k, n, x0, ys, params, gys)
         g_ref = rk.fused_rk_multistep_bwd_reference(spec, "tsit5", 0.1, n,
                                                     x0, ys, *params, gys)
@@ -144,47 +198,137 @@ def phase_kernels(torch, rk, spec, rng):
         g_auto = torch.autograd.grad(
             rk.fused_rk_multistep_reference(spec, "tsit5", 0.1, n, *xs), xs,
             gys)
-        for name, a, b, c in zip(("dx0", "dc1", "dw1", "dc2", "dw2"),
-                                 g, g_ref, g_auto):
-            e = assert_close(failures, f"K3b n={n} K={K} {name}", a, b,
-                             GRAD_TOL)
-            assert_close(failures, f"K3b n={n} K={K} {name} vs autograd",
-                         a, c, GRAD_TOL)
-            max_err["fused_rk_multistep_bwd"] = max(
-                max_err["fused_rk_multistep_bwd"], e)
+        check_grads(failures, max_err, "fused_rk_multistep_bwd",
+                    f"K3b n={n} K={K}", g, g_ref, g_auto)
         cases.append(f"K3 n={n} K={K}")
     torch.cuda.synchronize()
-    emit({"phase": "kernel_vs_plain", "cases": cases,
-          "max_abs_err": max_err, "fwd_tol": FWD_TOL, "grad_tol": GRAD_TOL,
-          "multistep_fwd": k3f_detail, "failures": failures})
-    if failures:
-        raise AssertionError("kernel disagrees with its plain version:\n"
-                             + "\n".join(failures))
-    return max_err
+    finish_phase({"phase": "kernel_vs_plain", "kernels": "K2, K3",
+                  "cases": cases, "fwd_tol": FWD_TOL, "grad_tol": GRAD_TOL,
+                  "multistep_fwd": k3f_detail}, failures)
 
 
-def expected_launches(cfg):
+def phase_chain_kernels(torch, kp, KANChain, rng, max_err):
+    """K1 vs its plain version on the card at K=34 (shooting) and K=1
+    (fixed, adaptive), LV width, rbf/tanh and iqf/softsign: one line per
+    case."""
+    for basis, norm in (("rbf", "tanh"), ("iqf", "softsign")):
+        spec = kp.chain_spec_of(KANChain.mlp_like(
+            [2, 10, 2], grid_len=5, basis=basis, normalizer=norm))
+        for K in (34, 1):
+            failures = []
+            x, params = lv_inputs(rng, torch, K)
+            gy = torch.tensor(rng.standard_normal((K, 2)),
+                              dtype=torch.float32, device="cuda")
+            y, y1 = kp._launch_fwd(spec, x, params)
+            y_ref, y1_ref = kp.kan_chain_apply_reference(spec, x, *params)
+            e = assert_close(failures, "K1f y", y, y_ref, FWD_TOL)
+            e = max(e, assert_close(failures, "K1f y1", y1, y1_ref,
+                                    FWD_TOL))
+            max_err["kan_chain_apply_fwd"] = max(
+                max_err["kan_chain_apply_fwd"], e)
+            g = kp._launch_bwd(spec, x, y1, params, gy)
+            g_ref = kp.kan_chain_apply_bwd_reference(spec, x, y1_ref,
+                                                     *params, gy)
+            xs = [t.clone().requires_grad_() for t in (x, *params)]
+            g_auto = torch.autograd.grad(
+                kp.kan_chain_apply_reference(spec, *xs)[0], xs, gy)
+            check_grads(failures, max_err, "kan_chain_apply_bwd", "K1b", g,
+                        g_ref, g_auto)
+            torch.cuda.synchronize()
+            finish_phase({"phase": "kernel_vs_plain", "kernel": "K1",
+                          "case": f"K={K} {basis}/{norm}", "fwd_max_abs_err":
+                          e, "fwd_tol": FWD_TOL, "grad_tol": GRAD_TOL},
+                         failures)
+
+
+def phase_adaptive_kernels(torch, ra, spec, rng, StepController, max_err):
+    """K4 vs its plain version on the card, LV width, ADAPTIVE_CASES: one
+    line per case. ys held to the float64 rule, step counts equal,
+    gradients against the plain backward (on the kernel's records) and
+    autograd through the plain forward."""
+    ts = torch.arange(0, 36, dtype=torch.float32, device="cuda") * 0.1
+    for i, (solver, K, rtol, atol, ms, kind) in enumerate(ADAPTIVE_CASES):
+        failures = []
+        ctrl = StepController()
+        x0, params = adaptive_case_inputs(torch, i)
+        gys = torch.tensor(rng.standard_normal((36, K, 2)) / 36,
+                           dtype=torch.float32, device="cuda")
+        k = ra._consts(spec, solver, rtol, atol, ctrl, None)
+        ys, rec = ra._launch_fwd(k, ms, x0, ts, params)
+        xs = [t.clone().requires_grad_() for t in (x0, *params)]
+        ys_ref, rec_ref = ra.fused_adaptive_odeint_reference(
+            spec, solver, rtol, atol, ms, ctrl, None, xs[0], ts, *xs[1:])
+        ys64, rec64 = ra.fused_adaptive_odeint_reference(
+            spec, solver, rtol, atol, ms, ctrl, None, x0.double(),
+            ts.double(), *(p.double() for p in params))
+        stats, stats_ref = rec[4].tolist(), rec_ref[4].tolist()
+        if stats != stats_ref:
+            failures.append(f"K4f stats (n_accept, n_reject, n_iter, "
+                            f"save index) {stats} != plain {stats_ref}")
+        detail = f64_rule(failures, "K4f", ys, ys_ref.detach(), ys64)
+        max_err["fused_adaptive_odeint_fwd"] = max(
+            max_err["fused_adaptive_odeint_fwd"], detail["max_abs_err"])
+        g = ra._launch_bwd(k, x0, params, rec, gys)
+        g_ref = ra.fused_adaptive_odeint_bwd_reference(spec, solver, x0,
+                                                       *params, rec, gys)
+        g_auto = torch.autograd.grad(ys_ref, xs, gys)
+        check_grads(failures, max_err, "fused_adaptive_odeint_bwd", "K4b",
+                    g, g_ref, g_auto)
+        torch.cuda.synchronize()
+        finish_phase({"phase": "kernel_vs_plain", "kernel": "K4",
+                      "case": f"{solver} K={K} rtol={rtol} atol={atol} "
+                              f"max_steps={ms} inputs={kind}",
+                      "stats": stats, "plain_stats": stats_ref,
+                      "f64_stats": rec64[4].tolist(), **detail,
+                      "grad_tol": GRAD_TOL}, failures)
+
+
+def expected_launches(cfg, n_train, n_save):
     """Kernel launches one lv.run() implies (train blocks as train()
-    rounds them: every block ends in one eval = one multistep forward)."""
+    rounds them: every block ends in one eval)."""
+    from kanodes_tpu_torch.ode.tableaus import get_tableau
+    from kanodes_tpu_torch.ops.rk_fused import _needed_stages
     evals = max(cfg.iters // cfg.eval_every, 1)
     inner = max(cfg.iters // evals, 1)
     n_evals = evals * math.ceil(cfg.iters / (evals * inner))
     iters = n_evals * inner
-    if cfg.solve_mode == "shooting":
-        steps = iters * cfg.segment_len * cfg.substeps
-        return {"fused_rk_step_fwd": steps, "fused_rk_step_bwd": steps,
-                "fused_rk_multistep_fwd": n_evals,
-                "fused_rk_multistep_bwd": 0}
-    return {"fused_rk_step_fwd": 0, "fused_rk_step_bwd": 0,
-            "fused_rk_multistep_fwd": iters + n_evals,
-            "fused_rk_multistep_bwd": iters}
+    want = {k: 0 for k in KERNELS}
+    shooting = cfg.solve_mode == "shooting"
+    steps = (cfg.segment_len if shooting else n_train - 1) * cfg.substeps
+    eval_steps = (n_save - 1) * cfg.substeps
+    if cfg.impl == "pallas":
+        # odeint_fixed's rk_step evaluates every stage (the FSAL one too);
+        # autograd runs the VJP of the stages the step's result depends on
+        tab = get_tableau("tsit5")
+        fwd, bwd = tab.stages, sum(_needed_stages(tab))
+        want["kan_chain_apply_fwd"] = fwd * (iters * steps
+                                             + n_evals * eval_steps)
+        want["kan_chain_apply_bwd"] = bwd * iters * steps
+    elif cfg.solve_mode == "adaptive":
+        want["fused_adaptive_odeint_fwd"] = iters + n_evals
+        want["fused_adaptive_odeint_bwd"] = iters
+    elif shooting:
+        want["fused_rk_step_fwd"] = want["fused_rk_step_bwd"] = iters * steps
+        want["fused_rk_multistep_fwd"] = n_evals
+    else:
+        want["fused_rk_multistep_fwd"] = iters + n_evals
+        want["fused_rk_multistep_bwd"] = iters
+    return want
 
 
 def main_path_configs(lv):
     return (lv.LVConfig(impl="fused", solve_mode="shooting", segment_len=1,
                         lr=1.5e-2, iters=256, eval_every=128),
             lv.LVConfig(impl="fused", solve_mode="fixed", iters=128,
-                        eval_every=64))
+                        eval_every=64),
+            lv.LVConfig(impl="fused", solve_mode="adaptive", lr=5e-3,
+                        iters=64, eval_every=32),
+            lv.LVConfig(impl="pallas", solve_mode="shooting", segment_len=1,
+                        lr=1.5e-2, iters=32, eval_every=16))
+
+
+def run_name(cfg):
+    return f"{cfg.impl}/{cfg.solve_mode}"
 
 
 def timed_run(torch, lv, cfg):
@@ -197,17 +341,29 @@ def timed_run(torch, lv, cfg):
     return out, time.perf_counter() - t0
 
 
-def phase_main_path(torch, lv, rk, card):
-    """The LV trainer on the card, shooting then fixed mode. `seconds`
+def reset_counts(modules):
+    for m in modules:
+        m.reset_launch_counts()
+
+
+def read_counts(modules):
+    counts = {}
+    for m in modules:
+        counts.update(m.LAUNCHES)
+    return counts
+
+
+def phase_main_path(torch, lv, modules, card, adaptive_stats):
+    """The LV trainer on the card in each configuration. `seconds`
     includes the data, the model and the process's first use of the
     optimizer on the card; phase_timings repeats the runs warm."""
     launches = {k: 0 for k in KERNELS}
-    results = []
+    finals = {}
     for cfg in main_path_configs(lv):
         torch.cuda.synchronize()
-        rk.reset_launch_counts()
+        reset_counts(modules)
         out, seconds = timed_run(torch, lv, cfg)
-        counts = dict(rk.LAUNCHES)
+        counts = read_counts(modules)
         tensors = [out["loss_history"], out["eval_history"], out["best_loss"],
                    *out["params"].values(), *out["best_params"].values(),
                    *out["model"].parameters()]
@@ -219,21 +375,25 @@ def phase_main_path(torch, lv, rk, card):
         assert bool(torch.isfinite(evals).all()), "non-finite eval loss"
         best, first = float(out["best_loss"]), float(losses[0])
         assert best < first, f"best loss {best} !< first loss {first}"
-        want = expected_launches(cfg)
+        data = out["data"]
+        want = expected_launches(cfg, data["n_train"], len(data["ts_host"]))
         assert counts == want, f"launches {counts} != expected {want}"
         for name in KERNELS:
             launches[name] += counts[name]
-        res = {"phase": "main_path", "solve_mode": cfg.solve_mode,
+        res = {"phase": "main_path", "run": run_name(cfg),
                "iters": cfg.iters, "first_loss": first, "best_loss": best,
                "last_loss": float(losses[-1]),
-               "last_eval": float(evals[-1]), "launches": counts,
+               "last_eval": float(evals[-1]),
+               "launches": {k: v for k, v in counts.items() if v},
                "seconds": seconds, "it_per_s": cfg.iters / seconds,
                "card": card}
+        if cfg.solve_mode == "adaptive":
+            res["final_params_train_grid_stats"] = adaptive_stats(out)
         emit(res)
-        results.append(res)
+        finals[run_name(cfg)] = out
     for name in KERNELS:
         assert launches[name] > 0, f"{name} never launched on the main path"
-    return launches, results
+    return launches, finals
 
 
 def cuda_ms(torch, fn, reps):
@@ -252,11 +412,22 @@ def cuda_ms(torch, fn, reps):
     return statistics.median(times)
 
 
-def phase_timings(torch, lv, rk, spec, rng, card):
+def phase_timings(torch, lv, rk, kp, ra, spec, rng, card, finals,
+                  StepController):
     """Each kernel against its plain version at the LV training shapes:
     K2 at K=34 rows (shooting, L=1), K3 at n=34 steps K=1 (fixed-mode
-    loss); K3 forward also at n=140 (eval). Then both main-path runs
-    again in the warm process, for their it/s."""
+    loss), K1 at K=34 (pallas shooting) and K=1, K4 at the train grid
+    (T=35, K=1, LV defaults) on the parameters the adaptive main-path
+    run ended with. Then every main-path run again, warm, for its it/s.
+    Each time stands beside the least time the card could take for the
+    same work on the same inputs (`kanodes_tpu_torch/utils/
+    kernel_bounds.py`)."""
+    from kanodes_tpu_torch.utils.kernel_bounds import (bound, chain_ops,
+                                                       chain_params,
+                                                       chain_vjp_ops)
+    dims = (spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len)
+    I, P = spec.in_dims, chain_params(*dims)
+    F, V = chain_ops(*dims), chain_vjp_ops(*dims)
     x, params = lv_inputs(rng, torch, 34)
     gy = torch.randn_like(x)
     x0 = x[:1].contiguous()
@@ -264,24 +435,73 @@ def phase_timings(torch, lv, rk, spec, rng, card):
     grid = rk._grid_of(k, x)
     ys34 = rk._launch_multistep_fwd(k, 34, x0, params)
     gys34 = torch.randn_like(ys34)
+    n_st = k.n_slots                                  # chain evals a step
     cases = {
         "fused_rk_step_fwd": (
             lambda: rk._launch_step_fwd(k, x, params),
-            lambda: rk._step_fwd_plain(k, x, params, grid)),
+            lambda: rk._step_fwd_plain(k, x, params, grid),
+            bound(34 * n_st * F, 34 * I * 2 + P)),
         "fused_rk_step_bwd": (
             lambda: rk._launch_step_bwd(k, x, params, gy),
-            lambda: rk._step_bwd_plain(k, x, params, grid, gy)),
+            lambda: rk._step_bwd_plain(k, x, params, grid, gy),
+            bound(34 * n_st * (F + V), 34 * I * 3 + 2 * P)),
         "fused_rk_multistep_fwd": (
             lambda: rk._launch_multistep_fwd(k, 34, x0, params),
-            lambda: rk._multistep_fwd_plain(k, 34, x0, params, grid)),
+            lambda: rk._multistep_fwd_plain(k, 34, x0, params, grid),
+            bound(34 * n_st * F, I * 35 + P)),
         "fused_rk_multistep_bwd": (
             lambda: rk._launch_multistep_bwd(k, 34, x0, ys34, params, gys34),
             lambda: rk._multistep_bwd_plain(k, 34, x0, ys34, params, grid,
-                                            gys34)),
+                                            gys34),
+            bound(34 * n_st * (F + V), I * (2 + 2 * 34) + 2 * P)),
     }
+    chain = {}
+    for K in (34, 1):
+        xk = x[:K].contiguous()
+        _, y1 = kp._launch_fwd(spec, xk, params)
+        gk = gy[:K].contiguous()
+        rows = K * (2 * I + spec.hidden)
+        chain[K] = {
+            "kan_chain_apply_fwd": (
+                lambda xk=xk: kp._launch_fwd(spec, xk, params),
+                lambda xk=xk: kp.kan_chain_apply_reference(spec, xk,
+                                                           *params),
+                bound(K * F, rows + P)),
+            "kan_chain_apply_bwd": (
+                lambda xk=xk, y1=y1, gk=gk: kp._launch_bwd(spec, xk, y1,
+                                                           params, gk),
+                lambda xk=xk, y1=y1, gk=gk: kp.kan_chain_apply_bwd_reference(
+                    spec, xk, y1, *params, gk),
+                bound(K * V, rows + I * K + 2 * P)),
+        }
+    cases.update(chain[34])
+    # K4 on the trained model, so the step count is the trained model's
+    model = finals["fused/adaptive"]["model"]
+    data = finals["fused/adaptive"]["data"]
+    fp = [p.detach().contiguous() for p in kp.fused_params(model)]
+    u0 = data["X"][:1].contiguous()
+    ts = data["ts"][:data["n_train"]].contiguous()
+    cfg = lv.LVConfig()
+    ka = ra._consts(spec, "tsit5", cfg.rtol, cfg.atol, StepController(),
+                    None)
+    ys, rec = ra._launch_fwd(ka, cfg.max_steps, u0, ts, fp)
+    gys = torch.randn_like(ys)
+    n_acc, n_rej, n_it, _ = rec[4].tolist()
+    S, T = ka.tab.stages, ts.shape[0]
+    adaptive_steps = {"n_accept": n_acc, "n_reject": n_rej, "n_iter": n_it}
+    cases["fused_adaptive_odeint_fwd"] = (
+        lambda: ra._launch_fwd(ka, cfg.max_steps, u0, ts, fp),
+        lambda: ra._fwd_plain(ka, cfg.max_steps, u0, ts, fp, grid),
+        bound((n_it * (S - 1) + 2) * F,
+              I + T + P + T * I + n_acc * (2 * I + 2) + 4))
+    cases["fused_adaptive_odeint_bwd"] = (
+        lambda: ra._launch_bwd(ka, u0, fp, rec, gys),
+        lambda: ra._bwd_plain(ka.tab, spec, u0, fp, grid, rec, gys),
+        bound((n_acc * (S - 1) + 1) * (F + V),
+              I + P + n_acc * (2 * I + 2) + 4 + T * I + I + P))
     times = {}
     with torch.no_grad():
-        for name, (kern, plain) in cases.items():
+        for name, (kern, plain, (b_ms, b_by)) in cases.items():
             # plain, kernel, kernel, plain: the two medians of each kind
             # are kept; the reported number is their mean
             p1 = cuda_ms(torch, plain, 5)
@@ -289,21 +509,30 @@ def phase_timings(torch, lv, rk, spec, rng, card):
             k2 = cuda_ms(torch, kern, 50)
             p2 = cuda_ms(torch, plain, 5)
             times[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                           "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2]}
+                           "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
+                           "bound_ms": b_ms, "bound_by": b_by}
+        chain_k1 = {name: {"ms": cuda_ms(torch, kern, 50),
+                           "plain_ms": cuda_ms(torch, plain, 5),
+                           "bound_ms": b[0]}
+                    for name, (kern, plain, b) in chain[1].items()}
         eval140 = {
             "ms": cuda_ms(torch, lambda: rk._launch_multistep_fwd(
                 k, 140, x0, params), 20),
             "plain_ms": cuda_ms(torch, lambda: rk._multistep_fwd_plain(
                 k, 140, x0, params, grid), 3)}
     warm = {}
-    for cfg in main_path_configs(lv):
-        _, seconds = timed_run(torch, lv, cfg)
-        warm[cfg.solve_mode] = {"iters": cfg.iters, "seconds": seconds,
-                                "it_per_s": cfg.iters / seconds}
+    for c in main_path_configs(lv):
+        _, seconds = timed_run(torch, lv, c)
+        warm[run_name(c)] = {"iters": c.iters, "seconds": seconds,
+                             "it_per_s": c.iters / seconds}
     emit({"phase": "timings", "shapes": {
               "fused_rk_step": "K=34 I=2 H=10 G=5 tsit5",
-              "fused_rk_multistep": "n=34 K=1 I=2 H=10 G=5 tsit5"},
-          "kernels": times, "multistep_fwd_n140": eval140,
+              "fused_rk_multistep": "n=34 K=1 I=2 H=10 G=5 tsit5",
+              "kan_chain_apply": "K=34 I=2 H=10 O=2 G=5 rbf/tanh",
+              "fused_adaptive_odeint": "T=35 K=1 tsit5 rtol=1e-6 atol=1e-8 "
+                                       "max_steps=256, trained params"},
+          "kernels": times, "kan_chain_apply_K1": chain_k1,
+          "adaptive_steps": adaptive_steps, "multistep_fwd_n140": eval140,
           "main_path_warm": warm, "card": card})
     return times
 
@@ -319,9 +548,11 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from kanodes_tpu_torch.experiments import lv
     from kanodes_tpu_torch.models.kdense import KANChain
+    from kanodes_tpu_torch.ode.integrate import StepController
     from kanodes_tpu_torch.ops import _cuda
+    from kanodes_tpu_torch.ops import kdense_pallas as kp
+    from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
     from kanodes_tpu_torch.ops import rk_fused as rk
-    from kanodes_tpu_torch.ops.kdense_pallas import chain_spec_of
     from kanodes_tpu_torch.utils.precision import set_exact_f32
     import numpy as np
 
@@ -344,17 +575,39 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]})
 
     rng = np.random.default_rng(0)
-    spec = chain_spec_of(KANChain.mlp_like([2, 10, 2], grid_len=5))
-    max_err = phase_kernels(torch, rk, spec, rng)
-    launches, _ = phase_main_path(torch, lv, rk, card)
-    times = phase_timings(torch, lv, rk, spec, rng, card)
+    spec = kp.chain_spec_of(KANChain.mlp_like([2, 10, 2], grid_len=5))
+    max_err = {k: 0.0 for k in KERNELS}
+    phase_kernels(torch, rk, spec, rng, max_err)
+    phase_chain_kernels(torch, kp, KANChain, rng, max_err)
+    phase_adaptive_kernels(torch, ra, spec, rng, StepController, max_err)
+
+    def adaptive_stats(out):
+        """Steps of the final params' solve on the train grid (LV
+        defaults), read after the run."""
+        d = out["data"]
+        _, st = ra.fused_adaptive_stats(
+            spec, "tsit5", out["cfg"].rtol, out["cfg"].atol,
+            out["cfg"].max_steps, StepController(), None, d["X"][:1],
+            d["ts"][:d["n_train"]].contiguous(),
+            *(p.detach().contiguous() for p in kp.fused_params(out["model"])))
+        return {k: int(v) for k, v in st.items()}
+
+    modules = (rk, kp, ra)
+    launches, finals = phase_main_path(torch, lv, modules, card,
+                                       adaptive_stats)
+    times = phase_timings(torch, lv, rk, kp, ra, spec, rng, card, finals,
+                          StepController)
 
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
+        {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],
          "max_abs_err": max_err[name], "ms": times[name]["ms"],
-         "plain_ms": times[name]["plain_ms"]}
-        for name, replaces in KERNELS.items()]})
+         "plain_ms": times[name]["plain_ms"],
+         "bound_ms": times[name]["bound_ms"],
+         "bound_by": times[name]["bound_by"],
+         # no single PyTorch call computes any of these functions
+         "library_ms": None}
+        for name, (replaces, source) in KERNELS.items()]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

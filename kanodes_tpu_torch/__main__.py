@@ -14,8 +14,10 @@ import sys
 # command -> (module run as __main__, one-line help)
 MODULE_COMMANDS: dict[str, tuple[str, str]] = {
     "lv": ("kanodes_tpu_torch.experiments.lv",
-           "LV KAN-ODE training (KANODE_LV_* env + --key=value "
-           "overrides, --device=cuda|cpu, default cuda)"),
+           "LV KAN-ODE training (--solve_mode=fixed|shooting|adaptive, "
+           "--impl=xla|fused|pallas, --rtol/--atol/--max_steps/--adjoint "
+           "for adaptive; KANODE_LV_* env + --key=value overrides, "
+           "--device=cuda|cpu, default cuda)"),
 }
 
 

@@ -1,5 +1,6 @@
 // Per-row device math of the 2-layer KDense chain and of one explicit RK
-// step over it, shared by the fused RK kernels in rk_fused.cu.
+// step over it, shared by every kernel of csrc/ (rk_fused.cu,
+// kan_chain_apply.cu, rk_adaptive.cu).
 //
 // Computes what `_layer_fwd` / `_layer_bwd` (kanodes_tpu/ops/
 // kdense_pallas.py:173-206) and `_chain_f` / `_chain_vjp_collect`
@@ -21,6 +22,7 @@
 #define KC_MAX_H 32         // hidden width H
 #define KC_MAX_G 16         // grid length G
 #define KC_MAX_STAGES 7     // explicit RK stages
+#define KC_MAX_ADAPT_ROWS 256  // rows K of the adaptive solve (one block)
 
 // normalizer: 0 tanh, 1 softsign. basis: 0 rbf, 1 iqf, 2 rswaf.
 struct ChainDims {
@@ -252,6 +254,45 @@ __device__ inline void kc_rk_step_adjoint_row(const float* x, const float* gy,
       for (int q = 0; q < d.I; ++q) kbar[j][q] = kbar[j][q] + a * dxi[q];
     }
   }
+}
+
+__host__ __device__ inline int kc_param_floats(const ChainDims& d) {
+  return d.I * d.G * d.H + d.I * d.H + d.H * d.G * d.O + d.H * d.O;
+}
+
+// Copy the chain parameters into shared memory at smem (layout
+// c1 | w1 | c2 | w2, kc_param_floats(d) floats) and return views of them.
+// Ends in __syncthreads: every thread of the block must call it.
+__device__ inline ChainParams kc_stage_params(const float* c1, const float* w1,
+                                              const float* c2, const float* w2,
+                                              const ChainDims& d,
+                                              float* smem) {
+  const int n_c1 = d.I * d.G * d.H, n_w1 = d.I * d.H;
+  const int n_c2 = d.H * d.G * d.O, n_w2 = d.H * d.O;
+  float* s_c1 = smem;
+  float* s_w1 = s_c1 + n_c1;
+  float* s_c2 = s_w1 + n_w1;
+  float* s_w2 = s_c2 + n_c2;
+  for (int i = threadIdx.x; i < n_c1; i += blockDim.x) s_c1[i] = c1[i];
+  for (int i = threadIdx.x; i < n_w1; i += blockDim.x) s_w1[i] = w1[i];
+  for (int i = threadIdx.x; i < n_c2; i += blockDim.x) s_c2[i] = c2[i];
+  for (int i = threadIdx.x; i < n_w2; i += blockDim.x) s_w2[i] = w2[i];
+  __syncthreads();
+  ChainParams p;
+  p.c1 = s_c1;
+  p.w1 = s_w1;
+  p.c2 = s_c2;
+  p.w2 = s_w2;
+  return p;
+}
+
+// Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
+template <typename Kernel>
+cudaError_t kc_smem_opt_in(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 // Parameter cotangents from n_rec records, summed in record order by the

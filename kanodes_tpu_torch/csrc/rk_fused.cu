@@ -38,35 +38,6 @@ namespace {
 constexpr int kFwdThreads = 128;
 constexpr int kBwdThreads = 256;
 
-__host__ __device__ inline int kc_param_floats(const ChainDims& d) {
-  return d.I * d.G * d.H + d.I * d.H + d.H * d.G * d.O + d.H * d.O;
-}
-
-// Copy the chain parameters into dynamic shared memory (layout
-// c1 | w1 | c2 | w2) and return views of them.
-__device__ inline ChainParams kc_stage_params(const float* c1, const float* w1,
-                                              const float* c2, const float* w2,
-                                              const ChainDims& d,
-                                              float* smem) {
-  const int n_c1 = d.I * d.G * d.H, n_w1 = d.I * d.H;
-  const int n_c2 = d.H * d.G * d.O, n_w2 = d.H * d.O;
-  float* s_c1 = smem;
-  float* s_w1 = s_c1 + n_c1;
-  float* s_c2 = s_w1 + n_w1;
-  float* s_w2 = s_c2 + n_c2;
-  for (int i = threadIdx.x; i < n_c1; i += blockDim.x) s_c1[i] = c1[i];
-  for (int i = threadIdx.x; i < n_w1; i += blockDim.x) s_w1[i] = w1[i];
-  for (int i = threadIdx.x; i < n_c2; i += blockDim.x) s_c2[i] = c2[i];
-  for (int i = threadIdx.x; i < n_w2; i += blockDim.x) s_w2[i] = w2[i];
-  __syncthreads();
-  ChainParams p;
-  p.c1 = s_c1;
-  p.w1 = s_w1;
-  p.c2 = s_c2;
-  p.w2 = s_w2;
-  return p;
-}
-
 __global__ void __launch_bounds__(kFwdThreads)
 rk_step_fwd_kernel(const float* x, const float* c1, const float* w1,
                    const float* c2, const float* w2, float* y, int K,
@@ -143,26 +114,19 @@ rk_multistep_bwd_kernel(const float* x0, const float* ys, const float* gys,
                         dw2);
 }
 
-// Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
-template <typename Kernel>
-cudaError_t kc_smem_opt_in(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
 }  // namespace
 
 extern "C" {
 
 // The compile-time caps, for the wrapper to check its own copy against:
-// out[0..3] = KC_MAX_I, KC_MAX_H, KC_MAX_G, KC_MAX_STAGES.
+// out[0..4] = KC_MAX_I, KC_MAX_H, KC_MAX_G, KC_MAX_STAGES,
+// KC_MAX_ADAPT_ROWS.
 void kc_caps(int* out) {
   out[0] = KC_MAX_I;
   out[1] = KC_MAX_H;
   out[2] = KC_MAX_G;
   out[3] = KC_MAX_STAGES;
+  out[4] = KC_MAX_ADAPT_ROWS;
 }
 
 const char* kc_error_string(int err) {

@@ -1,5 +1,5 @@
 """Lotka-Volterra KAN-ODE — the canonical experiment (port of
-`kanodes_tpu/experiments/lv.py`, fixed and shooting modes).
+`kanodes_tpu/experiments/lv.py`: fixed, shooting and adaptive modes).
 
 Reference experimental protocol (`Lotka-Volterra/LV_driver_KANODE.jl`):
   truth:    dx = alpha x - beta x y ; dy = gamma x y - delta y,
@@ -11,10 +11,16 @@ Reference experimental protocol (`Lotka-Volterra/LV_driver_KANODE.jl`):
   loss:     MSE over the train horizon, Adam
 
 `impl="fused"` runs every RK step through the hand-written CUDA kernels
-of `ops/rk_fused.py` (on CUDA tensors; their plain versions on CPU
-tensors); `impl="xla"` composes plain torch ops and autograd. What lies
-outside this slice raises NotImplementedError naming its ROADMAP.md
-item.
+of `ops/rk_fused.py` (fixed, shooting) or the whole adaptive solve
+through the one of `ops/rk_adaptive_fused.py` (adaptive);
+`impl="pallas"` evaluates every right-hand side through the chain
+kernel of `ops/kdense_pallas.py` inside the plain integrators;
+`impl="xla"` composes plain torch ops and autograd. Kernels run on CUDA
+tensors and their plain versions on CPU tensors. `solve_mode="adaptive"`
+is the reference-faithful protocol: adaptive Tsit5 with a step
+controller, differentiated straight through the controller loop
+(`LV_driver_KANODE.jl:180-184`). What lies outside this slice raises
+NotImplementedError naming its ROADMAP.md item.
 
 Run:  python -m kanodes_tpu_torch.experiments.lv [--key=value ...]
       [--device=cuda|cpu]   (default cuda; raises without a card)
@@ -30,7 +36,8 @@ import torch
 
 from kanodes_tpu_torch.interop import chain_params_from_numpy
 from kanodes_tpu_torch.models.kdense import KANChain
-from kanodes_tpu_torch.ode.integrate import odeint_fixed
+from kanodes_tpu_torch.ode.integrate import (StepController, odeint,
+                                             odeint_fixed)
 from kanodes_tpu_torch.train.loop import TrainConfig, train
 from kanodes_tpu_torch.utils.device import require_device
 from kanodes_tpu_torch.utils.host_rk import rk4_dense
@@ -65,14 +72,18 @@ class LVConfig:
     act_reg: float = 5e-4
     entropy_reg: float = 0.0
     # solver
-    solve_mode: str = "fixed"          # fixed | shooting (adaptive: later)
+    solve_mode: str = "fixed"          # fixed | shooting | adaptive
     substeps: int = 1                  # fixed-mode Tsit5 steps per interval
     segment_len: int = 1               # shooting-mode intervals per segment
     rtol: float = 1e-6
     atol: float = 1e-8
     max_steps: int = 256
+    # adaptive-mode differentiation strategy: direct | direct_remat
+    # (interpolating, backsolve: later)
     adjoint: str = "direct"
-    # xla: plain torch ops + autograd | fused: whole-RK-step CUDA kernels
+    # xla: plain torch ops + autograd | pallas: chain-RHS CUDA kernel |
+    # fused: whole-RK-step kernels (fixed/shooting) or the whole-adaptive-
+    # solve kernel (adaptive)
     impl: str = "xla"
     bwd_precision: str = "highest"     # "bf16": later
     seed: int = 0
@@ -82,10 +93,8 @@ class LVConfig:
 def _check_slice(cfg: LVConfig) -> None:
     """Raise on what this slice of the port does not run yet."""
     later = {
-        ("solve_mode", "adaptive"): "M7 (adaptive solves) / K4",
         ("model", "mlp"): "M8 (models/mlp.py)",
         ("model", "bspline_kan"): "M13 (models/bspline.py)",
-        ("impl", "pallas"): "K1 (kan_chain_apply launch wrapper)",
         ("impl", "fused_wide"): "'Not ported' (the fused_wide LV route); "
                                 "K6/K7 for the wide kernels",
     }
@@ -99,10 +108,16 @@ def _check_slice(cfg: LVConfig) -> None:
                                   "yet (ROADMAP.md, M12 sparsify)")
     if cfg.model != "kan":
         raise ValueError(cfg.model)
-    if cfg.impl not in ("xla", "fused"):
-        raise ValueError(f"impl must be 'xla' or 'fused', got {cfg.impl!r}")
-    if cfg.solve_mode not in ("fixed", "shooting"):
+    if cfg.impl not in ("xla", "fused", "pallas"):
+        raise ValueError(f"impl must be 'xla', 'fused' or 'pallas', got "
+                         f"{cfg.impl!r}")
+    if cfg.solve_mode not in ("fixed", "shooting", "adaptive"):
         raise ValueError(f"unknown solve_mode {cfg.solve_mode!r}")
+    if (cfg.solve_mode == "adaptive" and cfg.impl != "fused"
+            and cfg.adjoint in ("interpolating", "backsolve")):
+        raise NotImplementedError(
+            f"LVConfig(adjoint={cfg.adjoint!r}) is not ported yet "
+            f"(ROADMAP.md, M7 {cfg.adjoint} adjoint)")
 
 
 def make_data(cfg: LVConfig, device="cuda") -> dict[str, Any]:
@@ -156,10 +171,13 @@ def make_ode_fns(cfg: LVConfig, model: KANChain, data):
     _check_slice(cfg)
     X, n_train, ts_host = data["X"], data["n_train"], data["ts_host"]
     u0 = X[0]
+    adaptive = cfg.solve_mode == "adaptive"
     use_fused = cfg.impl == "fused"
     if use_fused:
         from kanodes_tpu_torch.ops.kdense_pallas import (chain_spec_of,
                                                          fused_params)
+        from kanodes_tpu_torch.ops.rk_adaptive_fused import \
+            fused_adaptive_odeint
         from kanodes_tpu_torch.ops.rk_fused import (fused_rk_multistep,
                                                     fused_rk_step)
         spec = chain_spec_of(model)
@@ -174,12 +192,35 @@ def make_ode_fns(cfg: LVConfig, model: KANChain, data):
                                   cfg.bwd_precision)
             return x
 
-    def rhs(t, u, m):
-        return m.apply(u)
+    if cfg.impl == "pallas":
+        from kanodes_tpu_torch.ops.kdense_pallas import kan_chain_rhs
+        rhs = kan_chain_rhs(model)
+    else:
+        def rhs(t, u, m):
+            return m.apply(u)
 
     def predict(m, t_grid):
         """[len(t_grid), 2] trajectory from u0 (t_grid: the save grid,
-        host array or tensor)."""
+        host array or tensor; the adaptive modes take it on the device,
+        the fixed-step ones on the host)."""
+        if adaptive:
+            # save-point clipping floors the iteration count at one
+            # accepted step per save time, so the bounded loop grows
+            # with the grid (the train grid uses cfg.max_steps as it is)
+            ms = max(cfg.max_steps, 2 * len(t_grid))
+            t_grid = torch.as_tensor(t_grid, dtype=torch.float32,
+                                     device=X.device)
+            if use_fused:
+                # whole bounded controller loop + its discrete adjoint as
+                # ONE kernel launch each; the same save-clipped stepper
+                # and param gradients as adjoint="direct"
+                ys = fused_adaptive_odeint(
+                    spec, "tsit5", cfg.rtol, cfg.atol, ms, StepController(),
+                    None, u0[None], t_grid, *fused_params(m),
+                    bwd_precision=cfg.bwd_precision)
+                return ys[:, 0, :]
+            return odeint(rhs, u0, t_grid, m, solver="tsit5", rtol=cfg.rtol,
+                          atol=cfg.atol, max_steps=ms, adjoint=cfg.adjoint)
         if use_fused:
             n_steps = (len(t_grid) - 1) * cfg.substeps
             # whole solve in ONE kernel launch (+1 for its backward)
@@ -192,8 +233,12 @@ def make_ode_fns(cfg: LVConfig, model: KANChain, data):
         return odeint_fixed(rhs, u0, t_grid, m, solver="tsit5",
                             substeps=cfg.substeps)
 
+    # save grids in the form predict takes them
+    grid_all = data["ts"] if adaptive else ts_host
+    grid_train = grid_all[:n_train]
+
     def trajectory_loss(m):
-        pred = predict(m, ts_host[:n_train])
+        pred = predict(m, grid_train)
         return torch.mean((pred - X[:n_train]) ** 2)
 
     L = cfg.segment_len
@@ -226,7 +271,7 @@ def make_ode_fns(cfg: LVConfig, model: KANChain, data):
         return trajectory_loss(m)
 
     def eval_fn(m):
-        return torch.mean((predict(m, ts_host) - X) ** 2)
+        return torch.mean((predict(m, grid_all) - X) ** 2)
 
     return loss_fn, eval_fn, predict
 

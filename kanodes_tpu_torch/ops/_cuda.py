@@ -2,10 +2,15 @@
 
 The sources are compiled with nvcc into a shared library with a plain C
 interface and loaded with ctypes: no PyTorch headers, so a build takes
-seconds. The library lands in `kanodes_tpu_torch/csrc/build/` (listed in
-.gitignore), named by a hash of the sources and the flags, and is built
-at first use. A missing nvcc or a failed build raises with the
-compiler's output; there is no fallback.
+seconds. Each source compiles in its own nvcc process, all started
+together, and one more links them. The library lands in
+`kanodes_tpu_torch/csrc/build/` (listed in .gitignore), named by a hash
+of the sources and the flags, and is built at first use. A missing nvcc
+or a failed build raises with the compiler's output; there is no
+fallback.
+
+Also here: what every launch wrapper shares (device dispatch, the
+stream, the `ChainDims` of a chain).
 """
 
 from __future__ import annotations
@@ -19,16 +24,26 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import numpy as np
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("rk_fused.cu",)
+# source -> its own flags. rk_adaptive.cu: no multiply-add contraction, so
+# the adaptive controller's accept/reject threshold sees the same rounding
+# as the plain version (csrc/rk_adaptive.cu, "Numbers").
+SOURCES = {"rk_fused.cu": (), "kan_chain_apply.cu": (),
+           "rk_adaptive.cu": ("-fmad=false",)}
 HEADERS = ("kan_chain.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# must equal KC_MAX_I, KC_MAX_H, KC_MAX_G, KC_MAX_STAGES of kan_chain.cuh
-# (checked against the library at load)
-MAX_I, MAX_H, MAX_G, MAX_STAGES = 8, 32, 16, 7
+# must equal KC_MAX_I, KC_MAX_H, KC_MAX_G, KC_MAX_STAGES, KC_MAX_ADAPT_ROWS
+# of kan_chain.cuh (checked against the library at load)
+MAX_I, MAX_H, MAX_G, MAX_STAGES, MAX_ADAPT_ROWS = 8, 32, 16, 7, 256
+
+_NORMALIZERS = {"tanh": 0, "softsign": 1}
+_BASES = {"rbf": 0, "iqf": 1, "rswaf": 2}
 
 
 class ChainDims(ctypes.Structure):
@@ -48,6 +63,24 @@ class StepTab(ctypes.Structure):
                 ("needed", ctypes.c_int * MAX_STAGES)]
 
 
+class AdaptTab(ctypes.Structure):
+    """Mirror of `struct AdaptTab` in rk_adaptive.cu."""
+    _fields_ = [("stages", ctypes.c_int),
+                ("a", (ctypes.c_float * MAX_STAGES) * MAX_STAGES),
+                ("b", ctypes.c_float * MAX_STAGES),
+                ("e", ctypes.c_float * MAX_STAGES)]
+
+
+class AdaptCtrl(ctypes.Structure):
+    """Mirror of `struct AdaptCtrl` in rk_adaptive.cu."""
+    _fields_ = [("rtol", ctypes.c_float), ("atol", ctypes.c_float),
+                ("safety", ctypes.c_float), ("min_factor", ctypes.c_float),
+                ("max_factor", ctypes.c_float), ("dt_min", ctypes.c_float),
+                ("err_exp", ctypes.c_float), ("prev_exp", ctypes.c_float),
+                ("use_prev", ctypes.c_int), ("dt0", ctypes.c_float),
+                ("has_dt0", ctypes.c_int), ("idt_exp", ctypes.c_float)]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
@@ -61,6 +94,17 @@ _SIGNATURES = {
     # x0, ys, gys, c1, w1, c2, w2, dx0, dc1, dw1, dc2, dw2, scratch, K,
     # n_steps, n_slots, dims, tab, stream
     "kc_rk_multistep_bwd": [_P] * 13 + [_I] * 3 + [_P] * 3,
+    # x, c1, w1, c2, w2, y, y1, K, dims, stream
+    "kc_chain_apply_fwd": [_P] * 7 + [_I] + [_P] * 2,
+    # x, y1, gy, c1, w1, c2, w2, dx, dc1, dw1, dc2, dw2, scratch, K, dims,
+    # stream
+    "kc_chain_apply_bwd": [_P] * 13 + [_I] + [_P] * 2,
+    # x0, ts, T, c1, w1, c2, w2, ys, rx, rk1, rdt, rsx, stats, K,
+    # max_steps, dims, tab, ctrl, stream
+    "kc_adaptive_fwd": [_P] * 2 + [_I] + [_P] * 10 + [_I] * 2 + [_P] * 4,
+    # x0, c1, w1, c2, w2, rx, rk1, rdt, rsx, stats, gys, T, dx0, dc1, dw1,
+    # dc2, dw2, scratch, K, dims, tab, stream
+    "kc_adaptive_bwd": [_P] * 11 + [_I] + [_P] * 6 + [_I] + [_P] * 3,
 }
 
 
@@ -75,9 +119,16 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    for name, flags in SOURCES.items():
+        h.update(name.encode() + " ".join(flags).encode()
+                 + (CSRC / name).read_bytes())
+    for name in HEADERS:
         h.update(name.encode() + (CSRC / name).read_bytes())
     return BUILD_DIR / f"libkanodes_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _failed(cmd, rc, output) -> RuntimeError:
+    return RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{output}")
 
 
 def build() -> tuple[Path, str]:
@@ -87,17 +138,30 @@ def build() -> tuple[Path, str]:
     if path.exists():
         return path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)   # atomic: concurrent builds race harmlessly
-    return path, proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for name, flags in SOURCES.items():
+            obj = os.path.join(tmp, name + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *flags, "-c", "-o", obj,
+                   str(CSRC / name)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        log = ["".join(job.communicate()) for _, _, job in jobs]
+        for (cmd, _, job), output in zip(jobs, log):
+            if job.returncode != 0:
+                raise _failed(cmd, job.returncode, output)
+        so = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", so, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              check=False)
+        log.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise _failed(cmd, proc.returncode, log[-1])
+        os.replace(so, path)   # atomic: concurrent builds race harmlessly
+    return path, "".join(log)
 
 
 @functools.cache
@@ -114,11 +178,12 @@ def library() -> ctypes.CDLL:
     lib.kc_caps.restype = None
     lib.kc_error_string.argtypes = [_I]
     lib.kc_error_string.restype = ctypes.c_char_p
-    caps = (ctypes.c_int * 4)()
+    want = (MAX_I, MAX_H, MAX_G, MAX_STAGES, MAX_ADAPT_ROWS)
+    caps = (ctypes.c_int * len(want))()
     lib.kc_caps(ctypes.addressof(caps))
-    if tuple(caps) != (MAX_I, MAX_H, MAX_G, MAX_STAGES):
+    if tuple(caps) != want:
         raise RuntimeError(f"kernel caps {tuple(caps)} != wrapper caps "
-                           f"{(MAX_I, MAX_H, MAX_G, MAX_STAGES)}")
+                           f"{want}")
     return lib
 
 
@@ -127,3 +192,62 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = library().kc_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")
+
+
+# ---------------------------------------------------------------------------
+# shared by the launch wrappers
+# ---------------------------------------------------------------------------
+
+def on_cuda(*tensors) -> bool:
+    """True if every tensor is on one CUDA device, False if every tensor
+    is on the CPU; raises otherwise. The wrappers launch a kernel for
+    CUDA tensors and run the plain version for CPU tensors, nothing else."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"kernel inputs on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"the kernels take CUDA (or CPU) tensors, got {dev}")
+    return dev.type == "cuda"
+
+
+def ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check_tensors(*tensors) -> None:
+    """Every kernel takes contiguous float32 tensors."""
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the kernels take float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the kernels take contiguous tensors")
+
+
+@functools.lru_cache(maxsize=64)
+def chain_dims(spec) -> ChainDims:
+    """The kernels' ChainDims of a ChainSpec: 1/h folded in f64 and
+    rounded to f32, the grid as float32 (as the JAX kernels get them)."""
+    d = ChainDims(spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len,
+                  _NORMALIZERS[spec.normalizer], _BASES[spec.basis],
+                  float(np.float32(1.0 / spec.h)))
+    d.grid[:spec.grid_len] = [float(g) for g in spec.grid()]
+    return d
+
+
+def check_chain_caps(spec) -> None:
+    I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
+    if not (1 <= I <= MAX_I and 1 <= O <= MAX_I and 1 <= H <= MAX_H
+            and 2 <= G <= MAX_G):
+        raise ValueError(f"kernel caps: I, O <= {MAX_I}, H <= {MAX_H}, "
+                         f"2 <= G <= {MAX_G}; got I={I}, O={O}, H={H}, G={G}")
+
+
+def rec_width(spec) -> int:
+    """Floats in one parameter-cotangent record (`kc_rec_layout`)."""
+    I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
+    return I * G + I + H + H * G + H + O

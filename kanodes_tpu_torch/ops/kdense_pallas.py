@@ -1,28 +1,48 @@
-"""The 2-layer KDense chain as the fused RK kernels see it (port of the
-chain math of `kanodes_tpu/ops/kdense_pallas.py`).
+"""The 2-layer KDense chain and its fused kernel K1 (port of
+`kanodes_tpu/ops/kdense_pallas.py`).
 
 `ChainSpec` describes a fusable chain (local basis, swish residual,
 tanh/softsign normalizer, one shared grid); `fused_params` views the
 chain's parameters as the 2-D blocks the kernels take: `c1 [I*G, H]`,
 `w1 [I, H]`, `c2 [H*G, O]`, `w2 [H, O]`, rows `i*G+g`.
 
-`_layer_fwd` / `_layer_bwd` are the per-layer math in plain torch: the
-CPU path and the plain versions of the RK kernels (`ops/rk_fused.py`)
-are built from them, and `csrc/kan_chain.cuh` computes the same per
-row. The basis is indexed `[K, I, G]` directly; the JAX kernels' 0/1
-expand/collapse GEMMs exist only because Mosaic cannot reshape, and
-are not ported. The standalone chain and single-layer kernels
-(`kan_chain_apply`, `kdense_single_apply`) wait (ROADMAP.md, K1/K9).
+`_layer_fwd` / `_layer_bwd` are the per-layer math in plain torch, and
+`_chain_f` / `_chain_vjp` the chain built from them: the CPU path and
+the plain versions of every kernel of `csrc/` are made of these, and
+`csrc/kan_chain.cuh` computes the same per row. The basis is indexed
+`[K, I, G]` directly; the JAX kernels' 0/1 expand/collapse GEMMs exist
+only because Mosaic cannot reshape, and are not ported.
+
+`kan_chain_apply` is the chain x[K, I] -> [K, O] as one kernel launch
+(K1f, `csrc/kan_chain_apply.cu`) with its VJP as one more (K1b). A CUDA
+tensor launches the kernel or raises; a CPU tensor runs the plain
+version (`kan_chain_apply_reference`, `kan_chain_apply_bwd_reference`).
+`kan_chain_rhs` makes it the right-hand side of an ODE (`impl="pallas"`).
+`LAUNCHES` counts kernel launches. The single-layer kernel
+(`kdense_single_apply`) waits (ROADMAP.md, K9).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import ctypes
+
 import numpy as np
 import torch
 
+from kanodes_tpu_torch.ops import _cuda
+
 Tensor = torch.Tensor
+
+# kernel launches since the last reset_launch_counts(); each wrapper adds
+# one where it launches its kernel, and nowhere else
+LAUNCHES = {"kan_chain_apply_fwd": 0, "kan_chain_apply_bwd": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +142,138 @@ def _layer_bwd(x, c, w, h, u, basis, gy, normalizer="tanh",
     return dx, dc, dw
 
 
+def _chain_f(x, c1, w1, c2, w2, grid, spec: ChainSpec):
+    """The chain on x [K, I]: (y [K, O], y1 [K, H] = layer 1's output)."""
+    y1, _, _ = _layer_fwd(x, c1, w1, grid, spec.h, spec.normalizer,
+                          spec.basis)
+    y2, _, _ = _layer_fwd(y1, c2, w2, grid, spec.h, spec.normalizer,
+                          spec.basis)
+    return y2, y1
+
+
+def _chain_vjp(x, y1, c1, w1, c2, w2, grid, spec: ChainSpec, gy):
+    """VJP of the chain at x (y1 = layer 1's output) for the cotangent
+    gy [K, O], recomputing both bases: (dx, dc1, dw1, dc2, dw2)."""
+    _, u2, b2 = _layer_fwd(y1, c2, w2, grid, spec.h, spec.normalizer,
+                           spec.basis)
+    dy1, dc2, dw2 = _layer_bwd(y1, c2, w2, spec.h, u2, b2, gy,
+                               spec.normalizer, spec.basis)
+    _, u1, b1 = _layer_fwd(x, c1, w1, grid, spec.h, spec.normalizer,
+                           spec.basis)
+    dx, dc1, dw1 = _layer_bwd(x, c1, w1, spec.h, u1, b1, dy1,
+                              spec.normalizer, spec.basis)
+    return dx, dc1, dw1, dc2, dw2
+
+
+def grid_of(spec: ChainSpec, like: Tensor) -> Tensor:
+    """The basis centers as a float32 tensor on `like`'s device."""
+    return torch.as_tensor(spec.grid(), device=like.device)
+
+
+def kan_chain_apply_reference(spec: ChainSpec, x, c1, w1, c2, w2):
+    """Plain PyTorch version of K1f: (y [K, O], y1 [K, H]);
+    differentiable by autograd through its ops."""
+    return _chain_f(x, c1, w1, c2, w2, grid_of(spec, x), spec)
+
+
+def kan_chain_apply_bwd_reference(spec: ChainSpec, x, y1, c1, w1, c2, w2,
+                                  gy):
+    """Plain PyTorch version of K1b: (dx, dc1, dw1, dc2, dw2)."""
+    return _chain_vjp(x, y1, c1, w1, c2, w2, grid_of(spec, x), spec, gy)
+
+
+# ---------------------------------------------------------------------------
+# CUDA launch wrappers of K1
+# ---------------------------------------------------------------------------
+
+def check_chain_launch(spec: ChainSpec, x, params, n_leading: int = 0) -> int:
+    """Validate a launch of a chain kernel: caps, x [..., K, I] with
+    `n_leading` leading axes, the four parameter shapes, float32,
+    contiguous. Returns K."""
+    I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
+    _cuda.check_chain_caps(spec)
+    if x.dim() != n_leading + 2 or x.shape[-1] != I or x.shape[-2] < 1:
+        raise ValueError(f"state shape {tuple(x.shape)} does not end in "
+                         f"[K, {I}]")
+    want = ((I * G, H), (I, H), (H * G, O), (H, O))
+    for name, p, shape in zip(("c1", "w1", "c2", "w2"), params, want):
+        if tuple(p.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(p.shape)} != {shape}")
+    _cuda.check_tensors(x, *params)
+    return x.shape[-2]
+
+
+def _launch_fwd(spec: ChainSpec, x, params):
+    K = check_chain_launch(spec, x, params)
+    y = torch.empty((K, spec.out_dims), dtype=torch.float32, device=x.device)
+    y1 = torch.empty((K, spec.hidden), dtype=torch.float32, device=x.device)
+    lib = _cuda.library()
+    with torch.cuda.device(x.device):
+        err = lib.kc_chain_apply_fwd(_cuda.ptr(x), *map(_cuda.ptr, params),
+                                     _cuda.ptr(y), _cuda.ptr(y1), K,
+                                     ctypes.byref(_cuda.chain_dims(spec)),
+                                     _cuda.stream())
+    LAUNCHES["kan_chain_apply_fwd"] += 1
+    _cuda.check(err, "kan_chain_apply_fwd")
+    return y, y1
+
+
+def _launch_bwd(spec: ChainSpec, x, y1, params, gy):
+    K = check_chain_launch(spec, x, params)
+    if tuple(y1.shape) != (K, spec.hidden) or \
+            tuple(gy.shape) != (K, spec.out_dims):
+        raise ValueError(f"y1/gy shapes {tuple(y1.shape)}, "
+                         f"{tuple(gy.shape)} != [{K}, H], [{K}, O]")
+    _cuda.check_tensors(y1, gy)
+    dx = torch.empty_like(x)
+    grads = [torch.empty_like(p) for p in params]
+    scratch = torch.empty(K * _cuda.rec_width(spec), dtype=torch.float32,
+                          device=x.device)
+    lib = _cuda.library()
+    with torch.cuda.device(x.device):
+        err = lib.kc_chain_apply_bwd(
+            _cuda.ptr(x), _cuda.ptr(y1), _cuda.ptr(gy),
+            *map(_cuda.ptr, params), _cuda.ptr(dx), *map(_cuda.ptr, grads),
+            _cuda.ptr(scratch), K, ctypes.byref(_cuda.chain_dims(spec)),
+            _cuda.stream())
+    LAUNCHES["kan_chain_apply_bwd"] += 1
+    _cuda.check(err, "kan_chain_apply_bwd")
+    return (dx, *grads)
+
+
+class _KanChainApply(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, spec, x, c1, w1, c2, w2):
+        params = (c1, w1, c2, w2)
+        if _cuda.on_cuda(x, *params):
+            y, y1 = _launch_fwd(spec, x, params)
+        else:
+            y, y1 = _chain_f(x, *params, grid_of(spec, x), spec)
+        ctx.spec = spec
+        ctx.save_for_backward(x, y1, *params)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, y1, *params = ctx.saved_tensors
+        spec = ctx.spec
+        gy = gy.contiguous()
+        if _cuda.on_cuda(gy, x, *params):
+            grads = _launch_bwd(spec, x, y1, params, gy)
+        else:
+            grads = _chain_vjp(x, y1, *params, grid_of(spec, x), spec, gy)
+        return (None, *grads)
+
+
+def kan_chain_apply(spec: ChainSpec, x, c1, w1, c2, w2):
+    """Fused 2-layer KDense chain: x[K, I] -> [K, O] in one launch, its
+    VJP (dx and the four parameter cotangents) in one more.
+
+    c1: [I*G, H], w1: [I, H], c2: [H*G, O], w2: [H, O] (2-D, i-major
+    g-minor rows: `fused_params` of a `KANChain`)."""
+    return _KanChainApply.apply(spec, x, c1, w1, c2, w2)
+
+
 def chain_spec_of(chain) -> ChainSpec:
     """Build a ChainSpec from a 2-layer KANChain (validates fusability)."""
     if len(chain.layers) != 2:
@@ -149,3 +301,17 @@ def fused_params(chain) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     l1, l2 = chain.layers
     return (l1.C.reshape(-1, l1.C.shape[-1]), l1.W,
             l2.C.reshape(-1, l2.C.shape[-1]), l2.W)
+
+
+def kan_chain_rhs(chain):
+    """rhs(t, u, model) through `kan_chain_apply`, for u [K, I] or [I]
+    (a single state gets a row axis for the call and loses it after)."""
+    spec = chain_spec_of(chain)
+
+    def rhs(t, u, m):
+        single = u.dim() == 1
+        x = (u[None, :] if single else u).contiguous()
+        y = kan_chain_apply(spec, x, *fused_params(m))
+        return y[0] if single else y
+
+    return rhs

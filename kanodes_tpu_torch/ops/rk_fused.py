@@ -34,8 +34,12 @@ import torch
 
 from kanodes_tpu_torch.ode.tableaus import Tableau, get_tableau
 from kanodes_tpu_torch.ops import _cuda
-from kanodes_tpu_torch.ops.kdense_pallas import (ChainSpec, _layer_bwd,
-                                                 _layer_fwd)
+from kanodes_tpu_torch.ops._cuda import on_cuda as _on_cuda
+from kanodes_tpu_torch.ops._cuda import ptr as _ptr
+from kanodes_tpu_torch.ops._cuda import stream as _stream
+from kanodes_tpu_torch.ops.kdense_pallas import (ChainSpec, _chain_f,
+                                                 _chain_vjp,
+                                                 check_chain_launch, grid_of)
 
 Tensor = torch.Tensor
 
@@ -43,9 +47,6 @@ Tensor = torch.Tensor
 # one where it launches its kernel, and nowhere else
 LAUNCHES = {"fused_rk_step_fwd": 0, "fused_rk_step_bwd": 0,
             "fused_rk_multistep_fwd": 0, "fused_rk_multistep_bwd": 0}
-
-_NORMALIZERS = {"tanh": 0, "softsign": 1}
-_BASES = {"rbf": 0, "iqf": 1, "rswaf": 2}
 
 
 def reset_launch_counts() -> None:
@@ -97,17 +98,12 @@ class _Consts:
         self.dta = [[float(np.float32(dt * a)) for a in row] for row in tab.a]
         self.dtb = [float(np.float32(dt * b)) for b in tab.b]
         self.n_slots = sum(self.needed)
-        self.grid = spec.grid()
         self._dims = self._tab = None
 
     def structs(self) -> tuple[_cuda.ChainDims, _cuda.StepTab]:
         """The kernels' ChainDims / StepTab (built once, then reused)."""
         if self._dims is None:
-            s = self.spec
-            d = _cuda.ChainDims(s.in_dims, s.hidden, s.out_dims, s.grid_len,
-                                _NORMALIZERS[s.normalizer], _BASES[s.basis],
-                                float(np.float32(1.0 / s.h)))
-            d.grid[:s.grid_len] = [float(g) for g in self.grid]
+            d = _cuda.chain_dims(self.spec)
             t = _cuda.StepTab()
             t.stages = self.stages
             for i, row in enumerate(self.dta):
@@ -126,26 +122,6 @@ def _consts(spec: ChainSpec, solver: str, dt: float) -> _Consts:
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (CPU path; references for the kernels)
 # ---------------------------------------------------------------------------
-
-def _chain_f(x, c1, w1, c2, w2, grid, spec):
-    y1, _, _ = _layer_fwd(x, c1, w1, grid, spec.h, spec.normalizer,
-                          spec.basis)
-    y2, _, _ = _layer_fwd(y1, c2, w2, grid, spec.h, spec.normalizer,
-                          spec.basis)
-    return y2, y1
-
-
-def _chain_vjp(x, y1, c1, w1, c2, w2, grid, spec, gy):
-    _, u2, b2 = _layer_fwd(y1, c2, w2, grid, spec.h, spec.normalizer,
-                           spec.basis)
-    dy1, dc2, dw2 = _layer_bwd(y1, c2, w2, spec.h, u2, b2, gy,
-                               spec.normalizer, spec.basis)
-    _, u1, b1 = _layer_fwd(x, c1, w1, grid, spec.h, spec.normalizer,
-                           spec.basis)
-    dx, dc1, dw1 = _layer_bwd(x, c1, w1, spec.h, u1, b1, dy1,
-                              spec.normalizer, spec.basis)
-    return dx, dc1, dw1, dc2, dw2
-
 
 def _stages(k: _Consts, x, params, grid):
     """Stage inputs xs, stage derivatives ks and layer-1 outputs y1s."""
@@ -212,7 +188,7 @@ def _multistep_bwd_plain(k: _Consts, n_steps, x0, ys, params, grid, gys):
 
 
 def _grid_of(k: _Consts, x):
-    return torch.as_tensor(k.grid, device=x.device)
+    return grid_of(k.spec, x)
 
 
 def fused_rk_step_reference(spec: ChainSpec, solver: str, dt: float,
@@ -253,51 +229,13 @@ def fused_rk_multistep_bwd_reference(spec: ChainSpec, solver: str,
 # CUDA launch wrappers
 # ---------------------------------------------------------------------------
 
-def _on_cuda(*tensors) -> bool:
-    """True if every tensor is on one CUDA device, False if every tensor
-    is on the CPU; raises otherwise."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"fused RK inputs on several devices: {devs}")
-    dev = devs.pop()
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"fused RK kernels take CUDA (or CPU) tensors, "
-                         f"got {dev}")
-    return dev.type == "cuda"
-
-
 def _check_launch(spec: ChainSpec, x, params, n_leading: int) -> int:
     """Validate a launch against the kernels' contract; returns K."""
-    I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
-    if O != I:
+    if spec.out_dims != spec.in_dims:
         raise ValueError(f"an ODE right-hand side maps I -> I; got "
-                         f"out_dims {O} != in_dims {I}")
-    if not (1 <= I <= _cuda.MAX_I and 1 <= H <= _cuda.MAX_H
-            and 2 <= G <= _cuda.MAX_G):
-        raise ValueError(f"kernel caps: I <= {_cuda.MAX_I}, H <= "
-                         f"{_cuda.MAX_H}, 2 <= G <= {_cuda.MAX_G}; got "
-                         f"I={I}, H={H}, G={G}")
-    if x.dim() != n_leading + 2 or x.shape[-1] != I or x.shape[-2] < 1:
-        raise ValueError(f"state shape {tuple(x.shape)} does not end in "
-                         f"[K, {I}]")
-    want = ((I * G, H), (I, H), (H * G, O), (H, O))
-    for name, p, shape in zip(("c1", "w1", "c2", "w2"), params, want):
-        if tuple(p.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(p.shape)} != {shape}")
-    for t in (x, *params):
-        if t.dtype != torch.float32:
-            raise TypeError(f"fused RK kernels take float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("fused RK kernels take contiguous tensors")
-    return x.shape[-2]
-
-
-def _ptr(t: Tensor) -> int:
-    return t.data_ptr()
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+                         f"out_dims {spec.out_dims} != in_dims "
+                         f"{spec.in_dims}")
+    return check_chain_launch(spec, x, params, n_leading)
 
 
 def _launch_step_fwd(k: _Consts, x, params):
@@ -315,10 +253,7 @@ def _launch_step_fwd(k: _Consts, x, params):
 
 
 def _scratch(k: _Consts, n_rec: int, like: Tensor) -> Tensor:
-    s = k.spec
-    width = (s.in_dims * s.grid_len + s.in_dims + 2 * s.hidden
-             + s.hidden * s.grid_len + s.out_dims)
-    return torch.empty(n_rec * width, dtype=torch.float32,
+    return torch.empty(n_rec * _cuda.rec_width(k.spec), dtype=torch.float32,
                        device=like.device)
 
 

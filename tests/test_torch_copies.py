@@ -105,6 +105,8 @@ def test_port_imports_without_jax_in_a_fresh_process():
         "import sys\n"
         "import kanodes_tpu_torch.experiments.lv, kanodes_tpu_torch.__main__\n"
         "import kanodes_tpu_torch.ops.rk_fused, kanodes_tpu_torch.interop\n"
+        "import kanodes_tpu_torch.ops.rk_adaptive_fused\n"
+        "import kanodes_tpu_torch.experiments.profile_lv\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'optax' or m == 'kanodes_tpu'"
         " or m.startswith('kanodes_tpu.')]\n"

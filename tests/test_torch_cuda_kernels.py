@@ -13,6 +13,9 @@ import pytest
 import torch
 
 from kanodes_tpu_torch.models.kdense import KANChain
+from kanodes_tpu_torch.ode.integrate import StepController
+from kanodes_tpu_torch.ops import kdense_pallas as kp
+from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
 from kanodes_tpu_torch.ops import rk_fused as rk
 from kanodes_tpu_torch.ops.kdense_pallas import chain_spec_of
 
@@ -29,10 +32,11 @@ def card():
     return torch.device("cuda")
 
 
-def inputs(card, K, seed=0, widths=(2, 10, 2), grid_len=5):
+def inputs(card, K, seed=0, widths=(2, 10, 2), grid_len=5, **kw):
     rng = np.random.default_rng(seed)
     I, H, O = widths
-    spec = chain_spec_of(KANChain.mlp_like(list(widths), grid_len=grid_len))
+    spec = chain_spec_of(KANChain.mlp_like(list(widths), grid_len=grid_len,
+                                           **kw))
     shapes = ((I * grid_len, H), (I, H), (H * grid_len, O), (H, O))
     params = [torch.tensor(rng.uniform(-0.3, 0.3, s), dtype=torch.float32,
                            device=card) for s in shapes]
@@ -98,3 +102,75 @@ def test_cuda_wrapper_rejects_unsupported_input(card):
         rk.fused_rk_step(spec, "tsit5", 0.1, x.cpu(), *params)
     with pytest.raises(TypeError, match="float32"):
         rk.fused_rk_step(spec, "tsit5", 0.1, x.double(), *params)
+
+
+@pytest.mark.parametrize("K", [1, 34])
+@pytest.mark.parametrize("widths,grid_len,basis", [((2, 10, 2), 5, "rbf"),
+                                                   ((3, 4, 2), 4, "iqf")])
+def test_chain_apply_kernels_match_plain(card, K, widths, grid_len, basis):
+    spec, x, params, rng = inputs(card, K, seed=3, widths=widths,
+                                  grid_len=grid_len, basis=basis)
+    gy = torch.tensor(rng.standard_normal((K, widths[-1])),
+                      dtype=torch.float32, device=card)
+    kp.reset_launch_counts()
+    leaves = [t.clone().requires_grad_() for t in (x, *params)]
+    y = kp.kan_chain_apply(spec, *leaves)
+    got = torch.autograd.grad(y, leaves, gy)
+    assert kp.LAUNCHES == {"kan_chain_apply_fwd": 1,
+                           "kan_chain_apply_bwd": 1}
+    y_ref, y1_ref = kp.kan_chain_apply_reference(spec, x, *params)
+    torch.testing.assert_close(y, y_ref, **FWD)
+    want = kp.kan_chain_apply_bwd_reference(spec, x, y1_ref, *params, gy)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **GRAD)
+
+
+@pytest.mark.parametrize("solver,K,rtol,atol", [
+    ("tsit5", 1, 1e-3, 1e-6), ("bs3", 3, 1e-3, 1e-6),
+    ("tsit5", 1, 1e-6, 1e-8)])
+def test_adaptive_kernels_match_plain(card, solver, K, rtol, atol):
+    """Forward: the same steps (stats equal) and ys within 2e-5; backward
+    on the kernel's own records against the plain backward. At the LV
+    tolerances the inputs are the LV model's glorot init from (1, 1),
+    whose step sequence rounding cannot change (random weights give an
+    error estimate at the f32 rounding floor there: chip_smoke.py)."""
+    spec, x0, params, rng = inputs(card, K, seed=4)
+    if rtol < 1e-5:
+        model = KANChain.mlp_like([2, 10, 2], grid_len=5, device=card)
+        model.init(torch.Generator().manual_seed(0))
+        params = [p.detach().contiguous() for p in kp.fused_params(model)]
+        x0 = torch.ones_like(x0)
+    ts = torch.arange(0, 36, device=card, dtype=torch.float32) * 0.1
+    gys = torch.tensor(rng.standard_normal((36, K, 2)) / 36,
+                       dtype=torch.float32, device=card)
+    k = ra._consts(spec, solver, rtol, atol, StepController(), None)
+    ra.reset_launch_counts()
+    ys, rec = ra._launch_fwd(k, 256, x0, ts, params)
+    ys_ref, rec_ref = ra.fused_adaptive_odeint_reference(
+        spec, solver, rtol, atol, 256, StepController(), None, x0, ts,
+        *params)
+    assert rec[4].tolist() == rec_ref[4].tolist()
+    torch.testing.assert_close(ys, ys_ref, rtol=2e-5, atol=2e-5)
+    got = ra._launch_bwd(k, x0, params, rec, gys)
+    want = ra.fused_adaptive_odeint_bwd_reference(spec, solver, x0, *params,
+                                                  rec, gys)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **GRAD)
+    assert ra.LAUNCHES == {"fused_adaptive_odeint_fwd": 1,
+                           "fused_adaptive_odeint_bwd": 1}
+
+
+def test_new_backwards_repeat_bit_for_bit(card):
+    spec, x, params, rng = inputs(card, 34, seed=5)
+    gy = torch.ones_like(x)
+    _, y1 = kp._launch_fwd(spec, x, params)
+    a = kp._launch_bwd(spec, x, y1, params, gy)
+    b = kp._launch_bwd(spec, x, y1, params, gy)
+    k = ra._consts(spec, "tsit5", 1e-3, 1e-6, StepController(), None)
+    ts = torch.arange(0, 12, device=card, dtype=torch.float32) * 0.1
+    ys, rec = ra._launch_fwd(k, 64, x[:3].contiguous(), ts, params)
+    gys = torch.ones_like(ys)
+    a += ra._launch_bwd(k, x[:3].contiguous(), params, rec, gys)
+    b += ra._launch_bwd(k, x[:3].contiguous(), params, rec, gys)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)

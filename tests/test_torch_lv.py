@@ -1,11 +1,15 @@
 """The LV slice of the PyTorch port as a whole, held against the JAX
 package: data, loss, gradient and eval in fixed and shooting modes with
-impl xla and fused, and a short Adam run from JAX's own init.
+impl xla, fused and pallas, in adaptive mode with all three, and short
+Adam runs from JAX's own init.
 
-JAX's fused path runs its Pallas kernels in interpret mode on the CPU;
-the port's fused path runs the plain versions of its CUDA kernels on CPU
+JAX's fused and pallas paths run their Pallas kernels in interpret mode
+on the CPU; the port's run the plain versions of its CUDA kernels on CPU
 tensors. Tolerances: forward rtol 1e-5 / atol 1e-6, gradients rtol 5e-4
-/ atol 1e-6 (the JAX suite's, tests/test_rk_fused.py:36,62).
+/ atol 1e-6 (the JAX suite's, tests/test_rk_fused.py:36,62). Adaptive
+mode runs at the JAX suite's rtol 1e-3 / atol 1e-6 with a budget of 96
+steps (tests/test_rk_adaptive_fused.py), which keeps each case to
+seconds; the LV defaults (1e-6 / 1e-8, 256 steps) run in chip_smoke.py.
 """
 
 import os
@@ -31,6 +35,7 @@ torch.set_num_threads(1)
 FWD = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=5e-4, atol=1e-6)
 MODES = [("fixed", 1), ("shooting", 1), ("shooting", 4)]
+ADAPTIVE = dict(solve_mode="adaptive", max_steps=96, rtol=1e-3, atol=1e-6)
 
 
 def to_numpy(params):
@@ -46,11 +51,20 @@ def test_make_data_equals_jax():
     np.testing.assert_array_equal(got["ts_host"], np.asarray(want["ts"]))
 
 
-@pytest.mark.parametrize("impl", ["xla", "fused"])
+@pytest.mark.parametrize("impl", ["xla", "fused", "pallas"])
 @pytest.mark.parametrize("mode,seg", MODES)
 def test_loss_grad_eval_match_jax(mode, seg, impl):
-    jcfg = J.LVConfig(solve_mode=mode, segment_len=seg, impl=impl)
-    tcfg = T.LVConfig(solve_mode=mode, segment_len=seg, impl=impl)
+    check_loss_grad_eval(dict(solve_mode=mode, segment_len=seg, impl=impl))
+
+
+@pytest.mark.parametrize("impl", ["xla", "fused", "pallas"])
+def test_adaptive_loss_grad_eval_match_jax(impl):
+    check_loss_grad_eval(dict(ADAPTIVE, impl=impl))
+
+
+def check_loss_grad_eval(kw):
+    jcfg = J.LVConfig(**kw)
+    tcfg = T.LVConfig(**kw)
     jm = J.make_model(jcfg)
     # JAX's LV init, scaled up from the 1e-5 start so every term matters
     jp = jax.tree_util.tree_map(lambda a: a * 2e4,
@@ -104,6 +118,29 @@ def test_train_tracks_jax(mode, impl, lr):
         for k in ("C", "W"):
             np.testing.assert_allclose(a[k], np.asarray(b[k]), rtol=0,
                                        atol=2 * lr)
+
+
+def test_adaptive_train_tracks_jax():
+    """4 Adam iterations of adaptive/fused from JAX's LV init, eval every
+    2: the loss history tracks JAX within rtol 1e-4."""
+    lr = 5e-3
+    jcfg = J.LVConfig(impl="fused", lr=lr, **ADAPTIVE)
+    tcfg = T.LVConfig(impl="fused", lr=lr, **ADAPTIVE)
+    jm = J.make_model(jcfg)
+    jp = J.init_params(jcfg, jm)
+    jloss, jeval, _ = J.make_ode_fns(jcfg, jm, J.make_data(jcfg))
+    jout = jtrain(jloss, jp, JTrainConfig(lr=lr, iters=4, eval_every=2),
+                  eval_fn=jeval)
+
+    tm = T.make_model(tcfg, device="cpu")
+    chain_params_from_numpy(tm, to_numpy(jp))
+    tloss, teval, _ = T.make_ode_fns(tcfg, tm, T.make_data(tcfg, "cpu"))
+    tout = train(tloss, tm, TrainConfig(lr=lr, iters=4, eval_every=2),
+                 eval_fn=teval)
+    np.testing.assert_allclose(tout["loss_history"].numpy(),
+                               np.asarray(jout["loss_history"]), rtol=1e-4)
+    np.testing.assert_allclose(tout["eval_history"].numpy(),
+                               np.asarray(jout["eval_history"]), rtol=1e-4)
 
 
 def test_train_best_params_are_pre_update_and_blocks_round_up():
@@ -168,12 +205,22 @@ def test_default_device_is_cuda_and_never_falls_back():
         T.run(T.LVConfig(iters=1))
 
 
+def test_profiler_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card error cannot "
+                    "occur")
+    from kanodes_tpu_torch.experiments import profile_lv
+    with pytest.raises(RuntimeError, match="cuda"):
+        profile_lv.main(["--iters=1", "--impl=fused"])
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(solve_mode="adaptive"), "M7"),
+    (dict(solve_mode="adaptive", adjoint="backsolve"), "M7"),
     (dict(model="mlp"), "M8"),
     (dict(model="bspline_kan"), "M13"),
     (dict(impl="fused_wide"), "fused_wide"),
-    (dict(impl="pallas"), "K1"),
+    (dict(solve_mode="adaptive", impl="pallas", adjoint="interpolating"),
+     "interpolating"),
     (dict(sparse_on=True), "M12"),
     (dict(bwd_precision="bf16", impl="fused", iters=1), "bf16"),
 ])
@@ -200,6 +247,20 @@ def test_cli_runs_lv_on_cpu():
         [sys.executable, "-m", "kanodes_tpu_torch", "lv", "--device=cpu",
          "--iters=2", "--eval_every=2", "--impl=fused",
          "--solve_mode=shooting"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "train loss" in proc.stdout and "on cpu" in proc.stdout
+
+
+def test_cli_runs_adaptive_lv_on_cpu():
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root)] + [p for p in [env.get("PYTHONPATH")] if p])
+    proc = subprocess.run(
+        [sys.executable, "-m", "kanodes_tpu_torch", "lv", "--device=cpu",
+         "--iters=2", "--eval_every=2", "--impl=fused",
+         "--solve_mode=adaptive", "--rtol=1e-3", "--atol=1e-6"],
         env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "train loss" in proc.stdout and "on cpu" in proc.stdout

@@ -9,8 +9,9 @@ KAN-ODE trainer (the port's main path) through
 `kanodes_tpu_torch.experiments.lv.run(..., device="cuda")` in four
 configurations (fused shooting, fused fixed, fused adaptive, pallas
 shooting), checks from the launch counters that each run went through
-its kernels, and times each kernel against its plain version with CUDA
-events.
+its kernels, holds the adaptive kernel to its plain version again on the
+parameters that run ended with (train and eval grids), and times each
+kernel against its plain version with CUDA events.
 
 Every phase prints one JSON line. The line before the last two is the
 kernel table, then the card's `nvidia-smi` name and power limit, and the
@@ -28,6 +29,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -75,36 +77,79 @@ def lv_inputs(rng, torch, K, scale=0.3, device="cuda"):
     return x, params
 
 
-# K4 cases: (solver, K, rtol, atol, max_steps, inputs). Kernel and plain
-# version must take the same steps, so every case is one whose step
-# sequence ulp-level differences cannot change (tests/
-# test_torch_rk_adaptive_fused.py checks that on the CPU by perturbing
-# every chain evaluation of the plain version by one ulp). At the LV
-# tolerances (1e-6 / 1e-8) random weights fail that: once the
-# controller, not the save times, sets the steps, the f32 error estimate
-# is rounding noise. The LV model at its glorot init from u0 passes.
-ADAPTIVE_CASES = (("tsit5", 1, 1e-6, 1e-8, 256, "lv"),
-                  ("tsit5", 1, 1e-3, 1e-6, 256, "uniform"),
-                  ("bs3", 1, 1e-3, 1e-6, 256, "uniform"),
-                  ("tsit5", 3, 1e-3, 1e-6, 256, "uniform"),
-                  ("tsit5", 1, 1e-6, 1e-8, 8, "lv"))
+class AdaptiveCase(NamedTuple):
+    """A K4 kernel-vs-plain case. inputs "lv": the LV model's glorot init
+    (torch seed 0) from u0 = (1, 1); "uniform": weights from
+    U(-scale, scale) and states from U(0.3, 2.0), numpy seed `seed`.
+    Save times: the 0.1 grid to 3.5, or with `ends` only [0, 3.5], where
+    the controller, not the save times, sizes every step."""
+    solver: str
+    K: int
+    rtol: float
+    atol: float
+    max_steps: int
+    inputs: str
+    seed: int = 0
+    scale: float = 0.3
+    pi: bool = False
+    dt0: float | None = None
+    ends: bool = False
+
+    def label(self) -> str:
+        return (f"{self.solver} K={self.K} rtol={self.rtol} atol={self.atol}"
+                f" max_steps={self.max_steps} {'PI' if self.pi else 'I'}"
+                f" dt0={self.dt0} saves={'ends' if self.ends else 'grid'}"
+                f" inputs={self.inputs}"
+                + (f"(seed {self.seed}, +-{self.scale})"
+                   if self.inputs == "uniform" else ""))
 
 
-def adaptive_case_inputs(torch, index, device="cuda"):
-    """(x0 [K, 2], params) of ADAPTIVE_CASES[index]: "lv" is the LV
-    model's glorot init (torch seed 0) from u0 = (1, 1); "uniform" draws
-    +-0.3 weights and states from numpy seed 100 + index."""
+# Kernel and plain version must take the same steps, so every case is one
+# whose step sequence ulp-level differences cannot change, and whose
+# gradients such differences move well inside the gradient tolerance
+# (tests/test_torch_rk_adaptive_fused.py checks both on the CPU by moving
+# every chain evaluation of the plain version by up to two ulps). At the
+# LV tolerances (1e-6 / 1e-8) that holds only where the save times clip
+# the steps: once the controller sizes them, the f32 error estimate is
+# rounding noise (the same file shows it). The controller's own regime
+# (steps it sizes, rejections under the I and the PI controller, a dt0
+# too large) is covered at rtol 1e-3 / 1e-4 with two save times.
+ADAPTIVE_CASES = (
+    AdaptiveCase("tsit5", 1, 1e-6, 1e-8, 256, "lv"),
+    AdaptiveCase("tsit5", 1, 1e-3, 1e-6, 256, "uniform", seed=101),
+    AdaptiveCase("bs3", 1, 1e-3, 1e-6, 256, "uniform", seed=102),
+    AdaptiveCase("tsit5", 3, 1e-3, 1e-6, 256, "uniform", seed=103),
+    AdaptiveCase("tsit5", 1, 1e-6, 1e-8, 8, "lv"),
+    AdaptiveCase("tsit5", 1, 1e-4, 1e-6, 128, "uniform", seed=304,
+                 scale=0.5, pi=True, dt0=1.0, ends=True),
+    AdaptiveCase("tsit5", 1, 1e-3, 1e-6, 128, "uniform", seed=304,
+                 dt0=1.0, ends=True),
+    AdaptiveCase("dopri5", 1, 1e-4, 1e-6, 128, "uniform", seed=302,
+                 scale=0.5, dt0=1.0, ends=True),
+    AdaptiveCase("bs3", 1, 1e-3, 1e-6, 128, "uniform", seed=303,
+                 scale=0.5, dt0=1.0, ends=True),
+    AdaptiveCase("dopri5", 3, 1e-4, 1e-6, 128, "uniform", seed=205,
+                 scale=0.5, pi=True, dt0=0.5, ends=True),
+    AdaptiveCase("bs3", 3, 1e-3, 1e-6, 128, "uniform", seed=205,
+                 scale=0.5, pi=True, dt0=0.5, ends=True),
+)
+
+
+def adaptive_case_inputs(torch, case, device="cuda"):
+    """(x0 [K, 2], params, ts) of an AdaptiveCase."""
     import numpy as np
     from kanodes_tpu_torch.models.kdense import KANChain
     from kanodes_tpu_torch.ops.kdense_pallas import fused_params
-    _, K, _, _, _, kind = ADAPTIVE_CASES[index]
-    if kind == "uniform":
-        return lv_inputs(np.random.default_rng(100 + index), torch, K,
-                         device=device)
+    ts = (torch.tensor([0.0, 3.5], device=device) if case.ends else
+          torch.arange(0, 36, dtype=torch.float32, device=device) * 0.1)
+    if case.inputs == "uniform":
+        x0, params = lv_inputs(np.random.default_rng(case.seed), torch,
+                               case.K, scale=case.scale, device=device)
+        return x0, params, ts
     model = KANChain.mlp_like([2, 10, 2], grid_len=5, device=device)
     model.init(torch.Generator().manual_seed(0))
     params = [p.detach().contiguous() for p in fused_params(model)]
-    return torch.ones((K, 2), device=device), params
+    return torch.ones((case.K, 2), device=device), params, ts
 
 
 def assert_close(failures, name, got, want, tol):
@@ -241,46 +286,88 @@ def phase_chain_kernels(torch, kp, KANChain, rng, max_err):
                          failures)
 
 
+def check_adaptive(torch, ra, spec, label, solver, rtol, atol, ms, ctrl,
+                   dt0, x0, ts, params, gys, max_err):
+    """K4f/K4b against the plain version on one input: the stats (n_accept,
+    n_reject, n_iter, final save index) equal, ys held to the float64
+    rule, the gradients against the plain backward (on the kernel's
+    records) and autograd through the plain forward. Prints one line and
+    returns the kernel's stats and how many accepted steps the controller
+    sized (those landing on no save time)."""
+    failures = []
+    k = ra._consts(spec, solver, rtol, atol, ctrl, dt0)
+    ys, rec = ra._launch_fwd(k, ms, x0, ts, params)
+    xs = [t.clone().requires_grad_() for t in (x0, *params)]
+    ys_ref, rec_ref = ra.fused_adaptive_odeint_reference(
+        spec, solver, rtol, atol, ms, ctrl, dt0, xs[0], ts, *xs[1:])
+    ys64, rec64 = ra.fused_adaptive_odeint_reference(
+        spec, solver, rtol, atol, ms, ctrl, dt0, x0.double(), ts.double(),
+        *(p.double() for p in params))
+    stats, stats_ref = rec[4].tolist(), rec_ref[4].tolist()
+    if stats != stats_ref:
+        failures.append(f"K4f stats (n_accept, n_reject, n_iter, save "
+                        f"index) {stats} != plain {stats_ref}")
+    sized = int((rec[3][:stats[0]] < 0).sum())
+    detail = f64_rule(failures, "K4f", ys, ys_ref.detach(), ys64)
+    max_err["fused_adaptive_odeint_fwd"] = max(
+        max_err["fused_adaptive_odeint_fwd"], detail["max_abs_err"])
+    g = ra._launch_bwd(k, x0, params, rec, gys)
+    g_ref = ra.fused_adaptive_odeint_bwd_reference(spec, solver, x0, *params,
+                                                   rec, gys)
+    g_auto = torch.autograd.grad(ys_ref, xs, gys)
+    check_grads(failures, max_err, "fused_adaptive_odeint_bwd", "K4b", g,
+                g_ref, g_auto)
+    torch.cuda.synchronize()
+    finish_phase({"phase": "kernel_vs_plain", "kernel": "K4", "case": label,
+                  "stats": stats, "plain_stats": stats_ref,
+                  "f64_stats": rec64[4].tolist(),
+                  "controller_sized_steps": sized, **detail,
+                  "grad_tol": GRAD_TOL}, failures)
+    return stats, sized
+
+
 def phase_adaptive_kernels(torch, ra, spec, rng, StepController, max_err):
     """K4 vs its plain version on the card, LV width, ADAPTIVE_CASES: one
-    line per case. ys held to the float64 rule, step counts equal,
-    gradients against the plain backward (on the kernel's records) and
-    autograd through the plain forward."""
-    ts = torch.arange(0, 36, dtype=torch.float32, device="cuda") * 0.1
-    for i, (solver, K, rtol, atol, ms, kind) in enumerate(ADAPTIVE_CASES):
-        failures = []
-        ctrl = StepController()
-        x0, params = adaptive_case_inputs(torch, i)
-        gys = torch.tensor(rng.standard_normal((36, K, 2)) / 36,
+    line per case. Fails unless the cases, as the kernel ran them, took
+    rejected steps under both controllers and steps the controller
+    sized."""
+    seen = {"rejected_I": 0, "rejected_PI": 0, "controller_sized": 0}
+    for case in ADAPTIVE_CASES:
+        x0, params, ts = adaptive_case_inputs(torch, case)
+        gys = torch.tensor(rng.standard_normal((ts.shape[0], case.K, 2))
+                           / ts.shape[0], dtype=torch.float32, device="cuda")
+        ctrl = StepController.pi() if case.pi else StepController()
+        stats, sized = check_adaptive(
+            torch, ra, spec, case.label(), case.solver, case.rtol, case.atol,
+            case.max_steps, ctrl, case.dt0, x0, ts, params, gys, max_err)
+        seen["rejected_PI" if case.pi else "rejected_I"] += stats[1]
+        seen["controller_sized"] += sized
+    assert all(seen.values()), f"K4 cases miss a controller regime: {seen}"
+
+
+def phase_trained_adaptive(torch, kp, ra, spec, rng, StepController,
+                           finals, max_err):
+    """K4 vs its plain version on the parameters the adaptive main-path
+    run ended with, at the shapes that run gives it: the train grid (T =
+    n_train, max_steps 256) and the eval grid (all save times, max_steps
+    as lv.predict sets it). Returns the inputs of the train-grid case for
+    the timings."""
+    out = finals["fused/adaptive"]
+    cfg, data = out["cfg"], out["data"]
+    params = [p.detach().contiguous() for p in kp.fused_params(out["model"])]
+    u0 = data["X"][:1].contiguous()
+    for name, T in (("train grid", data["n_train"]),
+                    ("eval grid", data["ts"].shape[0])):
+        ts = data["ts"][:T].contiguous()
+        ms = max(cfg.max_steps, 2 * T) if name == "eval grid" \
+            else cfg.max_steps
+        gys = torch.tensor(rng.standard_normal((T, 1, 2)) / T,
                            dtype=torch.float32, device="cuda")
-        k = ra._consts(spec, solver, rtol, atol, ctrl, None)
-        ys, rec = ra._launch_fwd(k, ms, x0, ts, params)
-        xs = [t.clone().requires_grad_() for t in (x0, *params)]
-        ys_ref, rec_ref = ra.fused_adaptive_odeint_reference(
-            spec, solver, rtol, atol, ms, ctrl, None, xs[0], ts, *xs[1:])
-        ys64, rec64 = ra.fused_adaptive_odeint_reference(
-            spec, solver, rtol, atol, ms, ctrl, None, x0.double(),
-            ts.double(), *(p.double() for p in params))
-        stats, stats_ref = rec[4].tolist(), rec_ref[4].tolist()
-        if stats != stats_ref:
-            failures.append(f"K4f stats (n_accept, n_reject, n_iter, "
-                            f"save index) {stats} != plain {stats_ref}")
-        detail = f64_rule(failures, "K4f", ys, ys_ref.detach(), ys64)
-        max_err["fused_adaptive_odeint_fwd"] = max(
-            max_err["fused_adaptive_odeint_fwd"], detail["max_abs_err"])
-        g = ra._launch_bwd(k, x0, params, rec, gys)
-        g_ref = ra.fused_adaptive_odeint_bwd_reference(spec, solver, x0,
-                                                       *params, rec, gys)
-        g_auto = torch.autograd.grad(ys_ref, xs, gys)
-        check_grads(failures, max_err, "fused_adaptive_odeint_bwd", "K4b",
-                    g, g_ref, g_auto)
-        torch.cuda.synchronize()
-        finish_phase({"phase": "kernel_vs_plain", "kernel": "K4",
-                      "case": f"{solver} K={K} rtol={rtol} atol={atol} "
-                              f"max_steps={ms} inputs={kind}",
-                      "stats": stats, "plain_stats": stats_ref,
-                      "f64_stats": rec64[4].tolist(), **detail,
-                      "grad_tol": GRAD_TOL}, failures)
+        check_adaptive(torch, ra, spec, f"trained params, {name}: tsit5 K=1 "
+                       f"T={T} rtol={cfg.rtol} atol={cfg.atol} "
+                       f"max_steps={ms}", "tsit5", cfg.rtol, cfg.atol, ms,
+                       StepController(), None, u0, ts, params, gys, max_err)
+    return u0, data["ts"][:data["n_train"]].contiguous(), params
 
 
 def expected_launches(cfg, n_train, n_save):
@@ -353,7 +440,7 @@ def read_counts(modules):
     return counts
 
 
-def phase_main_path(torch, lv, modules, card, adaptive_stats):
+def phase_main_path(torch, lv, modules, card):
     """The LV trainer on the card in each configuration. `seconds`
     includes the data, the model and the process's first use of the
     optimizer on the card; phase_timings repeats the runs warm."""
@@ -387,8 +474,6 @@ def phase_main_path(torch, lv, modules, card, adaptive_stats):
                "launches": {k: v for k, v in counts.items() if v},
                "seconds": seconds, "it_per_s": cfg.iters / seconds,
                "card": card}
-        if cfg.solve_mode == "adaptive":
-            res["final_params_train_grid_stats"] = adaptive_stats(out)
         emit(res)
         finals[run_name(cfg)] = out
     for name in KERNELS:
@@ -412,22 +497,18 @@ def cuda_ms(torch, fn, reps):
     return statistics.median(times)
 
 
-def phase_timings(torch, lv, rk, kp, ra, spec, rng, card, finals,
+def phase_timings(torch, lv, rk, kp, ra, spec, rng, card, trained,
                   StepController):
     """Each kernel against its plain version at the LV training shapes:
     K2 at K=34 rows (shooting, L=1), K3 at n=34 steps K=1 (fixed-mode
     loss), K1 at K=34 (pallas shooting) and K=1, K4 at the train grid
     (T=35, K=1, LV defaults) on the parameters the adaptive main-path
-    run ended with. Then every main-path run again, warm, for its it/s.
-    Each time stands beside the least time the card could take for the
-    same work on the same inputs (`kanodes_tpu_torch/utils/
-    kernel_bounds.py`)."""
-    from kanodes_tpu_torch.utils.kernel_bounds import (bound, chain_ops,
-                                                       chain_params,
-                                                       chain_vjp_ops)
+    run ended with (`trained`: u0, ts, params). Then every main-path run
+    again, warm, for its it/s. Each time stands beside the least time the
+    card could take for the same work on the same inputs, from the
+    per-kernel counts of `kanodes_tpu_torch/utils/kernel_bounds.py`."""
+    from kanodes_tpu_torch.utils import kernel_bounds as kb
     dims = (spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len)
-    I, P = spec.in_dims, chain_params(*dims)
-    F, V = chain_ops(*dims), chain_vjp_ops(*dims)
     x, params = lv_inputs(rng, torch, 34)
     gy = torch.randn_like(x)
     x0 = x[:1].contiguous()
@@ -440,65 +521,58 @@ def phase_timings(torch, lv, rk, kp, ra, spec, rng, card, finals,
         "fused_rk_step_fwd": (
             lambda: rk._launch_step_fwd(k, x, params),
             lambda: rk._step_fwd_plain(k, x, params, grid),
-            bound(34 * n_st * F, 34 * I * 2 + P)),
+            kb.bound(*kb.rk_step_fwd(dims, 34, n_st))),
         "fused_rk_step_bwd": (
             lambda: rk._launch_step_bwd(k, x, params, gy),
             lambda: rk._step_bwd_plain(k, x, params, grid, gy),
-            bound(34 * n_st * (F + V), 34 * I * 3 + 2 * P)),
+            kb.bound(*kb.rk_step_bwd(dims, 34, n_st))),
         "fused_rk_multistep_fwd": (
             lambda: rk._launch_multistep_fwd(k, 34, x0, params),
             lambda: rk._multistep_fwd_plain(k, 34, x0, params, grid),
-            bound(34 * n_st * F, I * 35 + P)),
+            kb.bound(*kb.rk_multistep_fwd(dims, 1, 34, n_st))),
         "fused_rk_multistep_bwd": (
             lambda: rk._launch_multistep_bwd(k, 34, x0, ys34, params, gys34),
             lambda: rk._multistep_bwd_plain(k, 34, x0, ys34, params, grid,
                                             gys34),
-            bound(34 * n_st * (F + V), I * (2 + 2 * 34) + 2 * P)),
+            kb.bound(*kb.rk_multistep_bwd(dims, 1, 34, n_st))),
     }
     chain = {}
     for K in (34, 1):
         xk = x[:K].contiguous()
         _, y1 = kp._launch_fwd(spec, xk, params)
         gk = gy[:K].contiguous()
-        rows = K * (2 * I + spec.hidden)
         chain[K] = {
             "kan_chain_apply_fwd": (
                 lambda xk=xk: kp._launch_fwd(spec, xk, params),
                 lambda xk=xk: kp.kan_chain_apply_reference(spec, xk,
                                                            *params),
-                bound(K * F, rows + P)),
+                kb.bound(*kb.chain_apply_fwd(dims, K))),
             "kan_chain_apply_bwd": (
                 lambda xk=xk, y1=y1, gk=gk: kp._launch_bwd(spec, xk, y1,
                                                            params, gk),
                 lambda xk=xk, y1=y1, gk=gk: kp.kan_chain_apply_bwd_reference(
                     spec, xk, y1, *params, gk),
-                bound(K * V, rows + I * K + 2 * P)),
+                kb.bound(*kb.chain_apply_bwd(dims, K))),
         }
     cases.update(chain[34])
     # K4 on the trained model, so the step count is the trained model's
-    model = finals["fused/adaptive"]["model"]
-    data = finals["fused/adaptive"]["data"]
-    fp = [p.detach().contiguous() for p in kp.fused_params(model)]
-    u0 = data["X"][:1].contiguous()
-    ts = data["ts"][:data["n_train"]].contiguous()
+    u0, ts, fp = trained
     cfg = lv.LVConfig()
     ka = ra._consts(spec, "tsit5", cfg.rtol, cfg.atol, StepController(),
                     None)
     ys, rec = ra._launch_fwd(ka, cfg.max_steps, u0, ts, fp)
     gys = torch.randn_like(ys)
     n_acc, n_rej, n_it, _ = rec[4].tolist()
-    S, T = ka.tab.stages, ts.shape[0]
+    evals, T = ka.tab.stages - 1, ts.shape[0]   # the FSAL stage is carried
     adaptive_steps = {"n_accept": n_acc, "n_reject": n_rej, "n_iter": n_it}
     cases["fused_adaptive_odeint_fwd"] = (
         lambda: ra._launch_fwd(ka, cfg.max_steps, u0, ts, fp),
         lambda: ra._fwd_plain(ka, cfg.max_steps, u0, ts, fp, grid),
-        bound((n_it * (S - 1) + 2) * F,
-              I + T + P + T * I + n_acc * (2 * I + 2) + 4))
+        kb.bound(*kb.adaptive_fwd(dims, 1, T, n_it, n_acc, evals)))
     cases["fused_adaptive_odeint_bwd"] = (
         lambda: ra._launch_bwd(ka, u0, fp, rec, gys),
         lambda: ra._bwd_plain(ka.tab, spec, u0, fp, grid, rec, gys),
-        bound((n_acc * (S - 1) + 1) * (F + V),
-              I + P + n_acc * (2 * I + 2) + 4 + T * I + I + P))
+        kb.bound(*kb.adaptive_bwd(dims, 1, T, n_acc, evals)))
     times = {}
     with torch.no_grad():
         for name, (kern, plain, (b_ms, b_by)) in cases.items():
@@ -581,21 +655,11 @@ def main() -> int:
     phase_chain_kernels(torch, kp, KANChain, rng, max_err)
     phase_adaptive_kernels(torch, ra, spec, rng, StepController, max_err)
 
-    def adaptive_stats(out):
-        """Steps of the final params' solve on the train grid (LV
-        defaults), read after the run."""
-        d = out["data"]
-        _, st = ra.fused_adaptive_stats(
-            spec, "tsit5", out["cfg"].rtol, out["cfg"].atol,
-            out["cfg"].max_steps, StepController(), None, d["X"][:1],
-            d["ts"][:d["n_train"]].contiguous(),
-            *(p.detach().contiguous() for p in kp.fused_params(out["model"])))
-        return {k: int(v) for k, v in st.items()}
-
     modules = (rk, kp, ra)
-    launches, finals = phase_main_path(torch, lv, modules, card,
-                                       adaptive_stats)
-    times = phase_timings(torch, lv, rk, kp, ra, spec, rng, card, finals,
+    launches, finals = phase_main_path(torch, lv, modules, card)
+    trained = phase_trained_adaptive(torch, kp, ra, spec, rng,
+                                     StepController, finals, max_err)
+    times = phase_timings(torch, lv, rk, kp, ra, spec, rng, card, trained,
                           StepController)
 
     emit({"kernels": [

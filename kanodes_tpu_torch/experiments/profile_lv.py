@@ -85,6 +85,12 @@ def profile(cfg: lv.LVConfig, iters: int = 20, warmup: int = 5,
     kernels = sorted((e for e in events if _is_kernel(e, host_keys)),
                      key=_device_us, reverse=True)
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / iters
+    # one stream, so the kernels cannot overlap: a busy time above the
+    # wall time means an event was counted twice, not a negative idle
+    if busy_ms > wall_ms * 1.01:
+        raise RuntimeError(f"device busy {busy_ms:.4f} ms/iter exceeds the "
+                           f"wall time {wall_ms:.4f} ms/iter: the device-"
+                           f"time sum counts an event twice")
     host = sorted((e for e in events if not _is_kernel(e, host_keys)),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     card = subprocess.run(
@@ -94,7 +100,7 @@ def profile(cfg: lv.LVConfig, iters: int = 20, warmup: int = 5,
     return {
         "run": f"{cfg.impl}/{cfg.solve_mode}", "iters": iters,
         "wall_ms_per_iter": wall_ms, "device_busy_ms_per_iter": busy_ms,
-        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
         "top_kernels": [
             {"name": e.key[:80], "ms_per_iter": _device_us(e) / 1e3 / iters,
              "calls_per_iter": e.count / iters} for e in kernels[:top]],

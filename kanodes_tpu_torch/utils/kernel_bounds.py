@@ -13,7 +13,7 @@ are counted per row as below; a multiply-add is two.
 shapes stated in the line: operations, floats moved, the bound (ms and
 which of the two sets it) and the serial depth, the number of dependent
 chain evaluations in one launch (a VJP counts as one). `chip_smoke.py`
-bounds its own timed launches with the same counts.
+bounds its own timed launches with the same per-kernel functions.
 """
 
 from __future__ import annotations
@@ -57,21 +57,87 @@ def bound(ops: float, n_floats: float) -> tuple[float, str]:
                                        else "bytes")
 
 
+# One function per kernel: (operations, floats moved) for `dims` = (I, H,
+# O, G) of the chain, K rows, and `evals` chain evaluations per RK step
+# (tsit5: 6, the stages a step needs; the adaptive kernel evaluates all
+# stages but the FSAL one it carries, also 6). The floats count each
+# input read once and each output written once.
+
+def chain_apply_fwd(dims, K: int) -> tuple[int, int]:
+    """K1f: x [K, I] -> y [K, O] and y1 [K, H]."""
+    I, H, O, _ = dims
+    return K * chain_ops(*dims), K * (I + H + O) + chain_params(*dims)
+
+
+def chain_apply_bwd(dims, K: int) -> tuple[int, int]:
+    """K1b: x, y1, gy -> dx and the four parameter cotangents."""
+    I, H, O, _ = dims
+    return (K * chain_vjp_ops(*dims),
+            K * (2 * I + H + O) + 2 * chain_params(*dims))
+
+
+def rk_step_fwd(dims, K: int, evals: int) -> tuple[int, int]:
+    """K2f: one RK step of x [K, I]."""
+    I = dims[0]
+    return K * evals * chain_ops(*dims), 2 * K * I + chain_params(*dims)
+
+
+def rk_step_bwd(dims, K: int, evals: int) -> tuple[int, int]:
+    """K2b: the step's adjoint (x, gy -> dx and the param cotangents)."""
+    I = dims[0]
+    return (K * evals * (chain_ops(*dims) + chain_vjp_ops(*dims)),
+            3 * K * I + 2 * chain_params(*dims))
+
+
+def rk_multistep_fwd(dims, K: int, n: int, evals: int) -> tuple[int, int]:
+    """K3f: n steps from x0 [K, I] -> ys [n, K, I]."""
+    I = dims[0]
+    return (n * K * evals * chain_ops(*dims),
+            (n + 1) * K * I + chain_params(*dims))
+
+
+def rk_multistep_bwd(dims, K: int, n: int, evals: int) -> tuple[int, int]:
+    """K3b: the reverse sweep (x0, ys, gys -> dx0 and the cotangents)."""
+    I = dims[0]
+    return (n * K * evals * (chain_ops(*dims) + chain_vjp_ops(*dims)),
+            (2 * n + 2) * K * I + 2 * chain_params(*dims))
+
+
+def adaptive_fwd(dims, K: int, T: int, n_iter: int, n_acc: int,
+                 evals: int) -> tuple[int, int]:
+    """K4f: n_iter controller iterations (f(x0) and the initial-dt
+    probe besides) from x0 [K, I] over T save times; writes ys [T, K, I],
+    the records (x_in, k1, dt, save index) of n_acc accepted steps and
+    the 4 stats."""
+    I = dims[0]
+    return ((n_iter * evals + 2) * K * chain_ops(*dims),
+            K * I + T + chain_params(*dims) + T * K * I
+            + n_acc * (2 * K * I + 2) + 4)
+
+
+def adaptive_bwd(dims, K: int, T: int, n_acc: int,
+                 evals: int) -> tuple[int, int]:
+    """K4b: n_acc accepted steps replayed in reverse, plus the VJP of
+    f(x0); reads x0, the records and gys [T, K, I], writes dx0 and the
+    param cotangents."""
+    I = dims[0]
+    return ((n_acc * evals + 1) * K * (chain_ops(*dims)
+                                       + chain_vjp_ops(*dims)),
+            2 * K * I + 2 * chain_params(*dims) + n_acc * (2 * K * I + 2)
+            + 4 + T * K * I)
+
+
 def table(n_adapt: int = 35) -> list[dict]:
     """Every kernel of PERF.md's table at the shapes its row states.
     `n_adapt`: controller iterations (= accepted steps) of one adaptive
     solve of the LV train grid (35 on the trained model; chip_smoke.py
     prints the count of its run)."""
     lv = (2, 10, 2, 5)                          # I, H, O, G of the LV chain
-    F, V, P = chain_ops(*lv), chain_vjp_ops(*lv), chain_params(*lv)
-    I = lv[0]
     s = 6                  # tsit5 stages whose evaluation a step needs
     # 8 packed LV members: block-diagonal chain stored dense (slice 6)
     pk = (16, 80, 16, 5)
-    Fp, Vp, Pp = chain_ops(*pk), chain_vjp_ops(*pk), chain_params(*pk)
     # Schrodinger surrogate [402,10,402], grid 10 (pde_surrogate.py:6)
     wd = (402, 10, 402, 10)
-    Fw, Vw, Pw = chain_ops(*wd), chain_vjp_ops(*wd), chain_params(*wd)
     # 1-D Fisher-KPP gray box: n = 32 nodes (pde/datagen.py:71), the
     # pointwise 1->1 KDense of grid 10, D lap@u as a dense matvec
     n, g = 32, 10
@@ -79,44 +145,39 @@ def table(n_adapt: int = 35) -> list[dict]:
     phi_ops, phi_vjp = n * layer_ops(1, 1, g), n * layer_vjp_ops(1, 1, g)
     na = n_adapt
     rows = [
-        ("K1f", "K=34 rows, LV chain", 34 * F,
-         34 * (I + 10 + I) + P, 1),
-        ("K1b", "K=34 rows, LV chain", 34 * V,
-         34 * (2 * I + 10 + I) + 2 * P, 1),
+        ("K1f", "K=34 rows, LV chain", *chain_apply_fwd(lv, 34), 1),
+        ("K1b", "K=34 rows, LV chain", *chain_apply_bwd(lv, 34), 1),
         ("K9f", "one LV layer [2->10], K=34", 34 * layer_ops(2, 10, 5),
          34 * 12 + 120, 1),
         ("K9b", "one LV layer [2->10], K=34", 34 * layer_vjp_ops(2, 10, 5),
          34 * 14 + 240, 1),
-        ("K2f", "one tsit5 step, K=34", 34 * s * F, 34 * 2 * I + P, s),
-        ("K2b", "one tsit5 step, K=34", 34 * s * (F + V),
-         34 * 3 * I + 2 * P, 2 * s),
-        ("K3f", "34 tsit5 steps, K=1", 34 * s * F, 35 * I + P, 34 * s),
-        ("K3b", "34 tsit5 steps, K=1", 34 * s * (F + V),
-         70 * I + 2 * P, 34 * 2 * s),
+        ("K2f", "one tsit5 step, K=34", *rk_step_fwd(lv, 34, s), s),
+        ("K2b", "one tsit5 step, K=34", *rk_step_bwd(lv, 34, s), 2 * s),
+        ("K3f", "34 tsit5 steps, K=1", *rk_multistep_fwd(lv, 1, 34, s),
+         34 * s),
+        ("K3b", "34 tsit5 steps, K=1", *rk_multistep_bwd(lv, 1, 34, s),
+         34 * 2 * s),
         ("K4f", f"adaptive tsit5, T=35, K=1, {na} iterations",
-         (na * s + 2) * F, I + 35 + P + 35 * I + na * (2 * I + 2) + 4,
-         na * s + 2),
-        ("K4b", f"its adjoint, {na} accepted steps", (na * s + 1) * (F + V),
-         2 * I + 2 * P + na * (2 * I + 2) + 4 + 35 * I, na * 2 * s + 2),
+         *adaptive_fwd(lv, 1, 35, na, na, s), na * s + 2),
+        ("K4b", f"its adjoint, {na} accepted steps",
+         *adaptive_bwd(lv, 1, 35, na, s), na * 2 * s + 2),
         ("K8f", f"8 packed LV members, T=35, {na} iterations",
-         (na * s + 2) * Fp, 16 + 35 + Pp + 35 * 16 + na * (32 + 2) + 4,
-         na * s + 2),
+         *adaptive_fwd(pk, 1, 35, na, na, s), na * s + 2),
         ("K8b", f"its adjoint, {na} accepted steps",
-         (na * s + 1) * (Fp + Vp),
-         32 + 2 * Pp + na * (32 + 2) + 4 + 35 * 16, na * 2 * s + 2),
+         *adaptive_bwd(pk, 1, 35, na, s), na * 2 * s + 2),
         ("K5f", "gray-box tsit5 step, 1-D n=32, grid 10",
          s * (lap_ops + phi_ops), 2 * n + n * n + 11, s),
         ("K5b", "its adjoint", s * (2 * lap_ops + phi_ops + phi_vjp),
          3 * n + n * n + 22, 2 * s),
-        ("K6f", "wide tsit5 step, [402,10,402] grid 10, K=1", s * Fw,
-         2 * 402 + Pw, s),
-        ("K6b", "its adjoint", s * (Fw + Vw), 3 * 402 + 2 * Pw, 2 * s),
-        ("K7f", "100 wide steps, K=1", 100 * s * Fw, 101 * 402 + Pw,
+        ("K6f", "wide tsit5 step, [402,10,402] grid 10, K=1",
+         *rk_step_fwd(wd, 1, s), s),
+        ("K6b", "its adjoint", *rk_step_bwd(wd, 1, s), 2 * s),
+        ("K7f", "100 wide steps, K=1", *rk_multistep_fwd(wd, 1, 100, s),
          100 * s),
-        ("K7b", "their reverse sweep", 100 * s * (Fw + Vw),
-         202 * 402 + 2 * Pw, 100 * 2 * s),
+        ("K7b", "their reverse sweep", *rk_multistep_bwd(wd, 1, 100, s),
+         100 * 2 * s),
         ("K10", "K7b's function (low-rank Jacobian route, K=1)",
-         100 * s * (Fw + Vw), 202 * 402 + 2 * Pw, 100 * 2 * s),
+         *rk_multistep_bwd(wd, 1, 100, s), 100 * 2 * s),
     ]
     out = []
     for kid, shapes, ops, floats, depth in rows:

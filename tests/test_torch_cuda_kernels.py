@@ -8,6 +8,9 @@ device. Imports no JAX, so it also runs on the GPU host, which has none
 chip_smoke.py makes the same comparisons at more shapes and times them.
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +21,9 @@ from kanodes_tpu_torch.ops import kdense_pallas as kp
 from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
 from kanodes_tpu_torch.ops import rk_fused as rk
 from kanodes_tpu_torch.ops.kdense_pallas import chain_spec_of
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -125,35 +131,31 @@ def test_chain_apply_kernels_match_plain(card, K, widths, grid_len, basis):
         torch.testing.assert_close(a, b, **GRAD)
 
 
-@pytest.mark.parametrize("solver,K,rtol,atol", [
-    ("tsit5", 1, 1e-3, 1e-6), ("bs3", 3, 1e-3, 1e-6),
-    ("tsit5", 1, 1e-6, 1e-8)])
-def test_adaptive_kernels_match_plain(card, solver, K, rtol, atol):
-    """Forward: the same steps (stats equal) and ys within 2e-5; backward
-    on the kernel's own records against the plain backward. At the LV
-    tolerances the inputs are the LV model's glorot init from (1, 1),
-    whose step sequence rounding cannot change (random weights give an
-    error estimate at the f32 rounding floor there: chip_smoke.py)."""
-    spec, x0, params, rng = inputs(card, K, seed=4)
-    if rtol < 1e-5:
-        model = KANChain.mlp_like([2, 10, 2], grid_len=5, device=card)
-        model.init(torch.Generator().manual_seed(0))
-        params = [p.detach().contiguous() for p in kp.fused_params(model)]
-        x0 = torch.ones_like(x0)
-    ts = torch.arange(0, 36, device=card, dtype=torch.float32) * 0.1
-    gys = torch.tensor(rng.standard_normal((36, K, 2)) / 36,
-                       dtype=torch.float32, device=card)
-    k = ra._consts(spec, solver, rtol, atol, StepController(), None)
+@pytest.mark.parametrize("index", range(len(chip_smoke.ADAPTIVE_CASES)))
+def test_adaptive_kernels_match_plain(card, index):
+    """chip_smoke's K4 cases (save-clipped ones at the LV tolerances;
+    steps the controller sizes, rejections under the I and PI
+    controllers, a dt0 too large): the same steps (stats equal), ys
+    within 2e-5, and the backward on the kernel's own records against
+    the plain backward."""
+    case = chip_smoke.ADAPTIVE_CASES[index]
+    x0, params, ts = chip_smoke.adaptive_case_inputs(torch, case)
+    spec = chain_spec_of(KANChain.mlp_like([2, 10, 2], grid_len=5))
+    ctrl = StepController.pi() if case.pi else StepController()
+    gys = torch.tensor(np.random.default_rng(index).standard_normal(
+        (ts.shape[0], case.K, 2)) / ts.shape[0], dtype=torch.float32,
+        device=card)
+    k = ra._consts(spec, case.solver, case.rtol, case.atol, ctrl, case.dt0)
     ra.reset_launch_counts()
-    ys, rec = ra._launch_fwd(k, 256, x0, ts, params)
+    ys, rec = ra._launch_fwd(k, case.max_steps, x0, ts, params)
     ys_ref, rec_ref = ra.fused_adaptive_odeint_reference(
-        spec, solver, rtol, atol, 256, StepController(), None, x0, ts,
-        *params)
+        spec, case.solver, case.rtol, case.atol, case.max_steps, ctrl,
+        case.dt0, x0, ts, *params)
     assert rec[4].tolist() == rec_ref[4].tolist()
     torch.testing.assert_close(ys, ys_ref, rtol=2e-5, atol=2e-5)
     got = ra._launch_bwd(k, x0, params, rec, gys)
-    want = ra.fused_adaptive_odeint_bwd_reference(spec, solver, x0, *params,
-                                                  rec, gys)
+    want = ra.fused_adaptive_odeint_bwd_reference(spec, case.solver, x0,
+                                                  *params, rec, gys)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, **GRAD)
     assert ra.LAUNCHES == {"fused_adaptive_odeint_fwd": 1,

@@ -40,3 +40,19 @@ def test_table_has_a_row_for_every_pallas_kernel():
     for r in rows:
         assert r["bound_ms"] > 0 and r["serial_depth"] >= 1
         assert r["bound_by"] in ("operations", "bytes")
+
+
+def test_per_kernel_counts_by_hand():
+    """The per-kernel (operations, floats) that table() and chip_smoke.py
+    both use, for a 1-1-1 chain of grid 1: 26 operations an evaluation,
+    70 with its VJP, 4 parameters."""
+    d = (1, 1, 1, 1)
+    assert kb.chain_apply_fwd(d, 2) == (52, 10)
+    # reads x, y1, gy and writes dx a row; reads and writes the params
+    assert kb.chain_apply_bwd(d, 2) == (88, 16)
+    assert kb.rk_step_fwd(d, 2, 3) == (156, 8)
+    assert kb.rk_multistep_bwd(d, 1, 2, 2) == (280, 14)
+    # 4 controller iterations of 2 evaluations, f(x0) and the dt probe;
+    # x0, ts[3], params, ys[3], 3 records of x_in, k1, dt, save index
+    assert kb.adaptive_fwd(d, 1, 3, 4, 3, 2) == (260, 27)
+    assert kb.adaptive_bwd(d, 1, 3, 3, 2) == (490, 29)

@@ -34,6 +34,8 @@ from kanodes_tpu_torch.ops import kdense_pallas as tkp
 from kanodes_tpu_torch.ops import rk_adaptive_fused as tra
 
 torch.set_num_threads(1)
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
 
 YS = dict(rtol=2e-5, atol=2e-5)
 GRAD = dict(rtol=5e-4, atol=1e-6)
@@ -212,46 +214,91 @@ def test_what_the_kernel_does_not_take_raises(lv_chain):
 
 @pytest.fixture
 def ulp_noise(monkeypatch):
-    """Every chain evaluation of the plain version moved by -1, 0 or +1
-    ulp at random (a stand-in for the kernel's own rounding)."""
+    """Every chain evaluation of the plain version moved by up to `ulps`
+    ulps either way at random (a stand-in for the kernel's own
+    rounding)."""
     orig = tra._chain_f
 
-    def arm(seed):
+    def arm(seed, ulps=1):
         gen = torch.Generator().manual_seed(seed)
 
         def noisy(x, *args):
             y, y1 = orig(x, *args)
-            step = torch.randint(-1, 2, y.shape, generator=gen)
-            away = torch.where(step > 0, np.inf, -np.inf).to(y.dtype)
-            return torch.where(step != 0, torch.nextafter(y, away), y), y1
+            step = torch.randint(-ulps, ulps + 1, y.shape, generator=gen)
+            for k in range(ulps):
+                y = torch.where(step > k, torch.nextafter(y, up(y)), y)
+                y = torch.where(step < -k, torch.nextafter(y, -up(y)), y)
+            return y, y1
         monkeypatch.setattr(tra, "_chain_f", noisy)
     return arm
 
 
-@pytest.mark.parametrize("index", range(5))
+def up(y):
+    return torch.full_like(y, np.inf)
+
+
+def case_inputs(case):
+    x0, params, ts = chip_smoke.adaptive_case_inputs(torch, case, "cpu")
+    ctrl = StepController.pi() if case.pi else StepController()
+    spec = tkp.chain_spec_of(KANChain.mlp_like([2, 10, 2], grid_len=5))
+    return spec, ctrl, x0, params, ts
+
+
+def plain_stats(case):
+    """The plain forward's (n_accept, n_reject, n_iter, save index) and
+    its records for a chip_smoke AdaptiveCase on the CPU."""
+    spec, ctrl, x0, params, ts = case_inputs(case)
+    with torch.no_grad():
+        _, rec = tra.fused_adaptive_odeint_reference(
+            spec, case.solver, case.rtol, case.atol, case.max_steps, ctrl,
+            case.dt0, x0, ts, *params)
+    return rec[4].tolist(), rec
+
+
+@pytest.mark.parametrize("index", range(len(chip_smoke.ADAPTIVE_CASES)))
 def test_chip_smoke_adaptive_cases_are_well_conditioned(ulp_noise, index):
     """chip_smoke.py holds the kernel's step counts to the plain
-    version's exactly; that only means something where one-ulp noise in
-    every chain evaluation leaves the step sequence as it is. Its K4
-    inputs must be such cases."""
-    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-    import chip_smoke
-    solver, _, rtol, atol, ms, _ = chip_smoke.ADAPTIVE_CASES[index]
-    x0, params = chip_smoke.adaptive_case_inputs(torch, index, "cpu")
-    spec = tkp.chain_spec_of(KANChain.mlp_like([2, 10, 2], grid_len=5))
-    ts = torch.arange(0, 36, dtype=torch.float32) * 0.1
+    version's exactly, and the kernel's gradients (on its own records)
+    to autograd through the plain forward at rtol 5e-4 / atol 1e-6. That
+    only means something where noise of up to two ulps in every chain
+    evaluation leaves the step sequence as it is and moves the gradients
+    by under half that tolerance. Its K4 inputs must be such cases."""
+    case = chip_smoke.ADAPTIVE_CASES[index]
+    spec, ctrl, x0, params, ts = case_inputs(case)
+    gys = torch.tensor(np.random.default_rng(index).standard_normal(
+        (ts.shape[0], case.K, 2)) / ts.shape[0], dtype=torch.float32)
+    xs = [t.clone().requires_grad_() for t in (x0, *params)]
+    ys, rec = tra.fused_adaptive_odeint_reference(
+        spec, case.solver, case.rtol, case.atol, case.max_steps, ctrl,
+        case.dt0, xs[0], ts, *xs[1:])
+    want = torch.autograd.grad(ys, xs, gys)
+    for seed in range(6):
+        ulp_noise(seed, ulps=2)
+        stats, rec_n = plain_stats(case)
+        assert stats == rec[4].tolist(), seed
+        got = tra.fused_adaptive_odeint_bwd_reference(
+            spec, case.solver, x0, *params, rec_n, gys)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2.5e-4,
+                                       atol=5e-7)
 
-    def stats():
-        with torch.no_grad():
-            _, rec = tra.fused_adaptive_odeint_reference(
-                spec, solver, rtol, atol, ms, StepController(), None, x0,
-                ts, *params)
-        return rec[4].tolist()
 
-    want = stats()
-    for seed in range(4):
-        ulp_noise(seed)
-        assert stats() == want, seed
+def test_chip_smoke_adaptive_cases_cover_the_controller():
+    """The cases take rejected steps under the I and the PI controller,
+    from a dt0 too large, steps the controller sizes itself, and all
+    three tableaus."""
+    seen = set()
+    for case in chip_smoke.ADAPTIVE_CASES:
+        (n_acc, n_rej, n_it, sidx), rec = plain_stats(case)
+        seen.add(case.solver)
+        if n_rej:
+            seen.add("rejected PI" if case.pi else "rejected I")
+            if case.dt0 is not None:
+                seen.add("dt0 rejected")
+        if int((rec[3] < 0).sum()) >= 10:
+            seen.add("controller sized")
+    assert seen >= {"tsit5", "dopri5", "bs3", "rejected I", "rejected PI",
+                    "dt0 rejected", "controller sized"}, seen
 
 
 def test_random_weights_at_lv_tolerances_are_ill_conditioned(ulp_noise):
@@ -279,3 +326,36 @@ def test_random_weights_at_lv_tolerances_are_ill_conditioned(ulp_noise):
         ulp_noise(seed)
         got.append(stats())
     assert any(g != want for g in got)
+
+
+def test_inputs_that_split_on_the_card_are_ill_conditioned(ulp_noise):
+    """+-0.3 weights and a state drawn from numpy seed 0 after 3152 other
+    draws, tsit5 at rtol 1e-6 / atol 1e-8 on the 0.1 grid: inputs on
+    which the kernel and the plain version once took different step
+    counts on an H100. The plain version takes 38 accepted steps and one
+    rejection, as float64 does; one-ulp noise in its chain evaluations
+    alone moves the counts, so these inputs cannot hold two f32
+    implementations to equal counts either."""
+    rng = np.random.default_rng(0)
+    rng.random(3152)
+    case = chip_smoke.AdaptiveCase("tsit5", 1, 1e-6, 1e-8, 256, "uniform")
+    x0, params = chip_smoke.lv_inputs(rng, torch, 1, device="cpu")
+    assert [round(v, 6) for v in x0[0].tolist()] == [0.563794, 0.931833]
+    spec = tkp.chain_spec_of(KANChain.mlp_like([2, 10, 2], grid_len=5))
+    ts = torch.arange(0, 36, dtype=torch.float32) * 0.1
+
+    def stats(dtype=torch.float32):
+        with torch.no_grad():
+            _, rec = tra.fused_adaptive_odeint_reference(
+                spec, case.solver, case.rtol, case.atol, case.max_steps,
+                StepController(), None, x0.to(dtype), ts.to(dtype),
+                *(p.to(dtype) for p in params))
+        return rec[4].tolist()
+
+    want = stats()
+    assert want == stats(torch.float64) == [38, 1, 39, 36]
+    got = []
+    for seed in range(8):
+        ulp_noise(seed)
+        got.append(stats())
+    assert sum(g != want for g in got) >= 2, got

@@ -5,13 +5,16 @@
 
 Builds the hand-written CUDA kernels from `kanodes_tpu_torch/csrc/`,
 holds each against its plain PyTorch version on the card, drives the LV
-KAN-ODE trainer (the port's main path) through
-`kanodes_tpu_torch.experiments.lv.run(..., device="cuda")` in four
-configurations (fused shooting, fused fixed, fused adaptive, pallas
-shooting), checks from the launch counters that each run went through
-its kernels, holds the adaptive kernel to its plain version again on the
-parameters that run ended with (train and eval grids), and times each
-kernel against its plain version with CUDA events.
+KAN-ODE trainer through `kanodes_tpu_torch.experiments.lv.run(...,
+device="cuda")` in four configurations (fused shooting, fused fixed,
+fused adaptive, pallas shooting), the gray-box source-recovery trainer
+through `experiments.pde_source.run(..., device="cuda")` in four (1-D
+Fisher-KPP fused and plain, 1-D Allen-Cahn and 2-D Fisher-KPP fused) and
+`KDense.apply(impl="pallas")`, checks from the launch counters that each
+run went through its kernels, holds the adaptive kernel to its plain
+version again on the parameters that run ended with (train and eval
+grids), and times each kernel against its plain version with CUDA
+events.
 
 Every phase prints one JSON line. The line before the last two is the
 kernel table, then the card's `nvidia-smi` name and power limit, and the
@@ -42,7 +45,9 @@ GRAD_TOL = dict(rtol=5e-4, atol=1e-6)
 _RK = "kanodes_tpu_torch/csrc/rk_fused.cu"
 _K1 = "kanodes_tpu_torch/csrc/kan_chain_apply.cu"
 _K4 = "kanodes_tpu_torch/csrc/rk_adaptive.cu"
-KERNELS = {
+_K5 = "kanodes_tpu_torch/csrc/graybox.cu"
+_K9 = "kanodes_tpu_torch/csrc/kdense_single.cu"
+LV_KERNELS = {
     "fused_rk_step_fwd": ("kanodes_tpu/ops/rk_fused.py:144", _RK),
     "fused_rk_step_bwd": ("kanodes_tpu/ops/rk_fused.py:167", _RK),
     "fused_rk_multistep_fwd": ("kanodes_tpu/ops/rk_fused.py:311", _RK),
@@ -54,6 +59,18 @@ KERNELS = {
     "fused_adaptive_odeint_bwd": (
         "kanodes_tpu/ops/rk_adaptive_fused.py:236", _K4),
 }
+SOURCE_KERNELS = {
+    "fused_graybox_rk_step_fwd": ("kanodes_tpu/ops/graybox_fused.py:116",
+                                  _K5),
+    "fused_graybox_rk_step_bwd": ("kanodes_tpu/ops/graybox_fused.py:137",
+                                  _K5),
+}
+KDENSE_KERNELS = {
+    "kdense_single_apply_fwd": ("kanodes_tpu/ops/kdense_pallas.py:346", _K9),
+    "kdense_single_apply_bwd": ("kanodes_tpu/ops/kdense_pallas.py:353", _K9),
+}
+KERNELS = {**LV_KERNELS, **SOURCE_KERNELS, **KDENSE_KERNELS}
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -152,6 +169,110 @@ def adaptive_case_inputs(torch, case, device="cuda"):
     return torch.ones((case.K, 2), device=device), params, ts
 
 
+class GrayboxCase(NamedTuple):
+    """A K5 kernel-vs-plain case: one `solver` step of the gray-box RHS
+    over K rows of N nodes (K None: the N x N field, Kronecker form) with
+    the cyclic Laplacian of spacing dx, diffusion D and step dt. States
+    from U(lo, 1), c [1, 10] and w from U(-0.5, 0.5), the cotangent
+    normal; numpy seed `seed`."""
+    label: str
+    solver: str
+    K: int | None
+    N: int
+    dx: float
+    D: float
+    dt: float
+    lo: float = 0.0
+    normalizer: str = "softsign"
+    seed: int = 0
+
+
+# the source-recovery shapes and steps (Fisher-KPP 1-D: 26 nodes, dt
+# 0.5/8; Allen-Cahn 1-D: 41 nodes, D < 0, dt 0.01/2; 2-D: 32 x 32, dt
+# 0.5/16 and 0.01/2), more rows, the other stage prunings (bs3, rk4), the
+# tanh normalizer, and more nodes than a block has threads
+GRAYBOX_CASES = (
+    GrayboxCase("Fisher-KPP 1-D [1, 26]", "tsit5", 1, 26, 0.04, 0.01,
+                0.0625),
+    GrayboxCase("Allen-Cahn 1-D [1, 41]", "tsit5", 1, 41, 0.05, -1e-4,
+                0.005, lo=-1.0, seed=1),
+    GrayboxCase("K=3 rows [3, 26]", "tsit5", 3, 26, 0.04, 0.01, 0.0625,
+                seed=2),
+    GrayboxCase("bs3 [1, 26]", "bs3", 1, 26, 0.04, 0.01, 0.0625, seed=3),
+    GrayboxCase("rk4 tanh [1, 26]", "rk4", 1, 26, 0.04, 0.01, 0.0625,
+                normalizer="tanh", seed=4),
+    GrayboxCase("kron n=8", "tsit5", None, 8, 1 / 8, 0.01, 0.03125, seed=5),
+    GrayboxCase("kron n=32 (2-D Fisher-KPP)", "tsit5", None, 32, 1 / 32,
+                0.01, 0.03125, seed=6),
+    GrayboxCase("kron n=32 (2-D Allen-Cahn)", "tsit5", None, 32, 2 / 32,
+                -1e-4, 0.005, lo=-1.0, seed=7),
+    GrayboxCase("K=64 rows [64, 26], threads loop", "tsit5", 64, 26, 0.04,
+                0.01, 0.0625, seed=8),
+)
+
+
+def graybox_case_inputs(torch, gb, case, device="cuda"):
+    """(spec, kron, u, lap, c, w, gy) of a GrayboxCase."""
+    import numpy as np
+    from kanodes_tpu_torch.pde.datagen import _cyclic_lap
+    rng = np.random.default_rng(case.seed)
+    kron = case.K is None
+    shape = (case.N, case.N) if kron else (case.K, case.N)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    return (gb.GrayboxSpec(10, case.normalizer), kron,
+            t(rng.uniform(case.lo, 1.0, shape)),
+            t(_cyclic_lap(case.N, case.dx)),
+            t(rng.uniform(-0.5, 0.5, (1, 10))),
+            t(rng.uniform(-0.5, 0.5, (1, 1))),
+            t(rng.standard_normal(shape)))
+
+
+class SingleCase(NamedTuple):
+    """A K9 kernel-vs-plain case: one KDense layer [I -> O] of grid G
+    over K rows; x from U(lo, 1.5), c and w from U(-0.5, 0.5), the
+    cotangent normal; numpy seed `seed`."""
+    label: str
+    I: int
+    O: int
+    G: int
+    normalizer: str
+    K: int
+    lo: float = -1.5
+    seed: int = 0
+
+
+# the gray-box source layer over the 1-D field and the 2-D one, an LV
+# layer, and a layer with O != I over several forward blocks
+SINGLE_CASES = (
+    SingleCase("the 1->1 softsign source layer, K=26", 1, 1, 10, "softsign",
+               26, lo=0.0),
+    SingleCase("[2->10] tanh, grid 5, K=34", 2, 10, 5, "tanh", 34, seed=1),
+    SingleCase("[3->5] softsign, grid 7, K=300", 3, 5, 7, "softsign", 300,
+               seed=2),
+    SingleCase("the 1->1 source layer, K=1024", 1, 1, 10, "softsign", 1024,
+               lo=-1.0, seed=3),
+)
+
+
+def single_case_inputs(torch, kp, case, device="cuda"):
+    """(spec, x, c, w, gy) of a SingleCase."""
+    import numpy as np
+    rng = np.random.default_rng(case.seed)
+    I, O, G = case.I, case.O, case.G
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    return (kp.ChainSpec(I, O, O, G, normalizer=case.normalizer),
+            t(rng.uniform(case.lo, 1.5, (case.K, I))),
+            t(rng.uniform(-0.5, 0.5, (I * G, O))),
+            t(rng.uniform(-0.5, 0.5, (I, O))),
+            t(rng.standard_normal((case.K, O))))
+
+
 def assert_close(failures, name, got, want, tol):
     err = float((got - want).abs().max())
     bound = float((tol["atol"] + tol["rtol"] * want.abs()).min())
@@ -164,10 +285,10 @@ def assert_close(failures, name, got, want, tol):
     return err
 
 
-def check_grads(failures, max_err, key, label, got, plain, auto):
+def check_grads(failures, max_err, key, label, got, plain, auto,
+                names=("dx", "dc1", "dw1", "dc2", "dw2")):
     """Kernel gradients against the plain backward and against autograd
     through the plain forward."""
-    names = ("dx", "dc1", "dw1", "dc2", "dw2")
     for name, a, b, c in zip(names, got, plain, auto):
         e = assert_close(failures, f"{label} {name}", a, b, GRAD_TOL)
         assert_close(failures, f"{label} {name} vs autograd", a, c,
@@ -370,15 +491,119 @@ def phase_trained_adaptive(torch, kp, ra, spec, rng, StepController,
     return u0, data["ts"][:data["n_train"]].contiguous(), params
 
 
+def within(torch, got, want, tol) -> bool:
+    return bool(((got - want).abs()
+                 <= tol["atol"] + tol["rtol"] * want.abs()).all())
+
+
+def graybox_rule(torch, failures, label, got, plain, ref64, tol):
+    """One K5 output against its plain version. Elementwise within `tol`,
+    unless the plain f32 version itself misses the float64 result by more
+    than `tol`: then the case is conditioned beyond float32 at this
+    tolerance (tsit5's large coefficients on a stiff operator, dt |lambda|
+    up to 2.6 on the 2-D field), two f32 orders of the same sums differ
+    by more than it, and the float64 rule decides alone. The float64 rule
+    holds always: the kernel's error against float64 at most twice the
+    plain f32 version's, plus atol."""
+    err = float((got - plain).abs().max())
+    err_k = float((got.double() - ref64).abs().max())
+    err_p = float((plain.double() - ref64).abs().max())
+    elementwise = within(torch, plain.double(), ref64, tol)
+    if elementwise:
+        assert_close(failures, label, got, plain, tol)
+    if err_k > 2 * err_p + tol["atol"]:
+        failures.append(f"{label}: error vs float64 {err_k:.3e} > 2 x plain "
+                        f"f32's {err_p:.3e} + atol")
+    return err, {"max_abs_err": err, "kernel_err_vs_f64": err_k,
+                 "plain_f32_err_vs_f64": err_p,
+                 "rule": "elementwise" if elementwise else "float64"}
+
+
+def graybox_references(torch, gb, case, inputs):
+    """The plain f32 forward and backward of a GrayboxCase and its float64
+    result (forward and autograd cotangents)."""
+    spec, kron, u, lap, c, w, gy = inputs
+    step = (spec, case.solver, case.dt, case.D)
+    y_ref = gb.fused_graybox_rk_step_reference(*step, u, lap, c, w, kron)
+    g_ref = gb.fused_graybox_rk_step_bwd_reference(*step, u, lap, c, w, gy,
+                                                   kron)
+    xs = [t.double().requires_grad_() for t in (u, c, w)]
+    y64 = gb.fused_graybox_rk_step_reference(*step, xs[0], lap.double(),
+                                             xs[1], xs[2], kron)
+    g64 = torch.autograd.grad(y64, xs, gy.double())
+    return y_ref, g_ref, y64.detach(), g64
+
+
+def phase_graybox_kernels(torch, gb, max_err):
+    """K5 vs its plain version on the card, GRAYBOX_CASES: one line per
+    case, the step and its three cotangents (du, dc, dw), each held by
+    `graybox_rule` against the plain forward and backward and the float64
+    result (autograd through the plain forward in float64)."""
+    for case in GRAYBOX_CASES:
+        failures = []
+        inputs = graybox_case_inputs(torch, gb, case)
+        spec, kron, u, lap, c, w, gy = inputs
+        step = (spec, case.solver, case.dt, case.D)
+        y = gb._launch_fwd(*step, u, lap, c, w, kron)
+        g = gb._launch_bwd(*step, u, lap, c, w, gy, kron)
+        y_ref, g_ref, y64, g64 = graybox_references(torch, gb, case, inputs)
+        e, detail = graybox_rule(torch, failures, "K5f", y, y_ref, y64,
+                                 FWD_TOL)
+        details = {"y": detail}
+        max_err["fused_graybox_rk_step_fwd"] = max(
+            max_err["fused_graybox_rk_step_fwd"], e)
+        for name, a, b, ref in zip(("du", "dc", "dw"), g, g_ref, g64):
+            err, details[name] = graybox_rule(torch, failures, f"K5b {name}",
+                                              a, b, ref, GRAD_TOL)
+            max_err["fused_graybox_rk_step_bwd"] = max(
+                max_err["fused_graybox_rk_step_bwd"], err)
+        torch.cuda.synchronize()
+        finish_phase({"phase": "graybox_kernels", "kernel": "K5",
+                      "case": case.label, "solver": case.solver,
+                      "shape": list(u.shape), "D": case.D, "dt": case.dt,
+                      "fwd_tol": FWD_TOL, "grad_tol": GRAD_TOL,
+                      "outputs": details}, failures)
+
+
+def phase_kdense_single(torch, kp, max_err):
+    """K9 vs its plain version on the card, SINGLE_CASES: one line per
+    case, the forward and (dx, dc, dw)."""
+    for case in SINGLE_CASES:
+        failures = []
+        spec, x, c, w, gy = single_case_inputs(torch, kp, case)
+        y = kp._launch_single_fwd(spec, x, c, w)
+        y_ref = kp.kdense_single_apply_reference(spec, x, c, w)
+        e = assert_close(failures, "K9f", y, y_ref, FWD_TOL)
+        max_err["kdense_single_apply_fwd"] = max(
+            max_err["kdense_single_apply_fwd"], e)
+        g = kp._launch_single_bwd(spec, x, c, w, gy)
+        g_ref = kp.kdense_single_apply_bwd_reference(spec, x, c, w, gy)
+        xs = [t.clone().requires_grad_() for t in (x, c, w)]
+        g_auto = torch.autograd.grad(
+            kp.kdense_single_apply_reference(spec, *xs), xs, gy)
+        check_grads(failures, max_err, "kdense_single_apply_bwd", "K9b", g,
+                    g_ref, g_auto, names=("dx", "dc", "dw"))
+        torch.cuda.synchronize()
+        finish_phase({"phase": "kdense_single", "kernel": "K9",
+                      "case": case.label, "fwd_max_abs_err": e,
+                      "fwd_tol": FWD_TOL, "grad_tol": GRAD_TOL}, failures)
+
+
+def train_blocks(cfg):
+    """(iterations run, evals) of train() for cfg.iters and
+    cfg.eval_every: whole blocks, each ending in one eval."""
+    evals = max(cfg.iters // cfg.eval_every, 1)
+    inner = max(cfg.iters // evals, 1)
+    n_evals = evals * math.ceil(cfg.iters / (evals * inner))
+    return n_evals * inner, n_evals
+
+
 def expected_launches(cfg, n_train, n_save):
     """Kernel launches one lv.run() implies (train blocks as train()
     rounds them: every block ends in one eval)."""
     from kanodes_tpu_torch.ode.tableaus import get_tableau
     from kanodes_tpu_torch.ops.rk_fused import _needed_stages
-    evals = max(cfg.iters // cfg.eval_every, 1)
-    inner = max(cfg.iters // evals, 1)
-    n_evals = evals * math.ceil(cfg.iters / (evals * inner))
-    iters = n_evals * inner
+    iters, n_evals = train_blocks(cfg)
     want = {k: 0 for k in KERNELS}
     shooting = cfg.solve_mode == "shooting"
     steps = (cfg.segment_len if shooting else n_train - 1) * cfg.substeps
@@ -476,9 +701,147 @@ def phase_main_path(torch, lv, modules, card):
                "card": card}
         emit(res)
         finals[run_name(cfg)] = out
-    for name in KERNELS:
+    for name in LV_KERNELS:
         assert launches[name] > 0, f"{name} never launched on the main path"
     return launches, finals
+
+
+# the gray-box source runs: (label, SourceConfig fields) at full width,
+# cut in iterations (eval_every stays 500: one eval at the end)
+SOURCE_RUNS = (
+    ("fisher_kpp 1-D fused", dict(problem="fisher_kpp", impl="fused",
+                                  iters=200)),
+    ("allen_cahn 1-D fused", dict(problem="allen_cahn", impl="fused",
+                                  iters=50)),
+    ("fisher_kpp 2-D fused", dict(problem="fisher_kpp", ndim=2,
+                                  impl="fused", iters=50)),
+    ("fisher_kpp 1-D xla", dict(problem="fisher_kpp", impl="xla",
+                                iters=50)),
+)
+
+
+def expected_source_launches(cfg, data):
+    """Kernel launches one pde_source.run() implies: on the fused path one
+    K5f a step for every loss and eval, one K5b a step for every loss."""
+    iters, n_evals = train_blocks(cfg)
+    steps = (len(data.ts) - 1) * cfg.resolved_substeps()
+    want = {k: 0 for k in KERNELS}
+    if cfg.impl == "fused":
+        want["fused_graybox_rk_step_fwd"] = (iters + n_evals) * steps
+        want["fused_graybox_rk_step_bwd"] = iters * steps
+    return want, steps
+
+
+def source_loss_and_grads(torch, ps, cfg, data, params, impl):
+    """The source loss and its gradients (C, W) through `impl` at params."""
+    import dataclasses
+    model = ps.make_model(cfg, "cuda")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(params[name])
+    loss_fn, _, _ = ps.make_fns(dataclasses.replace(cfg, impl=impl), model,
+                                data)
+    loss = loss_fn(model)
+    return loss.detach(), torch.autograd.grad(loss, [model.C, model.W])
+
+
+def phase_source_main_path(torch, ps, modules, card):
+    """The gray-box source trainer on the card (SOURCE_RUNS) through
+    `pde_source.run(..., device="cuda")`: exact K5 launch counts, a
+    descending loss, and the fused and the plain ("xla") loss and
+    gradients equal at the run's final parameters (the JAX suite's
+    gray-box experiment tolerances, tests/test_pde_experiments.py:270-272).
+    The law is recovered (SINDy) from the Fisher-KPP fused run and
+    printed, not gated: 200 iterations do not recover it."""
+    launches = {k: 0 for k in KERNELS}
+    for label, kw in SOURCE_RUNS:
+        cfg = ps.SourceConfig(**kw)
+        torch.cuda.synchronize()
+        reset_counts(modules)
+        t0 = time.perf_counter()
+        out = ps.run(cfg, device="cuda",
+                     generator=torch.Generator().manual_seed(cfg.seed))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts(modules)
+        want, steps = expected_source_launches(cfg, out["data"])
+        assert counts == want, f"{label}: launches {counts} != {want}"
+        for name in KERNELS:
+            launches[name] += counts[name]
+        tensors = [out["loss_history"], out["best_loss"],
+                   *out["params"].values(), *out["model"].parameters()]
+        assert all(t.is_cuda for t in tensors), "a result left the card"
+        losses = out["loss_history"].cpu()
+        assert losses.shape == (cfg.iters,), losses.shape
+        assert bool(torch.isfinite(losses).all()), "non-finite train loss"
+        first, last = float(losses[0]), float(losses[-1])
+        assert last < first, f"{label}: last loss {last} !< first {first}"
+        lx, gx = source_loss_and_grads(torch, ps, cfg, out["data"],
+                                       out["params"], "xla")
+        lf, gf = source_loss_and_grads(torch, ps, cfg, out["data"],
+                                       out["params"], "fused")
+        failures = []
+        assert_close(failures, f"{label}: fused vs xla loss", lf, lx,
+                     dict(rtol=1e-4, atol=1e-9))
+        for name, a, b in zip(("dC", "dW"), gf, gx):
+            assert_close(failures, f"{label}: fused vs xla {name}", a, b,
+                         dict(rtol=2e-3, atol=1e-6))
+        line = {"phase": "source_main_path", "run": label,
+                "shape": list(out["data"].X.shape[1:]),
+                "steps_per_loss": steps, "iters": cfg.iters,
+                "first_loss": first, "last_loss": last,
+                "best_loss": float(out["best_loss"]),
+                "launches": {k: v for k, v in counts.items() if v},
+                "seconds": seconds, "it_per_s": cfg.iters / seconds,
+                "fused_loss": float(lf), "xla_loss": float(lx),
+                "card": card}
+        if label == "fisher_kpp 1-D fused":
+            rec = ps.recover_source(out, method="sindy")
+            line["recovered_sindy"] = rec["pretty"]
+            line["recovered_mse"] = rec["fit"].mse
+        finish_phase(line, failures)
+    for name in SOURCE_KERNELS:
+        assert launches[name] > 0, f"{name} never launched on the main path"
+    return launches
+
+
+def phase_kdense_pallas(torch, modules, KDense, card):
+    """`KDense.apply(impl="pallas")` on the card: the gray-box source layer
+    and an LV layer, each one K9f and one K9b launch for a forward and a
+    backward, against `impl="xla"`."""
+    launches = {k: 0 for k in KERNELS}
+    for I, O, G, norm, shape in ((1, 1, 10, "softsign", (26, 1)),
+                                 (2, 10, 5, "tanh", (2, 17, 2))):
+        failures = []
+        layer = KDense(I, O, G, normalizer=norm, device="cuda")
+        layer.init(torch.Generator().manual_seed(I))
+        gen = torch.Generator(device="cuda").manual_seed(O)
+        x = torch.rand(shape, generator=gen, device="cuda") * 2.0 - 0.5
+        gy = torch.randn((*shape[:-1], O), generator=gen, device="cuda")
+        leaves = [x.clone().requires_grad_(), layer.C, layer.W]
+        torch.cuda.synchronize()
+        reset_counts(modules)
+        y = layer.apply(leaves[0], impl="pallas")
+        got = torch.autograd.grad(y, leaves, gy)
+        torch.cuda.synchronize()
+        counts = read_counts(modules)
+        want = {k: 0 for k in KERNELS}
+        want.update(kdense_single_apply_fwd=1, kdense_single_apply_bwd=1)
+        assert counts == want, f"launches {counts} != {want}"
+        for name in KERNELS:
+            launches[name] += counts[name]
+        y_x = layer.apply(leaves[0], impl="xla")
+        want_g = torch.autograd.grad(y_x, leaves, gy)
+        assert_close(failures, "K9 y vs xla", y.detach(), y_x.detach(),
+                     FWD_TOL)
+        for name, a, b in zip(("dx", "dC", "dW"), got, want_g):
+            assert_close(failures, f"K9 {name} vs xla", a, b, GRAD_TOL)
+        finish_phase({"phase": "kdense_pallas",
+                      "layer": f"[{I}->{O}] grid {G} {norm}",
+                      "x_shape": list(shape),
+                      "launches": {k: v for k, v in counts.items() if v},
+                      "card": card}, failures)
+    return launches
 
 
 def cuda_ms(torch, fn, reps):
@@ -573,18 +936,9 @@ def phase_timings(torch, lv, rk, kp, ra, spec, rng, card, trained,
         lambda: ra._launch_bwd(ka, u0, fp, rec, gys),
         lambda: ra._bwd_plain(ka.tab, spec, u0, fp, grid, rec, gys),
         kb.bound(*kb.adaptive_bwd(dims, 1, T, n_acc, evals)))
-    times = {}
     with torch.no_grad():
-        for name, (kern, plain, (b_ms, b_by)) in cases.items():
-            # plain, kernel, kernel, plain: the two medians of each kind
-            # are kept; the reported number is their mean
-            p1 = cuda_ms(torch, plain, 5)
-            k1 = cuda_ms(torch, kern, 50)
-            k2 = cuda_ms(torch, kern, 50)
-            p2 = cuda_ms(torch, plain, 5)
-            times[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                           "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
-                           "bound_ms": b_ms, "bound_by": b_by}
+        times = {name: kernel_vs_plain_ms(torch, kern, plain, b)
+                 for name, (kern, plain, b) in cases.items()}
         chain_k1 = {name: {"ms": cuda_ms(torch, kern, 50),
                            "plain_ms": cuda_ms(torch, plain, 5),
                            "bound_ms": b[0]}
@@ -611,6 +965,97 @@ def phase_timings(torch, lv, rk, kp, ra, spec, rng, card, trained,
     return times
 
 
+def kernel_vs_plain_ms(torch, kern, plain, bound):
+    """plain, kernel, kernel, plain: the two medians of each kind are kept
+    and the reported number is their mean."""
+    b_ms, b_by = bound
+    p1 = cuda_ms(torch, plain, 5)
+    k1 = cuda_ms(torch, kern, 50)
+    k2 = cuda_ms(torch, kern, 50)
+    p2 = cuda_ms(torch, plain, 5)
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def device_us(torch, fn, reps=20):
+    """Device microseconds per call of fn(): the kernels' own time under
+    torch.profiler (as experiments/profile_lv.py counts it), without the
+    host time that CUDA events around a call from Python include."""
+    from kanodes_tpu_torch.experiments.profile_lv import _device_us, _is_kernel
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    host_keys = {e.key for e in events
+                 if e.device_type != torch.autograd.DeviceType.CUDA}
+    return sum(_device_us(e) for e in events
+               if _is_kernel(e, host_keys)) / reps
+
+
+def phase_source_timings(torch, gb, kp, card):
+    """K5 and K9 against their plain versions at the shapes of the source
+    path: K5 (tsit5, grid 10) at Fisher-KPP 1-D [1, 26] (the kernels
+    line), Allen-Cahn 1-D [1, 41] and the 2-D field [32, 32]; K9 at the
+    1->1 source layer over K=26 (the kernels line) and an LV layer [2->10]
+    over K=34. CUDA-event ms, the profiler's device µs per launch, and
+    the bound from `kanodes_tpu_torch/utils/kernel_bounds.py`."""
+    from kanodes_tpu_torch.utils import kernel_bounds as kb
+    cases = {}
+    for case in (GRAYBOX_CASES[0], GRAYBOX_CASES[1], GRAYBOX_CASES[6]):
+        spec, kron, u, lap, c, w, gy = graybox_case_inputs(torch, gb, case)
+        step = (spec, case.solver, case.dt, case.D)
+        shape = (u.numel(), u.shape[1], kron, spec.G,
+                 gb._consts(case.solver, case.dt).n_slots)
+        cases[case.label] = {
+            "fused_graybox_rk_step_fwd": (
+                lambda step=step, u=u, lap=lap, c=c, w=w, kron=kron:
+                    gb._launch_fwd(*step, u, lap, c, w, kron),
+                lambda step=step, u=u, lap=lap, c=c, w=w, kron=kron:
+                    gb.fused_graybox_rk_step_reference(*step, u, lap, c, w,
+                                                       kron),
+                kb.bound(*kb.graybox_step_fwd(*shape))),
+            "fused_graybox_rk_step_bwd": (
+                lambda step=step, u=u, lap=lap, c=c, w=w, gy=gy, kron=kron:
+                    gb._launch_bwd(*step, u, lap, c, w, gy, kron),
+                lambda step=step, u=u, lap=lap, c=c, w=w, gy=gy, kron=kron:
+                    gb.fused_graybox_rk_step_bwd_reference(*step, u, lap, c,
+                                                           w, gy, kron),
+                kb.bound(*kb.graybox_step_bwd(*shape)))}
+    for case in (SINGLE_CASES[0], SINGLE_CASES[1]):
+        spec, x, c, w, gy = single_case_inputs(torch, kp, case)
+        dims = (case.I, case.O, case.G, case.K)
+        cases[case.label] = {
+            "kdense_single_apply_fwd": (
+                lambda spec=spec, x=x, c=c, w=w:
+                    kp._launch_single_fwd(spec, x, c, w),
+                lambda spec=spec, x=x, c=c, w=w:
+                    kp.kdense_single_apply_reference(spec, x, c, w),
+                kb.bound(*kb.single_fwd(*dims))),
+            "kdense_single_apply_bwd": (
+                lambda spec=spec, x=x, c=c, w=w, gy=gy:
+                    kp._launch_single_bwd(spec, x, c, w, gy),
+                lambda spec=spec, x=x, c=c, w=w, gy=gy:
+                    kp.kdense_single_apply_bwd_reference(spec, x, c, w, gy),
+                kb.bound(*kb.single_bwd(*dims)))}
+    timed = {}
+    with torch.no_grad():
+        for label, kernels in cases.items():
+            timed[label] = {}
+            for name, (kern, plain, bound) in kernels.items():
+                t = kernel_vs_plain_ms(torch, kern, plain, bound)
+                t["device_us"] = device_us(torch, kern)
+                timed[label][name] = t
+    emit({"phase": "timings", "path": "source and KDense", "cases": timed,
+          "card": card})
+    return {**timed[GRAYBOX_CASES[0].label], **timed[SINGLE_CASES[0].label]}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "kanodes_tpu_torch")):
         raise SystemExit("chip_smoke.py: kanodes_tpu_torch/ is not beside "
@@ -621,9 +1066,11 @@ def main() -> int:
                          "False; this smoke run needs a CUDA device")
     sys.path.insert(0, REPO)
     from kanodes_tpu_torch.experiments import lv
-    from kanodes_tpu_torch.models.kdense import KANChain
+    from kanodes_tpu_torch.experiments import pde_source as ps
+    from kanodes_tpu_torch.models.kdense import KANChain, KDense
     from kanodes_tpu_torch.ode.integrate import StepController
     from kanodes_tpu_torch.ops import _cuda
+    from kanodes_tpu_torch.ops import graybox_fused as gb
     from kanodes_tpu_torch.ops import kdense_pallas as kp
     from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
     from kanodes_tpu_torch.ops import rk_fused as rk
@@ -654,13 +1101,20 @@ def main() -> int:
     phase_kernels(torch, rk, spec, rng, max_err)
     phase_chain_kernels(torch, kp, KANChain, rng, max_err)
     phase_adaptive_kernels(torch, ra, spec, rng, StepController, max_err)
+    phase_graybox_kernels(torch, gb, max_err)
+    phase_kdense_single(torch, kp, max_err)
 
-    modules = (rk, kp, ra)
+    modules = (rk, kp, ra, gb)
     launches, finals = phase_main_path(torch, lv, modules, card)
+    for counts in (phase_source_main_path(torch, ps, modules, card),
+                   phase_kdense_pallas(torch, modules, KDense, card)):
+        for name in KERNELS:
+            launches[name] += counts[name]
     trained = phase_trained_adaptive(torch, kp, ra, spec, rng,
                                      StepController, finals, max_err)
     times = phase_timings(torch, lv, rk, kp, ra, spec, rng, card, trained,
                           StepController)
+    times.update(phase_source_timings(torch, gb, kp, card))
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -3,7 +3,8 @@
 Each command forwards argv unchanged to its module's own CLI, as
 ``python -m kanodes_tpu`` does: ``python -m kanodes_tpu_torch lv
 --iters=2000`` is ``python -m kanodes_tpu_torch.experiments.lv
---iters=2000``. Only the commands of the ported slices exist.
+--iters=2000``, and ``source`` runs ``experiments.pde_source``. Only the
+commands of the ported slices exist.
 """
 
 from __future__ import annotations
@@ -18,6 +19,12 @@ MODULE_COMMANDS: dict[str, tuple[str, str]] = {
            "--impl=xla|fused|pallas, --rtol/--atol/--max_steps/--adjoint "
            "for adaptive; KANODE_LV_* env + --key=value overrides, "
            "--device=cuda|cpu, default cuda)"),
+    "source": ("kanodes_tpu_torch.experiments.pde_source",
+               "hidden-physics source recovery (Fisher-KPP 2e4 + Allen-Cahn "
+               "5e4 iters on the fused gray-box kernel, then GP recovery; "
+               "--problem=fisher_kpp|allen_cahn, --ndim=1|2, "
+               "--impl=xla|fused, --key=value overrides, "
+               "--device=cuda|cpu, default cuda)"),
 }
 
 

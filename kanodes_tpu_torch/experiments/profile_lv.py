@@ -55,7 +55,16 @@ def profile(cfg: lv.LVConfig, iters: int = 20, warmup: int = 5,
     model = lv.make_model(cfg, device)
     lv.init_params(cfg, model)
     loss_fn, eval_fn, _ = lv.make_ode_fns(cfg, model, data)
-    opt = make_optimizer(TrainConfig(lr=cfg.lr), model.parameters())
+    return measure(f"{cfg.impl}/{cfg.solve_mode}", model, loss_fn, eval_fn,
+                   cfg.lr, iters, warmup, top)
+
+
+def measure(run: str, model, loss_fn, eval_fn, lr: float, iters: int,
+            warmup: int, top: int) -> dict:
+    """Profile `iters` Adam iterations of loss_fn on `model` (on the card)
+    after `warmup`, then time one eval; the JSON record described above,
+    labelled `run`."""
+    opt = make_optimizer(TrainConfig(lr=lr), model.parameters())
 
     def step():
         opt.zero_grad(set_to_none=True)
@@ -98,7 +107,7 @@ def profile(cfg: lv.LVConfig, iters: int = 20, warmup: int = 5,
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     return {
-        "run": f"{cfg.impl}/{cfg.solve_mode}", "iters": iters,
+        "run": run, "iters": iters,
         "wall_ms_per_iter": wall_ms, "device_busy_ms_per_iter": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "top_kernels": [

@@ -86,11 +86,13 @@ class KDense(nn.Module):
 
     def apply(self, x: Tensor, *, impl: str = "xla") -> Tensor:
         """Forward pass [..., I] -> [..., O]. `impl="xla"` is the plain
-        composition; the single-layer kernel (`impl="pallas"`) waits
-        (ROADMAP.md, K9)."""
+        composition; `impl="pallas"` runs the single-layer kernel K9
+        (`ops/kdense_pallas.kdense_pallas`; rbf layers only)."""
+        if impl == "pallas":
+            from kanodes_tpu_torch.ops.kdense_pallas import kdense_pallas
+            return kdense_pallas(self, x)
         if impl != "xla":
-            raise NotImplementedError(
-                f"KDense impl={impl!r} is not ported yet (ROADMAP.md, K9)")
+            raise ValueError(f"impl must be 'xla' or 'pallas', got {impl!r}")
         bas = self.basis_values(x)
         flat = bas.reshape(*bas.shape[:-2], self.in_dims * self.grid_len)
         y = flat @ self.C.reshape(self.in_dims * self.grid_len,

@@ -33,7 +33,8 @@ BUILD_DIR = CSRC / "build"
 # the adaptive controller's accept/reject threshold sees the same rounding
 # as the plain version (csrc/rk_adaptive.cu, "Numbers").
 SOURCES = {"rk_fused.cu": (), "kan_chain_apply.cu": (),
-           "rk_adaptive.cu": ("-fmad=false",)}
+           "rk_adaptive.cu": ("-fmad=false",), "kdense_single.cu": (),
+           "graybox.cu": ()}
 HEADERS = ("kan_chain.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,6 +42,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # must equal KC_MAX_I, KC_MAX_H, KC_MAX_G, KC_MAX_STAGES, KC_MAX_ADAPT_ROWS
 # of kan_chain.cuh (checked against the library at load)
 MAX_I, MAX_H, MAX_G, MAX_STAGES, MAX_ADAPT_ROWS = 8, 32, 16, 7, 256
+# K9 (kdense_single.cu): in_dims <= KD_MAX_I, out_dims <= KC_MAX_H
+MAX_SINGLE_I = 32
+# K5 (graybox.cu): GB_MAX_NODES, GB_MAX_N, GB_MAX_G, GB_MAX_STAGES
+MAX_GB_NODES, MAX_GB_N, MAX_GB_G, MAX_GB_STAGES = 2048, 64, 16, 7
 
 _NORMALIZERS = {"tanh": 0, "softsign": 1}
 _BASES = {"rbf": 0, "iqf": 1, "rswaf": 2}
@@ -105,6 +110,21 @@ _SIGNATURES = {
     # x0, c1, w1, c2, w2, rx, rk1, rdt, rsx, stats, gys, T, dx0, dc1, dw1,
     # dc2, dw2, scratch, K, dims, tab, stream
     "kc_adaptive_bwd": [_P] * 11 + [_I] + [_P] * 6 + [_I] + [_P] * 3,
+    # x, c, w, y, K, dims, stream
+    "kd_single_fwd": [_P] * 4 + [_I] + [_P] * 2,
+    # x, gy, c, w, dx, dc, dw, scratch, K, dims, stream
+    "kd_single_bwd": [_P] * 8 + [_I] + [_P] * 2,
+    # u, lap, c, w, y, tab, stream
+    "gb_step_fwd": [_P] * 7,
+    # u, lap, c, w, gy, du, dc, dw, tab, stream
+    "gb_step_bwd": [_P] * 10,
+}
+
+# caps function -> the wrapper's values it must report
+_CAPS = {
+    "kc_caps": (MAX_I, MAX_H, MAX_G, MAX_STAGES, MAX_ADAPT_ROWS),
+    "kd_caps": (MAX_SINGLE_I, MAX_H, MAX_G),
+    "gb_caps": (MAX_GB_NODES, MAX_GB_N, MAX_GB_G, MAX_GB_STAGES),
 }
 
 
@@ -174,16 +194,17 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.kc_caps.argtypes = [_P]
-    lib.kc_caps.restype = None
     lib.kc_error_string.argtypes = [_I]
     lib.kc_error_string.restype = ctypes.c_char_p
-    want = (MAX_I, MAX_H, MAX_G, MAX_STAGES, MAX_ADAPT_ROWS)
-    caps = (ctypes.c_int * len(want))()
-    lib.kc_caps(ctypes.addressof(caps))
-    if tuple(caps) != want:
-        raise RuntimeError(f"kernel caps {tuple(caps)} != wrapper caps "
-                           f"{want}")
+    for name, want in _CAPS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [_P]
+        fn.restype = None
+        caps = (ctypes.c_int * len(want))()
+        fn(ctypes.addressof(caps))
+        if tuple(caps) != want:
+            raise RuntimeError(f"{name}: kernel caps {tuple(caps)} != "
+                               f"wrapper caps {want}")
     return lib
 
 

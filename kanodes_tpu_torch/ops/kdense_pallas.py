@@ -18,15 +18,19 @@ only because Mosaic cannot reshape, and are not ported.
 tensor launches the kernel or raises; a CPU tensor runs the plain
 version (`kan_chain_apply_reference`, `kan_chain_apply_bwd_reference`).
 `kan_chain_rhs` makes it the right-hand side of an ODE (`impl="pallas"`).
-`LAUNCHES` counts kernel launches. The single-layer kernel
-(`kdense_single_apply`) waits (ROADMAP.md, K9).
+
+`kdense_single_apply` is one KDense layer x[K, I] -> [K, O] as one
+launch (K9f, `csrc/kdense_single.cu`) with its VJP (dx, dc, dw) as one
+more (K9b); `kdense_pallas` is what `KDense.apply(impl="pallas")` calls.
+Like the JAX kernel it computes the rbf basis whatever `spec.basis` says
+(`kdense_pallas.py:346-350` never passes it on), and `kdense_pallas`
+takes rbf layers only. `LAUNCHES` counts kernel launches.
 """
 
 from __future__ import annotations
 
-import dataclasses
-
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -37,7 +41,8 @@ Tensor = torch.Tensor
 
 # kernel launches since the last reset_launch_counts(); each wrapper adds
 # one where it launches its kernel, and nowhere else
-LAUNCHES = {"kan_chain_apply_fwd": 0, "kan_chain_apply_bwd": 0}
+LAUNCHES = {"kan_chain_apply_fwd": 0, "kan_chain_apply_bwd": 0,
+            "kdense_single_apply_fwd": 0, "kdense_single_apply_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -315,3 +320,123 @@ def kan_chain_rhs(chain):
         return y[0] if single else y
 
     return rhs
+
+
+# ---------------------------------------------------------------------------
+# the single-layer kernel K9 (KDense.apply(impl="pallas"))
+# ---------------------------------------------------------------------------
+
+def _single_spec(spec: ChainSpec) -> ChainSpec:
+    """The spec the layer math runs with: rbf, as the JAX kernel (its
+    `_single_fwd_kernel` calls `_layer_fwd` without `spec.basis`)."""
+    return dataclasses.replace(spec, basis="rbf")
+
+
+def kdense_single_apply_reference(spec: ChainSpec, x, c, w):
+    """Plain PyTorch version of K9f: y [K, O]; differentiable by autograd
+    through its ops."""
+    y, _, _ = _layer_fwd(x, c, w, grid_of(spec, x), spec.h, spec.normalizer)
+    return y
+
+
+def kdense_single_apply_bwd_reference(spec: ChainSpec, x, c, w, gy):
+    """Plain PyTorch version of K9b: (dx, dc, dw), the basis recomputed."""
+    _, u, b = _layer_fwd(x, c, w, grid_of(spec, x), spec.h, spec.normalizer)
+    return _layer_bwd(x, c, w, spec.h, u, b, gy, spec.normalizer)
+
+
+def check_single_launch(spec: ChainSpec, x, c, w) -> int:
+    """Validate a K9 launch: caps, x [K, I], c [I*G, O], w [I, O],
+    float32, contiguous. Returns K."""
+    I, O, G = spec.in_dims, spec.out_dims, spec.grid_len
+    if not (1 <= I <= _cuda.MAX_SINGLE_I and 1 <= O <= _cuda.MAX_H
+            and 2 <= G <= _cuda.MAX_G):
+        raise ValueError(f"kernel caps: in_dims <= {_cuda.MAX_SINGLE_I}, "
+                         f"out_dims <= {_cuda.MAX_H}, 2 <= G <= "
+                         f"{_cuda.MAX_G}; got I={I}, O={O}, G={G}")
+    if x.dim() != 2 or x.shape[1] != I or x.shape[0] < 1:
+        raise ValueError(f"x: shape {tuple(x.shape)} is not [K, {I}]")
+    for name, p, shape in (("c", c, (I * G, O)), ("w", w, (I, O))):
+        if tuple(p.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(p.shape)} != {shape}")
+    _cuda.check_tensors(x, c, w)
+    return x.shape[0]
+
+
+def _launch_single_fwd(spec: ChainSpec, x, c, w):
+    K = check_single_launch(spec, x, c, w)
+    y = torch.empty((K, spec.out_dims), dtype=torch.float32, device=x.device)
+    lib = _cuda.library()
+    with torch.cuda.device(x.device):
+        err = lib.kd_single_fwd(_cuda.ptr(x), _cuda.ptr(c), _cuda.ptr(w),
+                                _cuda.ptr(y), K,
+                                ctypes.byref(_cuda.chain_dims(spec)),
+                                _cuda.stream())
+    LAUNCHES["kdense_single_apply_fwd"] += 1
+    _cuda.check(err, "kdense_single_apply_fwd")
+    return y
+
+
+def _launch_single_bwd(spec: ChainSpec, x, c, w, gy):
+    K = check_single_launch(spec, x, c, w)
+    if tuple(gy.shape) != (K, spec.out_dims):
+        raise ValueError(f"gy: shape {tuple(gy.shape)} != "
+                         f"{(K, spec.out_dims)}")
+    _cuda.check_tensors(gy)
+    dx, dc, dw = (torch.empty_like(t) for t in (x, c, w))
+    width = spec.in_dims * (spec.grid_len + 1)     # basis row and swish(x)
+    scratch = torch.empty(K * width, dtype=torch.float32, device=x.device)
+    lib = _cuda.library()
+    with torch.cuda.device(x.device):
+        err = lib.kd_single_bwd(
+            _cuda.ptr(x), _cuda.ptr(gy), _cuda.ptr(c), _cuda.ptr(w),
+            _cuda.ptr(dx), _cuda.ptr(dc), _cuda.ptr(dw), _cuda.ptr(scratch),
+            K, ctypes.byref(_cuda.chain_dims(spec)), _cuda.stream())
+    LAUNCHES["kdense_single_apply_bwd"] += 1
+    _cuda.check(err, "kdense_single_apply_bwd")
+    return dx, dc, dw
+
+
+class _KDenseSingleApply(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, spec, x, c, w):
+        ctx.spec = spec
+        ctx.save_for_backward(x, c, w)
+        if _cuda.on_cuda(x, c, w):
+            return _launch_single_fwd(spec, x, c, w)
+        return kdense_single_apply_reference(spec, x, c, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, c, w = ctx.saved_tensors
+        gy = gy.contiguous()
+        if _cuda.on_cuda(gy, x, c, w):
+            grads = _launch_single_bwd(ctx.spec, x, c, w, gy)
+        else:
+            grads = kdense_single_apply_bwd_reference(ctx.spec, x, c, w, gy)
+        return (None, *grads)
+
+
+def kdense_single_apply(spec: ChainSpec, x, c, w):
+    """Fused single KDense layer: x[K, I] -> [K, O] with c[I*G, O],
+    w[I, O], in one launch, its VJP (dx, dc, dw) in one more.
+    `spec.hidden` is the layer's out_dims here; the basis is rbf."""
+    return _KDenseSingleApply.apply(_single_spec(spec), x, c, w)
+
+
+def kdense_pallas(layer, x):
+    """Dispatch target of `KDense.apply(x, impl="pallas")`: x [..., I] ->
+    [..., O] through `kdense_single_apply`."""
+    if (layer.basis, layer.base_act, layer.use_base_act) != \
+            ("rbf", "swish", True) or \
+            layer.normalizer not in ("tanh", "softsign"):
+        raise ValueError("fused path requires rbf basis, swish base act, "
+                         "and a tanh/softsign normalizer")
+    spec = ChainSpec(layer.in_dims, layer.out_dims, layer.out_dims,
+                     layer.grid_len,
+                     tuple(float(v) for v in layer.grid_lims),
+                     layer.denominator, layer.normalizer)
+    c = layer.C.reshape(-1, layer.C.shape[-1])
+    x2 = x.reshape(-1, layer.in_dims).contiguous()
+    y = kdense_single_apply(spec, x2, c, layer.W)
+    return y.reshape(*x.shape[:-1], layer.out_dims)

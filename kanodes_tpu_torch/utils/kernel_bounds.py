@@ -127,6 +127,53 @@ def adaptive_bwd(dims, K: int, T: int, n_acc: int,
             + 4 + T * K * I)
 
 
+def single_fwd(I: int, O: int, G: int, K: int) -> tuple[int, int]:
+    """K9f: one KDense layer, x [K, I] -> y [K, O]."""
+    return K * layer_ops(I, O, G), K * (I + O) + I * G * O + I * O
+
+
+def single_bwd(I: int, O: int, G: int, K: int) -> tuple[int, int]:
+    """K9b: x, gy -> dx, dc, dw (the basis recomputed)."""
+    return (K * layer_vjp_ops(I, O, G),
+            K * (2 * I + O) + 2 * (I * G * O + I * O))
+
+
+def graybox_known_ops(nodes: int, N: int, kron: bool) -> int:
+    """D * known(u) over all nodes: a length-N dot per node (u @ lap), or
+    two of them with `kron` (lap @ U + U @ lap), then the scale by D."""
+    return nodes * (2 * N * (2 if kron else 1) + 1)
+
+
+def graybox_step_fwd(nodes: int, N: int, kron: bool, G: int,
+                     evals: int) -> tuple[int, int]:
+    """K5f: one RK step of the gray-box RHS over `nodes` states (K rows of
+    N, or the n x n field with `kron`, N = n): `evals` stages of the
+    known operator plus the pointwise 1->1 layer. Reads u, lap, c, w;
+    writes y."""
+    ops = evals * (graybox_known_ops(nodes, N, kron)
+                   + nodes * layer_ops(1, 1, G))
+    return ops, 2 * nodes + N * N + G + 1
+
+
+def graybox_step_bwd(nodes: int, N: int, kron: bool, G: int,
+                     evals: int) -> tuple[int, int]:
+    """K5b: the stages rebuilt, then per stage the operator applied to the
+    stage cotangent and the layer's VJP. Reads u, lap, c, w, gy; writes
+    du, dc, dw."""
+    known = graybox_known_ops(nodes, N, kron)
+    ops = evals * (2 * known + nodes * (layer_ops(1, 1, G)
+                                        + layer_vjp_ops(1, 1, G)))
+    return ops, 3 * nodes + N * N + 2 * (G + 1)
+
+
+# the gray-box states of the source-recovery problems: (label, nodes, N,
+# kron) for 1-D Fisher-KPP (26 nodes), 1-D Allen-Cahn (41) and the 2-D
+# fields (32 x 32), pde/datagen.py
+GRAYBOX_SHAPES = (("1-D Fisher-KPP, [1, 26]", 26, 26, False),
+                  ("1-D Allen-Cahn, [1, 41]", 41, 41, False),
+                  ("2-D, [32, 32] (kron)", 1024, 32, True))
+
+
 def table(n_adapt: int = 35) -> list[dict]:
     """Every kernel of PERF.md's table at the shapes its row states.
     `n_adapt`: controller iterations (= accepted steps) of one adaptive
@@ -138,19 +185,17 @@ def table(n_adapt: int = 35) -> list[dict]:
     pk = (16, 80, 16, 5)
     # Schrodinger surrogate [402,10,402], grid 10 (pde_surrogate.py:6)
     wd = (402, 10, 402, 10)
-    # 1-D Fisher-KPP gray box: n = 32 nodes (pde/datagen.py:71), the
-    # pointwise 1->1 KDense of grid 10, D lap@u as a dense matvec
-    n, g = 32, 10
-    lap_ops = 2 * n * n
-    phi_ops, phi_vjp = n * layer_ops(1, 1, g), n * layer_vjp_ops(1, 1, g)
+    # the gray-box source model: the pointwise 1->1 KDense of grid 10
+    # (experiments/pde_source.py) on the 1-D Fisher-KPP field
+    g = 10
+    _, nodes, n, kron = GRAYBOX_SHAPES[0]
     na = n_adapt
     rows = [
         ("K1f", "K=34 rows, LV chain", *chain_apply_fwd(lv, 34), 1),
         ("K1b", "K=34 rows, LV chain", *chain_apply_bwd(lv, 34), 1),
-        ("K9f", "one LV layer [2->10], K=34", 34 * layer_ops(2, 10, 5),
-         34 * 12 + 120, 1),
-        ("K9b", "one LV layer [2->10], K=34", 34 * layer_vjp_ops(2, 10, 5),
-         34 * 14 + 240, 1),
+        ("K9f", "the 1->1 gray-box layer, grid 10, K=26",
+         *single_fwd(1, 1, g, 26), 1),
+        ("K9b", "its VJP, K=26", *single_bwd(1, 1, g, 26), 1),
         ("K2f", "one tsit5 step, K=34", *rk_step_fwd(lv, 34, s), s),
         ("K2b", "one tsit5 step, K=34", *rk_step_bwd(lv, 34, s), 2 * s),
         ("K3f", "34 tsit5 steps, K=1", *rk_multistep_fwd(lv, 1, 34, s),
@@ -165,10 +210,10 @@ def table(n_adapt: int = 35) -> list[dict]:
          *adaptive_fwd(pk, 1, 35, na, na, s), na * s + 2),
         ("K8b", f"its adjoint, {na} accepted steps",
          *adaptive_bwd(pk, 1, 35, na, s), na * 2 * s + 2),
-        ("K5f", "gray-box tsit5 step, 1-D n=32, grid 10",
-         s * (lap_ops + phi_ops), 2 * n + n * n + 11, s),
-        ("K5b", "its adjoint", s * (2 * lap_ops + phi_ops + phi_vjp),
-         3 * n + n * n + 22, 2 * s),
+        ("K5f", "gray-box tsit5 step, 1-D Fisher-KPP [1, 26], grid 10",
+         *graybox_step_fwd(nodes, n, kron, g, s), s),
+        ("K5b", "its adjoint, [1, 26]",
+         *graybox_step_bwd(nodes, n, kron, g, s), 2 * s),
         ("K6f", "wide tsit5 step, [402,10,402] grid 10, K=1",
          *rk_step_fwd(wd, 1, s), s),
         ("K6b", "its adjoint", *rk_step_bwd(wd, 1, s), 2 * s),
@@ -179,12 +224,27 @@ def table(n_adapt: int = 35) -> list[dict]:
         ("K10", "K7b's function (low-rank Jacobian route, K=1)",
          *rk_multistep_bwd(wd, 1, 100, s), 100 * 2 * s),
     ]
+    # the other shapes the ported kernels of the source and KDense paths
+    # run at, as extra bounds on their rows
+    also = {
+        "K5f": [(lbl, *graybox_step_fwd(nn, nN, kr, g, s))
+                for lbl, nn, nN, kr in GRAYBOX_SHAPES[1:]],
+        "K5b": [(lbl, *graybox_step_bwd(nn, nN, kr, g, s))
+                for lbl, nn, nN, kr in GRAYBOX_SHAPES[1:]],
+        "K9f": [("layer [2->10], grid 5, K=34", *single_fwd(2, 10, 5, 34))],
+        "K9b": [("layer [2->10], grid 5, K=34", *single_bwd(2, 10, 5, 34))],
+    }
     out = []
     for kid, shapes, ops, floats, depth in rows:
         ms, by = bound(ops, floats)
-        out.append({"kernel": kid, "shapes": shapes, "operations": ops,
-                    "floats": floats, "bound_ms": ms, "bound_by": by,
-                    "serial_depth": depth})
+        row = {"kernel": kid, "shapes": shapes, "operations": ops,
+               "floats": floats, "bound_ms": ms, "bound_by": by,
+               "serial_depth": depth}
+        if kid in also:
+            row["also"] = [{"shapes": lbl, "bound_ms": bound(o, f)[0],
+                            "bound_by": bound(o, f)[1]}
+                           for lbl, o, f in also[kid]]
+        out.append(row)
     return out
 
 

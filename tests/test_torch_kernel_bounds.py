@@ -56,3 +56,30 @@ def test_per_kernel_counts_by_hand():
     # x0, ts[3], params, ys[3], 3 records of x_in, k1, dt, save index
     assert kb.adaptive_fwd(d, 1, 3, 4, 3, 2) == (260, 27)
     assert kb.adaptive_bwd(d, 1, 3, 3, 2) == (490, 29)
+
+
+def test_single_layer_and_graybox_counts_by_hand():
+    """K9 on a 1->1 layer of grid 1 (13 operations a row, 22 for its
+    VJP, 2 parameters), and K5 on two nodes of a 2-node operator."""
+    assert kb.single_fwd(1, 1, 1, 2) == (26, 6)
+    # reads x, gy and writes dx a row; reads and writes the parameters
+    assert kb.single_bwd(1, 1, 1, 2) == (44, 10)
+    # a length-2 dot (4) and the scale by D (1) a node; two dots with kron
+    assert kb.graybox_known_ops(2, 2, False) == 10
+    assert kb.graybox_known_ops(4, 2, True) == 36
+    # one stage: the operator (10) and the layer (2 x 13); u, y, lap, c, w
+    assert kb.graybox_step_fwd(2, 2, False, 1, 1) == (36, 10)
+    # the operator twice, the layer and its VJP; u, gy, du, lap, c, w, dc, dw
+    assert kb.graybox_step_bwd(2, 2, False, 1, 1) == (90, 14)
+
+
+def test_ported_rows_bound_every_shape_the_slice_runs():
+    rows = {r["kernel"]: r for r in kb.table()}
+    for kid in ("K5f", "K5b"):
+        shapes = [rows[kid]["shapes"]] + [a["shapes"]
+                                          for a in rows[kid]["also"]]
+        assert any("26" in s for s in shapes)
+        assert any("41" in s for s in shapes)
+        assert any("32, 32" in s for s in shapes)
+    assert "K=26" in rows["K9f"]["shapes"]
+    assert "K=34" in rows["K9b"]["also"][0]["shapes"]

@@ -9,7 +9,10 @@ KAN-ODE trainer through `kanodes_tpu_torch.experiments.lv.run(...,
 device="cuda")` in four configurations (fused shooting, fused fixed,
 fused adaptive, pallas shooting), the gray-box source-recovery trainer
 through `experiments.pde_source.run(..., device="cuda")` in four (1-D
-Fisher-KPP fused and plain, 1-D Allen-Cahn and 2-D Fisher-KPP fused) and
+Fisher-KPP fused and plain, 1-D Allen-Cahn and 2-D Fisher-KPP fused), the
+PDE full-state surrogate trainer through `experiments.pde_surrogate.run(
+..., device="cuda")` in five (Schrödinger fused fixed and shooting, 2-D
+Allen-Cahn fused shooting, Burgers through the wide kernels and plain) and
 `KDense.apply(impl="pallas")`, checks from the launch counters that each
 run went through its kernels, holds the adaptive kernel to its plain
 version again on the parameters that run ended with (train and eval
@@ -69,7 +72,18 @@ KDENSE_KERNELS = {
     "kdense_single_apply_fwd": ("kanodes_tpu/ops/kdense_pallas.py:346", _K9),
     "kdense_single_apply_bwd": ("kanodes_tpu/ops/kdense_pallas.py:353", _K9),
 }
-KERNELS = {**LV_KERNELS, **SOURCE_KERNELS, **KDENSE_KERNELS}
+_KW = "kanodes_tpu_torch/csrc/rk_fused_wide.cu"
+WIDE_KERNELS = {
+    "fused_rk_step_wide_fwd": ("kanodes_tpu/ops/rk_fused_wide.py:406", _KW),
+    "fused_rk_step_wide_bwd": ("kanodes_tpu/ops/rk_fused_wide.py:429", _KW),
+    "fused_rk_multistep_wide_fwd": ("kanodes_tpu/ops/rk_fused_wide.py:526",
+                                    _KW),
+    "fused_rk_multistep_wide_bwd": ("kanodes_tpu/ops/rk_fused_wide.py:549",
+                                    _KW),
+    "fused_rk_multistep_wide_bwd_lr": (
+        "kanodes_tpu/ops/rk_fused_wide.py:774", _KW),
+}
+KERNELS = {**LV_KERNELS, **SOURCE_KERNELS, **KDENSE_KERNELS, **WIDE_KERNELS}
 
 
 def emit(obj) -> None:
@@ -271,6 +285,74 @@ def single_case_inputs(torch, kp, case, device="cuda"):
             t(rng.uniform(-0.5, 0.5, (I * G, O))),
             t(rng.uniform(-0.5, 0.5, (I, O))),
             t(rng.standard_normal((case.K, O))))
+
+
+class WideCase(NamedTuple):
+    """A K6/K7/K10 kernel-vs-plain case: `n` steps of `solver` at step
+    `dt` over K rows of a wide chain [I, H, I] of grid G padded to
+    `block` lanes. Weights from U(-s, s) with the glorot s = sqrt(6 / (I +
+    H)), states N(0, 0.3), cotangents N(0, 1) / (n K) on every stored
+    state (`dense`) or on the last one; numpy seed `seed`."""
+    label: str
+    I: int
+    H: int
+    G: int
+    block: int
+    K: int
+    n: int
+    solver: str = "tsit5"
+    dt: float = 0.005
+    dense: bool = True
+    basis: str = "rbf"
+    normalizer: str = "softsign"
+    seed: int = 0
+
+
+# a small padded chain (Ipad > I over three blocks), the Schrödinger
+# surrogate [402,10,402] grid 10 (Ipad 512) and the 2-D Allen-Cahn one
+# [1024,10,1024] at the rows and steps their losses launch (K = 1 and 7 or
+# 4; n = 20 and 40 at dt = 0.1 / 20), one step, both tableaus, a cotangent
+# on every state and on the last only
+_SCH = (402, 10, 10, 128)
+_AC2 = (1024, 10, 10, 128)
+WIDE_CASES = (
+    WideCase("small padded [70,6,70] K=3 n=4", 70, 6, 5, 32, 3, 4, dt=0.04),
+    WideCase("small padded K=1 n=4 rk4 iqf/tanh", 70, 6, 5, 32, 1, 4, "rk4",
+             0.04, basis="iqf", normalizer="tanh", seed=1),
+    WideCase("Schrodinger K=1 n=1", *_SCH, 1, 1, seed=2),
+    WideCase("Schrodinger K=1 n=8", *_SCH, 1, 8, seed=3),
+    WideCase("Schrodinger K=7 n=8 rk4, last-state cotangent", *_SCH, 7, 8,
+             "rk4", dense=False, seed=4),
+    WideCase("Schrodinger K=1 n=40, last-state cotangent", *_SCH, 1, 40,
+             dense=False, seed=5),
+    WideCase("Schrodinger K=7 n=40", *_SCH, 7, 40, seed=6),
+    WideCase("2-D Allen-Cahn K=1 n=8", *_AC2, 1, 8, seed=7),
+    WideCase("2-D Allen-Cahn K=4 n=1 rk4", *_AC2, 4, 1, "rk4", seed=8),
+    WideCase("2-D Allen-Cahn K=4 n=40, last-state cotangent", *_AC2, 4, 40,
+             dense=False, seed=9),
+    WideCase("2-D Allen-Cahn K=1 n=40", *_AC2, 1, 40, seed=10),
+)
+
+
+def wide_case_inputs(torch, tw, kp, case, device="cuda"):
+    """(ws, padded params, x0 [K, Ipad], gys [n, K, Ipad]) of a WideCase."""
+    import numpy as np
+    rng = np.random.default_rng(case.seed)
+    I, H, G = case.I, case.H, case.G
+    ws = tw.WideSpec(kp.ChainSpec(I, H, I, G, normalizer=case.normalizer,
+                                  basis=case.basis), case.block)
+    lim = math.sqrt(6.0 / (I + H))
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    pp = ws.pad_params(*(t(rng.uniform(-lim, lim, shape)) for shape in
+                         ((I * G, H), (I, H), (H * G, I), (H, I))))
+    x0 = ws.pad_state(t(rng.normal(0, 0.3, (case.K, I))))
+    gys = torch.zeros((case.n, case.K, ws.Ipad), device=device)
+    for r in (range(case.n) if case.dense else (case.n - 1,)):
+        gys[r, :, :I] = t(rng.normal(0, 1, (case.K, I)) / (case.n * case.K))
+    return ws, pp, x0, gys
 
 
 def assert_close(failures, name, got, want, tol):
@@ -587,6 +669,354 @@ def phase_kdense_single(torch, kp, max_err):
         finish_phase({"phase": "kdense_single", "kernel": "K9",
                       "case": case.label, "fwd_max_abs_err": e,
                       "fwd_tol": FWD_TOL, "grad_tol": GRAD_TOL}, failures)
+
+
+WIDE_NAMES = ("dx0", "dc1p", "dw1p", "dc2p", "dw2p")
+
+
+def phase_wide_kernels(torch, tw, kp, max_err):
+    """K6, K7 and K10 vs their plain versions on the card, WIDE_CASES: one
+    line per case. K7f: elementwise, or for n >= 40 the float64 rule. K7b
+    and, at K = 1, K10: each cotangent by `graybox_rule` against the plain
+    adjoint (of K10: the plain low-rank one) and the plain adjoint run in
+    float64; K10 also against K7b, atol 3e-6 on cotangents scaled by their
+    max (tests/test_rk_fused_wide.py:163-167). n = 1: K6 equals K7 bit for
+    bit; n = 8: K6f stepped n times against K7f's states. Every backward
+    is launched twice and must repeat bit for bit."""
+    for case in WIDE_CASES:
+        failures, details = [], {}
+        ws, pp, x0, gys = wide_case_inputs(torch, tw, kp, case)
+        n, K = case.n, case.K
+        k = tw._consts(ws, case.solver, case.dt)
+        pp64 = tuple(p.double() for p in pp)
+        ys = tw._launch_multistep_fwd(k, n, x0, pp)
+        ys_ref = tw._multistep_fwd_wide_plain(k, n, x0, pp)
+        ys64 = tw._multistep_fwd_wide_plain(k, n, x0.double(), pp64)
+        if n >= 40:
+            details["ys"] = f64_rule(failures, "K7f", ys, ys_ref, ys64)
+            e = details["ys"]["max_abs_err"]
+        else:
+            e = assert_close(failures, "K7f", ys, ys_ref, FWD_TOL)
+            details["ys"] = {"max_abs_err": e, "rule": "elementwise"}
+        if float(ys[..., case.I:].abs().sum()) != 0.0:
+            failures.append("K7f: pad lanes of ys are not zero")
+        max_err["fused_rk_multistep_wide_fwd"] = max(
+            max_err["fused_rk_multistep_wide_fwd"], e)
+
+        g64 = tw._multistep_bwd_wide_plain(k, n, x0.double(), ys64, pp64,
+                                           gys.double())
+        runs = [("fused_rk_multistep_wide_bwd", "K7b",
+                 tw._launch_multistep_bwd, tw._multistep_bwd_wide_plain)]
+        if K == 1:
+            runs.append(("fused_rk_multistep_wide_bwd_lr", "K10",
+                         tw._launch_multistep_bwd_lr,
+                         tw._multistep_bwd_lr_wide_plain))
+        got = {}
+        for key, kid, launch, plain in runs:
+            g = got[kid] = launch(k, n, x0, ys, pp, gys)
+            again = launch(k, n, x0, ys, pp, gys)
+            if not all(bool((a == b).all()) for a, b in zip(g, again)):
+                failures.append(f"{kid}: two launches differ")
+            g_ref = plain(k, n, x0, ys, pp, gys)
+            for name, a, b, ref in zip(WIDE_NAMES, g, g_ref, g64):
+                err, details[f"{kid} {name}"] = graybox_rule(
+                    torch, failures, f"{kid} {name}", a, b, ref, GRAD_TOL)
+                max_err[key] = max(max_err[key], err)
+        if K == 1:
+            for name, a, b in zip(WIDE_NAMES, got["K10"], got["K7b"]):
+                scale = float(b.abs().max()) + 1e-12
+                assert_close(failures, f"K10 vs K7b {name} (scaled)",
+                             a / scale, b / scale, dict(rtol=0, atol=3e-6))
+        if n == 1:
+            y = tw._launch_step_fwd(k, x0, pp)
+            gs = tw._launch_step_bwd(k, x0, pp, gys[0])
+            same = bool((y == ys[0]).all()) and all(
+                bool((a == b).all()) for a, b in zip(gs, got["K7b"]))
+            if not same:
+                failures.append("K6 differs from K7 at n = 1")
+            e = assert_close(failures, "K6f", y,
+                             tw._step_fwd_wide_plain(k, x0, pp), FWD_TOL)
+            max_err["fused_rk_step_wide_fwd"] = max(
+                max_err["fused_rk_step_wide_fwd"], e)
+            g_ref = tw._step_bwd_wide_plain(k, x0, pp, gys[0])
+            for name, a, b, ref in zip(WIDE_NAMES, gs, g_ref, g64):
+                err, details[f"K6b {name}"] = graybox_rule(
+                    torch, failures, f"K6b {name}", a, b, ref, GRAD_TOL)
+                max_err["fused_rk_step_wide_bwd"] = max(
+                    max_err["fused_rk_step_wide_bwd"], err)
+        if n == 8:
+            x = x0
+            for s in range(n):
+                x = tw._launch_step_fwd(k, x, pp)
+                assert_close(failures, f"K6f scan step {s} vs K7f", x, ys[s],
+                             FWD_TOL)
+        torch.cuda.synchronize()
+        finish_phase({"phase": "wide_kernels", "kernels": "K6, K7, K10",
+                      "case": case.label, "solver": case.solver,
+                      "shape": [n, K, ws.Ipad], "I": case.I,
+                      "fwd_tol": FWD_TOL, "grad_tol": GRAD_TOL,
+                      "outputs": details}, failures)
+
+
+# the full-state surrogate runs: (label, SurrogateConfig fields) at full
+# width and the reference's substeps, cut only in iterations (one eval at
+# the end)
+SURROGATE_RUNS = (
+    ("schrodinger fused fixed", dict(problem="schrodinger", impl="fused",
+                                     iters=30, eval_every=30)),
+    ("schrodinger fused shooting", dict(problem="schrodinger", impl="fused",
+                                        solve_mode="shooting", iters=30,
+                                        eval_every=30)),
+    ("allen_cahn_2d fused shooting", dict(problem="allen_cahn_2d",
+                                          impl="fused",
+                                          solve_mode="shooting", iters=30,
+                                          eval_every=30)),
+    ("burgers fused fixed (wide kernels)", dict(
+        problem="burgers", impl="fused", wide_kernels=True, iters=30,
+        eval_every=30)),
+    ("burgers xla fixed", dict(problem="burgers", impl="xla", iters=8,
+                               eval_every=8)),
+)
+
+
+def expected_surrogate_launches(sg, cfg, data):
+    """Kernel launches one pde_surrogate.run() implies, from its static
+    step plan. Wide fused path: one K7f per snapshot interval for every
+    trajectory loss and eval (the reference's float32 snapshot times are
+    no exact multiples of the base step, so there is no single launch),
+    each with one K10 in the backward (K = 1); a shooting loss is one K7f
+    per group of equally long segments, and one K10 (a single segment) or
+    K7b in the backward."""
+    iters, n_evals = train_blocks(cfg)
+    plan = sg.step_plan(cfg, data)
+    want = {k: 0 for k in KERNELS}
+    if cfg.impl != "fused":
+        return want, plan
+    per_traj = 1 if plan["uniform"] else len(plan["interval_steps"])
+    fwd, lr, std = per_traj * n_evals, 0, 0
+    if cfg.solve_mode == "shooting":
+        sizes = [len(sel) for _, sel in plan["groups"]]
+        fwd += iters * len(sizes)
+        lr = iters * sum(1 for n in sizes if n == 1)
+        std = iters * sum(1 for n in sizes if n > 1)
+    else:
+        fwd += iters * per_traj
+        lr = iters * per_traj
+    want["fused_rk_multistep_wide_fwd"] = fwd
+    want["fused_rk_multistep_wide_bwd_lr"] = lr
+    want["fused_rk_multistep_wide_bwd"] = std
+    return want, plan
+
+
+def surrogate_loss_and_grads(torch, sg, cfg, data, params, device):
+    """The surrogate's training loss and its gradients at `params`, with
+    the model on `device`: on the card through the kernels, on the CPU
+    through their plain versions."""
+    model = sg.make_model(cfg, data, device)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(params[name])
+    loss = sg.make_fns(cfg, model, data)[0](model)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return loss.detach().cpu(), [g.cpu() for g in grads]
+
+
+def phase_surrogate_main_path(torch, sg, tw, modules, card):
+    """The PDE-surrogate trainer on the card (SURROGATE_RUNS) through
+    `pde_surrogate.run(..., device="cuda")`: exact launch counts, a best
+    loss below the first, and, for the fused runs, the loss and gradients
+    through the kernels equal to the same objective through their plain
+    versions (the model copied to the CPU) at the run's final parameters.
+    Then `wide_chain_adapter(multistep=False)` on the trained Schrödinger
+    model: K6f and K6b once per step, the result equal to the multistep
+    adapter's. Returns the launches."""
+    import dataclasses
+    launches = {k: 0 for k in KERNELS}
+    trained = None
+    for label, kw in SURROGATE_RUNS:
+        cfg = sg.SurrogateConfig(**kw)
+        torch.cuda.synchronize()
+        reset_counts(modules)
+        t0 = time.perf_counter()
+        out = sg.run(cfg, device="cuda",
+                     generator=torch.Generator().manual_seed(cfg.seed))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts(modules)
+        want, plan = expected_surrogate_launches(sg, cfg, out["data"])
+        assert counts == want, f"{label}: launches {counts} != {want}"
+        for name in KERNELS:
+            launches[name] += counts[name]
+        tensors = [out["loss_history"], out["best_loss"],
+                   *out["params"].values(), *out["model"].parameters()]
+        assert all(t.is_cuda for t in tensors), "a result left the card"
+        losses = out["loss_history"].cpu()
+        evals = out["eval_history"].cpu()
+        assert losses.shape == (cfg.iters,), losses.shape
+        assert bool(torch.isfinite(losses).all()), "non-finite train loss"
+        assert bool(torch.isfinite(evals).all()), "non-finite eval loss"
+        first, best = float(losses[0]), float(out["best_loss"])
+        assert best < first, f"{label}: best loss {best} !< first {first}"
+        failures = []
+        line = {"phase": "surrogate_main_path", "run": label,
+                "widths": [out["model"].in_dims, cfg.hidden,
+                           out["model"].out_dims],
+                "interval_steps": plan["interval_steps"],
+                "uniform": plan["uniform"],
+                "shooting_groups": [len(sel) for _, sel in plan["groups"]],
+                "iters": cfg.iters, "first_loss": first, "best_loss": best,
+                "last_loss": float(losses[-1]),
+                "last_eval": float(evals[-1]),
+                "launches": {k: v for k, v in counts.items() if v},
+                "seconds": seconds, "it_per_s": cfg.iters / seconds,
+                "card": card}
+        if cfg.impl == "fused":
+            lk, gk = surrogate_loss_and_grads(torch, sg, cfg, out["data"],
+                                              out["params"], "cuda")
+            lp, gp = surrogate_loss_and_grads(torch, sg, cfg, out["data"],
+                                              out["params"], "cpu")
+            assert_close(failures, f"{label}: kernel vs plain loss", lk, lp,
+                         dict(rtol=1e-4, atol=1e-9))
+            for a, b in zip(gk, gp):
+                assert_close(failures, f"{label}: kernel vs plain gradient",
+                             a, b, dict(rtol=2e-3, atol=1e-6))
+            xla = dataclasses.replace(cfg, impl="xla")
+            model = out["model"]
+            with torch.no_grad():
+                lx = sg.make_fns(xla, model, out["data"])[0](model)
+            line.update(kernel_loss=float(lk), plain_loss=float(lp),
+                        xla_loss_other_step_grid=float(lx))
+        if label == "schrodinger fused shooting":
+            trained = out
+        finish_phase(line, failures)
+
+    # K6 through its public entry point, on the trained Schrödinger model
+    model, data = trained["model"], trained["data"]
+    idx = sg._SNAPSHOTS["schrodinger"]["idx"]
+    starts = torch.as_tensor(data.X[idx[:-1]], dtype=torch.float32,
+                             device="cuda")
+    n_steps, length = 40, 0.2
+    outs = {}
+    for multistep in (True, False):
+        _, advance = tw.wide_chain_adapter(model, multistep=multistep)
+        model.zero_grad()
+        torch.cuda.synchronize()
+        reset_counts(modules)
+        y = advance(model, starts, length / n_steps, n_steps)
+        y.pow(2).mean().backward()
+        torch.cuda.synchronize()
+        counts = read_counts(modules)
+        outs[multistep] = (y.detach(), [p.grad.clone()
+                                        for p in model.parameters()], counts)
+    counts = outs[False][2]
+    want = {k: 0 for k in KERNELS}
+    want.update(fused_rk_step_wide_fwd=n_steps, fused_rk_step_wide_bwd=n_steps)
+    assert counts == want, f"K6 adapter: launches {counts} != {want}"
+    for name in KERNELS:
+        launches[name] += counts[name]
+    failures = []
+    assert_close(failures, "K6 scan vs K7 adapter", outs[False][0],
+                 outs[True][0], FWD_TOL)
+    for a, b in zip(outs[False][1], outs[True][1]):
+        assert_close(failures, "K6 scan vs K7 adapter gradient", a, b,
+                     GRAD_TOL)
+    finish_phase({"phase": "surrogate_main_path",
+                  "run": "wide_chain_adapter(multistep=False), Schrodinger",
+                  "shape": list(starts.shape), "n_steps": n_steps,
+                  "launches": {k: v for k, v in counts.items() if v},
+                  "card": card}, failures)
+    for name in WIDE_KERNELS:
+        assert launches[name] > 0, f"{name} never launched on the main path"
+    return launches
+
+
+def phase_wide_timings(torch, tw, kp, card):
+    """K6, K7 and K10 against their plain versions at the shapes the
+    surrogates launch them: per snapshot interval of 0.2 (n = 40 steps of
+    tsit5 at dt 0.005) at K = 1 (trajectory loss) and at the shooting
+    group's K (7 Schrödinger, 4 2-D Allen-Cahn), the first interval (n =
+    20, K = 1), one step (K6), and the whole trajectory in one launch (n
+    = 300 / 180, kernel only). CUDA-event ms, the profiler's device µs
+    per launch, and the bound from `utils/kernel_bounds.py`. The kernels
+    line takes the Schrödinger rows."""
+    from kanodes_tpu_torch.utils import kernel_bounds as kb
+    timed, line = {}, {}
+    for (label, dims, Ks, n_all), geometry in zip(kb.WIDE_SHAPES,
+                                                  (_SCH, _AC2)):
+        def inputs(K, n, seed):
+            ws, pp, x0, _ = wide_case_inputs(torch, tw, kp, WideCase(
+                label, *geometry, K, n, seed=seed))
+            k = tw._consts(ws, "tsit5", 0.005)
+            ys = tw._launch_multistep_fwd(k, n, x0, pp)
+            return k, pp, x0, ys, torch.randn_like(ys) / (n * K)
+
+        s, pairs = 6, kb.TSIT5_PAIRS
+        cases = {}
+        for K, n in ((1, 40), (Ks, 40), (1, 20)):
+            k, pp, x0, ys, gys = inputs(K, n, 20 + K + n)
+            cases[f"K7f K={K} n={n}"] = (
+                lambda k=k, n=n, x0=x0, pp=pp:
+                    tw._launch_multistep_fwd(k, n, x0, pp),
+                lambda k=k, n=n, x0=x0, pp=pp:
+                    tw._multistep_fwd_wide_plain(k, n, x0, pp),
+                kb.bound(*kb.wide_multistep_fwd(dims, K, n, s)))
+            if K == 1:
+                cases[f"K10 K=1 n={n}"] = (
+                    lambda k=k, n=n, x0=x0, ys=ys, pp=pp, gys=gys:
+                        tw._launch_multistep_bwd_lr(k, n, x0, ys, pp, gys),
+                    lambda k=k, n=n, x0=x0, ys=ys, pp=pp, gys=gys:
+                        tw._multistep_bwd_lr_wide_plain(k, n, x0, ys, pp,
+                                                        gys),
+                    kb.bound(*kb.wide_multistep_bwd_lr(dims, n, s, pairs)))
+            if n == 40:
+                cases[f"K7b K={K} n=40"] = (
+                    lambda k=k, n=n, x0=x0, ys=ys, pp=pp, gys=gys:
+                        tw._launch_multistep_bwd(k, n, x0, ys, pp, gys),
+                    lambda k=k, n=n, x0=x0, ys=ys, pp=pp, gys=gys:
+                        tw._multistep_bwd_wide_plain(k, n, x0, ys, pp, gys),
+                    kb.bound(*kb.wide_multistep_bwd(dims, K, n, s)))
+            if K == Ks:
+                gy = gys[0].contiguous()
+                cases[f"K6f K={K}"] = (
+                    lambda k=k, x0=x0, pp=pp: tw._launch_step_fwd(k, x0, pp),
+                    lambda k=k, x0=x0, pp=pp:
+                        tw._step_fwd_wide_plain(k, x0, pp),
+                    kb.bound(*kb.wide_step_fwd(dims, K, s)))
+                cases[f"K6b K={K}"] = (
+                    lambda k=k, x0=x0, pp=pp, gy=gy:
+                        tw._launch_step_bwd(k, x0, pp, gy),
+                    lambda k=k, x0=x0, pp=pp, gy=gy:
+                        tw._step_bwd_wide_plain(k, x0, pp, gy),
+                    kb.bound(*kb.wide_step_bwd(dims, K, s)))
+        timed[label] = {}
+        with torch.no_grad():
+            for name, (kern, plain, bound) in cases.items():
+                t = kernel_vs_plain_ms(torch, kern, plain, bound, reps=20,
+                                       plain_reps=2)
+                t["device_us"] = device_us(torch, kern, reps=5)
+                timed[label][name] = t
+            k, pp, x0, ys, gys = inputs(1, n_all, 99)
+            timed[label][f"single launch K=1 n={n_all}"] = {
+                "K7f_ms": cuda_ms(torch, lambda: tw._launch_multistep_fwd(
+                    k, n_all, x0, pp), 5),
+                "K7b_ms": cuda_ms(torch, lambda: tw._launch_multistep_bwd(
+                    k, n_all, x0, ys, pp, gys), 5),
+                "K10_ms": cuda_ms(torch, lambda: tw._launch_multistep_bwd_lr(
+                    k, n_all, x0, ys, pp, gys), 5),
+                "K7f_bound_ms": kb.bound(*kb.wide_multistep_fwd(
+                    dims, 1, n_all, s))[0],
+                "K10_bound_ms": kb.bound(*kb.wide_multistep_bwd_lr(
+                    dims, n_all, s, pairs))[0]}
+        if not line:
+            t = timed[label]
+            line = {"fused_rk_step_wide_fwd": t[f"K6f K={Ks}"],
+                    "fused_rk_step_wide_bwd": t[f"K6b K={Ks}"],
+                    "fused_rk_multistep_wide_fwd": t["K7f K=1 n=40"],
+                    "fused_rk_multistep_wide_bwd": t[f"K7b K={Ks} n=40"],
+                    "fused_rk_multistep_wide_bwd_lr": t["K10 K=1 n=40"]}
+    emit({"phase": "timings", "path": "surrogates (wide kernels)",
+          "solver": "tsit5", "dt": 0.005, "cases": timed, "card": card})
+    return line
 
 
 def train_blocks(cfg):
@@ -965,14 +1395,14 @@ def phase_timings(torch, lv, rk, kp, ra, spec, rng, card, trained,
     return times
 
 
-def kernel_vs_plain_ms(torch, kern, plain, bound):
+def kernel_vs_plain_ms(torch, kern, plain, bound, reps=50, plain_reps=5):
     """plain, kernel, kernel, plain: the two medians of each kind are kept
     and the reported number is their mean."""
     b_ms, b_by = bound
-    p1 = cuda_ms(torch, plain, 5)
-    k1 = cuda_ms(torch, kern, 50)
-    k2 = cuda_ms(torch, kern, 50)
-    p2 = cuda_ms(torch, plain, 5)
+    p1 = cuda_ms(torch, plain, plain_reps)
+    k1 = cuda_ms(torch, kern, reps)
+    k2 = cuda_ms(torch, kern, reps)
+    p2 = cuda_ms(torch, plain, plain_reps)
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
             "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
             "bound_ms": b_ms, "bound_by": b_by}
@@ -1067,6 +1497,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from kanodes_tpu_torch.experiments import lv
     from kanodes_tpu_torch.experiments import pde_source as ps
+    from kanodes_tpu_torch.experiments import pde_surrogate as sg
     from kanodes_tpu_torch.models.kdense import KANChain, KDense
     from kanodes_tpu_torch.ode.integrate import StepController
     from kanodes_tpu_torch.ops import _cuda
@@ -1074,6 +1505,7 @@ def main() -> int:
     from kanodes_tpu_torch.ops import kdense_pallas as kp
     from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
     from kanodes_tpu_torch.ops import rk_fused as rk
+    from kanodes_tpu_torch.ops import rk_fused_wide as tw
     from kanodes_tpu_torch.utils.precision import set_exact_f32
     import numpy as np
 
@@ -1103,10 +1535,12 @@ def main() -> int:
     phase_adaptive_kernels(torch, ra, spec, rng, StepController, max_err)
     phase_graybox_kernels(torch, gb, max_err)
     phase_kdense_single(torch, kp, max_err)
+    phase_wide_kernels(torch, tw, kp, max_err)
 
-    modules = (rk, kp, ra, gb)
+    modules = (rk, kp, ra, gb, tw)
     launches, finals = phase_main_path(torch, lv, modules, card)
-    for counts in (phase_source_main_path(torch, ps, modules, card),
+    for counts in (phase_surrogate_main_path(torch, sg, tw, modules, card),
+                   phase_source_main_path(torch, ps, modules, card),
                    phase_kdense_pallas(torch, modules, KDense, card)):
         for name in KERNELS:
             launches[name] += counts[name]
@@ -1115,6 +1549,7 @@ def main() -> int:
     times = phase_timings(torch, lv, rk, kp, ra, spec, rng, card, trained,
                           StepController)
     times.update(phase_source_timings(torch, gb, kp, card))
+    times.update(phase_wide_timings(torch, tw, kp, card))
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,

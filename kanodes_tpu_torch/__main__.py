@@ -3,8 +3,9 @@
 Each command forwards argv unchanged to its module's own CLI, as
 ``python -m kanodes_tpu`` does: ``python -m kanodes_tpu_torch lv
 --iters=2000`` is ``python -m kanodes_tpu_torch.experiments.lv
---iters=2000``, and ``source`` runs ``experiments.pde_source``. Only the
-commands of the ported slices exist.
+--iters=2000``, ``source`` runs ``experiments.pde_source`` and
+``surrogate`` runs ``experiments.pde_surrogate``. Only the commands of the
+ported slices exist.
 """
 
 from __future__ import annotations
@@ -25,6 +26,12 @@ MODULE_COMMANDS: dict[str, tuple[str, str]] = {
                "--problem=fisher_kpp|allen_cahn, --ndim=1|2, "
                "--impl=xla|fused, --key=value overrides, "
                "--device=cuda|cpu, default cuda)"),
+    "surrogate": ("kanodes_tpu_torch.experiments.pde_surrogate",
+                  "PDE full-state surrogate training (--problem=burgers|"
+                  "allen_cahn|allen_cahn_2d|schrodinger, --solve_mode=fixed|"
+                  "shooting, --impl=xla|fused, --wide_kernels=1 for the "
+                  "41-column problems, --key=value overrides, "
+                  "--device=cuda|cpu, default cuda)"),
 }
 
 

@@ -96,7 +96,8 @@ def _check_slice(cfg: LVConfig) -> None:
         ("model", "mlp"): "M8 (models/mlp.py)",
         ("model", "bspline_kan"): "M13 (models/bspline.py)",
         ("impl", "fused_wide"): "'Not ported' (the fused_wide LV route); "
-                                "K6/K7 for the wide kernels",
+                                "the wide kernels themselves are in "
+                                "ops/rk_fused_wide.py",
     }
     for (field, value), item in later.items():
         if getattr(cfg, field) == value:

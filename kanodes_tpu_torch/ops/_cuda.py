@@ -34,7 +34,7 @@ BUILD_DIR = CSRC / "build"
 # as the plain version (csrc/rk_adaptive.cu, "Numbers").
 SOURCES = {"rk_fused.cu": (), "kan_chain_apply.cu": (),
            "rk_adaptive.cu": ("-fmad=false",), "kdense_single.cu": (),
-           "graybox.cu": ()}
+           "graybox.cu": (), "rk_fused_wide.cu": ()}
 HEADERS = ("kan_chain.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -46,6 +46,8 @@ MAX_I, MAX_H, MAX_G, MAX_STAGES, MAX_ADAPT_ROWS = 8, 32, 16, 7, 256
 MAX_SINGLE_I = 32
 # K5 (graybox.cu): GB_MAX_NODES, GB_MAX_N, GB_MAX_G, GB_MAX_STAGES
 MAX_GB_NODES, MAX_GB_N, MAX_GB_G, MAX_GB_STAGES = 2048, 64, 16, 7
+# K6/K7/K10 (rk_fused_wide.cu): WD_MAX_I, WD_MAX_H, WD_MAX_G, WD_MAX_STAGES
+MAX_WIDE_I, MAX_WIDE_H, MAX_WIDE_G, MAX_WIDE_STAGES = 2048, 16, 16, 7
 
 _NORMALIZERS = {"tanh": 0, "softsign": 1}
 _BASES = {"rbf": 0, "iqf": 1, "rswaf": 2}
@@ -86,6 +88,20 @@ class AdaptCtrl(ctypes.Structure):
                 ("has_dt0", ctypes.c_int), ("idt_exp", ctypes.c_float)]
 
 
+class WideTab(ctypes.Structure):
+    """Mirror of `struct WideTab` in rk_fused_wide.cu."""
+    _fields_ = [("I", ctypes.c_int), ("Ipad", ctypes.c_int),
+                ("H", ctypes.c_int), ("G", ctypes.c_int),
+                ("normalizer", ctypes.c_int), ("basis", ctypes.c_int),
+                ("inv_h", ctypes.c_float),
+                ("grid", ctypes.c_float * MAX_WIDE_G),
+                ("stages", ctypes.c_int), ("n_slots", ctypes.c_int),
+                ("a", (ctypes.c_float * MAX_WIDE_STAGES) * MAX_WIDE_STAGES),
+                ("b", ctypes.c_float * MAX_WIDE_STAGES),
+                ("needed", ctypes.c_int * MAX_WIDE_STAGES),
+                ("slot", ctypes.c_int * MAX_WIDE_STAGES)]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
@@ -118,6 +134,14 @@ _SIGNATURES = {
     "gb_step_fwd": [_P] * 7,
     # u, lap, c, w, gy, du, dc, dw, tab, stream
     "gb_step_bwd": [_P] * 10,
+    # x0, c1p, w1p, c2p, w2p, ys, K, n_steps, tab, stream
+    "wd_multistep_fwd": [_P] * 6 + [_I] * 2 + [_P] * 2,
+    # x0, ys, gys, c1p, w1p, c2p, w2p, dx0, dc1p, dw1p, dc2p, dw2p, XS, KB,
+    # Y1, TT, K, n_steps, tab, stream
+    "wd_multistep_bwd": [_P] * 16 + [_I] * 2 + [_P] * 2,
+    # x0, ys, gys, c1p, w1p, c2p, w2p, dx0, dc1p, dw1p, dc2p, dw2p, XS, KB,
+    # Y1, TT, AT, V, L, n_steps, tab, stream
+    "wd_multistep_bwd_lr": [_P] * 19 + [_I] + [_P] * 2,
 }
 
 # caps function -> the wrapper's values it must report
@@ -125,6 +149,7 @@ _CAPS = {
     "kc_caps": (MAX_I, MAX_H, MAX_G, MAX_STAGES, MAX_ADAPT_ROWS),
     "kd_caps": (MAX_SINGLE_I, MAX_H, MAX_G),
     "gb_caps": (MAX_GB_NODES, MAX_GB_N, MAX_GB_G, MAX_GB_STAGES),
+    "wd_caps": (MAX_WIDE_I, MAX_WIDE_H, MAX_WIDE_G, MAX_WIDE_STAGES),
 }
 
 
@@ -265,7 +290,21 @@ def check_chain_caps(spec) -> None:
     if not (1 <= I <= MAX_I and 1 <= O <= MAX_I and 1 <= H <= MAX_H
             and 2 <= G <= MAX_G):
         raise ValueError(f"kernel caps: I, O <= {MAX_I}, H <= {MAX_H}, "
-                         f"2 <= G <= {MAX_G}; got I={I}, O={O}, H={H}, G={G}")
+                         f"2 <= G <= {MAX_G}; got I={I}, O={O}, H={H}, G={G} "
+                         f"(wider states: ROADMAP.md, 'K2/K3 at medium "
+                         f"widths'; the wide kernels of ops/rk_fused_wide.py "
+                         f"take them)")
+
+
+def check_wide_caps(spec, stages: int) -> None:
+    """The wide kernels' caps (K6, K7, K10) for a chain [I -> H -> I]."""
+    I, H, G = spec.in_dims, spec.hidden, spec.grid_len
+    if not (1 <= I <= MAX_WIDE_I and 1 <= H <= MAX_WIDE_H
+            and 2 <= G <= MAX_WIDE_G and 1 <= stages <= MAX_WIDE_STAGES):
+        raise ValueError(f"wide kernel caps: I <= {MAX_WIDE_I}, H <= "
+                         f"{MAX_WIDE_H}, 2 <= G <= {MAX_WIDE_G}, stages <= "
+                         f"{MAX_WIDE_STAGES}; got I={I}, H={H}, G={G}, "
+                         f"stages={stages}")
 
 
 def rec_width(spec) -> int:

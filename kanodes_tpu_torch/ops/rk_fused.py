@@ -100,6 +100,14 @@ class _Consts:
         self.n_slots = sum(self.needed)
         self._dims = self._tab = None
 
+    # the chain the stages evaluate (the wide kernels' constants override
+    # both with the grid-major layout of their parameters)
+    def chain_f(self, x, params, grid):
+        return _chain_f(x, *params, grid, self.spec)
+
+    def chain_vjp(self, x, y1, params, grid, gy):
+        return _chain_vjp(x, y1, *params, grid, self.spec, gy)
+
     def structs(self) -> tuple[_cuda.ChainDims, _cuda.StepTab]:
         """The kernels' ChainDims / StepTab (built once, then reused)."""
         if self._dims is None:
@@ -134,7 +142,7 @@ def _stages(k: _Consts, x, params, grid):
             if k.dta[i][j] != 0.0 and ks[j] is not None:
                 xi = xi + k.dta[i][j] * ks[j]
         xs[i] = xi
-        ks[i], y1s[i] = _chain_f(xi, *params, grid, k.spec)
+        ks[i], y1s[i] = k.chain_f(xi, params, grid)
     return xs, ks, y1s
 
 
@@ -158,8 +166,7 @@ def _step_bwd_plain(k: _Consts, x, params, grid, gy):
     for i in range(k.stages - 1, -1, -1):
         if not k.needed[i] or kbar[i] is None:
             continue
-        dxi, *dps = _chain_vjp(xs[i], y1s[i], *params, grid, k.spec,
-                               kbar[i])
+        dxi, *dps = k.chain_vjp(xs[i], y1s[i], params, grid, kbar[i])
         xbar = xbar + dxi
         grads = [g + d for g, d in zip(grads, dps)]
         for j in range(i):

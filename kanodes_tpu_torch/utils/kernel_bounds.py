@@ -166,6 +166,75 @@ def graybox_step_bwd(nodes: int, N: int, kron: bool, G: int,
     return ops, 3 * nodes + N * N + 2 * (G + 1)
 
 
+# The wide kernels (K6, K7, K10): `dims` = (I, H, G, Ipad) of a chain
+# [I -> H -> I] in the padded layout of WideSpec.pad_params. Operations
+# run over the I real columns; the floats are the padded arrays the
+# function takes and returns.
+
+def wide_params(I: int, H: int, G: int, Ipad: int) -> int:
+    """c1p [G*Ipad, H], w1p [Ipad, H], c2p [H*G, Ipad], w2p [H, Ipad]."""
+    return G * Ipad * H + Ipad * H + H * G * Ipad + H * Ipad
+
+
+def _wide_chain(dims) -> tuple[int, int]:
+    I, H, G, _ = dims
+    return chain_ops(I, H, I, G), chain_vjp_ops(I, H, I, G)
+
+
+def wide_step_fwd(dims, K: int, evals: int) -> tuple[int, int]:
+    """K6f: one RK step of x [K, Ipad]."""
+    return (K * evals * _wide_chain(dims)[0],
+            2 * K * dims[3] + wide_params(*dims))
+
+
+def wide_step_bwd(dims, K: int, evals: int) -> tuple[int, int]:
+    """K6b: the step's adjoint (x, gy -> dx and the param cotangents)."""
+    return (K * evals * sum(_wide_chain(dims)),
+            3 * K * dims[3] + 2 * wide_params(*dims))
+
+
+def wide_multistep_fwd(dims, K: int, n: int, evals: int) -> tuple[int, int]:
+    """K7f: n steps from x0 [K, Ipad] -> ys [n, K, Ipad]."""
+    return (n * K * evals * _wide_chain(dims)[0],
+            (n + 1) * K * dims[3] + wide_params(*dims))
+
+
+def wide_multistep_bwd(dims, K: int, n: int, evals: int) -> tuple[int, int]:
+    """K7b: the reverse sweep (x0, ys, gys -> dx0 and the cotangents)."""
+    return (n * K * evals * sum(_wide_chain(dims)),
+            (2 * n + 2) * K * dims[3] + 2 * wide_params(*dims))
+
+
+def wide_multistep_bwd_lr(dims, n: int, evals: int,
+                          pairs: int) -> tuple[int, int]:
+    """K10: K7b's function at K = 1 by the low-rank route, counted as that
+    route works. Per step: the stages again; per stage the two layer
+    Jacobians (A_i [I, H] and B_i^T [H, I]: basis slopes and a G+1-long
+    multiply-add per entry) and the four parameter outer products; per
+    coupled stage pair (`pairs` nonzero a_ji among the needed stages: 15
+    for tsit5, 3 for rk4) one [H, I] x [I, H] product, its share of the
+    triangular solve and of the stage cotangents; and the two products of
+    the chain itself, a.U and z.V."""
+    I, H, G, Ipad = dims
+    jac = (I + H) * (6 * G + 8) + 4 * I * H * (G + 1)
+    outer = 4 * I * H * (G + 1)
+    pair = 2 * H * H * I + 2 * H * H + 2 * I
+    chain = 4 * evals * H * I + 2 * evals * I
+    ops = n * (evals * (_wide_chain(dims)[0] + jac + outer) + pairs * pair
+               + chain)
+    return ops, (2 * n + 2) * Ipad + 2 * wide_params(*dims)
+
+
+# the full-state surrogates (experiments/pde_surrogate.py): (label, dims,
+# rows K of the shooting group of 0.2-long segments, steps of the whole
+# snapshot trajectory at substeps = 20)
+WIDE_SHAPES = (("Schrodinger [402,10,402] grid 10", (402, 10, 10, 512), 7,
+                300),
+               ("2-D Allen-Cahn [1024,10,1024] grid 10",
+                (1024, 10, 10, 1024), 4, 180))
+TSIT5_PAIRS = 15           # nonzero a_ji among tsit5's six needed stages
+
+
 # the gray-box states of the source-recovery problems: (label, nodes, N,
 # kron) for 1-D Fisher-KPP (26 nodes), 1-D Allen-Cahn (41) and the 2-D
 # fields (32 x 32), pde/datagen.py
@@ -183,8 +252,8 @@ def table(n_adapt: int = 35) -> list[dict]:
     s = 6                  # tsit5 stages whose evaluation a step needs
     # 8 packed LV members: block-diagonal chain stored dense (slice 6)
     pk = (16, 80, 16, 5)
-    # Schrodinger surrogate [402,10,402], grid 10 (pde_surrogate.py:6)
-    wd = (402, 10, 402, 10)
+    wl, wd, wk, wn = WIDE_SHAPES[0]
+    al, ad, ak, an = WIDE_SHAPES[1]
     # the gray-box source model: the pointwise 1->1 KDense of grid 10
     # (experiments/pde_source.py) on the 1-D Fisher-KPP field
     g = 10
@@ -214,15 +283,18 @@ def table(n_adapt: int = 35) -> list[dict]:
          *graybox_step_fwd(nodes, n, kron, g, s), s),
         ("K5b", "its adjoint, [1, 26]",
          *graybox_step_bwd(nodes, n, kron, g, s), 2 * s),
-        ("K6f", "wide tsit5 step, [402,10,402] grid 10, K=1",
-         *rk_step_fwd(wd, 1, s), s),
-        ("K6b", "its adjoint", *rk_step_bwd(wd, 1, s), 2 * s),
-        ("K7f", "100 wide steps, K=1", *rk_multistep_fwd(wd, 1, 100, s),
-         100 * s),
-        ("K7b", "their reverse sweep", *rk_multistep_bwd(wd, 1, 100, s),
-         100 * 2 * s),
-        ("K10", "K7b's function (low-rank Jacobian route, K=1)",
-         *rk_multistep_bwd(wd, 1, 100, s), 100 * 2 * s),
+        # one 0.2-long snapshot interval is 40 steps (substeps = 20 on the
+        # 0.1-long first one): the launch of the trajectory loss (K = 1)
+        # and of the shooting group (K = 7)
+        ("K6f", f"wide tsit5 step, {wl}, K={wk}",
+         *wide_step_fwd(wd, wk, s), s),
+        ("K6b", "its adjoint", *wide_step_bwd(wd, wk, s), 2 * s),
+        ("K7f", f"40 wide steps, {wl}, K=1",
+         *wide_multistep_fwd(wd, 1, 40, s), 40 * s),
+        ("K7b", f"reverse sweep of 40 steps, K={wk}",
+         *wide_multistep_bwd(wd, wk, 40, s), 40 * 2 * s),
+        ("K10", "reverse sweep of 40 steps, K=1, low-rank route",
+         *wide_multistep_bwd_lr(wd, 40, s, TSIT5_PAIRS), 40 * 2 * s),
     ]
     # the other shapes the ported kernels of the source and KDense paths
     # run at, as extra bounds on their rows
@@ -233,6 +305,26 @@ def table(n_adapt: int = 35) -> list[dict]:
                 for lbl, nn, nN, kr in GRAYBOX_SHAPES[1:]],
         "K9f": [("layer [2->10], grid 5, K=34", *single_fwd(2, 10, 5, 34))],
         "K9b": [("layer [2->10], grid 5, K=34", *single_bwd(2, 10, 5, 34))],
+        "K6f": [(f"{al}, K={ak}", *wide_step_fwd(ad, ak, s))],
+        "K6b": [(f"{al}, K={ak}", *wide_step_bwd(ad, ak, s))],
+        "K7f": [(f"20 steps, K=1, {wl}", *wide_multistep_fwd(wd, 1, 20, s)),
+                (f"40 steps, K={wk}", *wide_multistep_fwd(wd, wk, 40, s)),
+                (f"{wn} steps, K=1 (single launch)",
+                 *wide_multistep_fwd(wd, 1, wn, s)),
+                (f"40 steps, K=1, {al}", *wide_multistep_fwd(ad, 1, 40, s)),
+                (f"40 steps, K={ak}", *wide_multistep_fwd(ad, ak, 40, s)),
+                (f"{an} steps, K=1 (single launch)",
+                 *wide_multistep_fwd(ad, 1, an, s))],
+        "K7b": [(f"40 steps, K={ak}, {al}",
+                 *wide_multistep_bwd(ad, ak, 40, s))],
+        "K10": [(f"20 steps, {wl}",
+                 *wide_multistep_bwd_lr(wd, 20, s, TSIT5_PAIRS)),
+                (f"{wn} steps (single launch)",
+                 *wide_multistep_bwd_lr(wd, wn, s, TSIT5_PAIRS)),
+                (f"40 steps, {al}",
+                 *wide_multistep_bwd_lr(ad, 40, s, TSIT5_PAIRS)),
+                (f"{an} steps (single launch)",
+                 *wide_multistep_bwd_lr(ad, an, s, TSIT5_PAIRS))],
     }
     out = []
     for kid, shapes, ops, floats, depth in rows:

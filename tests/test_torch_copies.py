@@ -118,6 +118,9 @@ def test_port_imports_without_jax_in_a_fresh_process():
         "import kanodes_tpu_torch.experiments.pde_source\n"
         "import kanodes_tpu_torch.experiments.profile_source\n"
         "import kanodes_tpu_torch.ops.graybox_fused\n"
+        "import kanodes_tpu_torch.ops.rk_fused_wide\n"
+        "import kanodes_tpu_torch.experiments.pde_surrogate\n"
+        "import kanodes_tpu_torch.experiments.profile_surrogate\n"
         "import kanodes_tpu_torch.pde.datagen, kanodes_tpu_torch.pde.graybox\n"
         "import kanodes_tpu_torch.pde.operators\n"
         "import kanodes_tpu_torch.symbolic.engine\n"

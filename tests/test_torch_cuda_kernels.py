@@ -21,6 +21,7 @@ from kanodes_tpu_torch.ops import graybox_fused as gb
 from kanodes_tpu_torch.ops import kdense_pallas as kp
 from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
 from kanodes_tpu_torch.ops import rk_fused as rk
+from kanodes_tpu_torch.ops import rk_fused_wide as tw
 from kanodes_tpu_torch.ops.kdense_pallas import chain_spec_of
 from kanodes_tpu_torch.pde.datagen import _cyclic_lap
 
@@ -296,3 +297,104 @@ def test_new_backwards_repeat_bit_for_bit(card):
     b += kp._launch_single_bwd(spec_s, xs, cs, ws, gys_s)
     for u, v in zip(a, b):
         assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("index", range(len(chip_smoke.WIDE_CASES)))
+def test_wide_kernels_match_plain(card, index):
+    """K7 (and K10 at K = 1, K6 at n = 1) through their autograd.Functions
+    on chip_smoke's cases: one launch each way, the states and the five
+    cotangents against the plain versions and float64 by
+    chip_smoke.graybox_rule, zeros on the pad lanes."""
+    case = chip_smoke.WIDE_CASES[index]
+    ws, pp, x0, gys = chip_smoke.wide_case_inputs(torch, tw, kp, case)
+    k = tw._consts(ws, case.solver, case.dt)
+    n, K = case.n, case.K
+    tw.reset_launch_counts()
+    leaves = [t.clone().requires_grad_() for t in (x0, *pp)]
+    ys = tw.fused_rk_multistep_wide(ws, case.solver, case.dt, n, *leaves)
+    got = torch.autograd.grad(ys, leaves, gys)
+    bwd = "fused_rk_multistep_wide_bwd" + ("_lr" if K == 1 else "")
+    assert {k_: v for k_, v in tw.LAUNCHES.items() if v} == {
+        "fused_rk_multistep_wide_fwd": 1, bwd: 1}
+    pp64 = tuple(p.double() for p in pp)
+    ys_ref = tw._multistep_fwd_wide_plain(k, n, x0, pp)
+    ys64 = tw._multistep_fwd_wide_plain(k, n, x0.double(), pp64)
+    failures = []
+    chip_smoke.f64_rule(failures, "ys", ys.detach(), ys_ref, ys64)
+    assert float(ys.detach()[..., case.I:].abs().sum()) == 0.0
+    plain = tw._multistep_bwd_lr_wide_plain if K == 1 \
+        else tw._multistep_bwd_wide_plain
+    g_ref = plain(k, n, x0, ys.detach(), pp, gys)
+    g64 = tw._multistep_bwd_wide_plain(k, n, x0.double(), ys64, pp64,
+                                       gys.double())
+    for name, a, b, ref in zip(chip_smoke.WIDE_NAMES, got, g_ref, g64):
+        chip_smoke.graybox_rule(torch, failures, name, a, b, ref, GRAD)
+    if n == 1:
+        tw.reset_launch_counts()
+        y = tw.fused_rk_step_wide(ws, case.solver, case.dt, *leaves)
+        gs = torch.autograd.grad(y, leaves, gys[0])
+        assert {k_: v for k_, v in tw.LAUNCHES.items() if v} == {
+            "fused_rk_step_wide_fwd": 1, "fused_rk_step_wide_bwd": 1}
+        assert torch.equal(y, ys[0])
+        g_std = tw._launch_multistep_bwd(k, 1, x0, ys.detach(), pp, gys)
+        for a, b in zip(gs, g_std):
+            assert torch.equal(a, b)
+    assert not failures, failures
+
+
+def test_wide_backwards_repeat_bit_for_bit(card):
+    """K7b, K10 and K6b sum in a fixed order (no float atomics)."""
+    for case in (chip_smoke.WIDE_CASES[3], chip_smoke.WIDE_CASES[6],
+                 chip_smoke.WIDE_CASES[8]):
+        ws, pp, x0, gys = chip_smoke.wide_case_inputs(torch, tw, kp, case)
+        k = tw._consts(ws, case.solver, case.dt)
+        ys = tw._launch_multistep_fwd(k, case.n, x0, pp)
+        launches = [lambda: tw._launch_multistep_bwd(k, case.n, x0, ys, pp,
+                                                     gys)]
+        if case.K == 1:
+            launches.append(lambda: tw._launch_multistep_bwd_lr(
+                k, case.n, x0, ys, pp, gys))
+        if case.n == 1:
+            launches.append(lambda: tw._launch_step_bwd(k, x0, pp, gys[0]))
+        for launch in launches:
+            for u, v in zip(launch(), launch()):
+                assert torch.equal(u, v)
+
+
+def test_wide_wrapper_rejects_unsupported_input(card):
+    ws, pp, x0, gys = chip_smoke.wide_case_inputs(
+        torch, tw, kp, chip_smoke.WIDE_CASES[0])
+    with pytest.raises(ValueError, match="several devices"):
+        tw.fused_rk_step_wide(ws, "tsit5", 0.01, x0.cpu(), *pp)
+    with pytest.raises(TypeError, match="float32"):
+        tw.fused_rk_step_wide(ws, "tsit5", 0.01, x0.double(),
+                              *(p.double() for p in pp))
+    with pytest.raises(ValueError, match="padded width"):
+        tw.fused_rk_step_wide(ws, "tsit5", 0.01, x0[:, :70].contiguous(), *pp)
+    ys = tw.fused_rk_multistep_wide(ws, "tsit5", 0.01, 2,
+                                    x0.clone().requires_grad_(), *pp, True)
+    with pytest.raises(ValueError, match="K == 1"):
+        ys.sum().backward()
+
+
+def test_surrogate_run_on_card_launches_exactly(card):
+    """Burgers through the wide kernels: one K7f per snapshot interval and
+    loss or eval, one K10 per interval and backward; shooting: one K7f per
+    group, K10 for the single 0.1 segment and K7b for the four 0.2 ones."""
+    from kanodes_tpu_torch.experiments import pde_surrogate as sg
+    kw = dict(problem="burgers", impl="fused", wide_kernels=True, iters=4,
+              eval_every=2)
+    tw.reset_launch_counts()
+    out = sg.run(sg.SurrogateConfig(**kw), device="cuda")
+    torch.cuda.synchronize()
+    assert {k: v for k, v in tw.LAUNCHES.items() if v} == {
+        "fused_rk_multistep_wide_fwd": 6 * 5,
+        "fused_rk_multistep_wide_bwd_lr": 4 * 5}
+    assert out["loss_history"].is_cuda
+    assert bool(torch.isfinite(out["loss_history"]).all())
+    tw.reset_launch_counts()
+    sg.run(sg.SurrogateConfig(solve_mode="shooting", **kw), device="cuda")
+    assert {k: v for k, v in tw.LAUNCHES.items() if v} == {
+        "fused_rk_multistep_wide_fwd": 4 * 2 + 2 * 5,
+        "fused_rk_multistep_wide_bwd_lr": 4,
+        "fused_rk_multistep_wide_bwd": 4}

@@ -73,6 +73,38 @@ def test_single_layer_and_graybox_counts_by_hand():
     assert kb.graybox_step_bwd(2, 2, False, 1, 1) == (90, 14)
 
 
+def test_wide_kernel_counts_by_hand():
+    """K6/K7/K10 on a 1-1-1 chain of grid 1 padded to 2 columns: 26
+    operations an evaluation, 70 with its VJP; 8 padded parameters."""
+    d = (1, 1, 1, 2)
+    assert kb.wide_params(*d) == 8
+    # x and y [K, Ipad]; the four padded arrays
+    assert kb.wide_step_fwd(d, 3, 2) == (156, 20)
+    # x, gy, dx; the parameters read and their cotangents written
+    assert kb.wide_step_bwd(d, 3, 2) == (420, 34)
+    assert kb.wide_multistep_fwd(d, 3, 4, 2) == (624, 38)
+    assert kb.wide_multistep_bwd(d, 3, 4, 2) == (1680, 76)
+    # per step and stage: the chain (26), the two Jacobians (2 x 14 slopes
+    # + 4 x 2 multiply-adds = 36) and the outer products (8); per pair
+    # 2 + 2 + 2; the chain's two products 4 a stage and the seeds 2
+    assert kb.wide_multistep_bwd_lr(d, 4, 2, 1) == (
+        4 * (2 * (26 + 36 + 8) + 6 + 12), 36)
+
+
+def test_wide_rows_bound_every_shape_the_surrogates_run():
+    rows = {r["kernel"]: r for r in kb.table()}
+    for kid in ("K6f", "K6b", "K7f", "K7b", "K10"):
+        shapes = [rows[kid]["shapes"]] + [a["shapes"]
+                                          for a in rows[kid]["also"]]
+        assert any("1024" in s for s in shapes), kid
+    assert "402" in rows["K7f"]["shapes"] and "K=1" in rows["K7f"]["shapes"]
+    assert "K=7" in rows["K7b"]["shapes"]
+    also = [a["shapes"] for a in rows["K10"]["also"]]
+    assert any("300 steps" in s for s in also)
+    assert any("180 steps" in s for s in also)
+    assert rows["K7f"]["serial_depth"] == 240
+
+
 def test_ported_rows_bound_every_shape_the_slice_runs():
     rows = {r["kernel"]: r for r in kb.table()}
     for kid in ("K5f", "K5b"):

@@ -308,13 +308,16 @@ class WideCase(NamedTuple):
     seed: int = 0
 
 
-# a small padded chain (Ipad > I over three blocks), the Schrödinger
-# surrogate [402,10,402] grid 10 (Ipad 512) and the 2-D Allen-Cahn one
-# [1024,10,1024] at the rows and steps their losses launch (K = 1 and 7 or
-# 4; n = 20 and 40 at dt = 0.1 / 20), one step, both tableaus, a cotangent
-# on every state and on the last only
+# a small padded chain (Ipad > I over three blocks), then every shape the
+# surrogate runs launch: the Schrödinger surrogate [402,10,402] grid 10
+# (Ipad 512), the 2-D Allen-Cahn one [1024,10,1024] and Burgers [41,10,41]
+# grid 5 (41 columns on 128 lanes) at the rows and steps of their losses
+# (K = 1 and 7 or 4; n = 20, the first snapshot interval, and n = 40 at
+# dt = 0.1 / 20), one step, both tableaus, a cotangent on every state and
+# on the last only. New cases go at the end: the card tests pick by index
 _SCH = (402, 10, 10, 128)
 _AC2 = (1024, 10, 10, 128)
+_BUR = (41, 10, 5, 128)
 WIDE_CASES = (
     WideCase("small padded [70,6,70] K=3 n=4", 70, 6, 5, 32, 3, 4, dt=0.04),
     WideCase("small padded K=1 n=4 rk4 iqf/tanh", 70, 6, 5, 32, 1, 4, "rk4",
@@ -331,6 +334,15 @@ WIDE_CASES = (
     WideCase("2-D Allen-Cahn K=4 n=40, last-state cotangent", *_AC2, 4, 40,
              dense=False, seed=9),
     WideCase("2-D Allen-Cahn K=1 n=40", *_AC2, 1, 40, seed=10),
+    WideCase("Schrodinger K=1 n=20, last-state cotangent", *_SCH, 1, 20,
+             dense=False, seed=11),
+    WideCase("2-D Allen-Cahn K=1 n=20, last-state cotangent", *_AC2, 1, 20,
+             dense=False, seed=12),
+    WideCase("Burgers K=1 n=20, last-state cotangent", *_BUR, 1, 20,
+             dense=False, seed=13),
+    WideCase("Burgers K=1 n=40, last-state cotangent", *_BUR, 1, 40,
+             dense=False, seed=14),
+    WideCase("Burgers K=4 n=40 (the shooting group)", *_BUR, 4, 40, seed=15),
 )
 
 
@@ -687,11 +699,13 @@ def phase_wide_kernels(torch, tw, kp, max_err):
         failures, details = [], {}
         ws, pp, x0, gys = wide_case_inputs(torch, tw, kp, case)
         n, K = case.n, case.K
-        k = tw._consts(ws, case.solver, case.dt)
+        step = (ws, case.solver, case.dt)
+        k = tw._consts(*step)
         pp64 = tuple(p.double() for p in pp)
         ys = tw._launch_multistep_fwd(k, n, x0, pp)
-        ys_ref = tw._multistep_fwd_wide_plain(k, n, x0, pp)
-        ys64 = tw._multistep_fwd_wide_plain(k, n, x0.double(), pp64)
+        ys_ref = tw.fused_rk_multistep_wide_reference(*step, n, x0, *pp)
+        ys64 = tw.fused_rk_multistep_wide_reference(*step, n, x0.double(),
+                                                    *pp64)
         if n >= 40:
             details["ys"] = f64_rule(failures, "K7f", ys, ys_ref, ys64)
             e = details["ys"]["max_abs_err"]
@@ -703,21 +717,20 @@ def phase_wide_kernels(torch, tw, kp, max_err):
         max_err["fused_rk_multistep_wide_fwd"] = max(
             max_err["fused_rk_multistep_wide_fwd"], e)
 
-        g64 = tw._multistep_bwd_wide_plain(k, n, x0.double(), ys64, pp64,
-                                           gys.double())
+        plain_bwd = tw.fused_rk_multistep_wide_bwd_reference
+        g64 = plain_bwd(*step, n, x0.double(), ys64, *pp64, gys.double())
         runs = [("fused_rk_multistep_wide_bwd", "K7b",
-                 tw._launch_multistep_bwd, tw._multistep_bwd_wide_plain)]
+                 tw._launch_multistep_bwd, False)]
         if K == 1:
             runs.append(("fused_rk_multistep_wide_bwd_lr", "K10",
-                         tw._launch_multistep_bwd_lr,
-                         tw._multistep_bwd_lr_wide_plain))
+                         tw._launch_multistep_bwd_lr, True))
         got = {}
-        for key, kid, launch, plain in runs:
+        for key, kid, launch, lowrank in runs:
             g = got[kid] = launch(k, n, x0, ys, pp, gys)
             again = launch(k, n, x0, ys, pp, gys)
             if not all(bool((a == b).all()) for a, b in zip(g, again)):
                 failures.append(f"{kid}: two launches differ")
-            g_ref = plain(k, n, x0, ys, pp, gys)
+            g_ref = plain_bwd(*step, n, x0, ys, *pp, gys, lowrank=lowrank)
             for name, a, b, ref in zip(WIDE_NAMES, g, g_ref, g64):
                 err, details[f"{kid} {name}"] = graybox_rule(
                     torch, failures, f"{kid} {name}", a, b, ref, GRAD_TOL)
@@ -735,10 +748,12 @@ def phase_wide_kernels(torch, tw, kp, max_err):
             if not same:
                 failures.append("K6 differs from K7 at n = 1")
             e = assert_close(failures, "K6f", y,
-                             tw._step_fwd_wide_plain(k, x0, pp), FWD_TOL)
+                             tw.fused_rk_step_wide_reference(*step, x0, *pp),
+                             FWD_TOL)
             max_err["fused_rk_step_wide_fwd"] = max(
                 max_err["fused_rk_step_wide_fwd"], e)
-            g_ref = tw._step_bwd_wide_plain(k, x0, pp, gys[0])
+            g_ref = tw.fused_rk_step_wide_bwd_reference(*step, x0, *pp,
+                                                        gys[0])
             for name, a, b, ref in zip(WIDE_NAMES, gs, g_ref, g64):
                 err, details[f"K6b {name}"] = graybox_rule(
                     torch, failures, f"K6b {name}", a, b, ref, GRAD_TOL)
@@ -948,45 +963,47 @@ def phase_wide_timings(torch, tw, kp, card):
                 label, *geometry, K, n, seed=seed))
             k = tw._consts(ws, "tsit5", 0.005)
             ys = tw._launch_multistep_fwd(k, n, x0, pp)
-            return k, pp, x0, ys, torch.randn_like(ys) / (n * K)
+            return ws, k, pp, x0, ys, torch.randn_like(ys) / (n * K)
 
-        s, pairs = 6, kb.TSIT5_PAIRS
+        s, plain_bwd = 6, tw.fused_rk_multistep_wide_bwd_reference
         cases = {}
         for K, n in ((1, 40), (Ks, 40), (1, 20)):
-            k, pp, x0, ys, gys = inputs(K, n, 20 + K + n)
+            ws, k, pp, x0, ys, gys = inputs(K, n, 20 + K + n)
+            step = (ws, "tsit5", 0.005)
             cases[f"K7f K={K} n={n}"] = (
                 lambda k=k, n=n, x0=x0, pp=pp:
                     tw._launch_multistep_fwd(k, n, x0, pp),
-                lambda k=k, n=n, x0=x0, pp=pp:
-                    tw._multistep_fwd_wide_plain(k, n, x0, pp),
+                lambda step=step, n=n, x0=x0, pp=pp:
+                    tw.fused_rk_multistep_wide_reference(*step, n, x0, *pp),
                 kb.bound(*kb.wide_multistep_fwd(dims, K, n, s)))
             if K == 1:
+                # K10 computes K7b's function at K = 1: that bound
                 cases[f"K10 K=1 n={n}"] = (
                     lambda k=k, n=n, x0=x0, ys=ys, pp=pp, gys=gys:
                         tw._launch_multistep_bwd_lr(k, n, x0, ys, pp, gys),
-                    lambda k=k, n=n, x0=x0, ys=ys, pp=pp, gys=gys:
-                        tw._multistep_bwd_lr_wide_plain(k, n, x0, ys, pp,
-                                                        gys),
-                    kb.bound(*kb.wide_multistep_bwd_lr(dims, n, s, pairs)))
+                    lambda step=step, n=n, x0=x0, ys=ys, pp=pp, gys=gys:
+                        plain_bwd(*step, n, x0, ys, *pp, gys, lowrank=True),
+                    kb.bound(*kb.wide_multistep_bwd(dims, 1, n, s)))
             if n == 40:
                 cases[f"K7b K={K} n=40"] = (
                     lambda k=k, n=n, x0=x0, ys=ys, pp=pp, gys=gys:
                         tw._launch_multistep_bwd(k, n, x0, ys, pp, gys),
-                    lambda k=k, n=n, x0=x0, ys=ys, pp=pp, gys=gys:
-                        tw._multistep_bwd_wide_plain(k, n, x0, ys, pp, gys),
+                    lambda step=step, n=n, x0=x0, ys=ys, pp=pp, gys=gys:
+                        plain_bwd(*step, n, x0, ys, *pp, gys),
                     kb.bound(*kb.wide_multistep_bwd(dims, K, n, s)))
             if K == Ks:
                 gy = gys[0].contiguous()
                 cases[f"K6f K={K}"] = (
                     lambda k=k, x0=x0, pp=pp: tw._launch_step_fwd(k, x0, pp),
-                    lambda k=k, x0=x0, pp=pp:
-                        tw._step_fwd_wide_plain(k, x0, pp),
+                    lambda step=step, x0=x0, pp=pp:
+                        tw.fused_rk_step_wide_reference(*step, x0, *pp),
                     kb.bound(*kb.wide_step_fwd(dims, K, s)))
                 cases[f"K6b K={K}"] = (
                     lambda k=k, x0=x0, pp=pp, gy=gy:
                         tw._launch_step_bwd(k, x0, pp, gy),
-                    lambda k=k, x0=x0, pp=pp, gy=gy:
-                        tw._step_bwd_wide_plain(k, x0, pp, gy),
+                    lambda step=step, x0=x0, pp=pp, gy=gy:
+                        tw.fused_rk_step_wide_bwd_reference(*step, x0, *pp,
+                                                            gy),
                     kb.bound(*kb.wide_step_bwd(dims, K, s)))
         timed[label] = {}
         with torch.no_grad():
@@ -995,7 +1012,7 @@ def phase_wide_timings(torch, tw, kp, card):
                                        plain_reps=2)
                 t["device_us"] = device_us(torch, kern, reps=5)
                 timed[label][name] = t
-            k, pp, x0, ys, gys = inputs(1, n_all, 99)
+            _, k, pp, x0, ys, gys = inputs(1, n_all, 99)
             timed[label][f"single launch K=1 n={n_all}"] = {
                 "K7f_ms": cuda_ms(torch, lambda: tw._launch_multistep_fwd(
                     k, n_all, x0, pp), 5),
@@ -1005,8 +1022,8 @@ def phase_wide_timings(torch, tw, kp, card):
                     k, n_all, x0, ys, pp, gys), 5),
                 "K7f_bound_ms": kb.bound(*kb.wide_multistep_fwd(
                     dims, 1, n_all, s))[0],
-                "K10_bound_ms": kb.bound(*kb.wide_multistep_bwd_lr(
-                    dims, n_all, s, pairs))[0]}
+                "K10_bound_ms": kb.bound(*kb.wide_multistep_bwd(
+                    dims, 1, n_all, s))[0]}
         if not line:
             t = timed[label]
             line = {"fused_rk_step_wide_fwd": t[f"K6f K={Ks}"],

@@ -20,9 +20,10 @@ snapshot trajectory as ONE launch of K7 and its backward as one of K10
 (K == 1), and a shooting loss as one K7 forward and one backward (K7b,
 or K10 for a single segment) per group of equally long segments
 (`ops/rk_fused_wide.py`, `csrc/rk_fused_wide.cu`). The narrow flavor
-goes to K2/K3 of `ops/rk_fused.py`, whose kernels cap the state at 8
-columns: Burgers and 1-D Allen-Cahn (41 columns) raise there, naming the
-ROADMAP item, and run with `wide_kernels=True` or `impl="xla"`. Kernels
+belongs to K2/K3 of `ops/rk_fused.py`, whose kernels cap the state at 8
+columns: it raises, naming the ROADMAP item that brings it, and Burgers
+and 1-D Allen-Cahn (41 columns) run with `wide_kernels=True` or
+`impl="xla"`. Kernels
 run on CUDA tensors and their plain versions on CPU tensors. The sharded
 path (`mesh=`), `run_grid_refinement` and `bwd_precision="bf16"` raise
 NotImplementedError naming their ROADMAP.md item.
@@ -253,28 +254,16 @@ def make_fns(cfg: SurrogateConfig, model: KANChain,
                                              None, cfg.bwd_precision)
                 return ys[rows_t][:, 0, :ws.I]
     elif impl == "fused":
+        # the narrow flavor (K2/K3 behind fused_rk_step and
+        # fused_rk_multistep) keeps a row's whole state in one thread and
+        # caps it at 8 columns; every surrogate has more, so the check
+        # raises, naming the ROADMAP item that brings this branch
         from kanodes_tpu_torch.ops import _cuda
-        from kanodes_tpu_torch.ops.kdense_pallas import (chain_spec_of,
-                                                         fused_params)
-        from kanodes_tpu_torch.ops.rk_fused import (fused_rk_multistep,
-                                                    fused_rk_step)
-        cspec = chain_spec_of(model)
-        _cuda.check_chain_caps(cspec)
-
-        def fused_advance(m, x, n_steps, dt_total):
-            fp = fused_params(m)
-            h = dt_total / n_steps
-            for _ in range(n_steps):
-                x = fused_rk_step(cspec, cfg.rk_solver, h, x, *fp,
-                                  cfg.bwd_precision)
-            return x
-
-        if uniform:
-            def fused_trajectory(m):
-                ys = fused_rk_multistep(cspec, cfg.rk_solver, base_h,
-                                        total_steps, u0[None],
-                                        *fused_params(m), cfg.bwd_precision)
-                return ys[rows_t][:, 0, :]
+        from kanodes_tpu_torch.ops.kdense_pallas import chain_spec_of
+        _cuda.check_chain_caps(chain_spec_of(model))
+        raise NotImplementedError(
+            "the narrow fused surrogate path is not ported yet (ROADMAP.md, "
+            "'K2/K3 at medium widths'); pass wide_kernels=True")
 
     def predict(m):
         if impl == "fused" and fused_trajectory is not None:

@@ -89,11 +89,6 @@ class WideSpec:
     def __hash__(self):
         return hash((self.spec, self.block))
 
-    def grid_values(self) -> tuple:
-        """Static per-node grid values."""
-        return tuple(float(v) for v in np.linspace(
-            self.spec.grid_lims[0], self.spec.grid_lims[1], self.G))
-
     def pad_params(self, c1, w1, c2, w2):
         """c1 [I*G, H] (rows i*G+g) -> [G*Ipad, H] grouped BY GRID NODE
         (rows g*Ipad+i, zero pad rows); w1 [I, H] -> [Ipad, H];

@@ -317,16 +317,15 @@ def test_wide_kernels_match_plain(card, index):
     assert {k_: v for k_, v in tw.LAUNCHES.items() if v} == {
         "fused_rk_multistep_wide_fwd": 1, bwd: 1}
     pp64 = tuple(p.double() for p in pp)
-    ys_ref = tw._multistep_fwd_wide_plain(k, n, x0, pp)
-    ys64 = tw._multistep_fwd_wide_plain(k, n, x0.double(), pp64)
+    step = (ws, case.solver, case.dt)
+    ys_ref = tw.fused_rk_multistep_wide_reference(*step, n, x0, *pp)
+    ys64 = tw.fused_rk_multistep_wide_reference(*step, n, x0.double(), *pp64)
     failures = []
     chip_smoke.f64_rule(failures, "ys", ys.detach(), ys_ref, ys64)
     assert float(ys.detach()[..., case.I:].abs().sum()) == 0.0
-    plain = tw._multistep_bwd_lr_wide_plain if K == 1 \
-        else tw._multistep_bwd_wide_plain
-    g_ref = plain(k, n, x0, ys.detach(), pp, gys)
-    g64 = tw._multistep_bwd_wide_plain(k, n, x0.double(), ys64, pp64,
-                                       gys.double())
+    plain = tw.fused_rk_multistep_wide_bwd_reference
+    g_ref = plain(*step, n, x0, ys.detach(), *pp, gys, lowrank=K == 1)
+    g64 = plain(*step, n, x0.double(), ys64, *pp64, gys.double())
     for name, a, b, ref in zip(chip_smoke.WIDE_NAMES, got, g_ref, g64):
         chip_smoke.graybox_rule(torch, failures, name, a, b, ref, GRAD)
     if n == 1:

@@ -78,17 +78,37 @@ def test_wide_kernel_counts_by_hand():
     operations an evaluation, 70 with its VJP; 8 padded parameters."""
     d = (1, 1, 1, 2)
     assert kb.wide_params(*d) == 8
-    # x and y [K, Ipad]; the four padded arrays
-    assert kb.wide_step_fwd(d, 3, 2) == (156, 20)
-    # x, gy, dx; the parameters read and their cotangents written
-    assert kb.wide_step_bwd(d, 3, 2) == (420, 34)
-    assert kb.wide_multistep_fwd(d, 3, 4, 2) == (624, 38)
-    assert kb.wide_multistep_bwd(d, 3, 4, 2) == (1680, 76)
-    # per step and stage: the chain (26), the two Jacobians (2 x 14 slopes
-    # + 4 x 2 multiply-adds = 36) and the outer products (8); per pair
-    # 2 + 2 + 2; the chain's two products 4 a stage and the seeds 2
+    # reads x [3, 1] and the 4 real parameters, writes y [3, 2]
+    assert kb.wide_step_fwd(d, 3, 2) == (156, 3 + 4 + 6)
+    # reads x, gy and the parameters; writes dx [3, 2] and the 8 padded
+    # cotangents
+    assert kb.wide_step_bwd(d, 3, 2) == (420, 6 + 4 + 6 + 8)
+    assert kb.wide_multistep_fwd(d, 3, 4, 2) == (624, 3 + 4 + 24)
+    # reads x0 [3, 1], ys and gys [4, 3, 1] and the parameters
+    assert kb.wide_multistep_bwd(d, 3, 4, 2) == (1680, 27 + 4 + 6 + 8)
+    # the low-rank route, per step and stage: the chain (26), the two
+    # Jacobians (2 x 14 slopes + 4 x 2 multiply-adds = 36) and the outer
+    # products (8); per pair 2 + 2 + 2; the chain's two products 4 a stage
+    # and the seeds 2; the floats of the reverse sweep at K = 1
     assert kb.wide_multistep_bwd_lr(d, 4, 2, 1) == (
-        4 * (2 * (26 + 36 + 8) + 6 + 12), 36)
+        4 * (2 * (26 + 36 + 8) + 6 + 12), 9 + 4 + 2 + 8)
+
+
+def test_k10_is_bound_as_the_reverse_sweep_at_one_row():
+    """K10 computes K7b's function at K = 1, so its rows carry that
+    bound; the low-rank route's larger count is kept only as a note."""
+    rows = {r["kernel"]: r for r in kb.table()}
+    sch, s = kb.WIDE_SHAPES[0][1], 6
+    want = kb.bound(*kb.wide_multistep_bwd(sch, 1, 40, s))
+    assert (rows["K10"]["bound_ms"], rows["K10"]["bound_by"]) == want
+    route = kb.bound(*kb.wide_multistep_bwd_lr(sch, 40, s, kb.TSIT5_PAIRS))
+    assert route[0] > want[0]
+    notes = [a for a in rows["K10"]["also"] if "no bound" in a["shapes"]]
+    assert len(notes) == 2 and notes[0]["bound_ms"] == route[0]
+    # the reads run over the 402 real columns, not the 512 padded ones
+    ops, floats = kb.wide_step_fwd(sch, 7, s)
+    assert floats == 7 * 402 + 88440 + 7 * 512
+    assert kb.bound(ops, floats)[1] == "operations"
 
 
 def test_wide_rows_bound_every_shape_the_surrogates_run():

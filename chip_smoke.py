@@ -7,7 +7,10 @@ Builds the hand-written CUDA kernels from `kanodes_tpu_torch/csrc/`,
 holds each against its plain PyTorch version on the card, drives the LV
 KAN-ODE trainer through `kanodes_tpu_torch.experiments.lv.run(...,
 device="cuda")` in four configurations (fused shooting, fused fixed,
-fused adaptive, pallas shooting), the gray-box source-recovery trainer
+fused adaptive, pallas shooting), the packed ensemble of 8 LV members
+trained adaptively with one controller per member through
+`experiments.lv_members.run_members(..., device="cuda")` (fused through
+K8, and xla), the gray-box source-recovery trainer
 through `experiments.pde_source.run(..., device="cuda")` in four (1-D
 Fisher-KPP fused and plain, 1-D Allen-Cahn and 2-D Fisher-KPP fused), the
 PDE full-state surrogate trainer through `experiments.pde_surrogate.run(
@@ -83,7 +86,15 @@ WIDE_KERNELS = {
     "fused_rk_multistep_wide_bwd_lr": (
         "kanodes_tpu/ops/rk_fused_wide.py:774", _KW),
 }
-KERNELS = {**LV_KERNELS, **SOURCE_KERNELS, **KDENSE_KERNELS, **WIDE_KERNELS}
+_K8 = "kanodes_tpu_torch/csrc/rk_adaptive_members.cu"
+MEMBERS_KERNELS = {
+    "fused_adaptive_members_odeint_fwd": (
+        "kanodes_tpu/ops/rk_adaptive_fused.py:552", _K8),
+    "fused_adaptive_members_odeint_bwd": (
+        "kanodes_tpu/ops/rk_adaptive_fused.py:701", _K8),
+}
+KERNELS = {**LV_KERNELS, **SOURCE_KERNELS, **KDENSE_KERNELS, **WIDE_KERNELS,
+           **MEMBERS_KERNELS}
 
 
 def emit(obj) -> None:
@@ -181,6 +192,120 @@ def adaptive_case_inputs(torch, case, device="cuda"):
     model.init(torch.Generator().manual_seed(0))
     params = [p.detach().contiguous() for p in fused_params(model)]
     return torch.ones((case.K, 2), device=device), params, ts
+
+
+class MembersCase(NamedTuple):
+    """A K8 kernel-vs-plain case: S packed LV members [2,10,2], G=5, over
+    K rows. weights "init": member s is the LV init (glorot / 1e5, torch
+    seed s) from u0 = (1, 1); "uniform": every member's weights from
+    U(-scale, scale), block-diagonal, and states from U(0.3, 2.0);
+    "dense": the same draws over the whole packed matrices, so the
+    members are coupled and the off-block cotangents are real (numpy seed
+    `seed`); "trained": inputs given by the caller. Save times: the LV train grid (0.1 to 3.4, T = 35), or with
+    `ends` only [0, 3.5], where the controllers size every step."""
+    label: str
+    S: int
+    K: int
+    solver: str
+    rtol: float
+    atol: float
+    max_steps: int
+    weights: str
+    seed: int = 0
+    scale: float = 0.3
+    pi: bool = False
+    dt0: float | None = None
+    ends: bool = False
+
+
+# Kernel and plain version must take the same steps per member, so every
+# case is one whose per-member step sequences two-ulp noise in every chain
+# evaluation cannot change (tests/test_torch_rk_adaptive_members.py checks
+# it on the CPU). Where the controllers size the steps (`ends`), that noise
+# still moves a step by up to 2e-3 of itself (an f32 error estimate at
+# rtol 1e-3), and the gradients with it, so there K8b is held to the plain
+# backward on the kernel's own records, and to autograd through the plain
+# forward only where the save times clip every step. The first case is
+# the main path's solve at the init; rejections run from a dt0 too large
+# (the first step from the initial-dt heuristic has an error estimate at
+# the f32 rounding floor, which makes the next step size noise); the LV
+# tolerances run only where the save times clip the steps. With +-0.5
+# weights and controller-sized steps the gradients reach order 10, and
+# plain f32 itself lands anywhere from inside GRAD_TOL of float64 to many
+# GRAD_TOLs from it; where it lands just inside, `graybox_rule` holds the
+# cotangent elementwise, and a second f32 order of the same sums falls
+# outside. So the 8-member cases keep +-0.1-0.3 weights, where two-ulp
+# noise in the backward moves each cotangent held elementwise by under
+# half GRAD_TOL (the same test), and the last case keeps +-0.5 at rtol
+# 1e-3: there plain f32 misses float64 by several GRAD_TOLs on every
+# parameter cotangent, so the float64 rule decides them, and dx0 is held
+# elementwise.
+MEMBERS_CASES = (
+    MembersCase("S=8 LV init, train grid", 8, 1, "tsit5", 1e-3, 1e-6, 70,
+                "init"),
+    MembersCase("S=8 +-0.2 weights, I controller", 8, 1, "tsit5", 1e-4,
+                1e-6, 128, "uniform", seed=5, scale=0.2, dt0=3.0,
+                ends=True),
+    MembersCase("S=8 +-0.1 weights, PI controller", 8, 1, "tsit5", 1e-4,
+                1e-6, 128, "uniform", seed=3, scale=0.1, pi=True, dt0=3.0,
+                ends=True),
+    MembersCase("S=8 dt0=0.5, train grid", 8, 1, "tsit5", 1e-3, 1e-6, 128,
+                "uniform", seed=41, scale=0.3, dt0=0.5),
+    MembersCase("S=3 dopri5", 3, 1, "dopri5", 1e-3, 1e-6, 128, "uniform",
+                seed=13, scale=0.5, dt0=1.0, ends=True),
+    MembersCase("S=8 K=4 rows, train grid", 8, 4, "tsit5", 1e-3, 1e-6, 128,
+                "uniform", seed=23, scale=0.3),
+    MembersCase("S=8 max_steps=12, unreached rows", 8, 1, "tsit5", 1e-3,
+                1e-6, 12, "uniform", seed=6),
+    MembersCase("S=4 dense (not block-diagonal) weights", 4, 1, "tsit5",
+                1e-3, 1e-6, 128, "dense", seed=30, scale=0.1, dt0=1.0,
+                ends=True),
+    MembersCase("S=8 LV init, LV tolerances", 8, 1, "tsit5", 1e-6, 1e-8,
+                256, "init"),
+    MembersCase("S=8 +-0.5 weights, float64 rule", 8, 1, "tsit5", 1e-3,
+                1e-6, 128, "uniform", seed=13, scale=0.5, dt0=3.0,
+                ends=True),
+)
+
+
+def members_case_inputs(torch, case, device="cuda"):
+    """(spec, x0 [K, 2S], params (c1, w1, c2, w2), ts) of a MembersCase."""
+    import numpy as np
+    from kanodes_tpu_torch.experiments import lv
+    from kanodes_tpu_torch.interop import chain_params_to_numpy
+    from kanodes_tpu_torch.models import packed as pk
+    from kanodes_tpu_torch.models.kdense import KANChain
+    from kanodes_tpu_torch.ops.kdense_pallas import chain_spec_of
+    S, K, G = case.S, case.K, 5
+    rng = np.random.default_rng(case.seed)
+    member = KANChain.mlp_like([2, 10, 2], grid_len=G)
+    chain = pk.pack_chain(member, S)
+
+    def u(*shape):
+        return rng.uniform(-case.scale, case.scale, shape)
+
+    if case.weights == "dense":
+        layers = [{"C": u(2 * S, G, 10 * S), "W": u(2 * S, 10 * S)},
+                  {"C": u(10 * S, G, 2 * S), "W": u(10 * S, 2 * S)}]
+    else:
+        if case.weights == "init":
+            members = [chain_params_to_numpy(lv.init_params(
+                lv.LVConfig(), member, torch.Generator().manual_seed(s)))
+                for s in range(S)]
+        else:
+            members = [[{"C": u(2, G, 10), "W": u(2, 10)},
+                        {"C": u(10, G, 2), "W": u(10, 2)}]
+                       for _ in range(S)]
+        layers = pk.pack_params(member, members)
+    params = [torch.tensor(np.asarray(p[k], dtype=np.float32).reshape(
+        -1, np.shape(p[k])[-1]), device=device)
+        for p in layers for k in ("C", "W")]
+    x0 = (np.ones((K, 2 * S)) if case.weights == "init"
+          else rng.uniform(0.3, 2.0, (K, 2 * S)))
+    ts = (torch.tensor([0.0, 3.5], device=device) if case.ends else
+          torch.arange(0, 35, dtype=torch.float32, device=device) * 0.1)
+    return (chain_spec_of(chain), torch.tensor(x0, dtype=torch.float32,
+                                               device=device), params, ts)
 
 
 class GrayboxCase(NamedTuple):
@@ -1291,6 +1416,274 @@ def phase_kdense_pallas(torch, modules, KDense, card):
     return launches
 
 
+MEMBERS_NAMES = ("dx0", "dc1", "dw1", "dc2", "dw2")
+
+
+def members_bwd_references(torch, ra, case, spec, x0, params, rec, gys):
+    """K8b's plain version on a forward's records, in float32 and in
+    float64 (the same records and step sizes, cast)."""
+    plain = ra.fused_adaptive_members_odeint_bwd_reference
+    rec64 = tuple(r.double() if r.is_floating_point() else r for r in rec)
+    return (plain(spec, case.solver, case.S, x0, *params, rec, gys),
+            plain(spec, case.solver, case.S, x0.double(),
+                  *(p.double() for p in params), rec64, gys.double()))
+
+
+def members_case_check(torch, ra, StepController, case, index, max_err,
+                       inputs=None, backward=True, phase="members_kernels"):
+    """K8f/K8b against their plain versions on one MembersCase, or on
+    `inputs` (spec, x0, params, ts) at the case's settings; without
+    `backward` K8f only. Prints the case's line and returns it."""
+    import numpy as np
+    failures = []
+    spec, x0, params, ts = inputs or members_case_inputs(torch, case)
+    ctrl = StepController.pi() if case.pi else StepController()
+    args = (spec, case.solver, case.rtol, case.atol, case.max_steps, ctrl,
+            case.dt0, case.S)
+    k = ra._consts(spec, case.solver, case.rtol, case.atol, ctrl, case.dt0)
+    ys, rec = ra._launch_members_fwd(k, case.S, case.max_steps, x0, ts,
+                                     params)
+    xs = [t.clone().requires_grad_() for t in (x0, *params)]
+    ys_ref, rec_ref = ra.fused_adaptive_members_odeint_reference(
+        *args, xs[0], ts, *xs[1:])
+    ys64, rec64 = ra.fused_adaptive_members_odeint_reference(
+        *args, x0.double(), ts.double(), *(p.double() for p in params))
+    stats, stats_ref = rec[5].tolist(), rec_ref[5].tolist()
+    if stats != stats_ref or rec[6].tolist() != rec_ref[6].tolist():
+        failures.append(f"K8f per-member stats (n_accept, n_reject, n_iter, "
+                        f"save index) {stats} != plain {stats_ref}")
+    detail = f64_rule(failures, "K8f", ys, ys_ref.detach(), ys64)
+    max_err["fused_adaptive_members_odeint_fwd"] = max(
+        max_err["fused_adaptive_members_odeint_fwd"], detail["max_abs_err"])
+    line = {"phase": phase, "kernel": "K8", "case": case.label,
+            "solver": case.solver, "rtol": case.rtol, "atol": case.atol,
+            "controller": "PI" if case.pi else "I", "dt0": case.dt0,
+            "shape": list(x0.shape), "T": ts.shape[0],
+            "max_steps": case.max_steps, "iterations": rec[6].tolist(),
+            "stats": stats, "plain_stats": stats_ref,
+            "f64_stats": rec64[5].tolist(), **detail}
+    if not backward:
+        torch.cuda.synchronize()
+        finish_phase(line, failures)
+        return line
+    gys = torch.tensor(np.random.default_rng(index).standard_normal(
+        tuple(ys.shape)) / ts.shape[0], dtype=torch.float32, device="cuda")
+    g = ra._launch_members_bwd(k, case.S, x0, params, rec, gys)
+    again = ra._launch_members_bwd(k, case.S, x0, params, rec, gys)
+    if not all(bool((a == b).all()) for a, b in zip(g, again)):
+        failures.append("K8b: two launches differ")
+    g_ref, g64 = members_bwd_references(torch, ra, case, spec, x0, params,
+                                        rec, gys)
+    auto_err, grads = 0.0, {}
+    for name, a, b, ref in zip(MEMBERS_NAMES, g, g_ref, g64):
+        e, grads[name] = graybox_rule(torch, failures, f"K8b {name}", a, b,
+                                      ref, GRAD_TOL)
+        max_err["fused_adaptive_members_odeint_bwd"] = max(
+            max_err["fused_adaptive_members_odeint_bwd"], e)
+    g_auto = torch.autograd.grad(ys_ref, xs, gys)
+    for name, a, c in zip(MEMBERS_NAMES, g, g_auto):
+        auto_err = max(auto_err, float((a - c).abs().max()))
+        if not case.ends:
+            assert_close(failures, f"K8b {name} vs autograd", a, c, GRAD_TOL)
+    torch.cuda.synchronize()
+    line.update(grad_tol=GRAD_TOL, grads=grads,
+                grad_vs_autograd_max_abs=auto_err,
+                grad_vs_autograd_gated=not case.ends)
+    finish_phase(line, failures)
+    return line
+
+
+def phase_members_kernels(torch, ra, StepController, max_err):
+    """K8 vs its plain versions on the card, MEMBERS_CASES: one line per
+    case. K8f: per-member stats equal, ys by the float64 rule; K8b: each
+    cotangent by `graybox_rule` against the plain backward on the kernel's
+    records and that backward run in float64 (the float64 rule decides
+    where plain f32 itself misses float64 by more than GRAD_TOL: the
+    +-0.5 case's parameter cotangents), twice bit for bit, and against
+    autograd through the plain forward where the save times clip every
+    step. Fails unless the cases, as the kernel ran them, took rejected
+    steps under both controllers and the float64 rule decided a
+    cotangent."""
+    seen = {"rejected_I": 0, "rejected_PI": 0, "float64_rule": 0}
+    for index, case in enumerate(MEMBERS_CASES):
+        line = members_case_check(torch, ra, StepController, case, index,
+                                  max_err)
+        seen["rejected_PI" if case.pi else "rejected_I"] += sum(
+            line["stats"][1])
+        seen["float64_rule"] += sum(g["rule"] == "float64"
+                                    for g in line["grads"].values())
+    assert all(seen.values()), f"K8 cases miss a regime: {seen}"
+
+
+def phase_trained_members(torch, ra, StepController, trained, max_err):
+    """K8 vs its plain versions on the parameters the fused members run
+    ended with, at the shapes the main path gives it: the train grid (T =
+    35, max_steps 70; K8f and K8b, as `members_case_check` holds them)
+    and the eval grid (T = 141, max_steps 282; K8f)."""
+    from kanodes_tpu_torch.ops.kdense_pallas import chain_spec_of, fused_params
+    cfg, data, model = trained["cfg"], trained["data"], trained["model"]
+    spec = chain_spec_of(model)
+    params = [p.detach().contiguous() for p in fused_params(model)]
+    u0 = data["X"][:1].contiguous()
+    for index, (name, T) in enumerate((("train grid", data["n_train"]),
+                                       ("eval grid", data["ts"].shape[0]))):
+        case = MembersCase(f"trained params, {name}", 8, 1, "tsit5",
+                           cfg.rtol, cfg.atol, max(cfg.max_steps, 2 * T),
+                           "trained")
+        members_case_check(torch, ra, StepController, case, 100 + index,
+                           max_err, (spec, u0, params,
+                                     data["ts"][:T].contiguous()),
+                           backward=name == "train grid",
+                           phase="trained_members")
+
+
+def phase_members_main_path(torch, lv, lvm, pk, modules, card):
+    """The packed ensemble (8 LV members, [16, 80, 16]) on the card through
+    `lv_members.run_members(..., device="cuda")`: impl fused for 200
+    iterations (one K8f and one K8b each, one K8f an eval, exactly), impl
+    xla for 5 (no kernel). Every member's loss finite, and its last loss
+    and its loss at the joint best below its first; at the fused run's
+    final parameters the fused loss and eval vectors equal the xla
+    route's within 3e-5 relative (the JAX script's gate,
+    scripts/lv_adaptive_members_fused.py:105-106) and the loss's
+    gradients within GRAD_TOL. Returns the launches and the fused run's
+    output."""
+    import dataclasses
+    launches = {k: 0 for k in KERNELS}
+    fused = None
+    for cfg in (dataclasses.replace(lvm.DEFAULT_CFG, iters=200,
+                                    eval_every=100),
+                dataclasses.replace(lvm.DEFAULT_CFG, impl="xla", iters=5,
+                                    eval_every=5)):
+        torch.cuda.synchronize()
+        reset_counts(modules)
+        t0 = time.perf_counter()
+        out = lvm.run_members(cfg, 8, device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts(modules)
+        iters, n_evals = train_blocks(cfg)
+        want = {k: 0 for k in KERNELS}
+        if cfg.impl == "fused":
+            want["fused_adaptive_members_odeint_fwd"] = iters + n_evals
+            want["fused_adaptive_members_odeint_bwd"] = iters
+        assert counts == want, f"launches {counts} != expected {want}"
+        for name in KERNELS:
+            launches[name] += counts[name]
+        tensors = [out["loss_history"], out["eval_history"], out["best_loss"],
+                   *out["params"].values(), *out["model"].parameters()]
+        assert all(t.is_cuda for t in tensors), "a result left the card"
+        losses = out["loss_history"].cpu()
+        evals = out["eval_history"].cpu()
+        assert losses.shape == (cfg.iters, 8), losses.shape
+        assert bool(torch.isfinite(losses).all()), "non-finite train loss"
+        assert bool(torch.isfinite(evals).all()), "non-finite eval loss"
+        first, best = losses[0], out["best_loss"].cpu()
+        for what, vec in (("at the joint best", best), ("last", losses[-1])):
+            assert bool((vec < first).all()), \
+                f"member losses {what} {vec.tolist()} !< first " \
+                f"{first.tolist()}"
+        line = {"phase": "members_main_path", "run": f"{cfg.impl}/adaptive",
+                "members": 8, "widths": [16, 80, 16], "iters": cfg.iters,
+                "first_loss": first.tolist(), "best_loss": best.tolist(),
+                "last_loss": losses[-1].tolist(),
+                "last_eval": evals[-1].tolist(),
+                "launches": {k: v for k, v in counts.items() if v},
+                "seconds": seconds, "it_per_s": cfg.iters / seconds,
+                "member_it_per_s": 8 * cfg.iters / seconds, "card": card}
+        failures = []
+        if cfg.impl == "fused":
+            fused = out
+            model, data = out["model"], out["data"]
+            grads = {}
+            for impl in ("fused", "xla"):
+                loss_fn, eval_fn, _ = lv.make_ode_fns(
+                    dataclasses.replace(cfg, impl=impl), model, data,
+                    reduce_fn=pk.member_mean(8), n_members=8)
+                model.zero_grad()
+                vec = loss_fn(model)
+                vec.sum().backward()
+                with torch.no_grad():
+                    ev = eval_fn(model)
+                grads[impl] = (vec.detach(), ev, [p.grad.clone() for p in
+                                                  model.parameters()])
+            (lf, ef, gf), (lx, ex, gx) = grads["fused"], grads["xla"]
+            rel = {}
+            for what, a, b in (("loss", lf, lx), ("eval", ef, ex)):
+                rel[what] = float(((a - b).abs() / b.abs()).max())
+                if rel[what] >= 3e-5:
+                    failures.append(f"fused vs xla {what} vector: max "
+                                    f"relative {rel[what]:.3e} >= 3e-5")
+            for a, b in zip(gf, gx):
+                assert_close(failures, "fused vs xla gradient", a, b,
+                             GRAD_TOL)
+            line.update(fused_loss=lf.tolist(), xla_loss=lx.tolist(),
+                        max_rel_loss=rel["loss"], fused_eval=ef.tolist(),
+                        xla_eval=ex.tolist(), max_rel_eval=rel["eval"])
+        finish_phase(line, failures)
+    for name in MEMBERS_KERNELS:
+        assert launches[name] > 0, f"{name} never launched on the main path"
+    return launches, fused
+
+
+def phase_members_timings(torch, lvm, ra, trained, card):
+    """K8f/K8b against their plain versions at the slice's shapes, on the
+    parameters the fused members run ended with: the train grid (T = 35,
+    K = 1, max_steps 70; forward and backward) and the eval grid (T = 141,
+    max_steps 282; forward). CUDA-event ms, the profiler's device µs, the
+    bound from `utils/kernel_bounds.py` with this run's iteration counts.
+    Then `profile_lv.measure` of the ensemble's training iteration (ms,
+    device idle share, member-it/s). Returns the kernels line's rows."""
+    from kanodes_tpu_torch.ode.integrate import StepController
+    from kanodes_tpu_torch.ops.kdense_pallas import (chain_spec_of,
+                                                     fused_params, grid_of)
+    from kanodes_tpu_torch.utils import kernel_bounds as kb
+    cfg, data, model = trained["cfg"], trained["data"], trained["model"]
+    spec = chain_spec_of(model)
+    fp = [p.detach().contiguous() for p in fused_params(model)]
+    grid = grid_of(spec, fp[0])
+    u0 = data["X"][:1].contiguous()
+    k = ra._consts(spec, "tsit5", cfg.rtol, cfg.atol, StepController(), None)
+    dims = (spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len)
+    s, cases, iterations = 6, {}, {}
+    for name, T in (("train grid", data["n_train"]),
+                    ("eval grid", data["ts"].shape[0])):
+        ts = data["ts"][:T].contiguous()
+        ms = max(cfg.max_steps, 2 * T)
+        ys, rec = ra._launch_members_fwd(k, 8, ms, u0, ts, fp)
+        n_it = int(rec[6][0])
+        iterations[name] = {"T": T, "max_steps": ms, "iterations": n_it,
+                            "n_accept": rec[5][0].tolist(),
+                            "n_reject": rec[5][1].tolist()}
+        cases[f"K8f {name}"] = (
+            lambda ms=ms, ts=ts: ra._launch_members_fwd(k, 8, ms, u0, ts, fp),
+            lambda ms=ms, ts=ts: ra._members_fwd_plain(k, 8, ms, u0, ts, fp,
+                                                       grid),
+            kb.bound(*kb.members_fwd(dims, 1, T, 8, n_it, s)))
+        if name == "train grid":
+            gys = torch.randn_like(ys) / T
+            cases["K8b train grid"] = (
+                lambda rec=rec, gys=gys: ra._launch_members_bwd(
+                    k, 8, u0, fp, rec, gys),
+                lambda rec=rec, gys=gys: ra._members_bwd_plain(
+                    k.tab, spec, 8, u0, fp, grid, rec, gys),
+                kb.bound(*kb.members_bwd(dims, 1, T, 8, n_it, s)))
+    timed = {}
+    with torch.no_grad():
+        for name, (kern, plain, bound) in cases.items():
+            t = kernel_vs_plain_ms(torch, kern, plain, bound, reps=20,
+                                   plain_reps=2)
+            t["device_us"] = device_us(torch, kern, reps=5)
+            timed[name] = t
+    prof = lvm.profile(cfg, 8, iters=20, warmup=5)
+    emit({"phase": "members_timings", "shapes": "8 packed LV members "
+          "[16,80,16] G=5, K=1, tsit5 rtol 1e-3 atol 1e-6, trained params",
+          "iterations": iterations, "kernels": timed,
+          "ensemble_iteration": prof, "card": card})
+    return {"fused_adaptive_members_odeint_fwd": timed["K8f train grid"],
+            "fused_adaptive_members_odeint_bwd": timed["K8b train grid"]}
+
+
 def cuda_ms(torch, fn, reps):
     """Median milliseconds of fn() over reps, CUDA events, after warm-up."""
     fn()
@@ -1513,8 +1906,10 @@ def main() -> int:
                          "False; this smoke run needs a CUDA device")
     sys.path.insert(0, REPO)
     from kanodes_tpu_torch.experiments import lv
+    from kanodes_tpu_torch.experiments import lv_members as lvm
     from kanodes_tpu_torch.experiments import pde_source as ps
     from kanodes_tpu_torch.experiments import pde_surrogate as sg
+    from kanodes_tpu_torch.models import packed as pk
     from kanodes_tpu_torch.models.kdense import KANChain, KDense
     from kanodes_tpu_torch.ode.integrate import StepController
     from kanodes_tpu_torch.ops import _cuda
@@ -1553,20 +1948,26 @@ def main() -> int:
     phase_graybox_kernels(torch, gb, max_err)
     phase_kdense_single(torch, kp, max_err)
     phase_wide_kernels(torch, tw, kp, max_err)
+    phase_members_kernels(torch, ra, StepController, max_err)
 
     modules = (rk, kp, ra, gb, tw)
     launches, finals = phase_main_path(torch, lv, modules, card)
+    members_launches, members_out = phase_members_main_path(
+        torch, lv, lvm, pk, modules, card)
     for counts in (phase_surrogate_main_path(torch, sg, tw, modules, card),
                    phase_source_main_path(torch, ps, modules, card),
-                   phase_kdense_pallas(torch, modules, KDense, card)):
+                   phase_kdense_pallas(torch, modules, KDense, card),
+                   members_launches):
         for name in KERNELS:
             launches[name] += counts[name]
     trained = phase_trained_adaptive(torch, kp, ra, spec, rng,
                                      StepController, finals, max_err)
+    phase_trained_members(torch, ra, StepController, members_out, max_err)
     times = phase_timings(torch, lv, rk, kp, ra, spec, rng, card, trained,
                           StepController)
     times.update(phase_source_timings(torch, gb, kp, card))
     times.update(phase_wide_timings(torch, tw, kp, card))
+    times.update(phase_members_timings(torch, lvm, ra, members_out, card))
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -1,6 +1,6 @@
 // Per-row device math of the 2-layer KDense chain and of one explicit RK
 // step over it, shared by every kernel of csrc/ (rk_fused.cu,
-// kan_chain_apply.cu, rk_adaptive.cu).
+// kan_chain_apply.cu, rk_adaptive.cu, rk_adaptive_members.cu).
 //
 // Computes what `_layer_fwd` / `_layer_bwd` (kanodes_tpu/ops/
 // kdense_pallas.py:173-206) and `_chain_f` / `_chain_vjp_collect`
@@ -49,6 +49,29 @@ struct StepTab {
   float a[KC_MAX_STAGES][KC_MAX_STAGES];
   float b[KC_MAX_STAGES];
   int needed[KC_MAX_STAGES];
+};
+
+// The adaptive solves (K4 in rk_adaptive.cu, K8 in rk_adaptive_members.cu):
+// an FSAL embedded pair with raw f32 coefficients (dt is applied on the
+// device): a[i][j], b[i], e[i] = b_err[i].
+struct AdaptTab {
+  int stages;
+  float a[KC_MAX_STAGES][KC_MAX_STAGES];
+  float b[KC_MAX_STAGES];
+  float e[KC_MAX_STAGES];
+};
+
+// Tolerances and the step controller, each constant rounded to f32 as the
+// JAX kernel's weak-typed Python floats are.
+struct AdaptCtrl {
+  float rtol, atol;
+  float safety, min_factor, max_factor, dt_min;
+  float err_exp;    // -(icoeff + pcoeff) / order
+  float prev_exp;   // pcoeff / order
+  int use_prev;     // pcoeff != 0 (PI control)
+  float dt0;        // the initial step when has_dt0
+  int has_dt0;
+  float idt_exp;    // 1 / (order + 1), the initial-dt heuristic
 };
 
 // Per (row, stage) operands of the parameter cotangents, stored by the

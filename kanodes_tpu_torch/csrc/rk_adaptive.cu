@@ -48,28 +48,6 @@
 
 #include "kan_chain.cuh"
 
-// A FSAL embedded pair with raw f32 coefficients (dt is applied on the
-// device): a[i][j], b[i], e[i] = b_err[i].
-struct AdaptTab {
-  int stages;
-  float a[KC_MAX_STAGES][KC_MAX_STAGES];
-  float b[KC_MAX_STAGES];
-  float e[KC_MAX_STAGES];
-};
-
-// Tolerances and the step controller, each constant rounded to f32 as the
-// JAX kernel's weak-typed Python floats are.
-struct AdaptCtrl {
-  float rtol, atol;
-  float safety, min_factor, max_factor, dt_min;
-  float err_exp;    // -(icoeff + pcoeff) / order
-  float prev_exp;   // pcoeff / order
-  int use_prev;     // pcoeff != 0 (PI control)
-  float dt0;        // the initial step when has_dt0
-  int has_dt0;
-  float idt_exp;    // 1 / (order + 1), the initial-dt heuristic
-};
-
 namespace {
 
 constexpr int kBwdThreads = 256;

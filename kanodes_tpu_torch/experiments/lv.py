@@ -19,8 +19,11 @@ kernel of `ops/kdense_pallas.py` inside the plain integrators;
 tensors and their plain versions on CPU tensors. `solve_mode="adaptive"`
 is the reference-faithful protocol: adaptive Tsit5 with a step
 controller, differentiated straight through the controller loop
-(`LV_driver_KANODE.jl:180-184`). What lies outside this slice raises
-NotImplementedError naming its ROADMAP.md item.
+(`LV_driver_KANODE.jl:180-184`). `make_ode_fns(reduce_fn=, n_members=)`
+trains a packed ensemble (`models/packed.py`, driven by
+`experiments/lv_members.py`), one controller per member in adaptive
+mode. What lies outside this slice raises NotImplementedError naming
+its ROADMAP.md item.
 
 Run:  python -m kanodes_tpu_torch.experiments.lv [--key=value ...]
       [--device=cuda|cpu]   (default cuda; raises without a card)
@@ -37,7 +40,7 @@ import torch
 from kanodes_tpu_torch.interop import chain_params_from_numpy
 from kanodes_tpu_torch.models.kdense import KANChain
 from kanodes_tpu_torch.ode.integrate import (StepController, odeint,
-                                             odeint_fixed)
+                                             odeint_fixed, odeint_members)
 from kanodes_tpu_torch.train.loop import TrainConfig, train
 from kanodes_tpu_torch.utils.device import require_device
 from kanodes_tpu_torch.utils.host_rk import rk4_dense
@@ -166,19 +169,51 @@ def init_params(cfg: LVConfig, model: KANChain,
     return model
 
 
-def make_ode_fns(cfg: LVConfig, model: KANChain, data):
+def make_ode_fns(cfg: LVConfig, model: KANChain, data, *, reduce_fn=None,
+                 n_members: int | None = None):
     """(loss_fn, eval_fn, predict) closing over the dataset; loss_fn and
-    eval_fn take the model, predict takes (model, t_grid)."""
+    eval_fn take the model, predict takes (model, t_grid).
+
+    `reduce_fn` maps the squared-error tensor (last axis = state dim) to
+    the loss; the default is the scalar mean. A packed ensemble
+    (`models/packed.py`, pre-tiled data) passes `packed.member_mean(S)`,
+    so the loss is the [S] vector `train()` takes. `n_members` declares
+    its member count; adaptive mode needs it with a `reduce_fn`, and
+    then gives every member its own controller: impl="fused" runs the
+    whole solve as one K8 launch (and one for the backward,
+    `ops/rk_adaptive_fused.fused_adaptive_members_odeint`), "xla" and
+    "pallas" run `ode/integrate.odeint_members` on the chain or on K1
+    (whose caps, I <= 8 and H <= 32, refuse four or more LV members).
+    Without `n_members`, adaptive mode with a `reduce_fn` raises: one
+    shared controller would couple the members through dt."""
+    if reduce_fn is not None and cfg.sparse_on:
+        raise ValueError("sparse_on adds a scalar regularizer; it does "
+                         "not compose with a vector reduce_fn")
+    if (reduce_fn is not None and cfg.solve_mode == "adaptive"
+            and n_members is None):
+        raise ValueError(
+            "adaptive solve with a vector reduce_fn needs n_members= "
+            "(per-member step control via odeint_members); a shared "
+            "controller would couple the ensemble members through dt")
     _check_slice(cfg)
+    _reduce = reduce_fn if reduce_fn is not None else torch.mean
     X, n_train, ts_host = data["X"], data["n_train"], data["ts_host"]
     u0 = X[0]
     adaptive = cfg.solve_mode == "adaptive"
+    members = adaptive and n_members is not None
     use_fused = cfg.impl == "fused"
+    if n_members is not None and cfg.impl != "xla" and not (members
+                                                            and use_fused):
+        # a packed run through K1-K4 meets their caps on the card; refuse
+        # it here on every device
+        from kanodes_tpu_torch.ops._cuda import check_chain_caps
+        from kanodes_tpu_torch.ops.kdense_pallas import chain_spec_of
+        check_chain_caps(chain_spec_of(model))
     if use_fused:
         from kanodes_tpu_torch.ops.kdense_pallas import (chain_spec_of,
                                                          fused_params)
-        from kanodes_tpu_torch.ops.rk_adaptive_fused import \
-            fused_adaptive_odeint
+        from kanodes_tpu_torch.ops.rk_adaptive_fused import (
+            fused_adaptive_members_odeint, fused_adaptive_odeint)
         from kanodes_tpu_torch.ops.rk_fused import (fused_rk_multistep,
                                                     fused_rk_step)
         spec = chain_spec_of(model)
@@ -211,6 +246,18 @@ def make_ode_fns(cfg: LVConfig, model: KANChain, data):
             ms = max(cfg.max_steps, 2 * len(t_grid))
             t_grid = torch.as_tensor(t_grid, dtype=torch.float32,
                                      device=X.device)
+            if members and use_fused:
+                # every member's controller loop and its discrete adjoint
+                # as ONE kernel launch each
+                ys = fused_adaptive_members_odeint(
+                    spec, "tsit5", cfg.rtol, cfg.atol, ms, StepController(),
+                    None, n_members, u0[None], t_grid, *fused_params(m),
+                    bwd_precision=cfg.bwd_precision)
+                return ys[:, 0, :]
+            if members:
+                return odeint_members(rhs, u0, t_grid, m, n_members=n_members,
+                                      solver="tsit5", rtol=cfg.rtol,
+                                      atol=cfg.atol, max_steps=ms)
             if use_fused:
                 # whole bounded controller loop + its discrete adjoint as
                 # ONE kernel launch each; the same save-clipped stepper
@@ -240,7 +287,7 @@ def make_ode_fns(cfg: LVConfig, model: KANChain, data):
 
     def trajectory_loss(m):
         pred = predict(m, grid_train)
-        return torch.mean((pred - X[:n_train]) ** 2)
+        return _reduce((pred - X[:n_train]) ** 2)
 
     L = cfg.segment_len
     Xtr = X[:n_train]
@@ -264,7 +311,7 @@ def make_ode_fns(cfg: LVConfig, model: KANChain, data):
             ys = odeint_fixed(rhs, starts, seg_ts, m, solver="tsit5",
                               substeps=cfg.substeps)     # [L+1, S, 2]
             preds = ys[1:].transpose(0, 1)
-        return torch.mean((preds - targets) ** 2)
+        return _reduce((preds - targets) ** 2)
 
     def loss_fn(m):
         if cfg.solve_mode == "shooting":
@@ -272,7 +319,7 @@ def make_ode_fns(cfg: LVConfig, model: KANChain, data):
         return trajectory_loss(m)
 
     def eval_fn(m):
-        return torch.mean((predict(m, grid_all) - X) ** 2)
+        return _reduce((predict(m, grid_all) - X) ** 2)
 
     return loss_fn, eval_fn, predict
 

@@ -15,8 +15,10 @@ reached. JAX's "direct" scans all `max_steps` iterations instead, and
 the ones after `done` are identities, so the result and the gradients
 are the same. The error norm and the initial dt are out of the graph
 (`lax.stop_gradient` in the JAX package); gradients reach y0, args and
-`ts` through the save-clipped stepper. The interpolating and backsolve
-adjoints, `odeint_adjoint` and `odeint_members` wait (ROADMAP.md, M7).
+`ts` through the save-clipped stepper. `odeint_members` gives every
+member of a packed ensemble its own controller, the same way. The
+interpolating and backsolve adjoints and `odeint_adjoint` wait
+(ROADMAP.md, M7).
 """
 
 from __future__ import annotations
@@ -340,7 +342,149 @@ def odeint_adjoint(f, y0, ts, args=None, adjoint_params=None, **kw):
                               "(ROADMAP.md, M7 backsolve adjoint)")
 
 
-def odeint_members(f, y0, ts, args=None, **kw):
-    """One step controller per packed-ensemble member: not ported yet."""
-    raise NotImplementedError("odeint_members is not ported yet "
-                              "(ROADMAP.md, M11 odeint_members)")
+# ---------------------------------------------------------------------------
+# per-member adaptive integration for packed ensembles
+# ---------------------------------------------------------------------------
+
+def _member_norm(err: Tensor, y0: Tensor, y1: Tensor, rtol, atol,
+                 n_members: int) -> Tensor:
+    """Member-blocked Hairer norm: the last axis is member-major [S*d];
+    one error norm per member [S] over its block, batch axes included."""
+    scale = atol + rtol * torch.maximum(torch.abs(y0), torch.abs(y1))
+    r = (err / scale).reshape(*y0.shape[:-1], n_members, -1)
+    return torch.sqrt(torch.mean(r * r, dim=tuple(range(r.dim() - 2))
+                                 + (r.dim() - 1,)))
+
+
+def _initial_dt_members(f: Callable, t0, y0: Tensor, args, order: int, rtol,
+                        atol, tdir, n_members: int) -> Tensor:
+    """`initial_dt` with every norm over the member's own block, so each
+    member starts where its own solve would."""
+    d = y0.shape[-1] // n_members
+    f0 = f(t0, y0, args)
+
+    def nrm(v):
+        r = (v / (atol + rtol * torch.abs(y0))).reshape(
+            *y0.shape[:-1], n_members, d)
+        return torch.sqrt(torch.mean(r * r, dim=tuple(range(r.dim() - 2))
+                                     + (r.dim() - 1,)))
+
+    d0, d1 = nrm(y0), nrm(f0)
+    h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5), 1e-6, 0.01 * d0 / d1)
+    y1 = y0 + (tdir * h0).repeat_interleave(d) * f0
+    f1 = f(t0 + tdir * h0, y1, args)
+    d2 = nrm(f1 - f0) / h0
+    dmax = torch.maximum(d1, d2)
+    h1 = torch.where(dmax <= 1e-15, torch.clamp_min(h0 * 1e-3, 1e-6),
+                     (0.01 / dmax) ** (1.0 / (order + 1)))
+    return torch.minimum(100.0 * h0, h1)
+
+
+def odeint_members(f: Callable, y0: Tensor, ts, args=None, *,
+                   n_members: int, solver: str | Tableau = "tsit5",
+                   rtol: float = 1e-3, atol: float = 1e-6,
+                   dt0: float | None = None, max_steps: int = 4096,
+                   controller: StepController = StepController(),
+                   return_stats: bool = False):
+    """Adaptive solve of a PACKED ensemble state with one independent
+    step controller per member.
+
+    `y0`'s last axis is member-major [S*d] (`models/packed.py`); `f` must
+    be block-diagonal across members (a masked packed chain is) and is
+    called with a per-member time vector t [S], which autonomous RHSs
+    ignore. Each member carries its own (t, dt, save index, PI memory):
+    error norms over its own block, steps clipped to its own next save
+    time, accept/reject decisions that never couple members.
+
+    Differentiable by autograd, as `odeint(adjoint="direct")` is: the
+    error norms and the initial dt are out of the graph. Returns ys [T,
+    ..., S*d] (rows a member never reached hold its final state) and,
+    with `return_stats`, SolveStats of int32 [S] counts and a bool [S]
+    success.
+    """
+    tab = get_tableau(solver)
+    if tab.b_err is None or not tab.fsal:
+        raise ValueError("per-member adaptive requires an FSAL embedded "
+                         "tableau (tsit5/dopri5/bs3)")
+    ts = torch.as_tensor(ts, dtype=y0.dtype, device=y0.device)
+    S = int(n_members)
+    if y0.shape[-1] % S:
+        raise ValueError(f"state dim {y0.shape[-1]} not divisible by "
+                         f"n_members={S}")
+    d, dev = y0.shape[-1] // S, y0.device
+    T = ts.shape[0]
+    tdir = torch.sign(ts[-1] - ts[0])
+
+    def expand(v):                                     # [S] -> [S*d]
+        return v.repeat_interleave(d)
+
+    def members(flags):
+        return expand(torch.tensor(flags, device=dev))
+
+    t = ts[0].expand(S)
+    if dt0 is None:
+        with torch.no_grad():
+            dt = _initial_dt_members(f, t, y0, args, tab.order, rtol, atol,
+                                     tdir, S)
+    else:
+        dt = torch.full((S,), dt0, dtype=ts.dtype, device=dev)
+    k1 = f(t, y0, args)
+    y, ys = y0, [y0] + [torch.zeros_like(y0)] * (T - 1)
+    err_prev = torch.ones(S, dtype=ts.dtype, device=dev)
+    save_idx, done = [1] * S, [T <= 1] * S
+    n_acc, n_rej, n_it = [0] * S, [0] * S, [0] * S
+    for _ in range(max_steps):
+        if all(done):       # the JAX scan's remaining iterations are no-ops
+            break
+        rows = [min(i, T - 1) for i in save_idx]
+        t_save = ts[torch.tensor(rows, device=dev)]
+        remaining = (t_save - t) * tdir
+        hit = dt >= remaining
+        dt_used = torch.where(hit, remaining, dt)
+        h = expand(tdir * dt_used)
+        ks = [k1]
+        for i in range(1, tab.stages):
+            yi = y + h * _weighted_sum(tab.a[i], ks)
+            ks.append(f(t + tab.c[i] * dt_used, yi, args))
+        y1 = y + h * _weighted_sum(tab.b, ks)
+        err = h * _weighted_sum(tab.b_err, ks)
+        err_nrm = _member_norm(err.detach(), y.detach(), y1.detach(), rtol,
+                               atol, S)
+        accept = (err_nrm <= 1.0) | (dt_used <= controller.dt_min)
+        fac = controller.factor(err_nrm, tab.order, err_prev)
+        dt_next = torch.clamp_min(dt_used * fac, controller.dt_min)
+        done_t = torch.tensor(done, device=dev)
+        step_ok = accept & ~done_t
+        saved = step_ok & hit
+        ok_h, acc_h, saved_h = torch.stack([step_ok, accept, saved]).tolist()
+        t = torch.where(step_ok, torch.where(hit, t_save, t + tdir * dt_used),
+                        t)
+        ok = expand(step_ok)
+        y = torch.where(ok, y1, y)
+        k1 = torch.where(ok, ks[-1], k1)                      # FSAL
+        for row in sorted({r for r, v in zip(rows, saved_h) if v}):
+            ys[row] = torch.where(
+                members([v and r == row for r, v in zip(rows, saved_h)]),
+                y1, ys[row])
+        dt = torch.where(done_t, dt, dt_next)
+        err_prev = torch.where(step_ok, torch.clamp_min(err_nrm, 1e-12),
+                               err_prev)
+        for s in range(S):
+            n_acc[s] += ok_h[s]
+            n_rej[s] += not acc_h[s] and not done[s]
+            n_it[s] += not done[s]
+            save_idx[s] += saved_h[s]
+            done[s] = done[s] or save_idx[s] >= T
+    # save rows a member never reached (max_steps ran out): its last state
+    for i in range(1, T):
+        if any(v <= i for v in save_idx):
+            ys[i] = torch.where(members([v <= i for v in save_idx]), y,
+                                ys[i])
+    ys = torch.stack(ys)
+    if return_stats:
+        i32 = dict(dtype=torch.int32, device=dev)
+        return ys, SolveStats(torch.tensor(n_acc, **i32),
+                              torch.tensor(n_rej, **i32),
+                              torch.tensor(n_it, **i32),
+                              torch.tensor(done, device=dev))
+    return ys

@@ -29,12 +29,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-# source -> its own flags. rk_adaptive.cu: no multiply-add contraction, so
-# the adaptive controller's accept/reject threshold sees the same rounding
-# as the plain version (csrc/rk_adaptive.cu, "Numbers").
+# source -> its own flags. The adaptive solves (K4, K8): no multiply-add
+# contraction, so the controller's accept/reject threshold sees the same
+# rounding as the plain version (csrc/rk_adaptive.cu, "Numbers").
 SOURCES = {"rk_fused.cu": (), "kan_chain_apply.cu": (),
            "rk_adaptive.cu": ("-fmad=false",), "kdense_single.cu": (),
-           "graybox.cu": (), "rk_fused_wide.cu": ()}
+           "graybox.cu": (), "rk_fused_wide.cu": (),
+           "rk_adaptive_members.cu": ("-fmad=false",)}
 HEADERS = ("kan_chain.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -48,6 +49,9 @@ MAX_SINGLE_I = 32
 MAX_GB_NODES, MAX_GB_N, MAX_GB_G, MAX_GB_STAGES = 2048, 64, 16, 7
 # K6/K7/K10 (rk_fused_wide.cu): WD_MAX_I, WD_MAX_H, WD_MAX_G, WD_MAX_STAGES
 MAX_WIDE_I, MAX_WIDE_H, MAX_WIDE_G, MAX_WIDE_STAGES = 2048, 16, 16, 7
+# K8 (rk_adaptive_members.cu): MB_MAX_I, KC_MAX_G, KC_MAX_STAGES and the
+# dynamic shared memory a launch may take, MB_MAX_SMEM
+MAX_MB_I, MAX_MB_SMEM = 32, 232448 - 4096
 
 _NORMALIZERS = {"tanh": 0, "softsign": 1}
 _BASES = {"rbf": 0, "iqf": 1, "rswaf": 2}
@@ -142,6 +146,14 @@ _SIGNATURES = {
     # x0, ys, gys, c1p, w1p, c2p, w2p, dx0, dc1p, dw1p, dc2p, dw2p, XS, KB,
     # Y1, TT, AT, V, L, n_steps, tab, stream
     "wd_multistep_bwd_lr": [_P] * 19 + [_I] + [_P] * 2,
+    # x0, ts, T, c1, w1, c2, w2, ys, rx, rk1, rdt, racc, rsx, mstats, nit,
+    # K, S, max_steps, dims, tab, ctrl, stream
+    "mb_adaptive_fwd": [_P] * 2 + [_I] + [_P] * 12 + [_I] * 3 + [_P] * 4,
+    # x0, c1, w1, c2, w2, rx, rk1, rdt, racc, rsx, mstats, nit, gys, T,
+    # dx0, dc1, dw1, dc2, dw2, K, S, dims, tab, stream
+    "mb_adaptive_bwd": [_P] * 13 + [_I] + [_P] * 5 + [_I] * 2 + [_P] * 3,
+    # dims, K, stages, backward
+    "mb_smem_bytes": [_P] + [_I] * 3,
 }
 
 # caps function -> the wrapper's values it must report
@@ -150,6 +162,7 @@ _CAPS = {
     "kd_caps": (MAX_SINGLE_I, MAX_H, MAX_G),
     "gb_caps": (MAX_GB_NODES, MAX_GB_N, MAX_GB_G, MAX_GB_STAGES),
     "wd_caps": (MAX_WIDE_I, MAX_WIDE_H, MAX_WIDE_G, MAX_WIDE_STAGES),
+    "mb_caps": (MAX_MB_I, MAX_G, MAX_STAGES, MAX_MB_SMEM),
 }
 
 
@@ -305,6 +318,27 @@ def check_wide_caps(spec, stages: int) -> None:
                          f"{MAX_WIDE_H}, 2 <= G <= {MAX_WIDE_G}, stages <= "
                          f"{MAX_WIDE_STAGES}; got I={I}, H={H}, G={G}, "
                          f"stages={stages}")
+
+
+def check_members_caps(spec, stages: int, K: int) -> None:
+    """K8's caps for a packed chain [I -> H -> I] over K rows: I <= 32, G
+    and the stages within the header's caps, and both launches' dynamic
+    shared memory (mb_smem_bytes, from the library) within MAX_MB_SMEM."""
+    I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
+    if not (1 <= I <= MAX_MB_I and O == I and H >= 1 and 2 <= G <= MAX_G
+            and 1 <= stages <= MAX_STAGES and K >= 1):
+        raise ValueError(f"K8 caps: I = O <= {MAX_MB_I}, 2 <= G <= {MAX_G}, "
+                         f"stages <= {MAX_STAGES}; got I={I}, O={O}, H={H}, "
+                         f"G={G}, stages={stages}, K={K}")
+    lib = library()
+    for backward in (0, 1):
+        need = lib.mb_smem_bytes(ctypes.byref(chain_dims(spec)), K, stages,
+                                 backward)
+        if need > MAX_MB_SMEM:
+            raise ValueError(
+                f"K8 caps: the {'backward' if backward else 'forward'} of "
+                f"[{I}, {H}, {O}] G={G} over K={K} rows needs {need} bytes "
+                f"of shared memory > {MAX_MB_SMEM}; use fewer rows")
 
 
 def rec_width(spec) -> int:

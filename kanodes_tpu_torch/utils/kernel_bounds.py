@@ -127,6 +127,31 @@ def adaptive_bwd(dims, K: int, T: int, n_acc: int,
             + 4 + T * K * I)
 
 
+def members_fwd(dims, K: int, T: int, S: int, n_iter: int,
+                evals: int) -> tuple[int, int]:
+    """K8f: n_iter controller iterations of S packed members (f(x0) and
+    the initial-dt probe besides) from x0 [K, I] over T save times, the
+    chain dense over the packed width; writes ys [T, K, I], the records
+    of every iteration (x_in and k1 [K, I]; per member the dt, the
+    accept flag and the save row) and the [4, S] stats and the count."""
+    I = dims[0]
+    return ((n_iter * evals + 2) * K * chain_ops(*dims),
+            K * I + T + chain_params(*dims) + T * K * I
+            + n_iter * (2 * K * I + 3 * S) + 4 * S + 1)
+
+
+def members_bwd(dims, K: int, T: int, S: int, n_iter: int,
+                evals: int) -> tuple[int, int]:
+    """K8b: the n_iter recorded iterations replayed in reverse (the
+    stages again and their VJPs), plus the VJP of f(x0); reads x0, the
+    records and gys [T, K, I], writes dx0 and the param cotangents."""
+    I = dims[0]
+    return ((n_iter * evals + 1) * K * (chain_ops(*dims)
+                                        + chain_vjp_ops(*dims)),
+            2 * K * I + 2 * chain_params(*dims) + T * K * I
+            + n_iter * (2 * K * I + 3 * S) + 4 * S + 1)
+
+
 def single_fwd(I: int, O: int, G: int, K: int) -> tuple[int, int]:
     """K9f: one KDense layer, x [K, I] -> y [K, O]."""
     return K * layer_ops(I, O, G), K * (I + O) + I * G * O + I * O
@@ -262,11 +287,14 @@ GRAYBOX_SHAPES = (("1-D Fisher-KPP, [1, 26]", 26, 26, False),
                   ("2-D, [32, 32] (kron)", 1024, 32, True))
 
 
-def table(n_adapt: int = 35) -> list[dict]:
+def table(n_adapt: int = 35, n_members: tuple[int, int] = (34, 140)
+          ) -> list[dict]:
     """Every kernel of PERF.md's table at the shapes its row states.
     `n_adapt`: controller iterations (= accepted steps) of one adaptive
     solve of the LV train grid (35 on the trained model; chip_smoke.py
-    prints the count of its run)."""
+    prints the count of its run). `n_members`: K8's active iterations on
+    the 8-member ensemble's train grid (T = 35) and eval grid (T = 141),
+    chip_smoke.py's `members_timings` line."""
     lv = (2, 10, 2, 5)                          # I, H, O, G of the LV chain
     s = 6                  # tsit5 stages whose evaluation a step needs
     # 8 packed LV members: block-diagonal chain stored dense (slice 6)
@@ -278,6 +306,7 @@ def table(n_adapt: int = 35) -> list[dict]:
     g = 10
     _, nodes, n, kron = GRAYBOX_SHAPES[0]
     na = n_adapt
+    nm, ne = n_members
     rows = [
         ("K1f", "K=34 rows, LV chain", *chain_apply_fwd(lv, 34), 1),
         ("K1b", "K=34 rows, LV chain", *chain_apply_bwd(lv, 34), 1),
@@ -294,10 +323,10 @@ def table(n_adapt: int = 35) -> list[dict]:
          *adaptive_fwd(lv, 1, 35, na, na, s), na * s + 2),
         ("K4b", f"its adjoint, {na} accepted steps",
          *adaptive_bwd(lv, 1, 35, na, s), na * 2 * s + 2),
-        ("K8f", f"8 packed LV members, T=35, {na} iterations",
-         *adaptive_fwd(pk, 1, 35, na, na, s), na * s + 2),
-        ("K8b", f"its adjoint, {na} accepted steps",
-         *adaptive_bwd(pk, 1, 35, na, s), na * 2 * s + 2),
+        ("K8f", f"8 packed LV members [16,80,16], T=35, K=1, {nm} "
+         f"iterations", *members_fwd(pk, 1, 35, 8, nm, s), nm * s + 2),
+        ("K8b", f"its adjoint, {nm} iterations",
+         *members_bwd(pk, 1, 35, 8, nm, s), nm * 2 * s + 2),
         ("K5f", "gray-box tsit5 step, 1-D Fisher-KPP [1, 26], grid 10",
          *graybox_step_fwd(nodes, n, kron, g, s), s),
         ("K5b", "its adjoint, [1, 26]",
@@ -323,6 +352,8 @@ def table(n_adapt: int = 35) -> list[dict]:
                 for lbl, nn, nN, kr in GRAYBOX_SHAPES[1:]],
         "K5b": [(lbl, *graybox_step_bwd(nn, nN, kr, g, s))
                 for lbl, nn, nN, kr in GRAYBOX_SHAPES[1:]],
+        "K8f": [(f"the eval grid, T=141, {ne} iterations",
+                 *members_fwd(pk, 1, 141, 8, ne, s))],
         "K9f": [("layer [2->10], grid 5, K=34", *single_fwd(2, 10, 5, 34))],
         "K9b": [("layer [2->10], grid 5, K=34", *single_bwd(2, 10, 5, 34))],
         "K6f": [(f"{al}, K={ak}", *wide_step_fwd(ad, ak, s))],

@@ -99,7 +99,7 @@ _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|optax|kanodes_tpu)\b",
 def test_port_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    for sub in ("pde", "symbolic", "ops", "experiments"):
+    for sub in ("pde", "symbolic", "ops", "experiments", "models"):
         assert any(f.parent.name == sub for f in files), sub
     for path in files:
         text = path.read_text()
@@ -127,6 +127,8 @@ def test_port_imports_without_jax_in_a_fresh_process():
         "import kanodes_tpu_torch.symbolic.fit\n"
         "import kanodes_tpu_torch.symbolic.sindy\n"
         "import kanodes_tpu_torch.utils.kernel_bounds\n"
+        "import kanodes_tpu_torch.models.packed\n"
+        "import kanodes_tpu_torch.experiments.lv_members\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'optax' or m == 'kanodes_tpu'"
         " or m.startswith('kanodes_tpu.')]\n"

@@ -162,7 +162,9 @@ def test_adaptive_kernels_match_plain(card, index):
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, **GRAD)
     assert ra.LAUNCHES == {"fused_adaptive_odeint_fwd": 1,
-                           "fused_adaptive_odeint_bwd": 1}
+                           "fused_adaptive_odeint_bwd": 1,
+                           "fused_adaptive_members_odeint_fwd": 0,
+                           "fused_adaptive_members_odeint_bwd": 0}
 
 
 @pytest.mark.parametrize("index", range(len(chip_smoke.GRAYBOX_CASES)))
@@ -397,3 +399,72 @@ def test_surrogate_run_on_card_launches_exactly(card):
         "fused_rk_multistep_wide_fwd": 4 * 2 + 2 * 5,
         "fused_rk_multistep_wide_bwd_lr": 4,
         "fused_rk_multistep_wide_bwd": 4}
+
+
+@pytest.mark.parametrize("index", range(len(chip_smoke.MEMBERS_CASES)))
+def test_members_kernels_match_plain(card, index):
+    """chip_smoke's K8 cases: every member takes the plain version's steps
+    (per-member stats equal), ys by chip_smoke.f64_rule, the backward on
+    the kernel's own records against the plain backward and float64 by
+    chip_smoke.graybox_rule, twice, bit for bit."""
+    case = chip_smoke.MEMBERS_CASES[index]
+    spec, x0, params, ts = chip_smoke.members_case_inputs(torch, case)
+    ctrl = StepController.pi() if case.pi else StepController()
+    k = ra._consts(spec, case.solver, case.rtol, case.atol, ctrl, case.dt0)
+    ra.reset_launch_counts()
+    ys, rec = ra._launch_members_fwd(k, case.S, case.max_steps, x0, ts,
+                                     params)
+    ys_ref, rec_ref = ra.fused_adaptive_members_odeint_reference(
+        spec, case.solver, case.rtol, case.atol, case.max_steps, ctrl,
+        case.dt0, case.S, x0, ts, *params)
+    assert rec[5].tolist() == rec_ref[5].tolist()
+    assert rec[6].tolist() == rec_ref[6].tolist()
+    ys64, _ = ra.fused_adaptive_members_odeint_reference(
+        spec, case.solver, case.rtol, case.atol, case.max_steps, ctrl,
+        case.dt0, case.S, x0.double(), ts.double(),
+        *(p.double() for p in params))
+    failures = []
+    chip_smoke.f64_rule(failures, "ys", ys, ys_ref, ys64)
+    gys = torch.tensor(np.random.default_rng(index).standard_normal(
+        tuple(ys.shape)) / ts.shape[0], dtype=torch.float32, device=card)
+    got = ra._launch_members_bwd(k, case.S, x0, params, rec, gys)
+    again = ra._launch_members_bwd(k, case.S, x0, params, rec, gys)
+    want, want64 = chip_smoke.members_bwd_references(torch, ra, case, spec,
+                                                     x0, params, rec, gys)
+    for name, a, b, c, ref in zip(chip_smoke.MEMBERS_NAMES, got, again, want,
+                                  want64):
+        assert torch.equal(a, b)
+        chip_smoke.graybox_rule(torch, failures, name, a, c, ref, GRAD)
+    assert not failures, failures
+    assert ra.LAUNCHES["fused_adaptive_members_odeint_fwd"] == 1
+    assert ra.LAUNCHES["fused_adaptive_members_odeint_bwd"] == 2
+
+
+def test_members_wrapper_rejects_unsupported_input(card):
+    """K8's caps: 8 LV members fit over 8 rows, not over 16 (the
+    backward's shared memory)."""
+    case = chip_smoke.MEMBERS_CASES[0]
+    spec, _, params, ts = chip_smoke.members_case_inputs(torch, case)
+    k = ra._consts(spec, "tsit5", 1e-3, 1e-6, StepController(), None)
+    ys, _ = ra._launch_members_fwd(k, 8, 8, torch.ones(8, 16, device=card),
+                                   ts, params)
+    assert ys.shape == (35, 8, 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        ra._launch_members_fwd(k, 8, 8, torch.ones(16, 16, device=card), ts,
+                               params)
+
+
+def test_members_run_on_card_launches_exactly(card):
+    """lv_members.run_members on the card: one K8f and one K8b an
+    iteration, one K8f an eval, nothing else."""
+    import dataclasses
+
+    from kanodes_tpu_torch.experiments import lv_members
+    cfg = dataclasses.replace(lv_members.DEFAULT_CFG, iters=4, eval_every=2)
+    ra.reset_launch_counts()
+    out = lv_members.run_members(cfg, 8, device="cuda")
+    torch.cuda.synchronize()
+    assert ra.LAUNCHES["fused_adaptive_members_odeint_fwd"] == 4 + 2
+    assert ra.LAUNCHES["fused_adaptive_members_odeint_bwd"] == 4
+    assert out["loss_history"].shape == (4, 8)
+    assert bool(torch.isfinite(out["loss_history"]).all())

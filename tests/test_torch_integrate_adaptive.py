@@ -208,8 +208,10 @@ def test_what_is_not_ported_raises(lv_chain):
             T.odeint(trhs, y0, TS, tc, adjoint=adjoint)
     with pytest.raises(NotImplementedError, match="M7"):
         T.odeint_adjoint(trhs, y0, TS, tc)
-    with pytest.raises(NotImplementedError, match="odeint_members"):
-        T.odeint_members(trhs, y0, TS, tc)
+    # odeint_members is ported (tests/test_torch_odeint_members.py); what
+    # it does not take raises as the JAX function does
+    with pytest.raises(ValueError, match="FSAL"):
+        T.odeint_members(trhs, y0, TS, tc, n_members=1, solver="rk4")
     with pytest.raises(ValueError, match="embedded error"):
         T.odeint(trhs, y0, TS, tc, solver="rk4", adjoint="direct")
     with pytest.raises(ValueError, match="dense"):

@@ -58,6 +58,28 @@ def test_per_kernel_counts_by_hand():
     assert kb.adaptive_bwd(d, 1, 3, 3, 2) == (490, 29)
 
 
+def test_members_counts_by_hand():
+    """K8 on a 1-1-1 chain of grid 1 (26 operations an evaluation, 70
+    with its VJP, 4 parameters), one member, K = 1, T = 3."""
+    d = (1, 1, 1, 1)
+    # 4 iterations of 2 evaluations, f(x0) and the dt probe; x0, ts[3],
+    # params, ys[3], 4 records of x_in, k1 and per member dt, accepted,
+    # save row; the [4, 1] stats and the count
+    assert kb.members_fwd(d, 1, 3, 1, 4, 2) == (260, 1 + 3 + 4 + 3 + 20 + 5)
+    # 4 iterations replayed (2 evaluations and 2 VJPs each) and the f(x0)
+    # VJP; x0, dx0, params and cotangents, gys[3], the records
+    assert kb.members_bwd(d, 1, 3, 1, 4, 2) == (630, 2 + 8 + 3 + 20 + 5)
+
+
+def test_k8_rows_bound_the_train_and_eval_grids():
+    rows = {r["kernel"]: r for r in kb.table(n_members=(34, 140))}
+    assert "[16,80,16], T=35" in rows["K8f"]["shapes"]
+    assert "34 iterations" in rows["K8b"]["shapes"]
+    assert "T=141, 140 iterations" in rows["K8f"]["also"][0]["shapes"]
+    want = kb.bound(*kb.members_fwd((16, 80, 16, 5), 1, 35, 8, 34, 6))
+    assert (rows["K8f"]["bound_ms"], rows["K8f"]["bound_by"]) == want
+
+
 def test_single_layer_and_graybox_counts_by_hand():
     """K9 on a 1->1 layer of grid 1 (13 operations a row, 22 for its
     VJP, 2 parameters), and K5 on two nodes of a 2-node operator."""

@@ -927,7 +927,7 @@ def expected_surrogate_launches(sg, cfg, data):
     each with one K10 in the backward (K = 1); a shooting loss is one K7f
     per group of equally long segments, and one K10 (a single segment) or
     K7b in the backward."""
-    iters, n_evals = train_blocks(cfg)
+    iters, n_evals = train_blocks(cfg, cfg.resolved_chunk())
     plan = sg.step_plan(cfg, data)
     want = {k: 0 for k in KERNELS}
     if cfg.impl != "fused":
@@ -1131,11 +1131,15 @@ def phase_wide_timings(torch, tw, kp, card):
                                                             gy),
                     kb.bound(*kb.wide_step_bwd(dims, K, s)))
         timed[label] = {}
+        # K7f, K6f and K10's chain: one cluster of C blocks per row
+        plan = ws.cluster_plan(tw._consts(ws, "tsit5", 0.005).n_slots)
         with torch.no_grad():
             for name, (kern, plain, bound) in cases.items():
                 t = kernel_vs_plain_ms(torch, kern, plain, bound, reps=20,
                                        plain_reps=2)
                 t["device_us"] = device_us(torch, kern, reps=5)
+                if name.startswith(("K7f", "K6f", "K10")):
+                    t["cluster"] = plan.cluster
                 timed[label][name] = t
             _, k, pp, x0, ys, gys = inputs(1, n_all, 99)
             timed[label][f"single launch K=1 n={n_all}"] = {
@@ -1148,7 +1152,7 @@ def phase_wide_timings(torch, tw, kp, card):
                 "K7f_bound_ms": kb.bound(*kb.wide_multistep_fwd(
                     dims, 1, n_all, s))[0],
                 "K10_bound_ms": kb.bound(*kb.wide_multistep_bwd(
-                    dims, 1, n_all, s))[0]}
+                    dims, 1, n_all, s))[0], "cluster": plan.cluster}
         if not line:
             t = timed[label]
             line = {"fused_rk_step_wide_fwd": t[f"K6f K={Ks}"],
@@ -1161,13 +1165,15 @@ def phase_wide_timings(torch, tw, kp, card):
     return line
 
 
-def train_blocks(cfg):
-    """(iterations run, evals) of train() for cfg.iters and
-    cfg.eval_every: whole blocks, each ending in one eval."""
-    evals = max(cfg.iters // cfg.eval_every, 1)
-    inner = max(cfg.iters // evals, 1)
-    n_evals = evals * math.ceil(cfg.iters / (evals * inner))
-    return n_evals * inner, n_evals
+def train_blocks(cfg, chunk):
+    """(iterations run, evals) of train() for cfg.iters, cfg.eval_every
+    and the experiment's chunk (max_iters_per_call): whole chunks of whole
+    blocks, each block ending in one eval, as the JAX loop schedules."""
+    per_call = min(cfg.iters, chunk)
+    evals_per_call = max(per_call // cfg.eval_every, 1)
+    inner = max(per_call // evals_per_call, 1)
+    n_calls = max(-(-cfg.iters // (evals_per_call * inner)), 1)
+    return n_calls * evals_per_call * inner, n_calls * evals_per_call
 
 
 def expected_launches(cfg, n_train, n_save):
@@ -1175,7 +1181,7 @@ def expected_launches(cfg, n_train, n_save):
     rounds them: every block ends in one eval)."""
     from kanodes_tpu_torch.ode.tableaus import get_tableau
     from kanodes_tpu_torch.ops.rk_fused import _needed_stages
-    iters, n_evals = train_blocks(cfg)
+    iters, n_evals = train_blocks(cfg, cfg.max_iters_per_call)
     want = {k: 0 for k in KERNELS}
     shooting = cfg.solve_mode == "shooting"
     steps = (cfg.segment_len if shooting else n_train - 1) * cfg.substeps
@@ -1294,12 +1300,13 @@ SOURCE_RUNS = (
 
 def expected_source_launches(cfg, data):
     """Kernel launches one pde_source.run() implies: on the fused path one
-    K5f a step for every loss and eval, one K5b a step for every loss."""
-    iters, n_evals = train_blocks(cfg)
+    K5f and one K5b a step for every loss (the run makes no eval, as the
+    JAX package's makes none)."""
+    iters, _ = train_blocks(cfg, cfg.resolved_chunk())
     steps = (len(data.ts) - 1) * cfg.resolved_substeps()
     want = {k: 0 for k in KERNELS}
     if cfg.impl == "fused":
-        want["fused_graybox_rk_step_fwd"] = (iters + n_evals) * steps
+        want["fused_graybox_rk_step_fwd"] = iters * steps
         want["fused_graybox_rk_step_bwd"] = iters * steps
     return want, steps
 
@@ -1562,7 +1569,9 @@ def phase_members_main_path(torch, lv, lvm, pk, modules, card):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = read_counts(modules)
-        iters, n_evals = train_blocks(cfg)
+        # run_members trains with TrainConfig's default chunk
+        iters, n_evals = train_blocks(
+            cfg, lvm.TrainConfig.max_iters_per_call)
         want = {k: 0 for k in KERNELS}
         if cfg.impl == "fused":
             want["fused_adaptive_members_odeint_fwd"] = iters + n_evals

@@ -26,17 +26,35 @@
 // bytes, repeated over 20-300 dependent steps.
 //
 // What the design does about it:
-//   * forward: one block per state row, threads over the wide axis, the
-//     loop over stages and steps inside the kernel. Layer 1: each thread
-//     forms the basis values and swish of its columns and its partial of
-//     the H hidden sums; the block reduces them in a fixed order (shuffle
-//     tree, then the warps' partials in warp order). Layer 2: the H*G
-//     basis values of the hidden vector are formed once in shared memory,
-//     then one thread per output column runs a dot of length H*G + H down
-//     the columns of c2p / w2p (coalesced across threads). State, stage
-//     inputs and stage values live in shared memory; the weights are read
-//     from global memory (c1p alone is 0.2-0.4 MB, more than a block's
-//     shared memory).
+//   * forward (K7f, K6f): one thread-block CLUSTER of C blocks per state
+//     row (C <= 8, chosen on the host by WideSpec.cluster_plan and passed
+//     in WideTab), the loop over stages and steps inside the kernel.
+//     Block r owns the contiguous column slice [r*W, (r+1)*W) of the
+//     padded row (W = Ipad / C, a multiple of 32). At launch it copies its
+//     slice of c1p/w1p (its rows) and c2p/w2p (its columns of each of the
+//     H*G + H rows) into its shared memory once, with bulk (TMA) copies on
+//     an mbarrier, so no stage reads a weight from L2. Every quantity but
+//     the H hidden sums of layer 1 is local to a column: per chain
+//     evaluation each warp reduces its threads' partial sums in a fixed
+//     order (the threads' terms, a shuffle tree, the warps in order) and
+//     stores the H sums into the shared memory of EVERY block of the
+//     cluster (distributed shared memory, slot `rank`) with st.async,
+//     which counts the bytes on the receiver's mbarrier. Each block waits
+//     on its own mbarrier and sums the C slots from its own shared memory
+//     in rank order. So y1 is bit-identical in every block and a forward
+//     repeats bit for bit; no block waits on a remote load, and no
+//     cluster-wide barrier (which compiles to a GPU-scope fence and an L1
+//     invalidation) runs inside the loop. Each block forms the H*G + H
+//     basis values of y1 itself and runs layer 2 for its own columns. The
+//     slots and mbarriers are double-buffered by evaluation parity: a
+//     block sends evaluation e + 2 only after every block's evaluation
+//     e + 1 reached it, so no slot is overwritten before it is read. Threads: Q groups of the slice's
+//     real columns; group q takes the layer-1 terms j = q mod Q (grid
+//     nodes, then swish) and the layer-2 rows r = q mod Q, summed over q
+//     in order. A row at most 128 lanes
+//     wide is a cluster of one. Where a slice of the weights does not fit
+//     a block's shared memory (large H * G), the same kernel reads them
+//     from global memory instead (WideTab.smem_weights = 0).
 //   * backward (K7b, K6b): one block per row sweeps the steps in reverse.
 //     Per step it rebuilds the stage inputs from the stored state, runs
 //     the stage adjoints in reverse (gy . [c2|w2]^T with one warp per
@@ -52,13 +70,21 @@
 //     (B_i^T = dy1/dx at stage i, [H, I]) and L_ji = dt a_ji B_j^T A_i
 //     strictly block-lower. The factors depend on the stored states only,
 //     so phase A builds A_i^T, B_i^T and L for EVERY step at once, one
-//     block per step over all SMs. Phase B, one block, is the only serial
-//     part: per step s = a.U (one reduction per factor row), the
-//     block-triangular solve z (I - L) = s Ds by back-substitution (the
-//     same z as s Ds (I + L + .. + L^{S-1}); forming T is a device of the
-//     TPU's batched GEMMs), xbar = a + z V, and the stage cotangents
-//     kbar_i = dt b_i a + sum_{j>i} dt a_ji z_j B_j^T for the parameter
-//     kernels above.
+//     block per step over all SMs. Phase B is the only serial part, one
+//     cluster of C blocks over the same column slices as K7f: per step
+//     each block forms a = xbar + gys[s] and its partial of s = a.U (one
+//     sum per factor row) on its columns and stores it into every block
+//     (st.async on the receiver's mbarrier, as K7f); each block sums the C
+//     partials in rank order and solves the block-triangular z (I - L) = s Ds itself, one
+//     warp, right-looking (once z_j is final, every earlier stage adds its
+//     share z_j L_ji; the same z as s Ds (I + L + .. + L^{S-1}); forming T
+//     is a device of the TPU's batched GEMMs), then xbar = a + z V and the
+//     stage cotangents kbar_i = dt b_i a + sum_{j>i} dt a_ji z_j B_j^T on
+//     its columns, for the parameter kernels above. While warp 0 solves
+//     step s, the other warps copy the block's slice of step s-1's A^T
+//     and V rows and the step's L into a second shared buffer with
+//     cp.async (WideTab.smem_factors; where the two buffers do not fit,
+//     the chain reads the factors from global memory).
 //
 // Constants arrive folded on the host in float64 and rounded to float32
 // (dt a_ij, dt b_i, the grid, 1/h), as the JAX kernel gets them.
@@ -68,16 +94,28 @@
 // Caps (the wrapper checks them and raises with them in the message):
 // I <= WD_MAX_I, H <= WD_MAX_H, G <= WD_MAX_G, stages <= WD_MAX_STAGES.
 // Shared memory: the backward sweep takes (2 * needed stages + 1) * I
-// floats plus small vectors, 53 KB at I = 1024 with tsit5, so the kernels
-// opt in above the 48 KB default.
+// floats plus small vectors, 53 KB at I = 1024 with tsit5; K7f holds its
+// weight slice (62 KB a block at Schrodinger, 122 KB at 2-D Allen-Cahn,
+// all of it included) and K10's chain two factor buffers (96 / 158 KB),
+// so the kernels opt in above the 48 KB default (wd_fwd_smem_bytes,
+// wd_lr_smem_bytes).
+
+#include <cooperative_groups.h>
+#include <stdint.h>
+
+#include <mutex>
 
 #include "kan_chain.cuh"
+
+namespace cg = cooperative_groups;
 
 #define WD_MAX_I 2048
 #define WD_MAX_H 16
 #define WD_MAX_G 16
 #define WD_MAX_STAGES 7
 #define WD_MAX_THREADS 1024
+#define WD_MAX_CLUSTER 8
+#define WD_CLUSTER_THREADS 256   // block size cap of the cluster kernels
 #define WD_PARAM_THREADS 128
 #define WD_PARAM_CHUNK 64
 
@@ -94,6 +132,10 @@ struct WideTab {
   float b[WD_MAX_STAGES];
   int needed[WD_MAX_STAGES];
   int slot[WD_MAX_STAGES];
+  // the cluster plan of K7f/K6f and K10's chain (WideSpec.cluster_plan):
+  // C blocks per row, threads per block, and whether the weight slice
+  // (K7f) and the double-buffered factor slices (K10) sit in shared memory
+  int cluster, threads, smem_weights, smem_factors;
 };
 
 namespace {
@@ -201,36 +243,371 @@ __device__ void wd_rebuild(const float* x_in, float* s_xs, float* s_ks,
   }
 }
 
-// K7f / K6f: n_steps whole RK steps of row blockIdx.x, every post-step
-// state written to ys [n_steps, K, Ipad].
-__global__ void __launch_bounds__(WD_MAX_THREADS)
-wd_fwd_kernel(const float* x0, WideParams p, float* ys, int K, int n_steps,
-              WideTab T) {
-  extern __shared__ float smem[];
-  const int I = T.I, Ipad = T.Ipad;
-  const int row = blockIdx.x;
-  float* s_x = smem;                           // [I] the state
-  float* s_xs = s_x + I;                       // [n_slots, I] stage inputs
-  float* s_ks = s_xs + T.n_slots * I;          // [n_slots, I] stage values
-  float* s_part = s_ks + T.n_slots * I;        // [32 * H]
-  float* s_b2 = s_part + 32 * T.H;             // [H*G + H]
-  for (int x = threadIdx.x; x < I; x += blockDim.x)
-    s_x[x] = x0[(size_t)row * Ipad + x];
-  for (int s = 0; s < n_steps; ++s) {
-    wd_rebuild(s_x, s_xs, s_ks, nullptr, p, T, s_part, s_b2);
-    float* y = ys + ((size_t)s * K + row) * Ipad;
-    for (int x = threadIdx.x; x < Ipad; x += blockDim.x) {
-      if (x >= I) {
-        y[x] = 0.0f;
-        continue;
-      }
-      float acc = s_x[x];
-      for (int st = 0; st < T.stages; ++st)
-        if (T.b[st] != 0.0f) acc = acc + T.b[st] * s_ks[T.slot[st] * I + x];
-      s_x[x] = acc;
-      y[x] = acc;
+// ---- Hopper pieces: mbarrier, bulk (TMA) copies, cp.async -----------------
+
+__device__ __forceinline__ unsigned wd_saddr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// an mbarrier of one arrival per phase (followed by a fence that makes
+// the initialisation visible to the cluster)
+__device__ __forceinline__ void wd_mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(wd_saddr(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// the shared::cluster address of `p` (this block's shared memory) in the
+// block of rank `rank`
+__device__ __forceinline__ unsigned wd_mapa(const void* p, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out) : "r"(wd_saddr(p)), "r"(rank));
+  return out;
+}
+
+// store v into another block's shared memory (shared::cluster address),
+// counting its 4 bytes on that block's mbarrier `bar`: the receiver waits
+// on its own mbarrier, with no cluster-wide barrier or fence
+__device__ __forceinline__ void wd_st_async(unsigned addr, float v,
+                                            unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 "
+      "[%0], %1, [%2];"
+      ::"r"(addr), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+
+// one arrival that also announces `bytes` of bulk copies to come
+__device__ __forceinline__ void wd_mbar_expect(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(wd_saddr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void wd_mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(wd_saddr(bar)), "r"(parity) : "memory");
+  }
+}
+
+// global -> this block's shared memory, `bytes` a multiple of 16 and both
+// addresses 16-byte aligned; completion is counted on `bar`
+__device__ __forceinline__ void wd_bulk_load(float* dst, const float* src,
+                                             unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      ::"r"(wd_saddr(dst)), "l"(src), "r"(bytes), "r"(wd_saddr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void wd_cp_async(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               ::"r"(wd_saddr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void wd_cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void wd_cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// ---- K7f / K6f: one cluster per state row --------------------------------
+
+// A block's view of its column slice [c0, c0 + W) of the weights: layer-1
+// term j < G at c1 + j*s1 + c*H (j == G, swish: w1 + c*H), layer-2 row
+// r < H*G at c2 + r*s2 + c (r >= H*G: w2 + (r - H*G)*s2 + c). In shared
+// memory (s1 = W*H, s2 = W; the layer-2 rows are one array there,
+// `rows2`) or, where the slice does not fit, in global memory (s1 =
+// Ipad*H, s2 = Ipad).
+struct WideSlice {
+  const float* c1;
+  const float* w1;
+  const float* c2;
+  const float* w2;
+  size_t s1, s2;
+  bool rows2;      // w2 follows c2: row r of either at c2 + r*s2
+};
+
+// Thread roles of a cluster kernel: Q groups of Wt threads over the W
+// columns of the slice (Wt covers the slice's real columns, at most
+// min(W, I)); thread (q, col) takes columns col, col + Wt, ..
+struct WideRoles {
+  int W, c0, Wt, Q, col, q;
+};
+
+__device__ __forceinline__ WideRoles wd_roles(const WideTab& T, int rank) {
+  WideRoles R;
+  R.W = T.Ipad / T.cluster;
+  R.c0 = rank * R.W;
+  const int real = R.W < T.I ? R.W : T.I;
+  R.Wt = ((real + 31) / 32) * 32;
+  if (R.Wt > (int)blockDim.x) R.Wt = blockDim.x;
+  R.Q = blockDim.x / R.Wt;
+  R.col = threadIdx.x % R.Wt;
+  R.q = threadIdx.x / R.Wt;
+  return R;
+}
+
+// sum_h a[h] b[h] over WD_MAX_H (zeros past H) in four chains (h mod
+// 4), summed in a fixed order: a quarter of the dependent adds
+__device__ __forceinline__ float wd_dot16(const float (&a)[WD_MAX_H],
+                                          const float (&b)[WD_MAX_H]) {
+  float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int h = 0; h < WD_MAX_H; ++h) p[h & 3] += a[h] * b[h];
+  return (p[0] + p[1]) + (p[2] + p[3]);
+}
+
+// Sum of the C partials x[k * stride] of the cluster's ranks, in rank
+// order (all loads issued first): the same bits in every block.
+__device__ __forceinline__ float wd_rank_sum(const float* x, int C,
+                                             int stride) {
+  float v[WD_MAX_CLUSTER];
+#pragma unroll
+  for (int k = 0; k < WD_MAX_CLUSTER; ++k) v[k] = k < C ? x[k * stride] : 0.0f;
+  float y = v[0];
+#pragma unroll
+  for (int k = 1; k < WD_MAX_CLUSTER; ++k)
+    if (k < C) y += v[k];
+  return y;
+}
+
+// One chain evaluation kout = f(xs) on the block's columns (xs, kout:
+// [W], slice-local). Every thread of every block of the cluster calls it
+// with the same evaluation count `e`. The block reduces its columns'
+// partial hidden sums in a fixed order (the threads' terms, a shuffle
+// tree in each warp, the warps in order) and stores them into every block
+// of the cluster (s_xch [2, C, H], this block's at its rank) with
+// st.async, so each block waits on its own mbarrier (s_xbar [2]) and
+// reads its own shared memory. s_part [n_warps, H], s_l2 [Q, W], s_b2
+// [H*G + H]. On return thread (0, col) may read its own columns of kout.
+__device__ __forceinline__ void wd_cluster_chain(const float* xs,
+                                                 float* kout,
+                                 const WideSlice& w, const WideTab& T,
+                                 const WideRoles& R, int rank, int e,
+                                 float* s_part, float* s_l2, float* s_b2,
+                                 float* s_xch, uint64_t* s_xbar) {
+  const int I = T.I, H = T.H, G = T.G, HG = H * G, C = T.cluster;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_warps = blockDim.x / 32;
+  float acc[WD_MAX_H];
+#pragma unroll
+  for (int h = 0; h < WD_MAX_H; ++h) acc[h] = 0.0f;
+  for (int c = R.col; c < R.W && R.c0 + c < I; c += R.Wt) {
+    const float v = xs[c];
+    const float xn = kc_norm(v, T.normalizer);
+    for (int j = R.q; j <= G; j += R.Q) {
+      const float coef = j < G
+          ? kc_basis((xn - T.grid[j]) * T.inv_h, T.basis) : kc_swish(v);
+      const float* wrow = j < G ? w.c1 + j * w.s1 + (size_t)c * H
+                                : w.w1 + (size_t)c * H;
+      // all H weights first, then the products (zeros past H): straight-
+      // line code the scheduler can overlap, no branch per hidden unit
+      float wv[WD_MAX_H];
+#pragma unroll
+      for (int h = 0; h < WD_MAX_H; ++h) wv[h] = h < H ? wrow[h] : 0.0f;
+#pragma unroll
+      for (int h = 0; h < WD_MAX_H; ++h) acc[h] += coef * wv[h];
     }
   }
+  // the warp's shuffle trees for every hidden unit, level by level, so the
+  // WD_MAX_H chains interleave (acc is 0 past H)
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int h = 0; h < WD_MAX_H; ++h)
+      acc[h] += __shfl_down_sync(0xffffffffu, acc[h], off);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int h = 0; h < WD_MAX_H; ++h)
+      if (h < H) s_part[warp * H + h] = acc[h];
+  }
+  __syncthreads();
+  // the block's partial (its warps in order) into slot `rank` of every
+  // block's exchange buffer of parity e & 1, counted on that block's
+  // mbarrier of the same parity; this block expects C*H floats on its own
+  const int par = e & 1;
+  float* xch = s_xch + par * C * H;
+  uint64_t* bar = s_xbar + par;
+  if (threadIdx.x == 0) wd_mbar_expect(bar, (unsigned)(C * H * 4));
+  for (int i = threadIdx.x; i < C * H; i += blockDim.x) {
+    const int k = i / H, h = i % H;
+    float y = 0.0f;
+#pragma unroll 8
+    for (int wi = 0; wi < n_warps; ++wi) y += s_part[wi * H + h];
+    wd_st_async(wd_mapa(xch + rank * H + h, k), y, wd_mapa(bar, k));
+  }
+  wd_mbar_wait(bar, (e >> 1) & 1);
+  // y1[h] = the ranks' partials in rank order, then the basis values and
+  // swish of the hidden vector
+  for (int t = threadIdx.x; t < HG + H; t += blockDim.x) {
+    const int h = t < HG ? t / G : t - HG;
+    const float y1 = wd_rank_sum(xch + h, C, H);
+    if (t < HG) {
+      const float yn = kc_norm(y1, T.normalizer);
+      s_b2[t] = kc_basis((yn - T.grid[t % G]) * T.inv_h, T.basis);
+    } else {
+      s_b2[t] = kc_swish(y1);
+    }
+  }
+  __syncthreads();
+  // layer 2: thread (q, col) takes the rows r = q, q + Q, .. four at a
+  // time (loads first), in four chains summed in order
+  const int R2 = HG + H;
+  for (int c = R.col; c < R.W && R.c0 + c < I; c += R.Wt) {
+    float k4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int r = R.q; r < R2; r += 4 * R.Q) {
+      float b[4], wv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int ru = r + u * R.Q;
+        b[u] = ru < R2 ? s_b2[ru] : 0.0f;
+        if (w.rows2)
+          wv[u] = ru < R2 ? w.c2[ru * w.s2 + c] : 0.0f;
+        else
+          wv[u] = ru < R2 ? (ru < HG ? w.c2[ru * w.s2 + c]
+                                     : w.w2[(ru - HG) * w.s2 + c]) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) k4[u] += b[u] * wv[u];
+    }
+    const float k = (k4[0] + k4[1]) + (k4[2] + k4[3]);
+    if (R.Q == 1) kout[c] = k;
+    else s_l2[R.q * R.W + c] = k;
+  }
+  if (R.Q > 1) {
+    __syncthreads();
+    if (R.q == 0) {
+      for (int c = R.col; c < R.W && R.c0 + c < I; c += R.Wt) {
+        float k = s_l2[c];
+        for (int qq = 1; qq < R.Q; ++qq) k += s_l2[qq * R.W + c];
+        kout[c] = k;
+      }
+    }
+  }
+}
+
+// The step loop of K7f / K6f over the weight slice w. Inlined once per
+// placement of the weights (shared or global memory), so that each copy
+// reads them with the loads of that memory: a pointer that may be either
+// compiles to generic loads, which cost a shared-memory slice an L2 trip.
+__device__ __forceinline__ void wd_fwd_steps(
+    const WideSlice& w, float* ys, int K, int n_steps, int row,
+    const WideTab& T, const WideRoles& R, int rank, float* s_x,
+    float* s_xs, float* s_ks, float* s_part, float* s_l2, float* s_b2,
+    float* s_xch, uint64_t* s_xbar) {
+  const int I = T.I, Ipad = T.Ipad, W = R.W;
+  int e = 0;                           // chain evaluations so far
+  for (int s = 0; s < n_steps; ++s) {
+    for (int st = 0; st < T.stages; ++st) {
+      if (!T.needed[st]) continue;
+      float* xs = s_xs + T.slot[st] * W;
+      if (R.q == 0) {
+        for (int c = R.col; c < W && R.c0 + c < I; c += R.Wt) {
+          float v = s_x[c];
+          for (int j = 0; j < st; ++j) {
+            const float a = T.a[st][j];
+            if (a == 0.0f || !T.needed[j]) continue;
+            v = v + a * s_ks[T.slot[j] * W + c];
+          }
+          xs[c] = v;
+        }
+      }
+      __syncthreads();                 // the stage input is complete
+      wd_cluster_chain(xs, s_ks + T.slot[st] * W, w, T, R, rank, e++,
+                       s_part, s_l2, s_b2, s_xch, s_xbar);
+    }
+    if (R.q == 0) {
+      float* y = ys + ((size_t)s * K + row) * Ipad + R.c0;
+      for (int c = R.col; c < W; c += R.Wt) {
+        if (R.c0 + c >= I) {
+          y[c] = 0.0f;
+          continue;
+        }
+        float acc = s_x[c];
+        for (int st = 0; st < T.stages; ++st)
+          if (T.b[st] != 0.0f) acc = acc + T.b[st] * s_ks[T.slot[st] * W + c];
+        s_x[c] = acc;
+        y[c] = acc;
+      }
+    }
+  }
+}
+
+// K7f / K6f: n_steps whole RK steps of row blockIdx.x / C, every post-step
+// state written to ys [n_steps, K, Ipad]; block r of the cluster computes
+// the columns of its slice.
+__global__ void __launch_bounds__(WD_CLUSTER_THREADS)
+wd_fwd_kernel(const float* x0, WideParams p, float* ys, int K, int n_steps,
+              WideTab T) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const int row = blockIdx.x / T.cluster;
+  const int I = T.I, Ipad = T.Ipad, H = T.H, G = T.G, HG = H * G;
+  const int S = T.n_slots;
+  const WideRoles R = wd_roles(T, rank);
+  const int W = R.W;
+  // 32 bytes of mbarriers: the weight copy, the exchange of each parity
+  uint64_t* s_bar = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* s_xbar = s_bar + 1;
+  float* s_w = smem + 8;
+  const size_t n_w1 = (size_t)(G + 1) * W * H;   // c1 chunks, then w1
+  const size_t n_w = n_w1 + (size_t)(HG + H) * W;  // c2 rows, then w2
+  float* s_x = s_w + (T.smem_weights ? n_w : 0);  // [W] the state
+  float* s_xs = s_x + W;                           // [S, W] stage inputs
+  float* s_ks = s_xs + S * W;                      // [S, W] stage values
+  float* s_l2 = s_ks + S * W;                      // [Q, W]
+  float* s_part = s_l2 + R.Q * W;                  // [n_warps, H]
+  float* s_b2 = s_part + (blockDim.x / 32) * H;    // [H*G + H]
+  float* s_xch = s_b2 + HG + H;                    // [2, C, H]
+  if (R.q == 0)
+    for (int c = R.col; c < W; c += R.Wt)
+      s_x[c] = R.c0 + c < I ? x0[(size_t)row * Ipad + R.c0 + c] : 0.0f;
+  if (threadIdx.x == 0)
+    for (int i = 0; i < 3; ++i) wd_mbar_init(s_bar + i);
+  __syncthreads();
+  if (T.smem_weights) {
+    if (threadIdx.x == 0) wd_mbar_expect(s_bar, (unsigned)(n_w * 4));
+    // G + 1 chunks [W, H] of layer 1, H*G + H rows [W] of layer 2
+    const int n_copies = G + 1 + HG + H;
+    for (int i = threadIdx.x; i < n_copies; i += blockDim.x) {
+      if (i <= G) {
+        const float* src = i < G ? p.c1p + ((size_t)i * Ipad + R.c0) * H
+                                 : p.w1p + (size_t)R.c0 * H;
+        wd_bulk_load(s_w + (size_t)i * W * H, src, W * H * 4, s_bar);
+      } else {
+        const int r = i - G - 1;
+        const float* src = r < HG ? p.c2p + (size_t)r * Ipad + R.c0
+                                  : p.w2p + (size_t)(r - HG) * Ipad + R.c0;
+        wd_bulk_load(s_w + n_w1 + (size_t)r * W, src, W * 4, s_bar);
+      }
+    }
+    wd_mbar_wait(s_bar, 0);
+    cl.sync();     // every block's mbarriers are ready: partials may land
+    const WideSlice w = {s_w, s_w + (size_t)G * W * H, s_w + n_w1,
+                         s_w + n_w1 + (size_t)HG * W, (size_t)W * H,
+                         (size_t)W, true};
+    wd_fwd_steps(w, ys, K, n_steps, row, T, R, rank, s_x, s_xs, s_ks,
+                 s_part, s_l2, s_b2, s_xch, s_xbar);
+  } else {
+    cl.sync();
+    const WideSlice w = {p.c1p + (size_t)R.c0 * H, p.w1p + (size_t)R.c0 * H,
+                         p.c2p + R.c0, p.w2p + R.c0, (size_t)Ipad * H,
+                         (size_t)Ipad, false};
+    wd_fwd_steps(w, ys, K, n_steps, row, T, R, rank, s_x, s_xs, s_ks,
+                 s_part, s_l2, s_b2, s_xch, s_xbar);
+  }
+  cl.sync();       // no block leaves while another may store into it
 }
 
 // K7b / K6b: the reverse sweep of row blockIdx.x. Writes dx0 and, per
@@ -536,91 +913,212 @@ wd_lr_factor_kernel(const float* x0, const float* ys, WideParams p,
   }
 }
 
-// K10 phase B, one block: the serial reverse chain over the steps on the
-// factors of phase A. Writes dx0 and the records KB (stage cotangents)
-// and TT (z, the hidden cotangents dy1bar).
-__global__ void __launch_bounds__(WD_MAX_THREADS)
+// K10 phase B, one cluster over the column slices of K7f: the serial
+// reverse chain over the steps on the factors of phase A. Writes dx0 and
+// the records KB (stage cotangents) and TT (z, the hidden cotangents
+// dy1bar; rank 0 writes them). kSmem: the factors are copied into shared
+// memory ahead of use (WideTab.smem_factors), else read where they are;
+// one instantiation each, so that every load names its memory.
+template <bool kSmem>
+__global__ void __launch_bounds__(WD_CLUSTER_THREADS)
 wd_lr_chain_kernel(const float* gys, const float* AT, const float* V,
                    const float* L, float* dx0, float* KB, float* TT,
                    int n_steps, WideTab T) {
-  extern __shared__ float smem[];
-  const int I = T.I, Ipad = T.Ipad, H = T.H;
-  const int S = T.n_slots, SH = S * H;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const int I = T.I, Ipad = T.Ipad, H = T.H, C = T.cluster;
+  const int S = T.n_slots, SH = S * T.H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_warps = blockDim.x / 32;
-  float* s_a = smem;                           // [I]
-  float* s_xb = s_a + I;                       // [I]
-  float* s_L = s_xb + I;                       // [SH, SH]
-  float* s_sv = s_L + SH * SH;                 // [SH]
-  float* s_z = s_sv + SH;                      // [SH]
-  int st_of[WD_MAX_STAGES];
-  for (int st = 0; st < T.stages; ++st)
-    if (T.needed[st]) st_of[T.slot[st]] = st;
-  for (int x = threadIdx.x; x < I; x += blockDim.x) s_xb[x] = 0.0f;
-  for (int s = n_steps - 1; s >= 0; --s) {
-    const size_t r0 = (size_t)s * S;
-    const float* Ls = L + (size_t)s * SH * SH;
-    for (int x = threadIdx.x; x < I; x += blockDim.x)
-      s_a[x] = s_xb[x] + gys[(size_t)s * Ipad + x];
-    for (int i = threadIdx.x; i < SH * SH; i += blockDim.x) s_L[i] = Ls[i];
-    __syncthreads();
-    // s = a . U: one warp per factor row
-    for (int r = warp; r < SH; r += n_warps) {
-      const float* arow = AT + (r0 * H + r) * I;
-      float acc = 0.0f;
-      for (int x = lane; x < I; x += 32) acc += s_a[x] * arow[x];
-      acc = wd_warp_sum(acc);
-      if (lane == 0) s_sv[r] = acc;
+  const WideRoles R = wd_roles(T, rank);
+  const int W = R.W, c0 = R.c0;
+  const int n_cols = I - c0 < W ? (I - c0 > 0 ? I - c0 : 0) : W;  // real
+  const int NG = blockDim.x / SH;        // column groups of s = a . U
+  // a buffer: A^T transposed [W, SH], V [SH, W], L [SH, SH]
+  const size_t buf = (size_t)2 * SH * W + (size_t)SH * SH;
+  uint64_t* s_xbar = reinterpret_cast<uint64_t*>(smem);  // [2] exchange
+  float* s_f = smem + 4;                 // [2, buf] if smem_factors
+  float* s_a = s_f + (kSmem ? 2 * buf : 0);   // [W]
+  float* s_xb = s_a + W;                               // [W]
+  float* s_part = s_xb + W;                            // [NG, SH]
+  float* s_xch = s_part + NG * SH;                     // [2, C, SH]
+  float* s_z = s_xch + 2 * C * SH;                     // [SH]
+  // the tableau by slot: dt b of slot i, dt a between slots j > i
+  __shared__ float s_db[WD_MAX_STAGES];
+  __shared__ float s_da[WD_MAX_STAGES][WD_MAX_STAGES];
+  if (threadIdx.x == 0) {
+    int st_of[WD_MAX_STAGES];
+    for (int st = 0; st < T.stages; ++st)
+      if (T.needed[st]) st_of[T.slot[st]] = st;
+    for (int i = 0; i < S; ++i) {
+      s_db[i] = T.b[st_of[i]];
+      for (int j = 0; j < S; ++j) s_da[j][i] = j > i ? T.a[st_of[j]][st_of[i]]
+                                                     : 0.0f;
     }
-    __syncthreads();
-    // z (I - L) = s Ds by back-substitution from the last stage, warp 0
-    if (warp == 0) {
-      for (int pi = S - 1; pi >= 0; --pi) {
-        const float dtb = T.b[st_of[pi]];
-        for (int h = lane; h < H; h += 32) {
-          float z = dtb * s_sv[pi * H + h];
-          for (int r = (pi + 1) * H; r < SH; ++r)
-            z += s_z[r] * s_L[r * SH + pi * H + h];
-          s_z[pi * H + h] = z;
-        }
-        __syncwarp();
+  }
+  // step s's factor slices into buffer s & 1 (cp.async, one group), by
+  // the threads of warps first..: A^T transposed so that the dot of
+  // s = a . U reads consecutive rows. Element i = r * n_cols + c, walked
+  // in strides of nt with (r, c) carried, not divided out per element.
+  auto prefetch = [&](int s, int first) {
+    const int t0 = threadIdx.x - first * 32, nt = blockDim.x - first * 32;
+    float* dst = s_f + (s & 1) * buf;
+    const size_t base = (size_t)s * SH * I + c0;
+    if (n_cols > 0) {
+      const int dr = nt / n_cols, dc = nt % n_cols;
+      int r = t0 / n_cols, c = t0 % n_cols;
+      for (; r < SH; r += dr, c += dc) {
+        if (c >= n_cols) c -= n_cols, ++r;
+        if (r >= SH) break;
+        wd_cp_async(dst + (size_t)c * SH + r, AT + base + (size_t)r * I + c);
+        wd_cp_async(dst + (size_t)SH * W + (size_t)r * W + c,
+                    V + base + (size_t)r * I + c);
       }
     }
+    const float* Ls = L + (size_t)s * SH * SH;
+    for (int i = t0; i < SH * SH; i += nt)
+      wd_cp_async(dst + 2 * (size_t)SH * W + i, Ls + i);
+    wd_cp_async_commit();
+  };
+  for (int c = threadIdx.x; c < W; c += blockDim.x) s_xb[c] = 0.0f;
+  if (kSmem) prefetch(n_steps - 1, 0);
+  if (threadIdx.x == 0)
+    for (int i = 0; i < 2; ++i) wd_mbar_init(s_xbar + i);
+  // the stage slot of each entry e = lane + 32 i warp 0 owns in the
+  // solve (S, i.e. none, past SH)
+  int pe[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    pe[i] = lane + 32 * i < SH ? (lane + 32 * i) / H : S;
+  cl.sync();       // every block's mbarriers are ready: partials may land
+  int done = 0;    // steps so far
+  for (int s = n_steps - 1; s >= 0; --s) {
+    const size_t r0 = (size_t)s * S;
+    // element (r, c) of A^T at at[r * ar + c * ac], of V at vv[r * ld + c]
+    const float *at, *vv, *ls;
+    size_t ar, ac, ld;
+    if (kSmem) {
+      wd_cp_async_wait_all();
+      at = s_f + (s & 1) * buf;
+      vv = at + (size_t)SH * W;
+      ls = at + 2 * (size_t)SH * W;
+      ar = 1, ac = SH, ld = W;
+    } else {
+      at = AT + (size_t)s * SH * I + c0;
+      vv = V + (size_t)s * SH * I + c0;
+      ls = L + (size_t)s * SH * SH;
+      ar = I, ac = 1, ld = I;
+    }
+    for (int c = threadIdx.x; c < n_cols; c += blockDim.x)
+      s_a[c] = s_xb[c] + gys[(size_t)s * Ipad + c0 + c];
+    __syncthreads();        // step s's factors and a are in place
+    // s = a . U over the block's columns: thread (g, r) sums the columns
+    // c = g mod NG of row r, then the NG partials in order
+    if (threadIdx.x < NG * SH) {
+      const int g = threadIdx.x / SH, r = threadIdx.x % SH;
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};     // four chains, in order
+      for (int c = g; c < n_cols; c += 4 * NG) {
+        float av[4], uv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int cu = c + u * NG;
+          av[u] = cu < n_cols ? s_a[cu] : 0.0f;
+          uv[u] = cu < n_cols ? at[r * ar + cu * ac] : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[u] += av[u] * uv[u];
+      }
+      s_part[g * SH + r] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    }
     __syncthreads();
-    for (int r = threadIdx.x; r < SH; r += blockDim.x)
-      TT[r0 * H + r] = s_z[r];
+    // the block's partial into slot `rank` of every block (st.async on
+    // the receiver's mbarrier of parity done & 1), as K7f exchanges y1
+    const int par = done & 1;
+    float* xch = s_xch + par * C * SH;
+    uint64_t* bar = s_xbar + par;
+    if (threadIdx.x == 0) wd_mbar_expect(bar, (unsigned)(C * SH * 4));
+    for (int i = threadIdx.x; i < C * SH; i += blockDim.x) {
+      const int k = i / SH, r = i % SH;
+      float v = s_part[r];
+      for (int g = 1; g < NG; ++g) v += s_part[g * SH + r];
+      wd_st_async(wd_mapa(xch + rank * SH + r, k), v, wd_mapa(bar, k));
+    }
+    wd_mbar_wait(bar, (done >> 1) & 1);
+    if (warp == 0) {
+      // z (I - L) = s Ds, right-looking from the last stage: lane l owns
+      // entries e = l + 32 i; once z of stage pj is final, every earlier
+      // entry adds its L-weighted share of it
+      float acc[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = lane + 32 * i;
+        acc[i] = e < SH ? s_db[pe[i]] * wd_rank_sum(xch + e, C, SH) : 0.0f;
+      }
+      for (int pj = S - 1; pj >= 0; --pj) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (pe[i] == pj) s_z[lane + 32 * i] = acc[i];
+        __syncwarp();
+        float zj[WD_MAX_H];
+#pragma unroll
+        for (int h = 0; h < WD_MAX_H; ++h) zj[h] = h < H ? s_z[pj * H + h] : 0.0f;
+        const float* lrow = ls + (size_t)pj * H * SH;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int e = lane + 32 * i;
+          if (pe[i] < pj) {
+            float lv[WD_MAX_H];
+#pragma unroll
+            for (int h = 0; h < WD_MAX_H; ++h)
+              lv[h] = h < H ? lrow[(size_t)h * SH + e] : 0.0f;
+            acc[i] += wd_dot16(zj, lv);
+          }
+        }
+      }
+    } else if (kSmem && s > 0) {
+      prefetch(s - 1, 1);   // the other warps, while warp 0 solves
+    }
+    __syncthreads();
+    if (rank == 0)
+      for (int r = threadIdx.x; r < SH; r += blockDim.x)
+        TT[r0 * H + r] = s_z[r];
     // xbar = a + z V and the stage cotangents, column-local
-    for (int x = threadIdx.x; x < I; x += blockDim.x) {
-      const float a = s_a[x];
+    for (int c = threadIdx.x; c < n_cols; c += blockDim.x) {
+      const float a = s_a[c];
       float dxj[WD_MAX_STAGES];
       float xb = a;
 #pragma unroll
       for (int pj = 0; pj < WD_MAX_STAGES; ++pj) {
         float d = 0.0f;
         if (pj < S) {
-          for (int h = 0; h < H; ++h)
-            d += s_z[pj * H + h] * V[((r0 + pj) * H + h) * I + x];
+          float vh[WD_MAX_H], zh[WD_MAX_H];
+#pragma unroll
+          for (int h = 0; h < WD_MAX_H; ++h) {
+            vh[h] = h < H ? vv[(size_t)(pj * H + h) * ld + c] : 0.0f;
+            zh[h] = h < H ? s_z[pj * H + h] : 0.0f;
+          }
+          d = wd_dot16(zh, vh);
           xb = xb + d;
         }
         dxj[pj] = d;
       }
-      s_xb[x] = xb;
+      s_xb[c] = xb;
 #pragma unroll
       for (int pi = 0; pi < WD_MAX_STAGES; ++pi) {
         if (pi < S) {
-          float kb = T.b[st_of[pi]] * a;
+          float kb = s_db[pi] * a;
 #pragma unroll
           for (int pj = 0; pj < WD_MAX_STAGES; ++pj)
-            if (pj > pi && pj < S)
-              kb = kb + T.a[st_of[pj]][st_of[pi]] * dxj[pj];
-          KB[(r0 + pi) * I + x] = kb;
+            if (pj > pi && pj < S) kb = kb + s_da[pj][pi] * dxj[pj];
+          KB[(r0 + pi) * I + c0 + c] = kb;
         }
       }
     }
-    __syncthreads();      // before s_a, s_L and s_z are overwritten
+    ++done;
   }
-  for (int x = threadIdx.x; x < Ipad; x += blockDim.x)
-    dx0[x] = x < I ? s_xb[x] : 0.0f;
+  for (int c = threadIdx.x; c < W; c += blockDim.x)
+    dx0[c0 + c] = c < n_cols ? s_xb[c] : 0.0f;
+  cl.sync();       // no block leaves while another may store into it
 }
 
 int wd_threads(int n) {
@@ -633,16 +1131,91 @@ size_t wd_small_floats(const WideTab& T) {      // s_part and s_b2
   return (size_t)32 * T.H + T.H * T.G + T.H;
 }
 
+// Dynamic shared memory of K7f (16 bytes for its mbarrier, the weight
+// slice when it sits there, the state slices and small vectors) and of
+// K10's chain (two factor buffers when they sit there, the slices of a and
+// xbar, the partials); WideSpec.cluster_plan mirrors both.
+size_t wd_fwd_smem_bytes(const WideTab& T) {
+  const size_t W = T.Ipad / T.cluster, H = T.H, G = T.G, C = T.cluster;
+  const size_t real = W < (size_t)T.I ? W : (size_t)T.I;
+  size_t Wt = ((real + 31) / 32) * 32;
+  if (Wt > (size_t)T.threads) Wt = T.threads;
+  const size_t Q = T.threads / Wt;
+  size_t floats = 8 + (1 + 2 * (size_t)T.n_slots + Q) * W
+                  + (T.threads / 32) * H + H * G + H + 2 * C * H;
+  if (T.smem_weights) floats += (2 * G + 2) * H * W;
+  return floats * sizeof(float);
+}
+
+size_t wd_lr_smem_bytes(const WideTab& T) {
+  const size_t W = T.Ipad / T.cluster, SH = (size_t)T.n_slots * T.H;
+  const size_t NG = T.threads / SH;
+  size_t floats = 4 + 2 * W + NG * SH + 2 * (size_t)T.cluster * SH + SH;
+  if (T.smem_factors) floats += 2 * (2 * SH * W + SH * SH);
+  return floats * sizeof(float);
+}
+
+// Whether one cluster of `kernel` at this shared memory, cluster size and
+// block size can be resident (cudaOccupancyMaxActiveClusters), asked once
+// per configuration: the query costs host time on every launch otherwise.
+cudaError_t wd_cluster_fits(const void* kernel, const cudaLaunchConfig_t& cfg,
+                            int cluster) {
+  struct Fit {
+    const void* kernel;
+    size_t smem;
+    int cluster, threads;
+  };
+  static Fit known[32];
+  static int n_known = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n_known; ++i)
+    if (known[i].kernel == kernel && known[i].smem == cfg.dynamicSmemBytes
+        && known[i].cluster == cluster
+        && known[i].threads == (int)cfg.blockDim.x)
+      return cudaSuccess;
+  int fits = 0;
+  cudaError_t err = cudaOccupancyMaxActiveClusters(&fits, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (fits < 1) return cudaErrorLaunchOutOfResources;
+  if (n_known < 32)
+    known[n_known++] = {kernel, cfg.dynamicSmemBytes, cluster,
+                        (int)cfg.blockDim.x};
+  return cudaSuccess;
+}
+
+// Launch `kernel` as n_clusters clusters of T.cluster blocks of T.threads
+// threads; fails (and launches nothing) if one cluster cannot be resident.
+template <typename... Params, typename... Args>
+cudaError_t wd_launch_cluster(void (*kernel)(Params...), int n_clusters,
+                              size_t smem, const WideTab& T,
+                              cudaStream_t stream, Args... args) {
+  cudaError_t err = kc_smem_opt_in(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = T.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_clusters * T.cluster);
+  cfg.blockDim = dim3(T.threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = wd_cluster_fits((const void*)kernel, cfg, T.cluster);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 cudaError_t wd_launch_fwd(const float* x0, const WideParams& p, float* ys,
                           int K, int n_steps, const WideTab& T,
                           cudaStream_t stream) {
-  const size_t smem = ((size_t)(1 + 2 * T.n_slots) * T.I
-                       + wd_small_floats(T)) * sizeof(float);
-  cudaError_t err = kc_smem_opt_in(wd_fwd_kernel, smem);
-  if (err != cudaSuccess) return err;
-  wd_fwd_kernel<<<K, wd_threads(T.I), smem, stream>>>(x0, p, ys, K, n_steps,
-                                                       T);
-  return cudaGetLastError();
+  return wd_launch_cluster(wd_fwd_kernel, K, wd_fwd_smem_bytes(T), T, stream,
+                           x0, p, ys, K, n_steps, T);
 }
 
 cudaError_t wd_launch_params(const float* XS, const float* KB,
@@ -688,6 +1261,12 @@ void wd_caps(int* out) {
   out[3] = WD_MAX_STAGES;
 }
 
+// Dynamic shared memory per block of K7f (which = 0) and of K10's chain
+// (which = 1) for the plan in T.
+int wd_smem_bytes(const WideTab* T, int which) {
+  return (int)(which == 0 ? wd_fwd_smem_bytes(*T) : wd_lr_smem_bytes(*T));
+}
+
 // Each launcher takes device pointers, the host-side WideTab and the CUDA
 // stream, and returns the first CUDA error of its launches (0 = ok).
 
@@ -728,13 +1307,11 @@ int wd_multistep_bwd_lr(const float* x0, const float* ys, const float* gys,
       x0, ys, p, XS, Y1, AT, V, L, *T);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem_b = ((size_t)2 * T->I + (size_t)SH * SH + 2 * SH)
-                        * sizeof(float);
-  err = kc_smem_opt_in(wd_lr_chain_kernel, smem_b);
-  if (err != cudaSuccess) return (int)err;
-  wd_lr_chain_kernel<<<1, wd_threads(T->I), smem_b, st>>>(
-      gys, AT, V, L, dx0, KB, TT, n_steps, *T);
-  err = cudaGetLastError();
+  err = T->smem_factors
+      ? wd_launch_cluster(wd_lr_chain_kernel<true>, 1, wd_lr_smem_bytes(*T),
+                          *T, st, gys, AT, V, L, dx0, KB, TT, n_steps, *T)
+      : wd_launch_cluster(wd_lr_chain_kernel<false>, 1, wd_lr_smem_bytes(*T),
+                          *T, st, gys, AT, V, L, dx0, KB, TT, n_steps, *T);
   if (err != cudaSuccess) return (int)err;
   return (int)wd_launch_params(XS, KB, Y1, TT, dc1p, dw1p, dc2p, dw2p,
                                n_steps * S, *T, st);

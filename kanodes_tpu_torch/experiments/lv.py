@@ -51,8 +51,10 @@ LV_PARAMS = (1.5, 1.0, 1.0, 3.0)
 
 @dataclasses.dataclass(frozen=True)
 class LVConfig:
-    """The JAX package's LVConfig without `max_iters_per_call` (a TPU
-    execution bound). Values outside the slice raise when used."""
+    """The JAX package's LVConfig. `max_iters_per_call` is the training
+    loop's chunk: it shapes the iteration and eval schedule as in JAX
+    (`train.loop.TrainConfig`) and bounds no execution. Values outside
+    the slice raise when used."""
     # data (reference values, LV_driver_KANODE.jl:110-127)
     tspan: tuple[float, float] = (0.0, 14.0)
     train_tmax: float = 3.5
@@ -90,6 +92,7 @@ class LVConfig:
     impl: str = "xla"
     bwd_precision: str = "highest"     # "bf16": later
     seed: int = 0
+    max_iters_per_call: int = 10_000   # the train loop's chunk
     record_history: bool = False
 
 
@@ -350,7 +353,8 @@ def run(cfg: LVConfig | None = None, params=None, *, device="cuda",
     else:
         chain_params_from_numpy(model, params)
     loss_fn, eval_fn, predict = make_ode_fns(cfg, model, data)
-    tc = TrainConfig(lr=cfg.lr, iters=cfg.iters, eval_every=cfg.eval_every)
+    tc = TrainConfig(lr=cfg.lr, iters=cfg.iters, eval_every=cfg.eval_every,
+                     max_iters_per_call=cfg.max_iters_per_call)
     out = train(loss_fn, model, tc, eval_fn=eval_fn,
                 record_history=cfg.record_history)
     out.update(cfg=cfg, model=model, data=data, predict=predict)

@@ -94,6 +94,7 @@ def run_members(cfg: lv.LVConfig | None = None, n_members: int = 8, *,
     built = build(cfg, n_members, device, generator, member_params)
     packed = built["model"]
     loss_fn, eval_fn, predict = built["fns"]
+    # the TrainConfig default chunk, as the JAX ensemble script passes it
     tc = TrainConfig(lr=cfg.lr, iters=cfg.iters, eval_every=cfg.eval_every)
     out = train(loss_fn, packed, tc, eval_fn=eval_fn, stacked=False,
                 record_history=cfg.record_history)

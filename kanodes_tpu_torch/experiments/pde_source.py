@@ -40,8 +40,10 @@ from kanodes_tpu_torch.utils.precision import set_exact_f32
 
 @dataclasses.dataclass(frozen=True)
 class SourceConfig:
-    """The JAX package's SourceConfig without `max_iters_per_call` (a TPU
-    execution bound). Values outside the slice raise when used."""
+    """The JAX package's SourceConfig. `max_iters_per_call` (None: the
+    per-problem `resolved_chunk`) is the training loop's chunk: it shapes
+    the iteration and eval schedule as in JAX and bounds no execution.
+    Values outside the slice raise when used."""
     problem: str = "fisher_kpp"        # fisher_kpp | allen_cahn
     # beyond parity: 2-D problems on periodic square grids (the
     # reference is 1-D only)
@@ -53,6 +55,7 @@ class SourceConfig:
     iters: int = 2000                  # reference: 2e4 (fkpp) / 5e4 (AC)
     eval_every: int = 500
     substeps: int | None = None        # None -> per-problem default
+    max_iters_per_call: int | None = None
     impl: str = "xla"                  # xla | fused (whole-RK-step kernel)
     bwd_precision: str = "highest"     # "bf16": later
     seed: int = 0
@@ -72,6 +75,15 @@ class SourceConfig:
         # fkpp saves every dt=0.5 with diffusion lambda ~25 -> h=0.0625;
         # AC saves every dt=0.01 with lambda ~15 -> one step is plenty
         return 8 if self.problem == "fisher_kpp" else 2
+
+    def resolved_chunk(self) -> int:
+        if self.max_iters_per_call is not None:
+            return self.max_iters_per_call
+        if self.ndim == 2:
+            return 2_000 if self.problem == "fisher_kpp" else 1_000
+        # the JAX package's chunks (one TPU execution each): AC
+        # integrates 101 save points per loss against Fisher-KPP's 11
+        return 10_000 if self.problem == "fisher_kpp" else 1_000
 
 
 def _check_slice(cfg: SourceConfig) -> None:
@@ -215,8 +227,7 @@ def run(cfg: SourceConfig | None = None, params=None, *, device="cuda",
     `params`: the layer's `{"C", "W"}` numpy arrays to start from (e.g. a
     JAX init, `interop.py`); default is the layer's glorot init drawn
     from `generator` (a CPU generator seeded with `cfg.seed` if None).
-    The loss is evaluated again after every block of `eval_every`
-    iterations (`eval_history`; the JAX run records NaN there).
+    As in the JAX package, no eval runs: `eval_history` holds NaN.
     """
     cfg = cfg or SourceConfig()
     _check_slice(cfg)
@@ -228,9 +239,10 @@ def run(cfg: SourceConfig | None = None, params=None, *, device="cuda",
                    else torch.Generator().manual_seed(cfg.seed))
     else:
         kdense_params_from_numpy(model, params)
-    loss_fn, eval_fn, predict = make_fns(cfg, model, data)
-    tc = TrainConfig(lr=cfg.lr, iters=cfg.iters, eval_every=cfg.eval_every)
-    out = train(loss_fn, model, tc, eval_fn=eval_fn)
+    loss_fn, _, predict = make_fns(cfg, model, data)
+    tc = TrainConfig(lr=cfg.lr, iters=cfg.iters, eval_every=cfg.eval_every,
+                     max_iters_per_call=cfg.resolved_chunk())
+    out = train(loss_fn, model, tc)
     out.update(cfg=cfg, model=model, data=data, predict=predict)
     return out
 

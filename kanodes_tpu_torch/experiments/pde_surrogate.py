@@ -73,9 +73,9 @@ _SNAPSHOTS = {
 @dataclasses.dataclass(frozen=True)
 class SurrogateConfig:
     """The JAX package's SurrogateConfig, field for field. `mesh` and
-    `bwd_precision="bf16"` raise when used; `max_iters_per_call` (and
-    `resolved_chunk`) bound one TPU execution and are ignored here: the
-    training loop is a Python loop."""
+    `bwd_precision="bf16"` raise when used; `max_iters_per_call` (None:
+    `resolved_chunk`) is the training loop's chunk: it shapes the
+    iteration and eval schedule as in JAX and bounds no execution."""
     problem: str = "burgers"
     hidden: int = 10
     kan_grid: int | None = None        # None -> reference value
@@ -353,7 +353,8 @@ def run(cfg: SurrogateConfig | None = None, params=None, *, device="cuda",
         chain_params_from_numpy(model, params)
     train_loss, eval_loss, predict = make_fns(cfg, model, data)
     tc = TrainConfig(lr=cfg.resolved_lr(), iters=cfg.iters,
-                     eval_every=cfg.eval_every)
+                     eval_every=cfg.eval_every,
+                     max_iters_per_call=cfg.resolved_chunk())
     out = train(train_loss, model, tc, eval_fn=eval_loss)
     out.update(cfg=cfg, model=model, data=data, predict=predict)
     return out

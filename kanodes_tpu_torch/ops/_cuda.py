@@ -103,7 +103,10 @@ class WideTab(ctypes.Structure):
                 ("a", (ctypes.c_float * MAX_WIDE_STAGES) * MAX_WIDE_STAGES),
                 ("b", ctypes.c_float * MAX_WIDE_STAGES),
                 ("needed", ctypes.c_int * MAX_WIDE_STAGES),
-                ("slot", ctypes.c_int * MAX_WIDE_STAGES)]
+                ("slot", ctypes.c_int * MAX_WIDE_STAGES),
+                ("cluster", ctypes.c_int), ("threads", ctypes.c_int),
+                ("smem_weights", ctypes.c_int),
+                ("smem_factors", ctypes.c_int)]
 
 
 _P = ctypes.c_void_p
@@ -154,6 +157,8 @@ _SIGNATURES = {
     "mb_adaptive_bwd": [_P] * 13 + [_I] + [_P] * 5 + [_I] * 2 + [_P] * 3,
     # dims, K, stages, backward
     "mb_smem_bytes": [_P] + [_I] * 3,
+    # tab, which (0: K7f, 1: K10's chain)
+    "wd_smem_bytes": [_P, _I],
 }
 
 # caps function -> the wrapper's values it must report

@@ -19,6 +19,12 @@ here returns zeros on the pad lanes of `ys`, `dx` and the parameter
 cotangents (the JAX kernel's raw `dc1p` is non-zero on pad rows, which
 `pad_params`' transpose throws away).
 
+K7f (K6f) and K10's serial chain run one thread-block cluster per state
+row on the card: `WideSpec.cluster_plan` cuts the padded row into C
+equal column slices, one block each, and says whether each block's
+weight slice (K7f) and double-buffered factor slices (K10) fit its
+shared memory (`csrc/rk_fused_wide.cu`).
+
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor runs
 the plain PyTorch version of the same math, exported for tests and
 `chip_smoke.py` as the `*_reference` functions. The plain versions index
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -65,6 +72,27 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
+# dynamic shared memory a block may take on Hopper (232,448 bytes)
+SMEM_BYTES = 232_448
+# the portable cluster size: at most 8 blocks per cluster
+MAX_CLUSTER = 8
+
+
+class ClusterPlan(NamedTuple):
+    """How K7f/K6f and K10's chain lay one state row over a cluster:
+    `cluster` blocks of `threads` threads, each owning `cols` columns of
+    the padded row; whether the weight slice (K7f) and the two factor
+    buffers (K10) sit in shared memory, and each kernel's dynamic shared
+    memory per block in bytes (`wd_smem_bytes` of the kernels)."""
+    cluster: int
+    cols: int
+    threads: int
+    smem_weights: bool
+    smem_factors: bool
+    fwd_bytes: int
+    lr_bytes: int
+
+
 class WideSpec:
     """Static config for a wide 2-layer chain, padded to `block` lanes."""
 
@@ -88,6 +116,41 @@ class WideSpec:
 
     def __hash__(self):
         return hash((self.spec, self.block))
+
+    def cluster_blocks(self) -> int:
+        """Blocks per state row: 1 for a row of at most 128 lanes (or one
+        not a multiple of 32), else the most blocks, up to the portable 8,
+        that cut Ipad into equal slices of a multiple of 32 lanes."""
+        if self.Ipad <= 128 or self.Ipad % 32:
+            return 1
+        c = MAX_CLUSTER
+        while (self.Ipad // 32) % c:
+            c //= 2
+        return c
+
+    def cluster_plan(self, n_slots: int) -> ClusterPlan:
+        """The cluster layout of K7f and K10's chain for `n_slots` needed
+        stages, with the shared memory each block takes (the kernels'
+        wd_fwd_smem_bytes / wd_lr_smem_bytes, float for float)."""
+        C = self.cluster_blocks()
+        W = self.Ipad // C
+        # threads over the slice's real columns, in Q groups; at most 256
+        # a block (WD_CLUSTER_THREADS)
+        Wt = min(-(-min(W, self.I) // 32) * 32, 256)
+        Q = 256 // Wt
+        threads = Wt * Q
+        H, G, SH = self.H, self.G, n_slots * self.H
+        fwd = 8 + (1 + 2 * n_slots + Q) * W + threads // 32 * H \
+            + H * G + H + 2 * C * H
+        weights = (2 * G + 2) * H * W
+        smem_weights = self.Ipad % 32 == 0 \
+            and 4 * (fwd + weights) <= SMEM_BYTES
+        lr = 4 + 2 * W + (threads // SH) * SH + 2 * C * SH + SH
+        factors = 2 * (2 * SH * W + SH * SH)
+        smem_factors = 4 * (lr + factors) <= SMEM_BYTES
+        return ClusterPlan(C, W, threads, smem_weights, smem_factors,
+                           4 * (fwd + (weights if smem_weights else 0)),
+                           4 * (lr + (factors if smem_factors else 0)))
 
     def pad_params(self, c1, w1, c2, w2):
         """c1 [I*G, H] (rows i*G+g) -> [G*Ipad, H] grouped BY GRID NODE
@@ -184,6 +247,10 @@ class _WideConsts(_Consts):
             for i in range(self.stages):
                 t.slot[i] = slot
                 slot += int(self.needed[i])
+            plan = ws.cluster_plan(self.n_slots)
+            t.cluster, t.threads = plan.cluster, plan.threads
+            t.smem_weights = int(plan.smem_weights)
+            t.smem_factors = int(plan.smem_factors)
             self._wide_tab = t
         return self._wide_tab
 
@@ -363,6 +430,10 @@ def _check_launch(k: _WideConsts, x, pp) -> int:
     for name, p, shape in zip(("c1p", "w1p", "c2p", "w2p"), pp, want):
         if tuple(p.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(p.shape)} != {shape}")
+        if x.is_cuda and p.data_ptr() % 16:
+            # K7f copies its weight slices with 16-byte bulk copies
+            raise ValueError(f"{name}: the kernels take weights whose data "
+                             f"starts on a 16-byte boundary")
     _cuda.check_tensors(x, *pp)
     return x.shape[0]
 

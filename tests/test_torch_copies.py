@@ -85,10 +85,10 @@ def test_config_override_from_env_equal(monkeypatch):
 
 
 def test_lv_config_fields_match_reference():
-    """Same fields as the JAX LVConfig, less the TPU execution bound."""
+    """Same fields and defaults as the JAX LVConfig, the training loop's
+    chunk (`max_iters_per_call`) included."""
     want = {f.name: f.default for f in dataclasses.fields(JLVConfig)}
     got = {f.name: f.default for f in dataclasses.fields(LVConfig)}
-    del want["max_iters_per_call"]
     assert got == want
 
 

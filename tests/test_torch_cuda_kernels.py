@@ -249,8 +249,8 @@ def test_source_run_on_card_launches_exactly(card):
     gb.reset_launch_counts()
     out = ps.run(cfg, device="cuda")
     torch.cuda.synchronize()
-    # 80 steps a loss: 4 losses with a backward, 2 evals
-    assert gb.LAUNCHES == {"fused_graybox_rk_step_fwd": 6 * 80,
+    # 80 steps a loss: 4 losses with a backward, no eval (as in JAX)
+    assert gb.LAUNCHES == {"fused_graybox_rk_step_fwd": 4 * 80,
                            "fused_graybox_rk_step_bwd": 4 * 80}
     assert out["loss_history"].is_cuda
     assert bool(torch.isfinite(out["loss_history"]).all())
@@ -344,12 +344,18 @@ def test_wide_kernels_match_plain(card, index):
 
 
 def test_wide_backwards_repeat_bit_for_bit(card):
-    """K7b, K10 and K6b sum in a fixed order (no float atomics)."""
+    """K7b, K10 and K6b sum in a fixed order (no float atomics); so does
+    K7f (and K6f), whose blocks read the cluster's partial hidden sums in
+    rank order."""
     for case in (chip_smoke.WIDE_CASES[3], chip_smoke.WIDE_CASES[6],
                  chip_smoke.WIDE_CASES[8]):
         ws, pp, x0, gys = chip_smoke.wide_case_inputs(torch, tw, kp, case)
         k = tw._consts(ws, case.solver, case.dt)
         ys = tw._launch_multistep_fwd(k, case.n, x0, pp)
+        assert torch.equal(ys, tw._launch_multistep_fwd(k, case.n, x0, pp))
+        if case.n == 1:
+            assert torch.equal(tw._launch_step_fwd(k, x0, pp),
+                               tw._launch_step_fwd(k, x0, pp))
         launches = [lambda: tw._launch_multistep_bwd(k, case.n, x0, ys, pp,
                                                      gys)]
         if case.K == 1:
@@ -360,6 +366,54 @@ def test_wide_backwards_repeat_bit_for_bit(card):
         for launch in launches:
             for u, v in zip(launch(), launch()):
                 assert torch.equal(u, v)
+
+
+def test_wide_cluster_plan_matches_the_kernels(card):
+    """WideSpec.cluster_plan's shared-memory bytes are the kernels' own
+    (wd_smem_bytes) at every chip_smoke.WIDE_CASES shape."""
+    import ctypes
+    from kanodes_tpu_torch.ops import _cuda
+    lib = _cuda.library()
+    for case in chip_smoke.WIDE_CASES:
+        ws, _, _, _ = chip_smoke.wide_case_inputs(torch, tw, kp, case)
+        k = tw._consts(ws, case.solver, case.dt)
+        plan = ws.cluster_plan(k.n_slots)
+        tab = ctypes.byref(k.wide_tab())
+        assert (lib.wd_smem_bytes(tab, 0), lib.wd_smem_bytes(tab, 1)) == \
+            (plan.fwd_bytes, plan.lr_bytes), case.label
+
+
+def test_wide_kernels_with_weights_in_global_memory(card):
+    """[1000,16,1000] grid 16: a block's weight slice and factor buffers
+    exceed its shared memory, so K7f and K10's chain read them from global
+    memory; both still match their plain versions and repeat bit for bit."""
+    case = chip_smoke.WideCase("wide H, G [1000,16,1000] K=1 n=4", 1000, 16,
+                               16, 128, 1, 4, seed=21)
+    ws, pp, x0, gys = chip_smoke.wide_case_inputs(torch, tw, kp, case)
+    k = tw._consts(ws, case.solver, case.dt)
+    plan = ws.cluster_plan(k.n_slots)
+    assert plan.cluster == 8
+    assert not plan.smem_weights and not plan.smem_factors
+    step = (ws, case.solver, case.dt)
+    ys = tw._launch_multistep_fwd(k, case.n, x0, pp)
+    assert torch.equal(ys, tw._launch_multistep_fwd(k, case.n, x0, pp))
+    torch.testing.assert_close(
+        ys, tw.fused_rk_multistep_wide_reference(*step, case.n, x0, *pp),
+        **FWD)
+    got = tw._launch_multistep_bwd_lr(k, case.n, x0, ys, pp, gys)
+    for u, v in zip(got, tw._launch_multistep_bwd_lr(k, case.n, x0, ys, pp,
+                                                     gys)):
+        assert torch.equal(u, v)
+    plain = tw.fused_rk_multistep_wide_bwd_reference
+    g_ref = plain(*step, case.n, x0, ys, *pp, gys, lowrank=True)
+    pp64 = tuple(p.double() for p in pp)
+    ys64 = tw.fused_rk_multistep_wide_reference(*step, case.n, x0.double(),
+                                                *pp64)
+    g64 = plain(*step, case.n, x0.double(), ys64, *pp64, gys.double())
+    failures = []
+    for name, a, b, ref in zip(chip_smoke.WIDE_NAMES, got, g_ref, g64):
+        chip_smoke.graybox_rule(torch, failures, name, a, b, ref, GRAD)
+    assert not failures, failures
 
 
 def test_wide_wrapper_rejects_unsupported_input(card):

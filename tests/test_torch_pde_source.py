@@ -115,11 +115,10 @@ def test_run_default_init_is_seeded_and_numpy_init_repeats_it():
 
 
 def test_config_matches_reference_fields_and_substeps():
-    """The JAX SourceConfig's fields and defaults, less the TPU execution
-    bound; the same per-problem step counts."""
+    """The JAX SourceConfig's fields and defaults, the training loop's
+    chunk included; the same per-problem step counts."""
     want = {f.name: f.default for f in dataclasses.fields(J.SourceConfig)}
     got = {f.name: f.default for f in dataclasses.fields(T.SourceConfig)}
-    del want["max_iters_per_call"]
     assert got == want
     for kw in (dict(), dict(problem="allen_cahn"), dict(ndim=2),
                dict(ndim=2, problem="allen_cahn"), dict(substeps=3)):

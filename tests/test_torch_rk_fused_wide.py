@@ -348,3 +348,43 @@ def test_chip_smoke_small_wide_cases_on_the_cpu(index):
         ws, case.solver, case.dt, case.n, *leaves2), leaves2, gys)
     for a, b in zip(got, auto):
         torch.testing.assert_close(a, b, **GRAD)
+
+
+@pytest.mark.parametrize("index", range(len(chip_smoke.WIDE_CASES)))
+def test_cluster_plan_of_every_chip_smoke_shape(index):
+    """The host-side cluster plan of K7f/K6f and K10's chain: C blocks cut
+    the padded row into equal slices of a multiple of 32 columns, C is 1
+    for Burgers (41 columns on 128 lanes) and the small padded chains and
+    8 for Schrödinger and 2-D Allen-Cahn, and at these shapes every block
+    holds its weight slice (K7f) and its two factor buffers (K10) in
+    shared memory within the 232,448 bytes a block may use."""
+    case = chip_smoke.WIDE_CASES[index]
+    ws, _, _, _ = chip_smoke.wide_case_inputs(torch, tw, tkp, case, "cpu")
+    k = tw._consts(ws, case.solver, case.dt)
+    plan = ws.cluster_plan(k.n_slots)
+    assert 1 <= plan.cluster <= 8
+    assert plan.cluster * plan.cols == ws.Ipad
+    assert plan.cols % 32 == 0
+    assert plan.threads % 32 == 0 and plan.threads <= 256
+    assert plan.cluster == (1 if ws.Ipad <= 128 else 8)
+    assert plan.smem_weights and plan.smem_factors
+    assert plan.fwd_bytes <= tw.SMEM_BYTES == 232_448
+    assert plan.lr_bytes <= tw.SMEM_BYTES
+    tab = k.wide_tab()
+    assert (tab.cluster, tab.threads, tab.smem_weights, tab.smem_factors) \
+        == (plan.cluster, plan.threads, 1, 1)
+
+
+def test_cluster_plan_keeps_wide_hidden_layers_in_global_memory():
+    """Where a block's slice does not fit its shared memory (H = G = 16 at
+    I = 1000: 2,176 bytes of weights a column), the plan leaves the
+    weights and factors in global memory and says so; the bytes it
+    reserves stay within the limit."""
+    ws = tw.WideSpec(tkp.ChainSpec(1000, 16, 1000, 16), 128)
+    plan = ws.cluster_plan(6)
+    assert (plan.cluster, plan.cols) == (8, 128)
+    assert not plan.smem_weights and not plan.smem_factors
+    assert max(plan.fwd_bytes, plan.lr_bytes) <= tw.SMEM_BYTES
+    narrow = tw.WideSpec(tkp.ChainSpec(70, 6, 70, 5), 35)    # Ipad 70
+    assert narrow.cluster_plan(6).cluster == 1
+    assert not narrow.cluster_plan(6).smem_weights

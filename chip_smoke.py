@@ -11,8 +11,9 @@ fused adaptive, pallas shooting), the packed ensemble of 8 LV members
 trained adaptively with one controller per member through
 `experiments.lv_members.run_members(..., device="cuda")` (fused through
 K8, and xla), the gray-box source-recovery trainer
-through `experiments.pde_source.run(..., device="cuda")` in four (1-D
-Fisher-KPP fused and plain, 1-D Allen-Cahn and 2-D Fisher-KPP fused), the
+through `experiments.pde_source.run(..., device="cuda")` in five (1-D
+Fisher-KPP fused and plain, 1-D Allen-Cahn, 2-D Fisher-KPP and 2-D
+Allen-Cahn fused), the
 PDE full-state surrogate trainer through `experiments.pde_surrogate.run(
 ..., device="cuda")` in five (Schrödinger fused fixed and shooting, 2-D
 Allen-Cahn fused shooting, Burgers through the wide kernels and plain) and
@@ -1293,6 +1294,8 @@ SOURCE_RUNS = (
                                   iters=50)),
     ("fisher_kpp 2-D fused", dict(problem="fisher_kpp", ndim=2,
                                   impl="fused", iters=50)),
+    ("allen_cahn 2-D fused", dict(problem="allen_cahn", ndim=2,
+                                  impl="fused", iters=50)),
     ("fisher_kpp 1-D xla", dict(problem="fisher_kpp", impl="xla",
                                 iters=50)),
 )
@@ -1850,13 +1853,15 @@ def device_us(torch, fn, reps=20):
 def phase_source_timings(torch, gb, kp, card):
     """K5 and K9 against their plain versions at the shapes of the source
     path: K5 (tsit5, grid 10) at Fisher-KPP 1-D [1, 26] (the kernels
-    line), Allen-Cahn 1-D [1, 41] and the 2-D field [32, 32]; K9 at the
+    line), Allen-Cahn 1-D [1, 41] and the 2-D fields [32, 32] of
+    Fisher-KPP and Allen-Cahn; K9 at the
     1->1 source layer over K=26 (the kernels line) and an LV layer [2->10]
     over K=34. CUDA-event ms, the profiler's device µs per launch, and
     the bound from `kanodes_tpu_torch/utils/kernel_bounds.py`."""
     from kanodes_tpu_torch.utils import kernel_bounds as kb
     cases = {}
-    for case in (GRAYBOX_CASES[0], GRAYBOX_CASES[1], GRAYBOX_CASES[6]):
+    for case in (GRAYBOX_CASES[0], GRAYBOX_CASES[1], GRAYBOX_CASES[6],
+                 GRAYBOX_CASES[7]):
         spec, kron, u, lap, c, w, gy = graybox_case_inputs(torch, gb, case)
         step = (spec, case.solver, case.dt, case.D)
         shape = (u.numel(), u.shape[1], kron, spec.G,

@@ -17,6 +17,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <mutex>
+
 // Compile-time caps; the Python wrapper checks every launch against them.
 #define KC_MAX_I 8          // state width I (= chain output width O)
 #define KC_MAX_H 32         // hidden width H
@@ -309,13 +311,38 @@ __device__ inline ChainParams kc_stage_params(const float* c1, const float* w1,
   return p;
 }
 
-// Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
+// Dynamic shared memory above the 48 KB default needs an opt-in per kernel
+// and device. Each (kernel, device) is opted in once to the largest size
+// asked of it so far: the attribute call costs host time on every launch
+// otherwise.
 template <typename Kernel>
 cudaError_t kc_smem_opt_in(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+  struct OptIn {
+    const void* kernel;
+    int device;
+    size_t bytes;
+  };
+  static OptIn known[32];
+  static int n_known = 0;
+  static std::mutex mu;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  int i = 0;
+  while (i < n_known && !(known[i].kernel == (const void*)kernel
+                          && known[i].device == device))
+    ++i;
+  if (i < n_known && known[i].bytes >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return err;
+  if (i < n_known) known[i].bytes = bytes;
+  else if (n_known < 32) known[n_known++] = {(const void*)kernel, device,
+                                             bytes};
+  return cudaSuccess;
 }
 
 // Parameter cotangents from n_rec records, summed in record order by the

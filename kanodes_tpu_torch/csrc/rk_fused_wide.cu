@@ -55,12 +55,24 @@
 //     wide is a cluster of one. Where a slice of the weights does not fit
 //     a block's shared memory (large H * G), the same kernel reads them
 //     from global memory instead (WideTab.smem_weights = 0).
-//   * backward (K7b, K6b): one block per row sweeps the steps in reverse.
-//     Per step it rebuilds the stage inputs from the stored state, runs
-//     the stage adjoints in reverse (gy . [c2|w2]^T with one warp per
-//     row of the weights, then the column-local layer-1 VJP), and stores
-//     per (step, row, stage) the stage input, the stage cotangent kbar,
-//     y1 and its cotangent dy1 in scratch the wrapper allocates.
+//   * backward (K7b, K6b): the same cluster of C blocks per row over the
+//     same column slices, the weight slice in shared memory where it fits
+//     beside the sweep's buffers (WideTab.smem_weights_bwd), sweeps the
+//     steps in reverse. Per step each block rebuilds its columns of the
+//     stages with K7f's stage loop (wd_cluster_stages, y1 kept), seeds
+//     kbar, and runs the stage adjoints in reverse: its partial of the
+//     H*G + H sums m2 = kbar . [c2p|w2p]^T over its columns (two threads a
+//     row, a rotated column order that keeps the reads conflict-free),
+//     pushed into every block with st.async on the same mbarriers as the
+//     chain's exchange (one count of exchanges orders both); every block
+//     sums the C partials in rank order, forms dy1 = t[h] itself and runs
+//     the column-local layer-1 VJP on its columns (Q thread groups over
+//     the terms, summed in order). It stores per (step, row, stage) the
+//     stage input, the stage cotangent kbar (its columns), y1 and dy1
+//     (rank 0) in scratch the wrapper allocates. Why this layout: a
+//     per-phase trace of a one-block-per-row sweep put the rebuild at 39%,
+//     m2 at 29% and the VJP at 27% of its cycles at Schrodinger K = 7
+//     (PERF.md).
 //   * parameter cotangents: two further kernels over many blocks turn
 //     those records into dc1p/dw1p and dc2p/dw2p. Each thread owns the
 //     parameters of one column and sums over the records in record order:
@@ -69,8 +81,14 @@
 //     U = [A_1 .. A_S] (A_i = dk_i/dy1, [I, H]), V = [B_1^T; ..; B_S^T]
 //     (B_i^T = dy1/dx at stage i, [H, I]) and L_ji = dt a_ji B_j^T A_i
 //     strictly block-lower. The factors depend on the stored states only,
-//     so phase A builds A_i^T, B_i^T and L for EVERY step at once, one
-//     block per step over all SMs. Phase B is the only serial part, one
+//     so phase A builds A_i^T, B_i^T for EVERY step at once, one cluster
+//     of C blocks per step over K7f's column slices (the weight slice in
+//     shared memory where it fits): it rebuilds the step's stages with
+//     K7f's stage loop, so its records are K7b's bit for bit and K10 and
+//     K7b differ only in the adjoint itself, and writes the column-local
+//     factors of its columns; a second kernel, one block per step, forms
+//     the coupling L from them (dots over all columns, one warp each).
+//     Phase B is the only serial part, one
 //     cluster of C blocks over the same column slices as K7f: per step
 //     each block forms a = xbar + gys[s] and its partial of s = a.U (one
 //     sum per factor row) on its columns and stores it into every block
@@ -93,12 +111,11 @@
 //
 // Caps (the wrapper checks them and raises with them in the message):
 // I <= WD_MAX_I, H <= WD_MAX_H, G <= WD_MAX_G, stages <= WD_MAX_STAGES.
-// Shared memory: the backward sweep takes (2 * needed stages + 1) * I
-// floats plus small vectors, 53 KB at I = 1024 with tsit5; K7f holds its
-// weight slice (62 KB a block at Schrodinger, 122 KB at 2-D Allen-Cahn,
-// all of it included) and K10's chain two factor buffers (96 / 158 KB),
-// so the kernels opt in above the 48 KB default (wd_fwd_smem_bytes,
-// wd_lr_smem_bytes).
+// Shared memory: K7f holds its weight slice (62 KB a block at
+// Schrodinger, 122 KB at 2-D Allen-Cahn, all of it included), K7b the
+// same slice and its sweep's buffers (71 / 131 KB) and K10's chain two
+// factor buffers (96 / 158 KB), so the kernels opt in above the 48 KB
+// default (wd_fwd_smem_bytes, wd_bwd_smem_bytes, wd_lr_smem_bytes).
 
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -113,10 +130,11 @@ namespace cg = cooperative_groups;
 #define WD_MAX_H 16
 #define WD_MAX_G 16
 #define WD_MAX_STAGES 7
-#define WD_MAX_THREADS 1024
 #define WD_MAX_CLUSTER 8
+#define WD_SMEM_BYTES 232448     // dynamic shared memory a block may take
 #define WD_CLUSTER_THREADS 256   // block size cap of the cluster kernels
 #define WD_PARAM_THREADS 128
+#define WD_COUPLING_THREADS 1024
 #define WD_PARAM_CHUNK 64
 
 // The chain, the grid and a fixed-step tableau with dt folded in.
@@ -132,10 +150,13 @@ struct WideTab {
   float b[WD_MAX_STAGES];
   int needed[WD_MAX_STAGES];
   int slot[WD_MAX_STAGES];
-  // the cluster plan of K7f/K6f and K10's chain (WideSpec.cluster_plan):
-  // C blocks per row, threads per block, and whether the weight slice
-  // (K7f) and the double-buffered factor slices (K10) sit in shared memory
-  int cluster, threads, smem_weights, smem_factors;
+  // the cluster plan of K7f/K6f, K7b/K6b and K10's chain
+  // (WideSpec.cluster_plan): C blocks per row, threads per block, and
+  // whether the weight slice (K7f), the double-buffered factor slices (K10)
+  // and the weight slice beside the reverse sweep's buffers (K7b; K10's
+  // phase A too, where its own buffers leave the room) sit in shared
+  // memory
+  int cluster, threads, smem_weights, smem_factors, smem_weights_bwd;
 };
 
 namespace {
@@ -151,96 +172,6 @@ __device__ __forceinline__ float wd_warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
-}
-
-// Block-wide chain evaluation kout = f(xi) for one state row held in
-// shared memory (xi, kout: [I]); y1_out [H] gets layer 1's output when
-// not null. s_part: [n_warps * H], s_b2: [H*G + H]. Every thread of the
-// block must call it; on return each thread may read its own columns of
-// kout (other columns after a barrier).
-__device__ void wd_chain_fwd(const float* xi, float* kout, float* y1_out,
-                             const WideParams& p, const WideTab& T,
-                             float* s_part, float* s_b2) {
-  const int I = T.I, H = T.H, G = T.G, Ipad = T.Ipad;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_warps = blockDim.x / 32;
-  float acc[WD_MAX_H];
-#pragma unroll
-  for (int h = 0; h < WD_MAX_H; ++h) acc[h] = 0.0f;
-  for (int x = threadIdx.x; x < I; x += blockDim.x) {
-    const float v = xi[x];
-    const float xn = kc_norm(v, T.normalizer);
-    const float sw = kc_swish(v);
-    const float* wrow = p.w1p + (size_t)x * H;
-#pragma unroll
-    for (int h = 0; h < WD_MAX_H; ++h)
-      if (h < H) acc[h] += sw * wrow[h];
-    for (int g = 0; g < G; ++g) {
-      const float B = kc_basis((xn - T.grid[g]) * T.inv_h, T.basis);
-      const float* crow = p.c1p + ((size_t)g * Ipad + x) * H;
-#pragma unroll
-      for (int h = 0; h < WD_MAX_H; ++h)
-        if (h < H) acc[h] += B * crow[h];
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < WD_MAX_H; ++h) {
-    if (h < H) {
-      const float s = wd_warp_sum(acc[h]);
-      if (lane == 0) s_part[warp * H + h] = s;
-    }
-  }
-  __syncthreads();
-  // y1[h] = the warps' partials in warp order; then the basis values and
-  // swish of the hidden vector, once for the block
-  const int HG = H * G;
-  for (int t = threadIdx.x; t < HG + H; t += blockDim.x) {
-    const int h = t < HG ? t / G : t - HG;
-    float y1 = 0.0f;
-    for (int w = 0; w < n_warps; ++w) y1 += s_part[w * H + h];
-    if (t < HG) {
-      const float yn = kc_norm(y1, T.normalizer);
-      s_b2[t] = kc_basis((yn - T.grid[t % G]) * T.inv_h, T.basis);
-    } else {
-      s_b2[t] = kc_swish(y1);
-      if (y1_out) y1_out[h] = y1;
-    }
-  }
-  __syncthreads();
-  for (int o = threadIdx.x; o < I; o += blockDim.x) {
-    float kc = 0.0f, kw = 0.0f;
-    for (int r = 0; r < HG; ++r) kc += s_b2[r] * p.c2p[(size_t)r * Ipad + o];
-    for (int h = 0; h < H; ++h)
-      kw += s_b2[HG + h] * p.w2p[(size_t)h * Ipad + o];
-    kout[o] = kc + kw;
-  }
-}
-
-// The needed stages of one step from the step input x_in (global, [I]
-// real columns used): stage inputs into s_xs [n_slots, I], stage values
-// into s_ks [n_slots, I], layer-1 outputs into s_y1 [n_slots, H] (when
-// not null). Each thread reads and writes its own columns of s_xs / s_ks;
-// s_y1 is readable after a barrier.
-__device__ void wd_rebuild(const float* x_in, float* s_xs, float* s_ks,
-                           float* s_y1, const WideParams& p, const WideTab& T,
-                           float* s_part, float* s_b2) {
-  const int I = T.I;
-  for (int st = 0; st < T.stages; ++st) {
-    if (!T.needed[st]) continue;
-    float* xs = s_xs + T.slot[st] * I;
-    for (int x = threadIdx.x; x < I; x += blockDim.x) {
-      float v = x_in[x];
-      for (int j = 0; j < st; ++j) {
-        const float a = T.a[st][j];
-        if (a == 0.0f || !T.needed[j]) continue;
-        v = v + a * s_ks[T.slot[j] * I + x];
-      }
-      xs[x] = v;
-    }
-    wd_chain_fwd(xs, s_ks + T.slot[st] * I,
-                 s_y1 ? s_y1 + T.slot[st] * T.H : nullptr, p, T, s_part,
-                 s_b2);
-  }
 }
 
 // ---- Hopper pieces: mbarrier, bulk (TMA) copies, cp.async -----------------
@@ -388,9 +319,11 @@ __device__ __forceinline__ float wd_rank_sum(const float* x, int C,
 // of the cluster (s_xch [2, C, H], this block's at its rank) with
 // st.async, so each block waits on its own mbarrier (s_xbar [2]) and
 // reads its own shared memory. s_part [n_warps, H], s_l2 [Q, W], s_b2
-// [H*G + H]. On return thread (0, col) may read its own columns of kout.
+// [H*G + H]; y1_out [H], where not null, gets layer 1's output (readable
+// by the block on return). On return thread (0, col) may read its own
+// columns of kout.
 __device__ __forceinline__ void wd_cluster_chain(const float* xs,
-                                                 float* kout,
+                                                 float* kout, float* y1_out,
                                  const WideSlice& w, const WideTab& T,
                                  const WideRoles& R, int rank, int e,
                                  float* s_part, float* s_l2, float* s_b2,
@@ -457,6 +390,7 @@ __device__ __forceinline__ void wd_cluster_chain(const float* xs,
       s_b2[t] = kc_basis((yn - T.grid[t % G]) * T.inv_h, T.basis);
     } else {
       s_b2[t] = kc_swish(y1);
+      if (y1_out) y1_out[h] = y1;
     }
   }
   __syncthreads();
@@ -496,6 +430,39 @@ __device__ __forceinline__ void wd_cluster_chain(const float* xs,
   }
 }
 
+// The needed stages of one step from the block's slice s_x of the step
+// input: stage inputs into s_xs [S, W], stage values into s_ks [S, W]
+// and, where y1 is not null, layer 1's outputs into y1 [S, H]. e counts
+// the cluster's exchanges so far; returns it after these. Thread (0, col)
+// owns its columns of s_x, s_xs and s_ks. K7f's steps and K7b's rebuild.
+__device__ __forceinline__ int wd_cluster_stages(
+    const WideSlice& w, const WideTab& T, const WideRoles& R, int rank,
+    int e, const float* s_x, float* s_xs, float* s_ks, float* y1,
+    float* s_part, float* s_l2, float* s_b2, float* s_xch,
+    uint64_t* s_xbar) {
+  const int I = T.I, W = R.W;
+  for (int st = 0; st < T.stages; ++st) {
+    if (!T.needed[st]) continue;
+    float* xs = s_xs + T.slot[st] * W;
+    if (R.q == 0) {
+      for (int c = R.col; c < W && R.c0 + c < I; c += R.Wt) {
+        float v = s_x[c];
+        for (int j = 0; j < st; ++j) {
+          const float a = T.a[st][j];
+          if (a == 0.0f || !T.needed[j]) continue;
+          v = v + a * s_ks[T.slot[j] * W + c];
+        }
+        xs[c] = v;
+      }
+    }
+    __syncthreads();                 // the stage input is complete
+    wd_cluster_chain(xs, s_ks + T.slot[st] * W,
+                     y1 ? y1 + T.slot[st] * T.H : nullptr, w, T, R, rank,
+                     e++, s_part, s_l2, s_b2, s_xch, s_xbar);
+  }
+  return e;
+}
+
 // The step loop of K7f / K6f over the weight slice w. Inlined once per
 // placement of the weights (shared or global memory), so that each copy
 // reads them with the loads of that memory: a pointer that may be either
@@ -508,24 +475,8 @@ __device__ __forceinline__ void wd_fwd_steps(
   const int I = T.I, Ipad = T.Ipad, W = R.W;
   int e = 0;                           // chain evaluations so far
   for (int s = 0; s < n_steps; ++s) {
-    for (int st = 0; st < T.stages; ++st) {
-      if (!T.needed[st]) continue;
-      float* xs = s_xs + T.slot[st] * W;
-      if (R.q == 0) {
-        for (int c = R.col; c < W && R.c0 + c < I; c += R.Wt) {
-          float v = s_x[c];
-          for (int j = 0; j < st; ++j) {
-            const float a = T.a[st][j];
-            if (a == 0.0f || !T.needed[j]) continue;
-            v = v + a * s_ks[T.slot[j] * W + c];
-          }
-          xs[c] = v;
-        }
-      }
-      __syncthreads();                 // the stage input is complete
-      wd_cluster_chain(xs, s_ks + T.slot[st] * W, w, T, R, rank, e++,
-                       s_part, s_l2, s_b2, s_xch, s_xbar);
-    }
+    e = wd_cluster_stages(w, T, R, rank, e, s_x, s_xs, s_ks, nullptr,
+                          s_part, s_l2, s_b2, s_xch, s_xbar);
     if (R.q == 0) {
       float* y = ys + ((size_t)s * K + row) * Ipad + R.c0;
       for (int c = R.col; c < W; c += R.Wt) {
@@ -541,6 +492,45 @@ __device__ __forceinline__ void wd_fwd_steps(
       }
     }
   }
+}
+
+// The block's weight slice (G + 1 chunks [W, H] of layer 1, then H*G + H
+// rows [W] of layer 2: (2G + 2) H W floats) copied into s_w with bulk
+// copies counted on s_bar, waited for; returns its view.
+__device__ __forceinline__ WideSlice wd_copy_weights(const WideParams& p,
+                                                     const WideTab& T,
+                                                     const WideRoles& R,
+                                                     float* s_w,
+                                                     uint64_t* s_bar) {
+  const int Ipad = T.Ipad, H = T.H, G = T.G, HG = H * G, W = R.W;
+  const size_t n_w1 = (size_t)(G + 1) * W * H;
+  const size_t n_w = n_w1 + (size_t)(HG + H) * W;
+  if (threadIdx.x == 0) wd_mbar_expect(s_bar, (unsigned)(n_w * 4));
+  const int n_copies = G + 1 + HG + H;
+  for (int i = threadIdx.x; i < n_copies; i += blockDim.x) {
+    if (i <= G) {
+      const float* src = i < G ? p.c1p + ((size_t)i * Ipad + R.c0) * H
+                               : p.w1p + (size_t)R.c0 * H;
+      wd_bulk_load(s_w + (size_t)i * W * H, src, W * H * 4, s_bar);
+    } else {
+      const int r = i - G - 1;
+      const float* src = r < HG ? p.c2p + (size_t)r * Ipad + R.c0
+                                : p.w2p + (size_t)(r - HG) * Ipad + R.c0;
+      wd_bulk_load(s_w + n_w1 + (size_t)r * W, src, W * 4, s_bar);
+    }
+  }
+  wd_mbar_wait(s_bar, 0);
+  return {s_w, s_w + (size_t)G * W * H, s_w + n_w1,
+          s_w + n_w1 + (size_t)HG * W, (size_t)W * H, (size_t)W, true};
+}
+
+// The block's weight slice where it stays in global memory.
+__device__ __forceinline__ WideSlice wd_global_slice(const WideParams& p,
+                                                     const WideTab& T,
+                                                     const WideRoles& R) {
+  return {p.c1p + (size_t)R.c0 * T.H, p.w1p + (size_t)R.c0 * T.H,
+          p.c2p + R.c0, p.w2p + R.c0, (size_t)T.Ipad * T.H, (size_t)T.Ipad,
+          false};
 }
 
 // K7f / K6f: n_steps whole RK steps of row blockIdx.x / C, every post-step
@@ -577,139 +567,291 @@ wd_fwd_kernel(const float* x0, WideParams p, float* ys, int K, int n_steps,
     for (int i = 0; i < 3; ++i) wd_mbar_init(s_bar + i);
   __syncthreads();
   if (T.smem_weights) {
-    if (threadIdx.x == 0) wd_mbar_expect(s_bar, (unsigned)(n_w * 4));
-    // G + 1 chunks [W, H] of layer 1, H*G + H rows [W] of layer 2
-    const int n_copies = G + 1 + HG + H;
-    for (int i = threadIdx.x; i < n_copies; i += blockDim.x) {
-      if (i <= G) {
-        const float* src = i < G ? p.c1p + ((size_t)i * Ipad + R.c0) * H
-                                 : p.w1p + (size_t)R.c0 * H;
-        wd_bulk_load(s_w + (size_t)i * W * H, src, W * H * 4, s_bar);
-      } else {
-        const int r = i - G - 1;
-        const float* src = r < HG ? p.c2p + (size_t)r * Ipad + R.c0
-                                  : p.w2p + (size_t)(r - HG) * Ipad + R.c0;
-        wd_bulk_load(s_w + n_w1 + (size_t)r * W, src, W * 4, s_bar);
-      }
-    }
-    wd_mbar_wait(s_bar, 0);
+    const WideSlice w = wd_copy_weights(p, T, R, s_w, s_bar);
     cl.sync();     // every block's mbarriers are ready: partials may land
-    const WideSlice w = {s_w, s_w + (size_t)G * W * H, s_w + n_w1,
-                         s_w + n_w1 + (size_t)HG * W, (size_t)W * H,
-                         (size_t)W, true};
     wd_fwd_steps(w, ys, K, n_steps, row, T, R, rank, s_x, s_xs, s_ks,
                  s_part, s_l2, s_b2, s_xch, s_xbar);
   } else {
     cl.sync();
-    const WideSlice w = {p.c1p + (size_t)R.c0 * H, p.w1p + (size_t)R.c0 * H,
-                         p.c2p + R.c0, p.w2p + R.c0, (size_t)Ipad * H,
-                         (size_t)Ipad, false};
-    wd_fwd_steps(w, ys, K, n_steps, row, T, R, rank, s_x, s_xs, s_ks,
-                 s_part, s_l2, s_b2, s_xch, s_xbar);
+    wd_fwd_steps(wd_global_slice(p, T, R), ys, K, n_steps, row, T, R, rank,
+                 s_x, s_xs, s_ks, s_part, s_l2, s_b2, s_xch, s_xbar);
   }
   cl.sync();       // no block leaves while another may store into it
 }
 
-// K7b / K6b: the reverse sweep of row blockIdx.x. Writes dx0 and, per
-// record r = (step * K + row) * n_slots + slot, the stage input XS[r]
-// [I], the stage cotangent KB[r] [I], y1 Y1[r] [H] and its cotangent
-// TT[r] [H], from which wd_param*_kernel form the parameter cotangents.
-__global__ void __launch_bounds__(WD_MAX_THREADS)
-wd_bwd_kernel(const float* x0, const float* ys, const float* gys,
-              WideParams p, float* dx0, float* XS, float* KB, float* Y1,
-              float* TT, int K, int n_steps, WideTab T) {
-  extern __shared__ float smem[];
-  const int I = T.I, Ipad = T.Ipad, H = T.H, G = T.G, HG = H * G;
-  const int row = blockIdx.x;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_warps = blockDim.x / 32;
-  float* s_xs = smem;                          // [n_slots, I]
-  float* s_kb = s_xs + T.n_slots * I;          // [n_slots, I] ks, then kbar
-  float* s_xbar = s_kb + T.n_slots * I;        // [I]
-  float* s_y1 = s_xbar + I;                    // [n_slots, H]
-  float* s_t = s_y1 + T.n_slots * H;           // [H] dy1 of the stage
-  float* s_m2 = s_t + H;                       // [H*G + H]
-  float* s_part = s_m2 + HG + H;               // [32 * H]
-  float* s_b2 = s_part + 32 * H;               // [H*G + H]
-  for (int x = threadIdx.x; x < I; x += blockDim.x) s_xbar[x] = 0.0f;
-  for (int s = n_steps - 1; s >= 0; --s) {
-    const float* x_in = s == 0 ? x0 + (size_t)row * Ipad
-                               : ys + ((size_t)(s - 1) * K + row) * Ipad;
-    wd_rebuild(x_in, s_xs, s_kb, s_y1, p, T, s_part, s_b2);
-    // seeds: a = xbar + gys[s]; kbar_i = (dt b_i) a (0 where b_i = 0).
-    // Each column's ks are read by its own thread only.
-    const float* g_in = gys + ((size_t)s * K + row) * Ipad;
-    for (int x = threadIdx.x; x < I; x += blockDim.x) {
-      const float a = s_xbar[x] + g_in[x];
-      s_xbar[x] = a;
-      for (int st = 0; st < T.stages; ++st)
-        if (T.needed[st])
-          s_kb[T.slot[st] * I + x] = T.b[st] != 0.0f ? T.b[st] * a : 0.0f;
+// Row r < H*G + H of layer 2's weights ([c2p; w2p]) over the block's
+// slice.
+__device__ __forceinline__ const float* wd_row2(const WideSlice& w, int r,
+                                                int HG) {
+  if (w.rows2 || r < HG) return w.c2 + r * w.s2;
+  return w.w2 + (r - HG) * w.s2;
+}
+
+// sum_t kb[c_t] row[c_t] over the positions t in [lo, hi) of the rotated
+// column order c_t = (start + t) mod n, in four chains (t mod 4 within
+// the run) summed in a fixed order.
+__device__ __forceinline__ float wd_rot_dot(const float* kb, const float* row,
+                                            int n, int start, int lo,
+                                            int hi) {
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int c = start + lo;
+  if (c >= n) c -= n;
+  int t = lo;
+  for (; t + 4 <= hi; t += 4) {
+    float kv[4], wv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      int cu = c + u;
+      if (cu >= n) cu -= n;
+      kv[u] = kb[cu];
+      wv[u] = row[cu];
     }
-    const size_t r0 = ((size_t)s * K + row) * T.n_slots;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[u] += kv[u] * wv[u];
+    c += 4;
+    if (c >= n) c -= n;
+  }
+  for (; t < hi; ++t) {
+    acc[0] += kb[c] * row[c];
+    if (++c == n) c = 0;
+  }
+  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+}
+
+// The buffers of K7b's reverse sweep in a block's shared memory (W
+// columns, S needed stages, Q thread groups, R2 = H*G + H rows of layer 2).
+struct WideBwdBufs {
+  float* x;      // [W] the step input
+  float* xs;     // [S, W] stage inputs
+  float* kb;     // [S, W] stage values, then the stage cotangents kbar
+  float* xb;     // [W] the state cotangent xbar
+  float* l2;     // [2Q, W] K7f's layer-2 partials; the VJP's group partials
+  float* part;   // [n_warps, H]
+  float* b2;     // [H*G + H]
+  float* xch;    // [2, C, H] the chain's exchange
+  float* m2x;    // [2, C, R2] the exchange of m2's partials
+  float* tm;     // [R2] m2 times dk/dy1's coefficient of each row
+  float* y1;     // [S, H] layer 1's outputs of the step's stages
+  float* t;      // [H] dy1 of the stage
+  uint64_t* bar;  // [2] the exchanges' mbarriers, by parity
+};
+
+// The reverse sweep of K7b / K6b for row `row` over the weight slice w
+// (inlined once per placement of the weights, as wd_fwd_steps). Per step
+// the block rebuilds its columns of the stages with K7f's stage loop,
+// seeds kbar, and per stage in reverse: its partial of m2 = kbar .
+// [c2p; w2p]^T over its columns into every block (st.async, as the chain
+// exchanges y1), the C partials summed in rank order in every block, dy1 =
+// t[h] formed by every block itself, and the layer-1 VJP on its columns.
+__device__ __forceinline__ void wd_bwd_steps(
+    const WideSlice& w, const float* x0, const float* ys, const float* gys,
+    float* dx0, float* XS, float* KB, float* Y1, float* TT, int K,
+    int n_steps, int row, const WideTab& T, const WideRoles& R, int rank,
+    const WideBwdBufs& B) {
+  const int I = T.I, Ipad = T.Ipad, H = T.H, G = T.G, HG = H * G;
+  const int R2 = HG + H, C = T.cluster, S = T.n_slots, W = R.W;
+  const int Q = R.Q;
+  const int ncols = I - R.c0 < W ? (I - R.c0 > 0 ? I - R.c0 : 0) : W;
+  int e = 0;                           // the cluster's exchanges so far
+  if (R.q == 0)
+    for (int c = R.col; c < W; c += R.Wt) B.xb[c] = 0.0f;
+  for (int s = n_steps - 1; s >= 0; --s) {
+    const float* x_in = (s == 0 ? x0 + (size_t)row * Ipad
+                                : ys + ((size_t)(s - 1) * K + row) * Ipad)
+                        + R.c0;
+    if (R.q == 0)
+      for (int c = R.col; c < ncols; c += R.Wt) B.x[c] = x_in[c];
+    e = wd_cluster_stages(w, T, R, rank, e, B.x, B.xs, B.kb, B.y1, B.part,
+                          B.l2, B.b2, B.xch, B.bar);
+    // seeds: a = xbar + gys[s]; kbar_i = (dt b_i) a (0 where b_i = 0),
+    // over the ks, each column by its owner
+    const float* g_in = gys + ((size_t)s * K + row) * Ipad + R.c0;
+    if (R.q == 0) {
+      for (int c = R.col; c < ncols; c += R.Wt) {
+        const float a = B.xb[c] + g_in[c];
+        B.xb[c] = a;
+        for (int st = 0; st < T.stages; ++st)
+          if (T.needed[st])
+            B.kb[T.slot[st] * W + c] = T.b[st] != 0.0f ? T.b[st] * a : 0.0f;
+      }
+    }
+    const size_t r0 = ((size_t)s * K + row) * S;
     for (int st = T.stages - 1; st >= 0; --st) {
       if (!T.needed[st]) continue;
       const int sl = T.slot[st];
-      float* kb = s_kb + sl * I;
-      const float* xs = s_xs + sl * I;
-      __syncthreads();                         // kbar_st is complete
-      // m2 = kbar . [c2p | w2p]^T: one warp per weight row
-      for (int r = warp; r < HG + H; r += n_warps) {
-        const float* wrow = r < HG ? p.c2p + (size_t)r * Ipad
-                                   : p.w2p + (size_t)(r - HG) * Ipad;
-        float acc = 0.0f;
-        for (int o = lane; o < I; o += 32) acc += kb[o] * wrow[o];
-        acc = wd_warp_sum(acc);
-        if (lane == 0) s_m2[r] = acc;
+      const float* kb = B.kb + sl * W;
+      const float* xs = B.xs + sl * W;
+      const float* y1 = B.y1 + sl * H;
+      __syncthreads();                 // kbar_st is complete
+      // this block's partial of m2[r] = kbar . row r of [c2p; w2p] over
+      // its columns, in the rotated order of wd_rot_dot from column 2r:
+      // where 2 R2 threads fit, threads 2r and 2r + 1 take the first L0
+      // and the remaining positions (L0 odd, so the pair and the warp's
+      // rows read distinct banks) and the halves are summed in order (a
+      // shuffle); else one thread a row. Into slot `rank` of every
+      // block's buffer of parity e & 1.
+      const int par = e & 1;
+      float* m2x = B.m2x + par * C * R2;
+      uint64_t* bar = B.bar + par;
+      if (threadIdx.x == 0) wd_mbar_expect(bar, (unsigned)(C * R2 * 4));
+      if (2 * R2 <= (int)blockDim.x) {
+        const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+        const int L0 = (ncols / 2) | 1;
+        float v = 0.0f;
+        if (r < R2 && ncols > 0)
+          v = wd_rot_dot(kb, wd_row2(w, r, HG), ncols, (2 * r) % ncols,
+                         half ? (L0 < ncols ? L0 : ncols) : 0,
+                         half ? ncols : (L0 < ncols ? L0 : ncols));
+        v += __shfl_down_sync(0xffffffffu, v, 1);
+        if (r < R2 && half == 0)
+          for (int k = 0; k < C; ++k)
+            wd_st_async(wd_mapa(m2x + rank * R2 + r, k), v, wd_mapa(bar, k));
+      } else {
+        for (int r = threadIdx.x; r < R2; r += blockDim.x) {
+          const float v = ncols > 0
+              ? wd_rot_dot(kb, wd_row2(w, r, HG), ncols, (2 * r) % ncols, 0,
+                           ncols)
+              : 0.0f;
+          for (int k = 0; k < C; ++k)
+            wd_st_async(wd_mapa(m2x + rank * R2 + r, k), v, wd_mapa(bar, k));
+        }
+      }
+      wd_mbar_wait(bar, (e >> 1) & 1);
+      ++e;
+      // m2 = the ranks' partials in rank order, times the row's dk/dy1
+      // coefficient: B_g'(u2) / h (then norm'(y1) below), or swish'(y1)
+      for (int r = threadIdx.x; r < R2; r += blockDim.x) {
+        const float m = wd_rank_sum(m2x + r, C, R2);
+        if (r < HG) {
+          const float yv = y1[r / G];
+          const float u = (kc_norm(yv, T.normalizer) - T.grid[r % G])
+                          * T.inv_h;
+          B.tm[r] = m * kc_basis_du(u, kc_basis(u, T.basis), T.basis)
+                    * T.inv_h;
+        } else {
+          B.tm[r] = m * kc_dswish(y1[r - HG]);
+        }
       }
       __syncthreads();
       for (int h = threadIdx.x; h < H; h += blockDim.x) {
-        const float y1 = s_y1[sl * H + h];
-        const float yn = kc_norm(y1, T.normalizer);
+        const float yv = y1[h];
         float acc = 0.0f;
-        for (int g = 0; g < G; ++g) {
-          const float u = (yn - T.grid[g]) * T.inv_h;
-          const float B = kc_basis(u, T.basis);
-          acc += s_m2[h * G + g] * kc_basis_du(u, B, T.basis) * T.inv_h;
+        for (int g = 0; g < G; ++g) acc += B.tm[h * G + g];
+        const float t = acc * kc_dnorm(yv, T.normalizer) + B.tm[HG + h];
+        B.t[h] = t;
+        if (rank == 0) {
+          TT[(r0 + sl) * H + h] = t;
+          Y1[(r0 + sl) * H + h] = yv;
         }
-        const float t = acc * kc_dnorm(y1, T.normalizer)
-                        + s_m2[HG + h] * kc_dswish(y1);
-        s_t[h] = t;
-        TT[(r0 + sl) * H + h] = t;
-        Y1[(r0 + sl) * H + h] = y1;
       }
       __syncthreads();
-      // the column-local layer-1 VJP, into xbar and the earlier stages
-      for (int x = threadIdx.x; x < I; x += blockDim.x) {
-        const float v = xs[x];
+      // the layer-1 VJP on the block's columns: thread (q, col) takes the
+      // terms j = q, q + Q, .. (grid nodes, then swish) of its columns
+      float tv[WD_MAX_H];
+#pragma unroll
+      for (int h = 0; h < WD_MAX_H; ++h) tv[h] = h < H ? B.t[h] : 0.0f;
+      for (int c = R.col; c < ncols; c += R.Wt) {
+        const float v = xs[c];
         const float xn = kc_norm(v, T.normalizer);
-        float accn = 0.0f;
-        for (int g = 0; g < G; ++g) {
-          const float u = (xn - T.grid[g]) * T.inv_h;
-          const float B = kc_basis(u, T.basis);
-          const float* crow = p.c1p + ((size_t)g * Ipad + x) * H;
-          float m = 0.0f;
-          for (int h = 0; h < H; ++h) m += s_t[h] * crow[h];
-          accn += m * kc_basis_du(u, B, T.basis) * T.inv_h;
+        float pn = 0.0f, pw = 0.0f;
+        for (int j = R.q; j <= G; j += Q) {
+          const float* wrow = j < G ? w.c1 + j * w.s1 + (size_t)c * H
+                                    : w.w1 + (size_t)c * H;
+          float wv[WD_MAX_H];
+#pragma unroll
+          for (int h = 0; h < WD_MAX_H; ++h) wv[h] = h < H ? wrow[h] : 0.0f;
+          const float m = wd_dot16(tv, wv);
+          if (j < G) {
+            const float u = (xn - T.grid[j]) * T.inv_h;
+            pn += m * kc_basis_du(u, kc_basis(u, T.basis), T.basis)
+                  * T.inv_h;
+          } else {
+            pw = m;
+          }
         }
-        const float* wrow = p.w1p + (size_t)x * H;
-        float mw = 0.0f;
-        for (int h = 0; h < H; ++h) mw += s_t[h] * wrow[h];
-        const float dxi = accn * kc_dnorm(v, T.normalizer)
-                          + mw * kc_dswish(v);
-        XS[(r0 + sl) * I + x] = v;
-        KB[(r0 + sl) * I + x] = kb[x];
-        s_xbar[x] = s_xbar[x] + dxi;
-        for (int j = 0; j < st; ++j) {
-          const float a = T.a[st][j];
-          if (a == 0.0f || !T.needed[j]) continue;
-          s_kb[T.slot[j] * I + x] = s_kb[T.slot[j] * I + x] + a * dxi;
+        B.l2[R.q * W + c] = pn;
+        B.l2[(Q + R.q) * W + c] = pw;
+      }
+      __syncthreads();
+      // each column's owner: the groups' partials in order, dx_i into xbar
+      // and the earlier stages' kbar, and the records
+      if (R.q == 0) {
+        for (int c = R.col; c < ncols; c += R.Wt) {
+          const float v = xs[c];
+          float pn = B.l2[c], pw = B.l2[Q * W + c];
+          for (int qq = 1; qq < Q; ++qq) {
+            pn += B.l2[qq * W + c];
+            pw += B.l2[(Q + qq) * W + c];
+          }
+          const float dxi = pn * kc_dnorm(v, T.normalizer)
+                            + pw * kc_dswish(v);
+          XS[(r0 + sl) * I + R.c0 + c] = v;
+          KB[(r0 + sl) * I + R.c0 + c] = kb[c];
+          B.xb[c] = B.xb[c] + dxi;
+          for (int j = 0; j < st; ++j) {
+            const float a = T.a[st][j];
+            if (a == 0.0f || !T.needed[j]) continue;
+            B.kb[T.slot[j] * W + c] = B.kb[T.slot[j] * W + c] + a * dxi;
+          }
         }
       }
     }
   }
-  for (int x = threadIdx.x; x < Ipad; x += blockDim.x)
-    dx0[(size_t)row * Ipad + x] = x < I ? s_xbar[x] : 0.0f;
+  if (R.q == 0)
+    for (int c = R.col; c < W; c += R.Wt)
+      dx0[(size_t)row * Ipad + R.c0 + c] = c < ncols ? B.xb[c] : 0.0f;
+}
+
+// K7b / K6b: the reverse sweep of row blockIdx.x / C, one cluster of C
+// blocks over the column slices of K7f. Writes dx0 and, per record r =
+// (step * K + row) * n_slots + slot, the stage input XS[r] [I], the stage
+// cotangent KB[r] [I], y1 Y1[r] [H] and its cotangent TT[r] [H] (rank 0
+// writes those two), from which wd_param*_kernel form the parameter
+// cotangents.
+__global__ void __launch_bounds__(WD_CLUSTER_THREADS)
+wd_bwd_kernel(const float* x0, const float* ys, const float* gys,
+              WideParams p, float* dx0, float* XS, float* KB, float* Y1,
+              float* TT, int K, int n_steps, WideTab T) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const int row = blockIdx.x / T.cluster;
+  const int H = T.H, G = T.G, HG = H * G, R2 = HG + H, C = T.cluster;
+  const int S = T.n_slots;
+  const WideRoles R = wd_roles(T, rank);
+  const int W = R.W;
+  // 32 bytes of mbarriers: the weight copy, the exchange of each parity
+  uint64_t* s_bar = reinterpret_cast<uint64_t*>(smem);
+  float* s_w = smem + 8;
+  const size_t n_w = (size_t)(2 * G + 2) * H * W;
+  WideBwdBufs B;
+  B.bar = s_bar + 1;
+  B.x = s_w + (T.smem_weights_bwd ? n_w : 0);
+  B.xs = B.x + W;
+  B.kb = B.xs + S * W;
+  B.xb = B.kb + S * W;
+  B.l2 = B.xb + W;
+  B.part = B.l2 + 2 * R.Q * W;
+  B.b2 = B.part + (blockDim.x / 32) * H;
+  B.xch = B.b2 + HG + H;
+  B.m2x = B.xch + 2 * C * H;
+  B.tm = B.m2x + 2 * C * R2;
+  B.y1 = B.tm + R2;
+  B.t = B.y1 + S * H;
+  if (threadIdx.x == 0)
+    for (int i = 0; i < 3; ++i) wd_mbar_init(s_bar + i);
+  __syncthreads();
+  if (T.smem_weights_bwd) {
+    const WideSlice w = wd_copy_weights(p, T, R, s_w, s_bar);
+    cl.sync();     // every block's mbarriers are ready: partials may land
+    wd_bwd_steps(w, x0, ys, gys, dx0, XS, KB, Y1, TT, K, n_steps, row, T, R,
+                 rank, B);
+  } else {
+    cl.sync();
+    wd_bwd_steps(wd_global_slice(p, T, R), x0, ys, gys, dx0, XS, KB, Y1, TT,
+                 K, n_steps, row, T, R, rank, B);
+  }
+  cl.sync();       // no block leaves while another may store into it
 }
 
 // dc1p[(g*Ipad + x), h] = sum_r B_g(XS[r][x]) TT[r][h]  (blockIdx.y = g)
@@ -797,36 +939,31 @@ wd_param2_kernel(const float* Y1, const float* KB, float* dc2p, float* dw2p,
   }
 }
 
-// K10 phase A, one block per step s (K == 1): rebuilds the step's stages
-// and writes the records XS, Y1 and the factors AT [S*H, I] (rows
-// A_i[:, h]^T), V [S*H, I] (rows of B_i^T) and L [S*H, S*H] of the step
-// Jacobian I + U Ds (I - L)^{-1} V.
-__global__ void __launch_bounds__(WD_MAX_THREADS)
-wd_lr_factor_kernel(const float* x0, const float* ys, WideParams p,
-                    float* XS, float* Y1, float* AT, float* V, float* L,
-                    WideTab T) {
-  extern __shared__ float smem[];
+// K10 phase A, one cluster per step s (K == 1) over K7f's column slices:
+// rebuilds the step's stages with K7f's stage loop (so its records are
+// K7b's, bit for bit) and writes, on each block's columns, the record XS
+// (Y1 from rank 0) and the factors AT [S*H, I] (rows A_i[:, h]^T) and V
+// [S*H, I] (rows of B_i^T) of the step Jacobian I + U Ds (I - L)^{-1} V.
+// Inlined once per placement of the weights, as wd_fwd_steps.
+__device__ __forceinline__ void wd_lr_factor_steps(
+    const WideSlice& w, const float* x0, const float* ys, float* XS,
+    float* Y1, float* AT, float* V, int s, const WideTab& T,
+    const WideRoles& R, int rank, float* s_x, float* s_xs, float* s_ks,
+    float* s_y1, float* s_d2, float* s_part, float* s_l2, float* s_b2,
+    float* s_xch, uint64_t* s_xbar) {
   const int I = T.I, Ipad = T.Ipad, H = T.H, G = T.G, G1 = T.G + 1;
-  const int S = T.n_slots, SH = S * H;
-  const int s = blockIdx.x;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_warps = blockDim.x / 32;
-  float* s_xs = smem;                          // [S, I]
-  float* s_ks = s_xs + S * I;                  // [S, I]
-  float* s_y1 = s_ks + S * I;                  // [S, H]
-  float* s_d2 = s_y1 + SH;                     // [S, H, G + 1]
-  float* s_part = s_d2 + SH * G1;              // [32 * H]
-  float* s_b2 = s_part + 32 * H;               // [H*G + H]
-  int st_of[WD_MAX_STAGES];
-  for (int st = 0; st < T.stages; ++st)
-    if (T.needed[st]) st_of[T.slot[st]] = st;
-  const float* x_in = s == 0 ? x0 : ys + (size_t)(s - 1) * Ipad;
-  float* Ls = L + (size_t)s * SH * SH;
-  for (int i = threadIdx.x; i < SH * SH; i += blockDim.x) Ls[i] = 0.0f;
-  wd_rebuild(x_in, s_xs, s_ks, s_y1, p, T, s_part, s_b2);
-  __syncthreads();
+  const int HG = H * G, S = T.n_slots, SH = S * H, W = R.W;
+  const int ncols = I - R.c0 < W ? (I - R.c0 > 0 ? I - R.c0 : 0) : W;
+  const float* x_in = (s == 0 ? x0 : ys + (size_t)(s - 1) * Ipad) + R.c0;
+  if (R.q == 0)
+    for (int c = R.col; c < ncols; c += R.Wt) s_x[c] = x_in[c];
+  wd_cluster_stages(w, T, R, rank, 0, s_x, s_xs, s_ks, s_y1, s_part, s_l2,
+                    s_b2, s_xch, s_xbar);
+  __syncthreads();      // every column's stage inputs and y1 are in place
   const size_t r0 = (size_t)s * S;
-  for (int i = threadIdx.x; i < SH; i += blockDim.x) Y1[r0 * H + i] = s_y1[i];
+  if (rank == 0)
+    for (int i = threadIdx.x; i < SH; i += blockDim.x)
+      Y1[r0 * H + i] = s_y1[i];
   // dk/dy1 coefficients of every stage: D2[sl][h][g] = B'(u2) / h *
   // norm'(y1), and swish'(y1) in the last place
   for (int i = threadIdx.x; i < SH * G1; i += blockDim.x) {
@@ -841,18 +978,18 @@ wd_lr_factor_kernel(const float* x0, const float* ys, WideParams p,
     }
   }
   __syncthreads();
-  for (int x = threadIdx.x; x < I; x += blockDim.x) {
+  for (int c = threadIdx.x; c < ncols; c += blockDim.x) {
+    const int x = R.c0 + c;
     // A_i[x, h] for every stage: one pass down column x of c2p / w2p
     for (int h = 0; h < H; ++h) {
       float acc[WD_MAX_STAGES];
 #pragma unroll
       for (int sl = 0; sl < WD_MAX_STAGES; ++sl) acc[sl] = 0.0f;
       for (int g = 0; g <= G; ++g) {
-        const float c = g < G ? p.c2p[((size_t)h * G + g) * Ipad + x]
-                              : p.w2p[(size_t)h * Ipad + x];
+        const float cv = wd_row2(w, g < G ? h * G + g : HG + h, HG)[c];
 #pragma unroll
         for (int sl = 0; sl < WD_MAX_STAGES; ++sl)
-          if (sl < S) acc[sl] += c * s_d2[(sl * H + h) * G1 + g];
+          if (sl < S) acc[sl] += cv * s_d2[(sl * H + h) * G1 + g];
       }
 #pragma unroll
       for (int sl = 0; sl < WD_MAX_STAGES; ++sl)
@@ -860,20 +997,20 @@ wd_lr_factor_kernel(const float* x0, const float* ys, WideParams p,
     }
     // B_i^T[h, x] per stage: the column-local layer-1 Jacobian
     for (int sl = 0; sl < S; ++sl) {
-      const float v = s_xs[sl * I + x];
+      const float v = s_xs[sl * W + c];
       XS[(r0 + sl) * I + x] = v;
       const float xn = kc_norm(v, T.normalizer);
       const float dn = kc_dnorm(v, T.normalizer);
       const float ds = kc_dswish(v);
       float vv[WD_MAX_H];
-      const float* wrow = p.w1p + (size_t)x * H;
+      const float* wrow = w.w1 + (size_t)c * H;
 #pragma unroll
       for (int h = 0; h < WD_MAX_H; ++h) vv[h] = h < H ? ds * wrow[h] : 0.0f;
       for (int g = 0; g < G; ++g) {
         const float u = (xn - T.grid[g]) * T.inv_h;
         const float dB = kc_basis_du(u, kc_basis(u, T.basis), T.basis)
                          * T.inv_h * dn;
-        const float* crow = p.c1p + ((size_t)g * Ipad + x) * H;
+        const float* crow = w.c1 + g * w.s1 + (size_t)c * H;
 #pragma unroll
         for (int h = 0; h < WD_MAX_H; ++h)
           if (h < H) vv[h] += dB * crow[h];
@@ -883,9 +1020,63 @@ wd_lr_factor_kernel(const float* x0, const float* ys, WideParams p,
         if (h < H) V[((r0 + sl) * H + h) * I + x] = vv[h];
     }
   }
-  __syncthreads();      // the factors (global) are visible to the block
-  // L[(j, h), (i, h')] = dt a_ji * B_j^T[h, :] . A_i[:, h'], slots j > i:
-  // one warp per (j, i, h), lanes over the columns
+}
+
+__global__ void __launch_bounds__(WD_CLUSTER_THREADS)
+wd_lr_factor_kernel(const float* x0, const float* ys, WideParams p,
+                    float* XS, float* Y1, float* AT, float* V, WideTab T) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const int s = blockIdx.x / T.cluster;
+  const int H = T.H, G = T.G, C = T.cluster, S = T.n_slots;
+  const WideRoles R = wd_roles(T, rank);
+  const int W = R.W;
+  uint64_t* s_bar = reinterpret_cast<uint64_t*>(smem);
+  float* s_w = smem + 8;
+  float* s_x = s_w + (T.smem_weights_bwd ? (size_t)(2 * G + 2) * H * W : 0);
+  float* s_xs = s_x + W;                       // [S, W]
+  float* s_ks = s_xs + S * W;                  // [S, W]
+  float* s_l2 = s_ks + S * W;                  // [Q, W]
+  float* s_part = s_l2 + R.Q * W;              // [n_warps, H]
+  float* s_b2 = s_part + (blockDim.x / 32) * H;  // [H*G + H]
+  float* s_xch = s_b2 + H * G + H;             // [2, C, H]
+  float* s_y1 = s_xch + 2 * C * H;             // [S, H]
+  float* s_d2 = s_y1 + S * H;                  // [S, H, G + 1]
+  if (threadIdx.x == 0)
+    for (int i = 0; i < 3; ++i) wd_mbar_init(s_bar + i);
+  __syncthreads();
+  if (T.smem_weights_bwd) {
+    const WideSlice w = wd_copy_weights(p, T, R, s_w, s_bar);
+    cl.sync();     // every block's mbarriers are ready: partials may land
+    wd_lr_factor_steps(w, x0, ys, XS, Y1, AT, V, s, T, R, rank, s_x, s_xs,
+                       s_ks, s_y1, s_d2, s_part, s_l2, s_b2, s_xch, s_bar + 1);
+  } else {
+    cl.sync();
+    wd_lr_factor_steps(wd_global_slice(p, T, R), x0, ys, XS, Y1, AT, V, s, T,
+                       R, rank, s_x, s_xs, s_ks, s_y1, s_d2, s_part, s_l2,
+                       s_b2, s_xch, s_bar + 1);
+  }
+  cl.sync();       // no block leaves while another may store into it
+}
+
+// K10 phase A, the coupling: L [S*H, S*H] of step blockIdx.x from its
+// factors in global memory, L[(j, h), (i, h')] = dt a_ji * B_j^T[h, :] .
+// A_i[:, h'] for slots j > i (0 elsewhere): one warp per (j, i, h), lanes
+// over the columns, one shuffle tree.
+__global__ void __launch_bounds__(WD_COUPLING_THREADS)
+wd_lr_coupling_kernel(const float* AT, const float* V, float* L, WideTab T) {
+  const int I = T.I, H = T.H, S = T.n_slots, SH = S * H;
+  const int s = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_warps = blockDim.x / 32;
+  int st_of[WD_MAX_STAGES];
+  for (int st = 0; st < T.stages; ++st)
+    if (T.needed[st]) st_of[T.slot[st]] = st;
+  const size_t r0 = (size_t)s * S;
+  float* Ls = L + (size_t)s * SH * SH;
+  for (int i = threadIdx.x; i < SH * SH; i += blockDim.x) Ls[i] = 0.0f;
+  __syncthreads();
   const int n_items = S * S * H;
   for (int item = warp; item < n_items; item += n_warps) {
     const int pj = item / (S * H), pi = (item / H) % S, h = item % H;
@@ -1121,20 +1312,13 @@ wd_lr_chain_kernel(const float* gys, const float* AT, const float* V,
   cl.sync();       // no block leaves while another may store into it
 }
 
-int wd_threads(int n) {
-  int t = ((n + 31) / 32) * 32;
-  if (t < 128) t = 128;
-  return t < WD_MAX_THREADS ? t : WD_MAX_THREADS;
-}
 
-size_t wd_small_floats(const WideTab& T) {      // s_part and s_b2
-  return (size_t)32 * T.H + T.H * T.G + T.H;
-}
 
-// Dynamic shared memory of K7f (16 bytes for its mbarrier, the weight
-// slice when it sits there, the state slices and small vectors) and of
-// K10's chain (two factor buffers when they sit there, the slices of a and
-// xbar, the partials); WideSpec.cluster_plan mirrors both.
+// Dynamic shared memory of K7f (32 bytes for its mbarriers, the weight
+// slice when it sits there, the state slices and small vectors), of K7b
+// (the same, with the sweep's slices, the m2 exchange and the stages' y1)
+// and of K10's chain (two factor buffers when they sit there, the slices
+// of a and xbar, the partials); WideSpec.cluster_plan mirrors all three.
 size_t wd_fwd_smem_bytes(const WideTab& T) {
   const size_t W = T.Ipad / T.cluster, H = T.H, G = T.G, C = T.cluster;
   const size_t real = W < (size_t)T.I ? W : (size_t)T.I;
@@ -1144,6 +1328,34 @@ size_t wd_fwd_smem_bytes(const WideTab& T) {
   size_t floats = 8 + (1 + 2 * (size_t)T.n_slots + Q) * W
                   + (T.threads / 32) * H + H * G + H + 2 * C * H;
   if (T.smem_weights) floats += (2 * G + 2) * H * W;
+  return floats * sizeof(float);
+}
+
+size_t wd_bwd_smem_bytes(const WideTab& T) {
+  const size_t W = T.Ipad / T.cluster, H = T.H, G = T.G, C = T.cluster;
+  const size_t S = T.n_slots, R2 = H * G + H;
+  const size_t real = W < (size_t)T.I ? W : (size_t)T.I;
+  size_t Wt = ((real + 31) / 32) * 32;
+  if (Wt > (size_t)T.threads) Wt = T.threads;
+  const size_t Q = T.threads / Wt;
+  size_t floats = 8 + (2 + 2 * S + 2 * Q) * W + (T.threads / 32) * H + R2
+                  + 2 * C * H + 2 * C * R2 + R2 + S * H + H;
+  if (T.smem_weights_bwd) floats += (2 * G + 2) * H * W;
+  return floats * sizeof(float);
+}
+
+// K10's phase A: K7f's slices and small vectors, the stages' y1 and the
+// dk/dy1 coefficients, and the weight slice where T.smem_weights_bwd.
+size_t wd_lr_factor_smem_bytes(const WideTab& T) {
+  const size_t W = T.Ipad / T.cluster, H = T.H, G = T.G, C = T.cluster;
+  const size_t S = T.n_slots;
+  const size_t real = W < (size_t)T.I ? W : (size_t)T.I;
+  size_t Wt = ((real + 31) / 32) * 32;
+  if (Wt > (size_t)T.threads) Wt = T.threads;
+  const size_t Q = T.threads / Wt;
+  size_t floats = 8 + (1 + 2 * S + Q) * W + (T.threads / 32) * H + H * G + H
+                  + 2 * C * H + S * H + S * H * (G + 1);
+  if (T.smem_weights_bwd) floats += (2 * G + 2) * H * W;
   return floats * sizeof(float);
 }
 
@@ -1237,14 +1449,9 @@ cudaError_t wd_launch_bwd(const float* x0, const float* ys, const float* gys,
                           float* dw1p, float* dc2p, float* dw2p, float* XS,
                           float* KB, float* Y1, float* TT, int K, int n_steps,
                           const WideTab& T, cudaStream_t stream) {
-  const size_t smem = ((size_t)(1 + 2 * T.n_slots) * T.I + T.n_slots * T.H
-                       + T.H + T.H * T.G + T.H + wd_small_floats(T))
-                      * sizeof(float);
-  cudaError_t err = kc_smem_opt_in(wd_bwd_kernel, smem);
-  if (err != cudaSuccess) return err;
-  wd_bwd_kernel<<<K, wd_threads(T.I), smem, stream>>>(
-      x0, ys, gys, p, dx0, XS, KB, Y1, TT, K, n_steps, T);
-  err = cudaGetLastError();
+  cudaError_t err = wd_launch_cluster(wd_bwd_kernel, K, wd_bwd_smem_bytes(T),
+                                      T, stream, x0, ys, gys, p, dx0, XS, KB,
+                                      Y1, TT, K, n_steps, T);
   if (err != cudaSuccess) return err;
   return wd_launch_params(XS, KB, Y1, TT, dc1p, dw1p, dc2p, dw2p,
                           n_steps * K * T.n_slots, T, stream);
@@ -1261,10 +1468,11 @@ void wd_caps(int* out) {
   out[3] = WD_MAX_STAGES;
 }
 
-// Dynamic shared memory per block of K7f (which = 0) and of K10's chain
-// (which = 1) for the plan in T.
+// Dynamic shared memory per block of K7f (which = 0), K10's chain
+// (which = 1) and K7b (which = 2) for the plan in T.
 int wd_smem_bytes(const WideTab* T, int which) {
-  return (int)(which == 0 ? wd_fwd_smem_bytes(*T) : wd_lr_smem_bytes(*T));
+  return (int)(which == 0 ? wd_fwd_smem_bytes(*T)
+               : which == 1 ? wd_lr_smem_bytes(*T) : wd_bwd_smem_bytes(*T));
 }
 
 // Each launcher takes device pointers, the host-side WideTab and the CUDA
@@ -1298,13 +1506,18 @@ int wd_multistep_bwd_lr(const float* x0, const float* ys, const float* gys,
                         void* stream) {
   const WideParams p = {c1p, w1p, c2p, w2p};
   const cudaStream_t st = (cudaStream_t)stream;
-  const int S = T->n_slots, SH = S * T->H;
-  const size_t smem_a = ((size_t)2 * S * T->I + SH + SH * (T->G + 1)
-                         + wd_small_floats(*T)) * sizeof(float);
-  cudaError_t err = kc_smem_opt_in(wd_lr_factor_kernel, smem_a);
+  const int S = T->n_slots;
+  // phase A: one cluster a step, the weight slice in shared memory where
+  // K7b's is and phase A's own buffers leave room for it
+  WideTab Ta = *T;
+  Ta.smem_weights_bwd = T->smem_weights_bwd
+      && wd_lr_factor_smem_bytes(*T) <= (size_t)WD_SMEM_BYTES;
+  cudaError_t err = wd_launch_cluster(wd_lr_factor_kernel, n_steps,
+                                      wd_lr_factor_smem_bytes(Ta), Ta, st,
+                                      x0, ys, p, XS, Y1, AT, V, Ta);
   if (err != cudaSuccess) return (int)err;
-  wd_lr_factor_kernel<<<n_steps, wd_threads(T->I), smem_a, st>>>(
-      x0, ys, p, XS, Y1, AT, V, L, *T);
+  wd_lr_coupling_kernel<<<n_steps, WD_COUPLING_THREADS, 0, st>>>(AT, V, L,
+                                                                 *T);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = T->smem_factors

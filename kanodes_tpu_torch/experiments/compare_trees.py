@@ -1,0 +1,134 @@
+"""Time the gray-box and wide backward kernels, and the source and
+shooting training iterations, of two checkouts of this repository on one
+card, in turns.
+
+    python -m kanodes_tpu_torch.experiments.compare_trees PARENT CHANGE \\
+        [--out=FILE]
+
+PARENT and CHANGE are the roots of two checkouts (for example a `git
+archive` of the parent commit unpacked in a directory .gitignore lists).
+For each root, in the order parent, change, change, parent, one
+subprocess builds that root's kernels and times, with chip_smoke.py's
+helpers and inputs (CUDA-event ms, `cuda_ms`, and the profiler's device
+µs, `device_us`): K5f and K5b (tsit5, grid 10) at Fisher-KPP 1-D [1, 26],
+Allen-Cahn 1-D [1, 41] and the [32, 32] fields of 2-D Fisher-KPP and
+Allen-Cahn; K7b at the shooting groups (Schrödinger K = 7, 2-D Allen-Cahn
+K = 4, n = 40); K10 at K = 1, n = 40 and 20 (both). Then, in the same turns
+(host times swing on a shared host), `profile_source --ndim=2` for
+Fisher-KPP and Allen-Cahn and `profile_surrogate --solve_mode=shooting`
+for Schrödinger and 2-D Allen-Cahn (fused). Prints one JSON line per run
+(and writes them to FILE), then the card's name and power limit. Needs a
+CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+KERNELS = r'''
+import json, sys
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from kanodes_tpu_torch.ops import graybox_fused as gb
+from kanodes_tpu_torch.ops import kdense_pallas as kp
+from kanodes_tpu_torch.ops import rk_fused_wide as tw
+from kanodes_tpu_torch.utils.precision import set_exact_f32
+set_exact_f32()
+out = {}
+with torch.no_grad():
+    for i in (0, 1, 6, 7):
+        case = cs.GRAYBOX_CASES[i]
+        spec, kron, u, lap, c, w, gy = cs.graybox_case_inputs(torch, gb,
+                                                              case)
+        st = (spec, case.solver, case.dt, case.D)
+        f = lambda: gb._launch_fwd(*st, u, lap, c, w, kron)
+        b = lambda: gb._launch_bwd(*st, u, lap, c, w, gy, kron)
+        out["K5 " + case.label] = {
+            "K5f_ms": cs.cuda_ms(torch, f, 50),
+            "K5f_us": cs.device_us(torch, f),
+            "K5b_ms": cs.cuda_ms(torch, b, 50),
+            "K5b_us": cs.device_us(torch, b)}
+    for i, kind in ((6, "K7b"), (9, "K7b"), (5, "K10"), (10, "K10"),
+                    (11, "K10"), (12, "K10")):
+        case = cs.WIDE_CASES[i]
+        ws, pp, x0, gys = cs.wide_case_inputs(torch, tw, kp, case)
+        k = tw._consts(ws, case.solver, case.dt)
+        ys = tw._launch_multistep_fwd(k, case.n, x0, pp)
+        launch = (tw._launch_multistep_bwd if kind == "K7b"
+                  else tw._launch_multistep_bwd_lr)
+        f = lambda: launch(k, case.n, x0, ys, pp, gys)
+        out[kind + " " + case.label] = {
+            "ms": cs.cuda_ms(torch, f, 5),
+            "us": cs.device_us(torch, f, reps=5)}
+print(json.dumps(out))
+'''
+
+PROFILES = (
+    ("profile_source", ("--ndim=2", "--problem=fisher_kpp", "--impl=fused")),
+    ("profile_source", ("--ndim=2", "--problem=allen_cahn", "--impl=fused")),
+    ("profile_surrogate", ("--problem=schrodinger", "--impl=fused",
+                           "--solve_mode=shooting")),
+    ("profile_surrogate", ("--problem=allen_cahn_2d", "--impl=fused",
+                           "--solve_mode=shooting")),
+)
+
+
+def run(root: str, argv: list[str]) -> dict:
+    """One subprocess in `root`; its last stdout line as JSON."""
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.run([sys.executable, *argv], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=1200)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{root}: {' '.join(argv)} failed "
+                           f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main(argv: list[str]) -> int:
+    out_file = None
+    roots = []
+    for a in argv:
+        if a.startswith("--out="):
+            out_file = a.split("=", 1)[1]
+        else:
+            roots.append(os.path.abspath(a))
+    if len(roots) != 2:
+        raise SystemExit("usage: compare_trees PARENT CHANGE [--out=FILE]")
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_trees: needs a CUDA device")
+    names = {roots[0]: "parent", roots[1]: "change"}
+    lines = []
+
+    def emit(obj):
+        lines.append(obj)
+        print(json.dumps(obj), flush=True)
+
+    turns = (roots[0], roots[1], roots[1], roots[0])
+    for root in turns:
+        emit({"tree": names[root], "kernels": run(root, ["-c", KERNELS])})
+    for root in turns:
+        for module, args in PROFILES:
+            emit({"tree": names[root], "profile": module, "args": args,
+                  "result": run(root, ["-m",
+                                       f"kanodes_tpu_torch.experiments."
+                                       f"{module}", *args])})
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+    emit({"card": card})
+    if out_file:
+        with open(out_file, "w") as f:
+            for obj in lines:
+                f.write(json.dumps(obj) + "\n")
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main(sys.argv[1:]))

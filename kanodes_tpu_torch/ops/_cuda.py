@@ -106,7 +106,8 @@ class WideTab(ctypes.Structure):
                 ("slot", ctypes.c_int * MAX_WIDE_STAGES),
                 ("cluster", ctypes.c_int), ("threads", ctypes.c_int),
                 ("smem_weights", ctypes.c_int),
-                ("smem_factors", ctypes.c_int)]
+                ("smem_factors", ctypes.c_int),
+                ("smem_weights_bwd", ctypes.c_int)]
 
 
 _P = ctypes.c_void_p
@@ -141,6 +142,8 @@ _SIGNATURES = {
     "gb_step_fwd": [_P] * 7,
     # u, lap, c, w, gy, du, dc, dw, tab, stream
     "gb_step_bwd": [_P] * 10,
+    # tab, which (0: K5f, 1: K5b)
+    "gb_smem_bytes": [_P, _I],
     # x0, c1p, w1p, c2p, w2p, ys, K, n_steps, tab, stream
     "wd_multistep_fwd": [_P] * 6 + [_I] * 2 + [_P] * 2,
     # x0, ys, gys, c1p, w1p, c2p, w2p, dx0, dc1p, dw1p, dc2p, dw2p, XS, KB,
@@ -157,7 +160,7 @@ _SIGNATURES = {
     "mb_adaptive_bwd": [_P] * 13 + [_I] + [_P] * 5 + [_I] * 2 + [_P] * 3,
     # dims, K, stages, backward
     "mb_smem_bytes": [_P] + [_I] * 3,
-    # tab, which (0: K7f, 1: K10's chain)
+    # tab, which (0: K7f, 1: K10's chain, 2: K7b)
     "wd_smem_bytes": [_P, _I],
 }
 

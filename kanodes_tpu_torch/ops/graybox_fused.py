@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -233,7 +234,40 @@ class GrayTab(ctypes.Structure):
                 ("kron", ctypes.c_int), ("G", ctypes.c_int),
                 ("normalizer", ctypes.c_int),
                 ("D", ctypes.c_float), ("inv_h", ctypes.c_float),
-                ("centers", ctypes.c_float * _cuda.MAX_GB_G)]
+                ("centers", ctypes.c_float * _cuda.MAX_GB_G),
+                ("tile", ctypes.c_int), ("lanes", ctypes.c_int),
+                ("threads", ctypes.c_int)]
+
+
+class GrayPlan(NamedTuple):
+    """How K5 lays one launch over its block: `tile` x `tile` tiles of
+    nodes (2 on a 2-D field of even side up to 32, else 1), `lanes`
+    threads a tile (4 where they fit one block of 1024, else 1),
+    `threads` threads (tiles beyond threads / lanes loop), and each
+    kernel's dynamic shared memory in bytes (`gb_smem_bytes` of the
+    kernels, float for float)."""
+    tile: int
+    lanes: int
+    threads: int
+    fwd_bytes: int
+    bwd_bytes: int
+
+
+def gray_plan(nodes: int, N: int, kron: bool, n_slots: int,
+              G: int) -> GrayPlan:
+    """The launch plan of K5 at `nodes` nodes of operator side N with
+    `n_slots` needed stages and grid G (csrc/graybox.cu, gb_smem_floats):
+    every field and the operator in shared memory with a row stride of
+    N + 1 on the 2-D field (N otherwise)."""
+    tile = 2 if kron and N % 2 == 0 and (N // 2) ** 2 * 4 <= 1024 else 1
+    items = (N // tile) ** 2 if kron else nodes
+    lanes = 4 if 4 * items <= 1024 else 1
+    threads = min(-(-lanes * items // 32) * 32, 1024)
+    ld = N + 1 if kron else N
+    field = (N if kron else nodes // N) * ld
+    fwd = N * ld + field * (1 + 2 * n_slots) + G + 1
+    bwd = fwd + (threads + threads // 32) * (G + 1)
+    return GrayPlan(tile, lanes, threads, 4 * fwd, 4 * bwd)
 
 
 @functools.lru_cache(maxsize=64)
@@ -255,6 +289,8 @@ def _gray_tab(spec_key: tuple, solver: str, dt: float, D: float,
     t.normalizer = _cuda._NORMALIZERS[normalizer]
     t.D, t.inv_h = float(np.float32(D)), float(np.float32(1.0 / h))
     t.centers[:G] = [float(np.float32(z)) for z in centers]
+    t.tile, t.lanes, t.threads, _, _ = gray_plan(nodes, N, kron, k.n_slots,
+                                                 G)
     return t
 
 

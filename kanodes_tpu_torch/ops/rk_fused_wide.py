@@ -19,11 +19,11 @@ here returns zeros on the pad lanes of `ys`, `dx` and the parameter
 cotangents (the JAX kernel's raw `dc1p` is non-zero on pad rows, which
 `pad_params`' transpose throws away).
 
-K7f (K6f) and K10's serial chain run one thread-block cluster per state
-row on the card: `WideSpec.cluster_plan` cuts the padded row into C
-equal column slices, one block each, and says whether each block's
-weight slice (K7f) and double-buffered factor slices (K10) fit its
-shared memory (`csrc/rk_fused_wide.cu`).
+K7f (K6f), K7b (K6b) and K10's serial chain run one thread-block
+cluster per state row on the card: `WideSpec.cluster_plan` cuts the
+padded row into C equal column slices, one block each, and says whether
+each block's weight slice (K7f, K7b) and double-buffered factor slices
+(K10) fit its shared memory (`csrc/rk_fused_wide.cu`).
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor runs
 the plain PyTorch version of the same math, exported for tests and
@@ -79,10 +79,11 @@ MAX_CLUSTER = 8
 
 
 class ClusterPlan(NamedTuple):
-    """How K7f/K6f and K10's chain lay one state row over a cluster:
-    `cluster` blocks of `threads` threads, each owning `cols` columns of
-    the padded row; whether the weight slice (K7f) and the two factor
-    buffers (K10) sit in shared memory, and each kernel's dynamic shared
+    """How K7f/K6f, K7b/K6b and K10's chain lay one state row over a
+    cluster: `cluster` blocks of `threads` threads, each owning `cols`
+    columns of the padded row; whether the weight slice (K7f), the two
+    factor buffers (K10) and the weight slice beside the reverse sweep's
+    buffers (K7b) sit in shared memory, and each kernel's dynamic shared
     memory per block in bytes (`wd_smem_bytes` of the kernels)."""
     cluster: int
     cols: int
@@ -91,6 +92,8 @@ class ClusterPlan(NamedTuple):
     smem_factors: bool
     fwd_bytes: int
     lr_bytes: int
+    smem_weights_bwd: bool
+    bwd_bytes: int
 
 
 class WideSpec:
@@ -129,9 +132,10 @@ class WideSpec:
         return c
 
     def cluster_plan(self, n_slots: int) -> ClusterPlan:
-        """The cluster layout of K7f and K10's chain for `n_slots` needed
-        stages, with the shared memory each block takes (the kernels'
-        wd_fwd_smem_bytes / wd_lr_smem_bytes, float for float)."""
+        """The cluster layout of K7f, K7b and K10's chain for `n_slots`
+        needed stages, with the shared memory each block takes (the
+        kernels' wd_fwd_smem_bytes / wd_lr_smem_bytes / wd_bwd_smem_bytes,
+        float for float)."""
         C = self.cluster_blocks()
         W = self.Ipad // C
         # threads over the slice's real columns, in Q groups; at most 256
@@ -148,9 +152,19 @@ class WideSpec:
         lr = 4 + 2 * W + (threads // SH) * SH + 2 * C * SH + SH
         factors = 2 * (2 * SH * W + SH * SH)
         smem_factors = 4 * (lr + factors) <= SMEM_BYTES
+        # K7b: the step input, stage inputs and cotangents, xbar, the
+        # layer-2 and VJP partials, the m2 exchange [2, C, H*G + H], the
+        # rows' coefficients and the stages' y1
+        R2 = H * G + H
+        bwd = 8 + (2 + 2 * n_slots + 2 * Q) * W + threads // 32 * H + R2 \
+            + 2 * C * H + 2 * C * R2 + R2 + SH + H
+        smem_weights_bwd = self.Ipad % 32 == 0 \
+            and 4 * (bwd + weights) <= SMEM_BYTES
         return ClusterPlan(C, W, threads, smem_weights, smem_factors,
                            4 * (fwd + (weights if smem_weights else 0)),
-                           4 * (lr + (factors if smem_factors else 0)))
+                           4 * (lr + (factors if smem_factors else 0)),
+                           smem_weights_bwd,
+                           4 * (bwd + (weights if smem_weights_bwd else 0)))
 
     def pad_params(self, c1, w1, c2, w2):
         """c1 [I*G, H] (rows i*G+g) -> [G*Ipad, H] grouped BY GRID NODE
@@ -251,6 +265,7 @@ class _WideConsts(_Consts):
             t.cluster, t.threads = plan.cluster, plan.threads
             t.smem_weights = int(plan.smem_weights)
             t.smem_factors = int(plan.smem_factors)
+            t.smem_weights_bwd = int(plan.smem_weights_bwd)
             self._wide_tab = t
         return self._wide_tab
 

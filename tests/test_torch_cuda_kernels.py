@@ -370,7 +370,8 @@ def test_wide_backwards_repeat_bit_for_bit(card):
 
 def test_wide_cluster_plan_matches_the_kernels(card):
     """WideSpec.cluster_plan's shared-memory bytes are the kernels' own
-    (wd_smem_bytes) at every chip_smoke.WIDE_CASES shape."""
+    (wd_smem_bytes: K7f, K10's chain, K7b) at every chip_smoke.WIDE_CASES
+    shape."""
     import ctypes
     from kanodes_tpu_torch.ops import _cuda
     lib = _cuda.library()
@@ -379,8 +380,121 @@ def test_wide_cluster_plan_matches_the_kernels(card):
         k = tw._consts(ws, case.solver, case.dt)
         plan = ws.cluster_plan(k.n_slots)
         tab = ctypes.byref(k.wide_tab())
-        assert (lib.wd_smem_bytes(tab, 0), lib.wd_smem_bytes(tab, 1)) == \
-            (plan.fwd_bytes, plan.lr_bytes), case.label
+        assert (lib.wd_smem_bytes(tab, 0), lib.wd_smem_bytes(tab, 1),
+                lib.wd_smem_bytes(tab, 2)) == \
+            (plan.fwd_bytes, plan.lr_bytes, plan.bwd_bytes), case.label
+
+
+def test_graybox_plan_matches_the_kernels(card):
+    """gray_plan's shared-memory bytes are the kernels' own (gb_smem_bytes)
+    at every chip_smoke.GRAYBOX_CASES shape and at the caps."""
+    import ctypes
+    from kanodes_tpu_torch.ops import _cuda
+    lib = _cuda.library()
+    shapes = [(case.solver, case.dt, case.N, case.K is None,
+               case.N * (case.N if case.K is None else case.K))
+              for case in chip_smoke.GRAYBOX_CASES]
+    shapes += [("tsit5", 0.01, 64, False, 2048), ("tsit5", 0.01, 45, True,
+                                                   2025)]
+    for solver, dt, N, kron, nodes in shapes:
+        spec = gb.GrayboxSpec(10, "softsign")
+        tab = gb._gray_tab(spec.key(), solver, dt, 0.01, kron, nodes, N)
+        plan = gb.gray_plan(nodes, N, kron, gb._consts(solver, dt).n_slots,
+                            10)
+        assert (lib.gb_smem_bytes(ctypes.byref(tab), 0),
+                lib.gb_smem_bytes(ctypes.byref(tab), 1)) == \
+            (plan.fwd_bytes, plan.bwd_bytes), (N, kron, nodes)
+
+
+def test_redesigned_backwards_repeat_bit_for_bit(card):
+    """K5b at every chip_smoke.GRAYBOX_CASES shape, K7b at the shooting
+    groups it is launched at (Schrodinger K = 7, 2-D Allen-Cahn K = 4, n =
+    40) and K6b at one step sum in a fixed order: two launches agree bit
+    for bit."""
+    for case in chip_smoke.GRAYBOX_CASES:
+        spec, kron, u, lap, c, w, gy = chip_smoke.graybox_case_inputs(
+            torch, gb, case)
+        step = (spec, case.solver, case.dt, case.D)
+        a = gb._launch_bwd(*step, u, lap, c, w, gy, kron)
+        b = gb._launch_bwd(*step, u, lap, c, w, gy, kron)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), case.label
+    for index in (6, 9, 2, 8):
+        case = chip_smoke.WIDE_CASES[index]
+        ws, pp, x0, gys = chip_smoke.wide_case_inputs(torch, tw, kp, case)
+        k = tw._consts(ws, case.solver, case.dt)
+        ys = tw._launch_multistep_fwd(k, case.n, x0, pp)
+        a = tw._launch_multistep_bwd(k, case.n, x0, ys, pp, gys)
+        b = tw._launch_multistep_bwd(k, case.n, x0, ys, pp, gys)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), case.label
+        if case.n == 1:
+            a = tw._launch_step_bwd(k, x0, pp, gys[0])
+            b = tw._launch_step_bwd(k, x0, pp, gys[0])
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), case.label
+
+
+def _wide_records(launch_name, k, n, x0, ys, pp, gys):
+    """Launch K7b (wd_multistep_bwd) or K10 (wd_multistep_bwd_lr) at K = 1
+    with record buffers the test keeps: (XS, KB, Y1, TT)."""
+    import ctypes
+    from kanodes_tpu_torch.ops import _cuda
+    lib = _cuda.library()
+    grads = [torch.empty_like(t) for t in (x0, *pp)]
+    rec = tw._records(k, n * k.n_slots, x0)
+    ptrs = [_cuda.ptr(t) for t in (x0, ys, gys, *pp, *grads, *rec)]
+    tab = ctypes.byref(k.wide_tab())
+    if launch_name == "K7b":
+        err = lib.wd_multistep_bwd(*ptrs, 1, n, tab, _cuda.stream())
+    else:
+        SH = k.n_slots * k.ws.H
+        factors = [torch.empty(shape, device=x0.device) for shape in
+                   ((n, SH, k.ws.I), (n, SH, k.ws.I), (n, SH, SH))]
+        err = lib.wd_multistep_bwd_lr(*ptrs, *map(_cuda.ptr, factors), n,
+                                      tab, _cuda.stream())
+    _cuda.check(err, launch_name)
+    torch.cuda.synchronize()
+    return rec
+
+
+def test_k10_rebuilds_the_records_of_k7b(card):
+    """K10's phase A rebuilds each step's stages in one block in the
+    arithmetic of the cluster chain that K7b's rebuild (and K7f) run: the
+    stage inputs XS and layer-1 outputs Y1 it records are K7b's bit for
+    bit, so the two adjoints differ only in how they form the cotangents."""
+    for index in (3, 5, 10, 13):
+        case = chip_smoke.WIDE_CASES[index]
+        ws, pp, x0, gys = chip_smoke.wide_case_inputs(torch, tw, kp, case)
+        k = tw._consts(ws, case.solver, case.dt)
+        ys = tw._launch_multistep_fwd(k, case.n, x0, pp)
+        XS7, _, Y17, _ = _wide_records("K7b", k, case.n, x0, ys, pp, gys)
+        XS10, _, Y110, _ = _wide_records("K10", k, case.n, x0, ys, pp, gys)
+        assert torch.equal(XS7, XS10), case.label
+        assert torch.equal(Y17, Y110), case.label
+
+
+def test_wide_backward_with_weights_in_global_memory(card):
+    """[1000,16,1000] grid 16 over K = 2 rows: K7b's weight slice does not
+    fit beside its sweep's buffers, so it reads the weights from global
+    memory; it still matches its plain version and repeats bit for bit."""
+    case = chip_smoke.WideCase("wide H, G [1000,16,1000] K=2 n=4", 1000, 16,
+                               16, 128, 2, 4, seed=22)
+    ws, pp, x0, gys = chip_smoke.wide_case_inputs(torch, tw, kp, case)
+    k = tw._consts(ws, case.solver, case.dt)
+    assert not ws.cluster_plan(k.n_slots).smem_weights_bwd
+    step = (ws, case.solver, case.dt)
+    ys = tw._launch_multistep_fwd(k, case.n, x0, pp)
+    got = tw._launch_multistep_bwd(k, case.n, x0, ys, pp, gys)
+    again = tw._launch_multistep_bwd(k, case.n, x0, ys, pp, gys)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    plain = tw.fused_rk_multistep_wide_bwd_reference
+    g_ref = plain(*step, case.n, x0, ys, *pp, gys)
+    pp64 = tuple(p.double() for p in pp)
+    ys64 = tw.fused_rk_multistep_wide_reference(*step, case.n, x0.double(),
+                                                *pp64)
+    g64 = plain(*step, case.n, x0.double(), ys64, *pp64, gys.double())
+    failures = []
+    for name, a, b, ref in zip(chip_smoke.WIDE_NAMES, got, g_ref, g64):
+        chip_smoke.graybox_rule(torch, failures, name, a, b, ref, GRAD)
+    assert not failures, failures
 
 
 def test_wide_kernels_with_weights_in_global_memory(card):

@@ -10,6 +10,10 @@ Tolerances: one step, forward rtol 1e-5 / atol 1e-6 and du, dc, dw rtol
 gray-box tolerances, tests/test_graybox_fused.py:42,65).
 """
 
+import sys
+from collections import Counter
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +27,9 @@ from kanodes_tpu_torch.interop import kdense_params_from_numpy
 from kanodes_tpu_torch.models.kdense import KDense
 from kanodes_tpu_torch.ops import _cuda
 from kanodes_tpu_torch.ops import graybox_fused as tg
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -206,3 +213,150 @@ def test_bf16_backward_is_not_ported():
         tg.fused_graybox_rk_step(spec, "tsit5", 0.1, 0.01, torch.zeros(1, 4),
                                  torch.zeros(4, 4), torch.zeros(1, G),
                                  torch.zeros(1, 1), "bf16")
+
+
+def kernel_lanes(plan, nodes, N, kron):
+    """Where K5's launch puts the work (csrc/graybox.cu, gb_lane, gb_tile,
+    gb_node): for each thread, in its order, the tiles it visits as lists
+    of (node, dense index, shared-memory offset, grid terms g it sums for
+    that node, whether it writes the node)."""
+    TT, LN = plan.tile, plan.lanes
+    ld = N + 1 if kron else N
+    pd = N // TT
+    items = pd * pd if kron else nodes
+    n_grp = plan.threads // LN
+    out = []
+    for t in range(plan.threads):
+        grp, q = divmod(t, LN)
+        visits = []
+        for it in range(grp, items, n_grp):
+            ti, tj = divmod(it, pd)
+            n = q if TT > 1 else 0
+            i, j = ti + (n // TT) * pd, tj + (n % TT) * pd
+            g_terms = range(q, G, 4) if TT == 1 and LN == 4 else range(G)
+            visits.append((n, i * N + j, i * ld + j, list(g_terms),
+                           TT > 1 or q == 0))
+        out.append(visits)
+    return out
+
+
+def warp_then_block_sum(vals):
+    """The kernel's reduction of one sum over its threads (float32): each
+    warp's shuffle-down tree to lane 0, then the warps in order."""
+    total = np.float32(0.0)
+    for w0 in range(0, len(vals), 32):
+        v = list(vals[w0:w0 + 32])
+        for off in (16, 8, 4, 2, 1):
+            v = [v[i] + v[i + off] if i + off < 32 else v[i]
+                 for i in range(32)]
+        total = np.float32(total + v[0])
+    return total
+
+
+@pytest.mark.parametrize("index", range(len(chip_smoke.GRAYBOX_CASES)))
+def test_launch_plan_of_every_chip_smoke_shape(index):
+    """K5's host-side launch plan at every shape chip_smoke launches it
+    (csrc/graybox.cu): 2 x 2 tiles with four lanes on the [32, 32] field,
+    one-node tiles with four lanes on the 1-D rows, one lane a tile where
+    four would exceed 1024 threads; the bytes within a block's shared
+    memory and in the kernels' GrayTab. Through the kernel's thread map:
+    every node written by exactly one lane, at an offset inside its padded
+    row; every dC term kbar B_g(us) and dW term of every node and stage in
+    exactly one thread's sums; on 2 x 2 tiles every operator load of a warp
+    conflict-free. dC and dW summed as the kernel sums them (each thread's
+    terms in its order, each warp's shuffle tree, the warps in order) from
+    the plain adjoint's stages equal the JAX step's cotangents."""
+    case = chip_smoke.GRAYBOX_CASES[index]
+    spec, kron, u, lap, c, w, gy = chip_smoke.graybox_case_inputs(
+        torch, tg, case, device="cpu")
+    nodes, N = u.numel(), u.shape[1]
+    k = tg._consts(case.solver, case.dt)
+    plan = tg.gray_plan(nodes, N, kron, k.n_slots, spec.G)
+    items = (N // plan.tile) ** 2 if kron else nodes
+    assert plan.tile == (2 if kron and N % 2 == 0 and N <= 32 else 1)
+    assert plan.lanes == (4 if 4 * items <= 1024 else 1)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+    assert plan.threads >= min(plan.lanes * items, 1024)
+    # within the 232,448 bytes of dynamic shared memory a block may take
+    assert plan.fwd_bytes < plan.bwd_bytes <= 232_448
+    tab = tg._gray_tab(spec.key(), case.solver, case.dt, case.D, kron,
+                       nodes, N)
+    assert (tab.tile, tab.lanes, tab.threads) == plan[:3]
+
+    lanes = kernel_lanes(plan, nodes, N, kron)
+    ld = N + 1 if kron else N
+    writes, terms, dw_terms = Counter(), Counter(), Counter()
+    for visits in lanes:
+        for n, d, o, g_terms, owner in visits:
+            assert o // ld == d // N and o % ld == d % N < N
+            if owner:
+                writes[d] += 1
+                dw_terms[d] += 1
+            terms.update((d, g) for g in g_terms)
+    assert writes == Counter(range(nodes))
+    assert dw_terms == Counter(range(nodes))
+    assert terms == Counter((d, g) for d in range(nodes) for g in range(G))
+    if plan.tile == 2:
+        pd = N // 2
+        kq = -(-N // 4)
+        for w0 in range(0, plan.threads, 32):
+            for kk in range(kq):
+                loads = {}
+                for t in range(w0, w0 + 32):
+                    grp, q = divmod(t, 4)
+                    ti, tj = divmod(grp, pd)
+                    kx = q * kq + kk
+                    if grp >= items or kx >= N:
+                        continue
+                    for a in range(2):
+                        loads.setdefault(("lap_row", a), set()).add(
+                            (ti + a * pd) * ld + kx)
+                        loads.setdefault(("x_row", a), set()).add(
+                            (ti + a * pd) * ld + kx)
+                        loads.setdefault(("col", a), set()).add(
+                            kx * ld + tj + a * pd)
+                for addrs in loads.values():
+                    assert len({a % 32 for a in addrs}) == len(addrs)
+
+    # dC and dW as the kernel sums them, from the plain adjoint's stages
+    w0 = w[0, 0]
+    us, _ = tg._stages(k, spec, case.D, u, lap, c, w0, kron)
+    kbar = [None] * k.stages
+    for i in range(k.stages):
+        if k.needed[i] and k.dtb[i] != 0.0:
+            kbar[i] = k.dtb[i] * gy
+    stage_terms = []
+    for i in range(k.stages - 1, -1, -1):
+        if not k.needed[i] or kbar[i] is None:
+            continue
+        un = tg._norm(us[i], spec.normalizer)
+        basis = [torch.exp(-((un - spec.centers[g]) / spec.h) ** 2)
+                 for g in range(G)]
+        stage_terms.append(((kbar[i] * torch.stack(basis)).reshape(G, -1),
+                            (kbar[i] * tg._swish(us[i])).reshape(-1)))
+        dui, _, _ = tg._rhs_vjp(spec, case.D, us[i], lap, c, w0, kbar[i],
+                                kron)
+        for j in range(i):
+            if k.dta[i][j] != 0.0 and k.needed[j]:
+                contrib = k.dta[i][j] * dui
+                kbar[j] = contrib if kbar[j] is None else kbar[j] + contrib
+    sums = np.zeros((plan.threads, G + 1), np.float32)
+    for bterms, sterms in stage_terms:
+        bterms, sterms = bterms.numpy(), sterms.numpy()
+        for t, visits in enumerate(lanes):
+            for n, d, o, g_terms, owner in visits:
+                for g in g_terms:
+                    sums[t, g] = np.float32(sums[t, g] + bterms[g, d])
+                if owner:
+                    sums[t, G] = np.float32(sums[t, G] + sterms[d])
+    got = [warp_then_block_sum(sums[:, q]) for q in range(G + 1)]
+
+    jspec = jg.GrayboxSpec(G, case.normalizer)
+    _, vjp = jax.vjp(lambda c_, w_: jg.fused_graybox_rk_step(
+        jspec, case.solver, case.dt, case.D, jnp.asarray(u.numpy()),
+        jnp.asarray(lap.numpy()), c_, w_, None, "highest", kron),
+        jnp.asarray(c.numpy()), jnp.asarray(w.numpy()))
+    dc_j, dw_j = vjp(jnp.asarray(gy.numpy()))
+    np.testing.assert_allclose(np.asarray(got[:G]), np.asarray(dc_j)[0],
+                               **GRAD)
+    np.testing.assert_allclose(got[G], np.asarray(dw_j)[0, 0], **GRAD)

@@ -375,6 +375,32 @@ def test_cluster_plan_of_every_chip_smoke_shape(index):
         == (plan.cluster, plan.threads, 1, 1)
 
 
+@pytest.mark.parametrize("index", range(len(chip_smoke.WIDE_CASES)))
+def test_cluster_plan_backward_bytes_of_every_chip_smoke_shape(index):
+    """K7b's (and K6b's) shared memory in the cluster plan, counted buffer
+    by buffer as csrc/rk_fused_wide.cu lays it out (wd_bwd_kernel): at
+    every chip_smoke.WIDE_CASES shape the block's weight slice sits in
+    shared memory beside the reverse sweep's buffers, within the 232,448
+    bytes a block may use, and the kernels' WideTab says so."""
+    case = chip_smoke.WIDE_CASES[index]
+    ws, _, _, _ = chip_smoke.wide_case_inputs(torch, tw, tkp, case, "cpu")
+    k = tw._consts(ws, case.solver, case.dt)
+    plan = ws.cluster_plan(k.n_slots)
+    W, H, G, C, S = plan.cols, ws.H, ws.G, plan.cluster, k.n_slots
+    Q = plan.threads // min(-(-min(W, ws.I) // 32) * 32, 256)
+    R2 = H * G + H
+    floats = {"mbarriers": 8, "weights": (2 * G + 2) * H * W,
+              "step input": W, "stage inputs": S * W,
+              "stage values, then kbar": S * W, "xbar": W,
+              "layer-2 and VJP partials": 2 * Q * W,
+              "hidden partials": plan.threads // 32 * H, "basis": R2,
+              "y1 exchange": 2 * C * H, "m2 exchange": 2 * C * R2,
+              "m2 coefficients": R2, "stages' y1": S * H, "dy1": H}
+    assert plan.smem_weights_bwd
+    assert plan.bwd_bytes == 4 * sum(floats.values()) <= tw.SMEM_BYTES
+    assert k.wide_tab().smem_weights_bwd == 1
+
+
 def test_cluster_plan_keeps_wide_hidden_layers_in_global_memory():
     """Where a block's slice does not fit its shared memory (H = G = 16 at
     I = 1000: 2,176 bytes of weights a column), the plan leaves the
@@ -384,7 +410,9 @@ def test_cluster_plan_keeps_wide_hidden_layers_in_global_memory():
     plan = ws.cluster_plan(6)
     assert (plan.cluster, plan.cols) == (8, 128)
     assert not plan.smem_weights and not plan.smem_factors
-    assert max(plan.fwd_bytes, plan.lr_bytes) <= tw.SMEM_BYTES
+    assert not plan.smem_weights_bwd
+    assert max(plan.fwd_bytes, plan.lr_bytes, plan.bwd_bytes) \
+        <= tw.SMEM_BYTES
     narrow = tw.WideSpec(tkp.ChainSpec(70, 6, 70, 5), 35)    # Ipad 70
     assert narrow.cluster_plan(6).cluster == 1
     assert not narrow.cluster_plan(6).smem_weights

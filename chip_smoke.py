@@ -120,6 +120,35 @@ def lv_inputs(rng, torch, K, scale=0.3, device="cuda"):
     return x, params
 
 
+# K3 cases (n steps, K rows) at LV width
+MULTISTEP_CASES = ((34, 1), (140, 1), (12, 3))
+# The header's caps (kan_chain.cuh: I, O <= 8, H <= 32, G <= 16), where K3b
+# and K4b spread a row over every lane of a warp, at K = 3 rows; small
+# weights keep eight coupled states tame. One chain of each kind.
+CAP_WIDTHS, CAP_G, CAP_K, CAP_SCALE = (8, 32, 8), 16, 3, 0.05
+CAP_CHAINS = (("rbf", "tanh"), ("iqf", "softsign"))
+
+
+def cap_inputs(torch, basis, normalizer, seed=8, device="cuda"):
+    """(spec, x [CAP_K, 8], params) of a [8, 32, 8] G=16 chain: weights
+    from U(-CAP_SCALE, CAP_SCALE), states from U(0.3, 2.0), numpy seed
+    `seed`."""
+    import numpy as np
+    from kanodes_tpu_torch.models.kdense import KANChain
+    from kanodes_tpu_torch.ops.kdense_pallas import chain_spec_of
+    (I, H, O), G = CAP_WIDTHS, CAP_G
+    spec = chain_spec_of(KANChain.mlp_like(list(CAP_WIDTHS), grid_len=G,
+                                           basis=basis,
+                                           normalizer=normalizer))
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+    params = [t(rng.uniform(-CAP_SCALE, CAP_SCALE, s))
+              for s in ((I * G, H), (I, H), (H * G, O), (H, O))]
+    return spec, t(rng.uniform(0.3, 2.0, (CAP_K, I))), params
+
+
 class AdaptiveCase(NamedTuple):
     """A K4 kernel-vs-plain case. inputs "lv": the LV model's glorot init
     (torch seed 0) from u0 = (1, 1); "uniform": weights from
@@ -542,8 +571,38 @@ def finish_phase(line, failures):
                              + "\n".join(failures))
 
 
+def check_multistep(torch, rk, spec, label, n, x0, params, gys, failures,
+                    max_err):
+    """K3f by the float64 rule and K3b against the plain backward and
+    autograd on one input (tsit5, dt 0.1); K3b launched twice must repeat
+    bit for bit. Returns K3f's detail."""
+    k = rk._consts(spec, "tsit5", 0.1)
+    ys = rk._launch_multistep_fwd(k, n, x0, params)
+    ys_ref = rk.fused_rk_multistep_reference(spec, "tsit5", 0.1, n, x0,
+                                             *params)
+    ys64 = rk.fused_rk_multistep_reference(
+        spec, "tsit5", 0.1, n, x0.double(), *(p.double() for p in params))
+    detail = f64_rule(failures, f"K3f {label}", ys, ys_ref, ys64)
+    max_err["fused_rk_multistep_fwd"] = max(
+        max_err["fused_rk_multistep_fwd"], detail["max_abs_err"])
+    g = rk._launch_multistep_bwd(k, n, x0, ys, params, gys)
+    g_ref = rk.fused_rk_multistep_bwd_reference(spec, "tsit5", 0.1, n, x0,
+                                                ys, *params, gys)
+    xs = [t.clone().requires_grad_() for t in (x0, *params)]
+    g_auto = torch.autograd.grad(
+        rk.fused_rk_multistep_reference(spec, "tsit5", 0.1, n, *xs), xs, gys)
+    check_grads(failures, max_err, "fused_rk_multistep_bwd", f"K3b {label}",
+                g, g_ref, g_auto)
+    again = rk._launch_multistep_bwd(k, n, x0, ys, params, gys)
+    if not all(torch.equal(a, b) for a, b in zip(g, again)):
+        failures.append(f"K3b {label}: a second launch differs")
+    return {"case": label, **detail}
+
+
 def phase_kernels(torch, rk, spec, rng, max_err):
-    """K2/K3 vs their plain versions on the card, values and gradients."""
+    """K2/K3 vs their plain versions on the card, values and gradients;
+    K3 at LV width and at the header's caps."""
+    import numpy as np
     failures, cases, k3f_detail = [], [], []
     for solver in ("tsit5", "rk4"):
         x, params = lv_inputs(rng, torch, 34)
@@ -563,30 +622,24 @@ def phase_kernels(torch, rk, spec, rng, max_err):
         check_grads(failures, max_err, "fused_rk_step_bwd", f"K2b {solver}",
                     g, g_ref, g_auto)
         cases.append(f"K2 K=34 {solver}")
-    for n, K in ((34, 1), (140, 1), (12, 3)):
+    for n, K in MULTISTEP_CASES:
         x0, params = lv_inputs(rng, torch, K)
         gys = torch.tensor(rng.standard_normal((n, K, 2)) / n,
                            dtype=torch.float32, device="cuda")
-        k = rk._consts(spec, "tsit5", 0.1)
-        ys = rk._launch_multistep_fwd(k, n, x0, params)
-        ys_ref = rk.fused_rk_multistep_reference(spec, "tsit5", 0.1, n, x0,
-                                                 *params)
-        ys64 = rk.fused_rk_multistep_reference(
-            spec, "tsit5", 0.1, n, x0.double(), *(p.double() for p in params))
-        detail = f64_rule(failures, f"K3f n={n} K={K}", ys, ys_ref, ys64)
-        k3f_detail.append({"n": n, "K": K, **detail})
-        max_err["fused_rk_multistep_fwd"] = max(
-            max_err["fused_rk_multistep_fwd"], detail["max_abs_err"])
-        g = rk._launch_multistep_bwd(k, n, x0, ys, params, gys)
-        g_ref = rk.fused_rk_multistep_bwd_reference(spec, "tsit5", 0.1, n,
-                                                    x0, ys, *params, gys)
-        xs = [t.clone().requires_grad_() for t in (x0, *params)]
-        g_auto = torch.autograd.grad(
-            rk.fused_rk_multistep_reference(spec, "tsit5", 0.1, n, *xs), xs,
-            gys)
-        check_grads(failures, max_err, "fused_rk_multistep_bwd",
-                    f"K3b n={n} K={K}", g, g_ref, g_auto)
+        k3f_detail.append(check_multistep(torch, rk, spec, f"n={n} K={K}",
+                                          n, x0, params, gys, failures,
+                                          max_err))
         cases.append(f"K3 n={n} K={K}")
+    cap_rng = np.random.default_rng(12)
+    for basis, norm in CAP_CHAINS:
+        cap_spec, x0, params = cap_inputs(torch, basis, norm)
+        n = 12
+        gys = torch.tensor(cap_rng.standard_normal((n, CAP_K, 8)) / n,
+                           dtype=torch.float32, device="cuda")
+        label = f"cap [8,32,8] G=16 {basis}/{norm} n={n} K={CAP_K}"
+        k3f_detail.append(check_multistep(torch, rk, cap_spec, label, n, x0,
+                                          params, gys, failures, max_err))
+        cases.append(f"K3 {label}")
     torch.cuda.synchronize()
     finish_phase({"phase": "kernel_vs_plain", "kernels": "K2, K3",
                   "cases": cases, "fwd_tol": FWD_TOL, "grad_tol": GRAD_TOL,
@@ -658,6 +711,9 @@ def check_adaptive(torch, ra, spec, label, solver, rtol, atol, ms, ctrl,
     g_auto = torch.autograd.grad(ys_ref, xs, gys)
     check_grads(failures, max_err, "fused_adaptive_odeint_bwd", "K4b", g,
                 g_ref, g_auto)
+    again = ra._launch_bwd(k, x0, params, rec, gys)
+    if not all(torch.equal(a, b) for a, b in zip(g, again)):
+        failures.append("K4b: a second launch differs")
     torch.cuda.synchronize()
     finish_phase({"phase": "kernel_vs_plain", "kernel": "K4", "case": label,
                   "stats": stats, "plain_stats": stats_ref,
@@ -668,10 +724,12 @@ def check_adaptive(torch, ra, spec, label, solver, rtol, atol, ms, ctrl,
 
 
 def phase_adaptive_kernels(torch, ra, spec, rng, StepController, max_err):
-    """K4 vs its plain version on the card, LV width, ADAPTIVE_CASES: one
-    line per case. Fails unless the cases, as the kernel ran them, took
+    """K4 vs its plain version on the card, LV width, ADAPTIVE_CASES, then
+    at the header's caps (CAP_CHAINS, save-clipped): one line per case.
+    Fails unless the LV-width cases, as the kernel ran them, took
     rejected steps under both controllers and steps the controller
     sized."""
+    import numpy as np
     seen = {"rejected_I": 0, "rejected_PI": 0, "controller_sized": 0}
     for case in ADAPTIVE_CASES:
         x0, params, ts = adaptive_case_inputs(torch, case)
@@ -684,6 +742,17 @@ def phase_adaptive_kernels(torch, ra, spec, rng, StepController, max_err):
         seen["rejected_PI" if case.pi else "rejected_I"] += stats[1]
         seen["controller_sized"] += sized
     assert all(seen.values()), f"K4 cases miss a controller regime: {seen}"
+    cap_rng = np.random.default_rng(13)
+    ts = torch.arange(0, 36, dtype=torch.float32, device="cuda") * 0.1
+    for basis, norm in CAP_CHAINS:
+        cap_spec, x0, params = cap_inputs(torch, basis, norm)
+        gys = torch.tensor(cap_rng.standard_normal((36, CAP_K, 8)) / 36,
+                           dtype=torch.float32, device="cuda")
+        check_adaptive(torch, ra, cap_spec, f"cap [8,32,8] G=16 {basis}/"
+                       f"{norm} tsit5 K={CAP_K} rtol=0.001 atol=1e-06 "
+                       f"max_steps=256 I saves=grid", "tsit5", 1e-3, 1e-6,
+                       256, StepController(), None, x0, ts, params, gys,
+                       max_err)
 
 
 def phase_trained_adaptive(torch, kp, ra, spec, rng, StepController,
@@ -1950,8 +2019,8 @@ def main() -> int:
     _cuda.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": os.path.relpath(path, REPO),
-          "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+          "ptxas": {_cuda.kernel_key(k): v
+                    for k, v in _cuda.ptxas_usage(log).items()}})
 
     rng = np.random.default_rng(0)
     spec = kp.chain_spec_of(KANChain.mlp_like([2, 10, 2], grid_len=5))

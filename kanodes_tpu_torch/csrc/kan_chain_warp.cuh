@@ -1,0 +1,306 @@
+// The discrete adjoint of explicit RK steps over the 2-layer KDense chain
+// with a warp on each row of the batch: the LV adjoint sweeps K3b
+// (rk_fused.cu) and K4b (rk_adaptive.cu). The same math as kc_chain_fwd /
+// kc_chain_vjp / kc_rk_step_adjoint_row (kan_chain.cuh), which the
+// one-thread kernels (K1, K2, K3f, K4f, K8) keep.
+//
+// Why: one thread per row ran each chain evaluation as a dependent chain
+// of ~3 * 10^4 cycles, its run-time-indexed per-row arrays on the stack,
+// so that every accumulation was a local load and store (PERF.md, the
+// K3b/K4b trace).
+//
+// Two phases over a chunk of steps, split by the host's launch plan
+// (`warp_adjoint_plan`, ops/_cuda.py), each ending in a __syncthreads:
+//   A. every warp of the block takes (row, step) items in turn and
+//      rebuilds the step's stages from the stored step input. With each
+//      chain evaluation it stores the record fields that no cotangent
+//      enters (b1, swx, b2, swy1 of kc_rec_layout) and the evaluation's
+//      Jacobian in factors (the "factors", in shared memory): A2[h][o] =
+//      dk_o/dy1_h, A1[i][h] = dy1_h/dx_i and J[o][i] = sum_h A2[h][o]
+//      A1[i][h]. Steps do not depend on each other here, so the rebuild,
+//      half of a one-warp sweep's time, runs 8 steps at a time;
+//   B. the warp of each row runs the reverse recursion over the chunk's
+//      steps. A stage's VJP is then dx_i = sum_o J[o][i] gk_o in lane i,
+//      and, for the record only, dy1_h = sum_o A2[h][o] gk_o in lane h:
+//      a few multiply-adds on the dependent chain instead of a chain
+//      evaluation.
+// Lane map (H <= 32, one warp holds a row): layer-1 term l = i*G + g
+// (l < I*G) or the swish term of input l - I*G in lane l % 32; hidden unit
+// h in lane h; output o (layer-2 sums in h order) and state component q
+// in lanes o, q < I. Every sum has a fixed order, so a launch repeats bit
+// for bit. Per-lane values live in registers (arrays only with
+// compile-time indices); the row's stage vectors, terms and partials in
+// the warp's WarpRow, the factors in the chunk's buffer, the
+// run-time-indexed constants in the block's WarpConsts (shared memory
+// all); the ChainDims scalars are read from the kernel's parameters.
+// Nothing is on the stack. Multiply-adds in the chain are explicit fmaf:
+// it rounds alike in both files, whatever their -fmad flag.
+
+#pragma once
+
+#include "kan_chain.cuh"
+
+#define KW_LANES 32
+#define KW_MAX_WARPS 8      // a block's warps at most
+#define KW_TERMS (KC_MAX_I * KC_MAX_G + KC_MAX_I)
+
+// One warp's workspace (shared memory).
+struct WarpRow {
+  float xs[KC_MAX_STAGES][KC_MAX_I];   // stage inputs
+  float ks[KC_MAX_STAGES][KC_MAX_I];   // stage values (ks[0]: FSAL k1)
+  float kb[KC_MAX_STAGES][KC_MAX_I];   // stage cotangents
+  float b[KW_TERMS];                   // layer 1: B(u_ig), then swish(x_i)
+  float t[KW_TERMS];                   // B'(u_ig)/h, then norm'(x_i)
+  float dsx[KC_MAX_I];                 // swish'(x_i)
+  float part[KC_MAX_I][KC_MAX_H];      // layer-2 partials, one a lane
+};
+
+// The block's run-time-indexed constants (shared memory): the tableau
+// (a[i][j] zero where a fixed-step stage j is not needed), the grid, and
+// for layer-1 term l its input index and basis center.
+struct WarpConsts {
+  float a[KC_MAX_STAGES][KC_MAX_STAGES];
+  float b[KC_MAX_STAGES];
+  int needed[KC_MAX_STAGES];
+  float grid[KC_MAX_G];
+  int term_x[KW_TERMS];
+  float term_c[KW_TERMS];
+};
+
+// The factors of one chain evaluation: A2 [H][O], A1 [I][H], J [O][I].
+struct FactorLayout {
+  int a2, a1, j, width;
+};
+
+__host__ __device__ inline FactorLayout kw_factor_layout(const ChainDims& d) {
+  FactorLayout f;
+  f.a2 = 0;
+  f.a1 = f.a2 + d.H * d.O;
+  f.j = f.a1 + d.I * d.H;
+  f.width = f.j + d.O * d.I;
+  return f;
+}
+
+// Dynamic shared memory of a launch, in floats: the parameters, one
+// WarpRow a warp, and the factors of `chunk` steps of `slots` chain
+// evaluations for each of `row_warps` rows.
+__host__ __device__ inline size_t kw_smem_floats(const ChainDims& d,
+                                                int warps, int row_warps,
+                                                int chunk, int slots) {
+  return kc_param_floats(d) + (size_t)warps * (sizeof(WarpRow) / 4)
+         + (size_t)row_warps * chunk * slots * kw_factor_layout(d).width;
+}
+
+// Thread 0 copies the grid and a tableau (a, b, needed; a stage j with
+// needed[j] = 0 gets a zero column) into c, reading the kernel's
+// parameters at compile-time offsets only (a run-time index would copy
+// them to the stack). Every thread then calls kw_fill_terms after a
+// __syncthreads.
+__device__ inline void kw_fill_consts(
+    WarpConsts& c, const ChainDims& d, int stages,
+    const float (&a)[KC_MAX_STAGES][KC_MAX_STAGES],
+    const float (&b)[KC_MAX_STAGES], const int (&needed)[KC_MAX_STAGES]) {
+  if (threadIdx.x != 0) return;
+#pragma unroll
+  for (int i = 0; i < KC_MAX_STAGES; ++i) {
+#pragma unroll
+    for (int j = 0; j < KC_MAX_STAGES; ++j)
+      c.a[i][j] = i < stages && j < i && needed[j] ? a[i][j] : 0.0f;
+    c.b[i] = i < stages ? b[i] : 0.0f;
+    c.needed[i] = i < stages && needed[i];
+  }
+#pragma unroll
+  for (int g = 0; g < KC_MAX_G; ++g) c.grid[g] = d.grid[g];
+}
+
+// The layer-1 term table from c.grid; every thread zeroes its warp's
+// stage values (a stage no output needs is never written, yet enters the
+// unrolled stage sums with a zero coefficient). Every thread of the block
+// calls it; a __syncthreads must follow.
+__device__ inline void kw_fill_terms(WarpConsts& c, const ChainDims& d,
+                                     WarpRow& w, int lane) {
+  const int IG = d.I * d.G;
+  for (int l = threadIdx.x; l < IG + d.I; l += blockDim.x) {
+    c.term_x[l] = l < IG ? l / d.G : l - IG;
+    c.term_c[l] = l < IG ? c.grid[l % d.G] : 0.0f;
+  }
+  for (int q = lane; q < KC_MAX_STAGES * KC_MAX_I; q += KW_LANES)
+    (&w.ks[0][0])[q] = 0.0f;
+}
+
+// Chain forward at the warp-uniform input x (shared memory, d.I values):
+// lane o < O writes kout[o]; the evaluation's Jacobian factors go to fac
+// (shared memory, kw_factor_layout) and its record fields b1, swx, b2,
+// swy1 to rec. Uses w.b, w.t, w.dsx and w.part; the caller syncs the
+// warp before kout or fac is read.
+__device__ inline void kw_chain_fwd(const float* x, float* kout, float* fac,
+                                    float* rec, const ChainDims& d,
+                                    const WarpConsts& c,
+                                    const ChainParams& p, const RecLayout& L,
+                                    WarpRow& w, int lane) {
+  const int I = d.I, H = d.H, O = d.O, G = d.G, IG = I * G;
+  const FactorLayout F = kw_factor_layout(d);
+  for (int l = lane; l < IG + I; l += KW_LANES) {
+    const float xv = x[c.term_x[l]];
+    if (l < IG) {
+      const float u = (kc_norm(xv, d.normalizer) - c.term_c[l]) * d.inv_h;
+      const float B = kc_basis(u, d.basis);
+      w.b[l] = B;
+      w.t[l] = kc_basis_du(u, B, d.basis) * d.inv_h;
+      rec[L.b1 + l] = B;
+    } else {
+      const int i = l - IG;
+      const float sw = kc_swish(xv);
+      w.b[l] = sw;
+      w.t[l] = kc_dnorm(xv, d.normalizer);
+      w.dsx[i] = kc_dswish(xv);
+      rec[L.swx + i] = sw;
+    }
+  }
+  __syncwarp();
+  if (lane < H) {
+    float ac = 0.0f, aw = 0.0f;
+    for (int l = 0; l < IG; ++l) ac = fmaf(w.b[l], p.c1[l * H + lane], ac);
+    for (int i = 0; i < I; ++i)
+      aw = fmaf(w.b[IG + i], p.w1[i * H + lane], aw);
+    const float y = ac + aw;
+    const float yn = kc_norm(y, d.normalizer);
+    float part[KC_MAX_I], a2[KC_MAX_I];
+#pragma unroll
+    for (int o = 0; o < KC_MAX_I; ++o) part[o] = a2[o] = 0.0f;
+    for (int g = 0; g < G; ++g) {
+      const float u = (yn - c.grid[g]) * d.inv_h;
+      const float B = kc_basis(u, d.basis);
+      const float P = kc_basis_du(u, B, d.basis) * d.inv_h;
+      rec[L.b2 + lane * G + g] = B;
+      const float* row = p.c2 + (lane * G + g) * O;
+#pragma unroll
+      for (int o = 0; o < KC_MAX_I; ++o) {
+        if (o < O) {
+          part[o] = fmaf(B, row[o], part[o]);
+          a2[o] = fmaf(P, row[o], a2[o]);
+        }
+      }
+    }
+    const float sw = kc_swish(y);
+    const float dn = kc_dnorm(y, d.normalizer), ds = kc_dswish(y);
+    rec[L.swy1 + lane] = sw;
+#pragma unroll
+    for (int o = 0; o < KC_MAX_I; ++o) {
+      if (o < O) {
+        const float wv = p.w2[lane * O + o];
+        w.part[o][lane] = fmaf(sw, wv, part[o]);
+        fac[F.a2 + lane * O + o] = fmaf(a2[o], dn, wv * ds);
+      }
+    }
+    // A1[i][h] = norm'(x_i) sum_g c1[ig, h] B'_ig/h + swish'(x_i) w1[i, h]
+    for (int i = 0; i < I; ++i) {
+      float a = 0.0f;
+      for (int g = 0; g < G; ++g)
+        a = fmaf(p.c1[(i * G + g) * H + lane], w.t[i * G + g], a);
+      fac[F.a1 + i * H + lane] =
+          fmaf(a, w.t[IG + i], p.w1[i * H + lane] * w.dsx[i]);
+    }
+  }
+  __syncwarp();
+  if (lane < O) {
+    float k = 0.0f;
+    for (int h = 0; h < H; ++h) k += w.part[lane][h];
+    kout[lane] = k;
+  }
+  // J[o][i] = sum_h A2[h][o] A1[i][h], one entry a lane
+  for (int e = lane; e < O * I; e += KW_LANES) {
+    const int o = e / I, i = e - o * I;
+    float jv = 0.0f;
+    for (int h = 0; h < H; ++h)
+      jv = fmaf(fac[F.a2 + h * O + o], fac[F.a1 + i * H + h], jv);
+    fac[F.j + e] = jv;
+  }
+}
+
+// Chain VJP with cotangent gk (shared memory, O values) from the factors
+// fac of the evaluation (kw_chain_fwd): returns dx[lane] = sum_o J[o][lane]
+// gk_o in lanes < I (0 elsewhere) and writes the record fields dy1 (sum_o
+// A2[h][o] gk_o) and gk at rec.
+__device__ inline float kw_chain_vjp(const float* gk, const float* fac,
+                                     float* rec, const ChainDims& d,
+                                     const RecLayout& L, int lane) {
+  const int I = d.I, H = d.H, O = d.O;
+  const FactorLayout F = kw_factor_layout(d);
+  float dx = 0.0f;
+  if (lane < I)
+    for (int o = 0; o < O; ++o) dx = fmaf(fac[F.j + o * I + lane], gk[o], dx);
+  if (lane < H) {
+    float dy = 0.0f;
+    for (int o = 0; o < O; ++o)
+      dy = fmaf(fac[F.a2 + lane * O + o], gk[o], dy);
+    rec[L.dy1 + lane] = dy;
+  }
+  if (lane < O) rec[L.gk + lane] = gk[lane];
+  return dx;
+}
+
+// Phase A of a fixed-step RK step for one row: the stages from the step
+// input x (global) with c.a = dt a_ij; one chain evaluation a needed
+// stage, its factors at fac + slot * F.width and its record at rec +
+// slot * L.width (slot = rank among the needed stages).
+__device__ inline void kw_rk_step_stages(const float* x, int stages,
+                                         const ChainDims& d,
+                                         const WarpConsts& c,
+                                         const ChainParams& p,
+                                         const RecLayout& L, WarpRow& w,
+                                         int lane, float* fac, float* rec) {
+  const int fw = kw_factor_layout(d).width;
+  const bool mine = lane < d.I;
+  const float xq = mine ? x[lane] : 0.0f;
+  int slot = 0;
+  for (int s = 0; s < stages; ++s) {
+    if (!c.needed[s]) continue;
+    if (mine) {
+      float v = xq;
+#pragma unroll
+      for (int j = 0; j < KC_MAX_STAGES - 1; ++j)
+        if (j < s) v = fmaf(c.a[s][j], w.ks[j][lane], v);
+      w.xs[s][lane] = v;
+    }
+    __syncwarp();
+    kw_chain_fwd(w.xs[s], w.ks[s], fac + slot * fw, rec + slot * L.width, d,
+                 c, p, L, w, lane);
+    __syncwarp();
+    ++slot;
+  }
+}
+
+// Phase B of a fixed-step RK step for one row (kc_rk_step_adjoint_row's
+// recursion): kbar_i = dt b_i gy, then for i = s-1..0 the chain VJP with
+// kbar_i from the step's factors, its dx added into the state cotangent
+// and (dt a_ij) dx_i passed to the earlier stages. gy and the returned dx
+// are lane q's component (lanes < I).
+__device__ inline float kw_rk_step_reverse(float gy, int stages, int slots,
+                                           const ChainDims& d,
+                                           const WarpConsts& c,
+                                           const RecLayout& L, WarpRow& w,
+                                           int lane, const float* fac,
+                                           float* rec) {
+  const int fw = kw_factor_layout(d).width;
+  const bool mine = lane < d.I;
+  if (mine)
+    for (int s = 0; s < stages; ++s) w.kb[s][lane] = c.b[s] * gy;
+  __syncwarp();
+  float dx = gy;
+  int slot = slots;
+  for (int s = stages - 1; s >= 0; --s) {
+    if (!c.needed[s]) continue;
+    --slot;
+    const float dxi = kw_chain_vjp(w.kb[s], fac + slot * fw,
+                                   rec + slot * L.width, d, L, lane);
+    if (mine) {
+      dx = dx + dxi;
+#pragma unroll
+      for (int j = 0; j < KC_MAX_STAGES - 1; ++j)
+        if (j < s) w.kb[j][lane] = fmaf(c.a[s][j], dxi, w.kb[j][lane]);
+    }
+    __syncwarp();
+  }
+  return dx;
+}

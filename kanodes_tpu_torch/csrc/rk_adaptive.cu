@@ -33,10 +33,15 @@
 // controller scalars in shared memory, and after a __syncthreads every
 // thread reads the same accept/save/done decisions, so every thread takes
 // the same branches and loop count (the early exit is a uniform break).
-// The backward needs no block-wide decision: each row replays its own
-// records, stores its parameter-cotangent operands per (step, stage), and
-// the thread owning each parameter sums them in record order (bitwise
-// repeatable, no float atomics).
+// The backward (K4b) needs no block-wide decision: every warp of the block
+// rebuilds accepted steps from their records, several at a time, with
+// each stage's Jacobian; then a warp a row replays the row's steps in
+// reverse (kan_chain_warp.cuh: the steps do not depend on each other in
+// the rebuild, and a stage's VJP is then a few multiply-adds); it stores
+// its parameter-cotangent operands per (step, stage), and the thread
+// owning each parameter sums them in record order (bitwise repeatable,
+// no float atomics). One thread a row ran K4b at ~30k cycles a chain
+// evaluation (PERF.md, the K3b/K4b trace).
 //
 // Numbers: accept/reject is a threshold at err == 1, so a one-ulp change
 // can change the step sequence. The file is built with -fmad=false, so
@@ -44,13 +49,12 @@
 // the plain PyTorch version's does; the stage increments are formed on
 // the device as (dts * a_ij) * k_j in the JAX kernel's order, since dt
 // changes every iteration. expf/logf/sqrtf are the IEEE-mode library
-// functions (no fast-math).
+// functions (no fast-math). K4b's chain multiply-adds are explicit fmaf
+// (the flag leaves them alone); it decides nothing.
 
-#include "kan_chain.cuh"
+#include "kan_chain_warp.cuh"
 
 namespace {
-
-constexpr int kBwdThreads = 256;
 
 // Sum of red[0..n) in index order, by thread 0, returned to every thread.
 // Every thread of the block must call it.
@@ -240,86 +244,161 @@ adaptive_fwd_kernel(const float* x0, const float* ts, int T_save,
   }
 }
 
-__global__ void __launch_bounds__(kBwdThreads)
+// Phase A of one accepted step for one row: the stages i = 1..S-1 from
+// the step input x and the FSAL value k1 (global) with signed step dts,
+// as kc_adaptive_stages forms them; evaluation i's factors at fac + (i -
+// 1) * F.width and its record at rec + (i - 1) * rec_stride.
+__device__ inline void kw_adaptive_stages(const float* x, const float* k1,
+                                          float dts, int S,
+                                          const ChainDims& d,
+                                          const WarpConsts& c,
+                                          const ChainParams& p,
+                                          const RecLayout& L, WarpRow& w,
+                                          int lane, float* fac, float* rec,
+                                          size_t rec_stride) {
+  const int fw = kw_factor_layout(d).width;
+  const bool mine = lane < d.I;
+  const float xq = mine ? x[lane] : 0.0f;
+  if (mine) w.ks[0][lane] = k1[lane];
+  for (int i = 1; i < S; ++i) {
+    if (mine) {
+      float v = xq;
+#pragma unroll
+      for (int j = 0; j < KC_MAX_STAGES - 1; ++j)
+        if (j < i && c.a[i][j] != 0.0f)
+          v = v + (dts * c.a[i][j]) * w.ks[j][lane];
+      w.xs[i][lane] = v;
+    }
+    __syncwarp();
+    kw_chain_fwd(w.xs[i], w.ks[i], fac + (i - 1) * fw,
+                 rec + (i - 1) * rec_stride, d, c, p, L, w, lane);
+    __syncwarp();
+  }
+}
+
+// K4b: the rows in groups of up to `warps` (one warp a row), the accepted
+// steps of a group in chunks of `chunk` from the last; per chunk phase A
+// over every (row, step) by every warp, then phase B by the row warps
+// (kan_chain_warp.cuh); then the block's parameter sums.
+__global__ void __launch_bounds__(KW_LANES * KW_MAX_WARPS)
 adaptive_bwd_kernel(const float* x0, const float* c1, const float* w1,
                     const float* c2, const float* w2, const float* rx,
                     const float* rk1, const float* rdt, const int* rsx,
                     const int* stats, const float* gys, int T_save,
                     float* dx0, float* dc1, float* dw1, float* dc2,
-                    float* dw2, float* scratch, int K, ChainDims d,
-                    AdaptTab tab) {
+                    float* dw2, float* scratch, int K, int chunk,
+                    ChainDims d, AdaptTab tab) {
   extern __shared__ float smem[];
+  __shared__ WarpConsts c;
+  const int warp = threadIdx.x / KW_LANES, lane = threadIdx.x % KW_LANES;
+  const int warps = blockDim.x / KW_LANES;
+  WarpRow* rows = reinterpret_cast<WarpRow*>(smem + kc_param_floats(d));
+  WarpRow& w = rows[warp];
+  float* fac_all = reinterpret_cast<float*>(rows + warps);
+  const int all[KC_MAX_STAGES] = {1, 1, 1, 1, 1, 1, 1};
+  kw_fill_consts(c, d, tab.stages, tab.a, tab.b, all);
   const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, smem);
+  kw_fill_terms(c, d, w, lane);
+  __syncthreads();
   const RecLayout L = kc_rec_layout(d.I, d.H, d.O, d.G);
   const int I = d.I, S = tab.stages;
+  const int fw = kw_factor_layout(d).width;
+  const size_t fstep = (size_t)(S - 1) * fw;
+  const size_t rstride = (size_t)K * L.width;   // stage to stage
   const int n_acc = stats[0], sidx_final = stats[3];
-  for (int r = threadIdx.x; r < K; r += blockDim.x) {
-    float xbar[KC_MAX_I], k1bar[KC_MAX_I], xnew[KC_MAX_I], dxi[KC_MAX_I];
-    float xs[KC_MAX_STAGES][KC_MAX_I], ks[KC_MAX_STAGES][KC_MAX_I];
-    float y1s[KC_MAX_STAGES][KC_MAX_H], kbar[KC_MAX_STAGES][KC_MAX_I];
-    bool have[KC_MAX_STAGES];
+  const bool mine = lane < I;               // lane q: component q
+  for (int r0 = 0; r0 < K; r0 += warps) {
+    const int R = K - r0 < warps ? K - r0 : warps;
+    const int r = r0 + warp;                 // the row of a row warp
     // cotangent of the final state from the unreached fill
-    for (int q = 0; q < I; ++q) {
-      xbar[q] = 0.0f;
-      k1bar[q] = 0.0f;
-    }
-    for (int i = sidx_final > 1 ? sidx_final : 1; i < T_save; ++i)
-      for (int q = 0; q < I; ++q)
-        xbar[q] = xbar[q] + gys[((size_t)i * K + r) * I + q];
-    for (int s = n_acc - 1; s >= 0; --s) {
-      const float* x_in = rx + ((size_t)s * K + r) * I;
-      const float dts = rdt[s];
-      const int sx = rsx[s];
-      if (sx >= 0)
-        for (int q = 0; q < I; ++q)
-          xbar[q] = xbar[q] + gys[((size_t)sx * K + r) * I + q];
-      kc_adaptive_stages(x_in, rk1 + ((size_t)s * K + r) * I, dts, tab, d, p,
-                         xs, y1s, ks);
-      for (int i = 0; i < S; ++i) {
-        have[i] = tab.b[i] != 0.0f;
-        if (have[i])
-          for (int q = 0; q < I; ++q) kbar[i][q] = (dts * tab.b[i]) * xbar[q];
+    float xbar = 0.0f, k1bar = 0.0f;
+    if (warp < R && mine)
+      for (int i = sidx_final > 1 ? sidx_final : 1; i < T_save; ++i)
+        xbar = xbar + gys[((size_t)i * K + r) * I + lane];
+    for (int hi = n_acc - 1; hi >= 0; hi -= chunk) {
+      const int lo = hi - chunk + 1 > 0 ? hi - chunk + 1 : 0;
+      // A: rebuild every (row, step) of the chunk
+      for (int it = warp; it < R * (hi - lo + 1); it += warps) {
+        const int ri = it % R, s = lo + it / R;
+        const size_t row = ((size_t)s * K + r0 + ri) * I;
+        kw_adaptive_stages(
+            rx + row, rk1 + row, rdt[s], S, d, c, p, L, w, lane,
+            fac_all + ((size_t)ri * chunk + (s - lo)) * fstep,
+            scratch + ((size_t)s * (S - 1) * K + r0 + ri) * L.width,
+            rstride);
       }
-      // FSAL carry-out: the next step's k1 was this step's last stage
-      for (int q = 0; q < I; ++q)
-        kbar[S - 1][q] = have[S - 1] ? kbar[S - 1][q] + k1bar[q] : k1bar[q];
-      have[S - 1] = true;
-      for (int q = 0; q < I; ++q) xnew[q] = xbar[q];
-      for (int i = S - 1; i >= 1; --i) {
-        float* rec = scratch + (((size_t)s * (S - 1) + (i - 1)) * K + r) *
-                                   L.width;
-        if (!have[i]) {
-          for (int w = 0; w < L.width; ++w) rec[w] = 0.0f;
-          continue;
-        }
-        kc_chain_vjp(xs[i], y1s[i], kbar[i], d, p, L, dxi, rec);
-        for (int q = 0; q < I; ++q) xnew[q] = xnew[q] + dxi[q];
-        for (int j = 0; j < i; ++j) {
-          if (tab.a[i][j] == 0.0f) continue;
-          const float c = dts * tab.a[i][j];
-          for (int q = 0; q < I; ++q) {
-            const float contrib = c * dxi[q];
-            kbar[j][q] = have[j] ? kbar[j][q] + contrib : contrib;
+      __syncthreads();
+      // B: the accepted steps replayed in reverse, a warp a row
+      if (warp < R) {
+        for (int s = hi; s >= lo; --s) {
+          const float dts = rdt[s];
+          const int sx = rsx[s];
+          if (mine && sx >= 0)
+            xbar = xbar + gys[((size_t)sx * K + r) * I + lane];
+          const float* fac =
+              fac_all + ((size_t)warp * chunk + (s - lo)) * fstep;
+          // seeds; have: the stages with a cotangent (warp-uniform bits)
+          unsigned have = 0;
+          for (int i = 0; i < S; ++i) {
+            if (c.b[i] == 0.0f) continue;
+            have |= 1u << i;
+            if (mine) w.kb[i][lane] = (dts * c.b[i]) * xbar;
           }
-          have[j] = true;
+          // FSAL carry-out: the next step's k1 was this step's last stage
+          if (mine)
+            w.kb[S - 1][lane] = (have >> (S - 1)) & 1u
+                                    ? w.kb[S - 1][lane] + k1bar : k1bar;
+          have |= 1u << (S - 1);
+          float xnew = xbar;
+          __syncwarp();
+          for (int i = S - 1; i >= 1; --i) {
+            float* rec = scratch + (((size_t)s * (S - 1) + (i - 1)) * K + r) *
+                                       L.width;
+            if (!((have >> i) & 1u)) {
+              for (int q = lane; q < L.width; q += KW_LANES) rec[q] = 0.0f;
+              continue;
+            }
+            const float dxi = kw_chain_vjp(w.kb[i], fac + (i - 1) * fw, rec,
+                                           d, L, lane);
+            if (mine) xnew = xnew + dxi;
+#pragma unroll
+            for (int j = 0; j < KC_MAX_STAGES - 1; ++j) {
+              if (j >= i || c.a[i][j] == 0.0f) continue;
+              if (mine) {
+                const float contrib = (dts * c.a[i][j]) * dxi;
+                w.kb[j][lane] = (have >> j) & 1u ? w.kb[j][lane] + contrib
+                                                 : contrib;
+              }
+              have |= 1u << j;
+            }
+            __syncwarp();
+          }
+          // stage 1 is the carried FSAL value: its cotangent goes back
+          if (mine) k1bar = have & 1u ? w.kb[0][lane] : 0.0f;
+          xbar = xnew;
         }
       }
-      // stage 1 is the carried FSAL value: its cotangent goes back a step
-      for (int q = 0; q < I; ++q) {
-        k1bar[q] = have[0] ? kbar[0][q] : 0.0f;
-        xbar[q] = xnew[q];
-      }
+      __syncthreads();
     }
-    // the very first k1 was f(x0): one chain VJP at the inputs
-    const float* xr = x0 + (size_t)r * I;
-    float k0[KC_MAX_I];
-    kc_chain_fwd(xr, d, p, y1s[0], k0);
-    kc_chain_vjp(xr, y1s[0], k1bar, d, p, L, dxi,
-                 scratch + ((size_t)n_acc * (S - 1) * K + r) * L.width);
-    for (int q = 0; q < I; ++q)
-      dx0[(size_t)r * I + q] = (xbar[q] + dxi[q]) + gys[(size_t)r * I + q];
+    // the very first k1 was f(x0): one chain VJP at the inputs, its
+    // factors in the row's first slot of the (now free) buffer
+    if (warp < R) {
+      float* fac = fac_all + (size_t)warp * chunk * fstep;
+      float* rec = scratch + ((size_t)n_acc * (S - 1) * K + r) * L.width;
+      if (mine) {
+        w.xs[0][lane] = x0[(size_t)r * I + lane];
+        w.kb[0][lane] = k1bar;
+      }
+      __syncwarp();
+      kw_chain_fwd(w.xs[0], w.ks[0], fac, rec, d, c, p, L, w, lane);
+      __syncwarp();
+      const float dxi = kw_chain_vjp(w.kb[0], fac, rec, d, L, lane);
+      if (mine)
+        dx0[(size_t)r * I + lane] =
+            (xbar + dxi) + gys[(size_t)r * I + lane];
+    }
+    __syncthreads();
   }
-  __syncthreads();
   kc_reduce_param_grads(scratch, (n_acc * (S - 1) + 1) * K, d, L, dc1, dw1,
                         dc2, dw2);
 }
@@ -354,14 +433,17 @@ int kc_adaptive_bwd(const float* x0, const float* c1, const float* w1,
                     const float* rk1, const float* rdt, const int* rsx,
                     const int* stats, const float* gys, int T_save,
                     float* dx0, float* dc1, float* dw1, float* dc2,
-                    float* dw2, float* scratch, int K, const ChainDims* d,
-                    const AdaptTab* tab, void* stream) {
-  const size_t smem = kc_param_floats(*d) * sizeof(float);
+                    float* dw2, float* scratch, int K, int warps, int chunk,
+                    const ChainDims* d, const AdaptTab* tab, void* stream) {
+  if (warps < 1 || warps > KW_MAX_WARPS || chunk < 1 || tab->stages < 2)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = kw_smem_floats(*d, warps, K < warps ? K : warps,
+                                     chunk, tab->stages - 1) * sizeof(float);
   cudaError_t err = kc_smem_opt_in(adaptive_bwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  adaptive_bwd_kernel<<<1, kBwdThreads, smem, (cudaStream_t)stream>>>(
+  adaptive_bwd_kernel<<<1, warps * KW_LANES, smem, (cudaStream_t)stream>>>(
       x0, c1, w1, c2, w2, rx, rk1, rdt, rsx, stats, gys, T_save, dx0, dc1,
-      dw1, dc2, dw2, scratch, K, *d, *tab);
+      dw1, dc2, dw2, scratch, K, chunk, *d, *tab);
   return (int)cudaGetLastError();
 }
 

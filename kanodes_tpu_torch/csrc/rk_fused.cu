@@ -18,11 +18,18 @@
 //   * one launch per RK step (K2) or per whole trajectory (K3), and one
 //     more for the backward, as on the TPU, so the host makes 2 launches
 //     per training iteration instead of one per op;
-//   * one thread per batch row runs all stages (and, in K3, all steps)
-//     with its state in registers/local memory, parameters and grid
-//     constants staged once in shared memory;
-//   * the backward recomputes each step's stages from the stored step
-//     inputs, runs the reverse-RK recursion per row, stores the per
+//   * forwards and K2b: one thread per batch row runs all stages (and,
+//     in K3f, all steps) with its state in registers/local memory,
+//     parameters and grid constants staged once in shared memory;
+//   * K3b: every warp of the block rebuilds steps from the stored step
+//     inputs, several at a time, with each stage's Jacobian, then a warp
+//     a row runs the reverse recursion, where a stage's VJP is a few
+//     multiply-adds (kan_chain_warp.cuh; chunks from the host's launch
+//     plan, `warp_adjoint_plan` in ops/_cuda.py); one thread a row took
+//     ~15 us a chain evaluation, mostly local-memory traffic on its
+//     dependent chain (PERF.md, the K3b/K4b trace);
+//   * the backwards recompute each step's stages from the stored step
+//     inputs, run the reverse-RK recursion per row, store the per
 //     (step, row, stage) operands of the parameter cotangents in a
 //     scratch buffer the wrapper allocates, then every thread of the
 //     block sums the cotangents of the parameters it owns in record
@@ -31,7 +38,7 @@
 //     trick and is not ported; only the gradients must match.
 // Launches go on the caller's stream; nothing here allocates or syncs.
 
-#include "kan_chain.cuh"
+#include "kan_chain_warp.cuh"
 
 namespace {
 
@@ -84,32 +91,62 @@ rk_multistep_fwd_kernel(const float* x0, const float* c1, const float* w1,
   }
 }
 
-__global__ void __launch_bounds__(kBwdThreads)
+// K3b: the rows in groups of up to `warps` (one warp a row), the steps
+// of a group in chunks of `chunk` from the last; per chunk phase A over
+// every (row, step) by every warp, then phase B by the row warps
+// (kan_chain_warp.cuh); then the block's parameter sums.
+__global__ void __launch_bounds__(KW_LANES * KW_MAX_WARPS)
 rk_multistep_bwd_kernel(const float* x0, const float* ys, const float* gys,
                         const float* c1, const float* w1, const float* c2,
                         const float* w2, float* dx0, float* dc1, float* dw1,
                         float* dc2, float* dw2, float* scratch, int K,
-                        int n_steps, int n_slots, ChainDims d, StepTab T) {
+                        int n_steps, int n_slots, int chunk, ChainDims d,
+                        StepTab T) {
   extern __shared__ float smem[];
+  __shared__ WarpConsts c;
+  const int warp = threadIdx.x / KW_LANES, lane = threadIdx.x % KW_LANES;
+  const int warps = blockDim.x / KW_LANES;
+  WarpRow* rows = reinterpret_cast<WarpRow*>(smem + kc_param_floats(d));
+  WarpRow& w = rows[warp];
+  float* fac_all = reinterpret_cast<float*>(rows + warps);
+  kw_fill_consts(c, d, T.stages, T.a, T.b, T.needed);
   const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, smem);
-  const RecLayout L = kc_rec_layout(d.I, d.H, d.O, d.G);
-  for (int r = threadIdx.x; r < K; r += blockDim.x) {
-    float xbar[KC_MAX_I], dx[KC_MAX_I];
-    for (int q = 0; q < d.I; ++q) xbar[q] = 0.0f;
-    for (int s = n_steps - 1; s >= 0; --s) {
-      const float* g = gys + ((size_t)s * K + r) * d.I;
-      for (int q = 0; q < d.I; ++q) xbar[q] = xbar[q] + g[q];
-      // input state of step s: ys[s-1] (x0 for the first step)
-      const float* x_in =
-          s == 0 ? x0 + r * d.I : ys + ((size_t)(s - 1) * K + r) * d.I;
-      kc_rk_step_adjoint_row(
-          x_in, xbar, dx, T, d, p, L,
-          scratch + ((size_t)s * K + r) * n_slots * L.width);
-      for (int q = 0; q < d.I; ++q) xbar[q] = dx[q];
-    }
-    for (int q = 0; q < d.I; ++q) dx0[r * d.I + q] = xbar[q];
-  }
+  kw_fill_terms(c, d, w, lane);
   __syncthreads();
+  const RecLayout L = kc_rec_layout(d.I, d.H, d.O, d.G);
+  const int I = d.I;
+  const size_t fstep = (size_t)n_slots * kw_factor_layout(d).width;
+  for (int r0 = 0; r0 < K; r0 += warps) {
+    const int R = K - r0 < warps ? K - r0 : warps;
+    float xbar = 0.0f;             // row warps, lane q < I: component q
+    for (int hi = n_steps - 1; hi >= 0; hi -= chunk) {
+      const int lo = hi - chunk + 1 > 0 ? hi - chunk + 1 : 0;
+      // A: rebuild every (row, step) of the chunk
+      for (int it = warp; it < R * (hi - lo + 1); it += warps) {
+        const int ri = it % R, s = lo + it / R, r = r0 + ri;
+        // input state of step s: ys[s-1] (x0 for the first step)
+        const float* x_in =
+            s == 0 ? x0 + r * I : ys + ((size_t)(s - 1) * K + r) * I;
+        kw_rk_step_stages(x_in, T.stages, d, c, p, L, w, lane,
+                          fac_all + ((size_t)ri * chunk + (s - lo)) * fstep,
+                          scratch + ((size_t)s * K + r) * n_slots * L.width);
+      }
+      __syncthreads();
+      // B: the reverse recursion, a warp a row
+      if (warp < R) {
+        const int r = r0 + warp;
+        for (int s = hi; s >= lo; --s) {
+          if (lane < I) xbar = xbar + gys[((size_t)s * K + r) * I + lane];
+          xbar = kw_rk_step_reverse(
+              xbar, T.stages, n_slots, d, c, L, w, lane,
+              fac_all + ((size_t)warp * chunk + (s - lo)) * fstep,
+              scratch + ((size_t)s * K + r) * n_slots * L.width);
+        }
+      }
+      __syncthreads();
+    }
+    if (warp < R && lane < I) dx0[(r0 + warp) * I + lane] = xbar;
+  }
   kc_reduce_param_grads(scratch, n_steps * K * n_slots, d, L, dc1, dw1, dc2,
                         dw2);
 }
@@ -180,15 +217,28 @@ int kc_rk_multistep_bwd(const float* x0, const float* ys, const float* gys,
                         const float* c1, const float* w1, const float* c2,
                         const float* w2, float* dx0, float* dc1, float* dw1,
                         float* dc2, float* dw2, float* scratch, int K,
-                        int n_steps, int n_slots, const ChainDims* d,
-                        const StepTab* T, void* stream) {
-  const size_t smem = kc_param_floats(*d) * sizeof(float);
+                        int n_steps, int n_slots, int warps, int chunk,
+                        const ChainDims* d, const StepTab* T, void* stream) {
+  if (warps < 1 || warps > KW_MAX_WARPS || chunk < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = kw_smem_floats(*d, warps, K < warps ? K : warps,
+                                     chunk, n_slots) * sizeof(float);
   cudaError_t err = kc_smem_opt_in(rk_multistep_bwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  rk_multistep_bwd_kernel<<<1, kBwdThreads, smem, (cudaStream_t)stream>>>(
+  rk_multistep_bwd_kernel<<<1, warps * KW_LANES, smem,
+                            (cudaStream_t)stream>>>(
       x0, ys, gys, c1, w1, c2, w2, dx0, dc1, dw1, dc2, dw2, scratch, K,
-      n_steps, n_slots, *d, *T);
+      n_steps, n_slots, chunk, *d, *T);
   return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of K3b and K4b: K rows, `warps` warps, chunks of
+// `chunk` steps of `slots` chain evaluations (the Python launch plan
+// computes the same).
+int kw_smem_bytes(const ChainDims* d, int K, int warps, int chunk,
+                  int slots) {
+  return (int)(kw_smem_floats(*d, warps, K < warps ? K : warps, chunk,
+                              slots) * sizeof(float));
 }
 
 }  // extern "C"

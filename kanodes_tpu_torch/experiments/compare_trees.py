@@ -1,24 +1,27 @@
-"""Time the gray-box and wide backward kernels, and the source and
-shooting training iterations, of two checkouts of this repository on one
-card, in turns.
+"""Time backward kernels and training iterations of two checkouts of this
+repository on one card, in turns.
 
     python -m kanodes_tpu_torch.experiments.compare_trees PARENT CHANGE \\
-        [--out=FILE]
+        [--out=FILE] [--groups=gray_wide,lv]
 
 PARENT and CHANGE are the roots of two checkouts (for example a `git
 archive` of the parent commit unpacked in a directory .gitignore lists).
 For each root, in the order parent, change, change, parent, one
 subprocess builds that root's kernels and times, with chip_smoke.py's
 helpers and inputs (CUDA-event ms, `cuda_ms`, and the profiler's device
-µs, `device_us`): K5f and K5b (tsit5, grid 10) at Fisher-KPP 1-D [1, 26],
-Allen-Cahn 1-D [1, 41] and the [32, 32] fields of 2-D Fisher-KPP and
-Allen-Cahn; K7b at the shooting groups (Schrödinger K = 7, 2-D Allen-Cahn
-K = 4, n = 40); K10 at K = 1, n = 40 and 20 (both). Then, in the same turns
-(host times swing on a shared host), `profile_source --ndim=2` for
-Fisher-KPP and Allen-Cahn and `profile_surrogate --solve_mode=shooting`
-for Schrödinger and 2-D Allen-Cahn (fused). Prints one JSON line per run
-(and writes them to FILE), then the card's name and power limit. Needs a
-CUDA device.
+µs, `device_us`), the kernels of each group asked for (both by default):
+  * gray_wide: K5f and K5b (tsit5, grid 10) at Fisher-KPP 1-D [1, 26],
+    Allen-Cahn 1-D [1, 41] and the [32, 32] fields of 2-D Fisher-KPP and
+    Allen-Cahn; K7b at the shooting groups (Schrödinger K = 7, 2-D
+    Allen-Cahn K = 4, n = 40); K10 at K = 1, n = 40 and 20 (both);
+  * lv: K3b at n = 34, K = 1 and K4b at T = 35, K = 1 (LV defaults, the
+    trainer's seeded init; `LV_ADJOINT_INPUTS`).
+Then, in the same turns (host times swing on a shared host), the group's
+profiles: `profile_source --ndim=2` for Fisher-KPP and Allen-Cahn and
+`profile_surrogate --solve_mode=shooting` for Schrödinger and 2-D
+Allen-Cahn (gray_wide); `profile_lv --impl=fused` in fixed and adaptive
+mode (lv). Prints one JSON line per run (and writes them to FILE), then
+the card's name and power limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -28,8 +31,42 @@ import os
 import subprocess
 import sys
 
+# K3b at n = 34, K = 1 (chip_smoke's LV inputs) and K4b at T = 35, K = 1
+# (LV defaults, the trainer's seeded init), both tsit5 [2,10,2] G=5 on the
+# card: launch closures and K4f's stats. Uses only what every checkout
+# since the port began has.
+LV_ADJOINT_INPUTS = r'''
+def lv_adjoint_launches(torch, np, cs):
+    from kanodes_tpu_torch.experiments import lv
+    from kanodes_tpu_torch.ode.integrate import StepController
+    from kanodes_tpu_torch.ops import kdense_pallas as kp
+    from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
+    from kanodes_tpu_torch.ops import rk_fused as rk
+    rng = np.random.default_rng(0)
+    cfg = lv.LVConfig()
+    model = lv.init_params(cfg, lv.make_model(cfg, "cuda"))
+    spec = kp.chain_spec_of(model)
+    x0, params = cs.lv_inputs(rng, torch, 1)
+    k = rk._consts(spec, "tsit5", 0.1)
+    ys = rk._launch_multistep_fwd(k, 34, x0, params)
+    gys = torch.tensor(rng.standard_normal((34, 1, 2)) / 34,
+                       dtype=torch.float32, device="cuda")
+    data = lv.make_data(cfg, "cuda")
+    fp = [p.detach().contiguous() for p in kp.fused_params(model)]
+    u0 = data["X"][:1].contiguous()
+    ts = data["ts"][:data["n_train"]].contiguous()
+    ka = ra._consts(spec, "tsit5", cfg.rtol, cfg.atol, StepController(),
+                    None)
+    ysa, rec = ra._launch_fwd(ka, cfg.max_steps, u0, ts, fp)
+    gya = torch.tensor(rng.standard_normal(tuple(ysa.shape)) / ts.shape[0],
+                       dtype=torch.float32, device="cuda")
+    return (lambda: rk._launch_multistep_bwd(k, 34, x0, ys, params, gys),
+            lambda: ra._launch_bwd(ka, u0, fp, rec, gya), rec[4].tolist())
+'''
+
 KERNELS = r'''
 import json, sys
+import numpy as np
 import torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
@@ -37,9 +74,19 @@ from kanodes_tpu_torch.ops import graybox_fused as gb
 from kanodes_tpu_torch.ops import kdense_pallas as kp
 from kanodes_tpu_torch.ops import rk_fused_wide as tw
 from kanodes_tpu_torch.utils.precision import set_exact_f32
+''' + LV_ADJOINT_INPUTS + r'''
+groups = sys.argv[1].split(",")
 set_exact_f32()
 out = {}
-with torch.no_grad():
+torch.set_grad_enabled(False)
+if "lv" in groups:
+    k3b, k4b, stats = lv_adjoint_launches(torch, np, cs)
+    out["K3b n=34 K=1"] = {"ms": cs.cuda_ms(torch, k3b, 20),
+                           "us": cs.device_us(torch, k3b, reps=10)}
+    out["K4b T=35 K=1"] = {"ms": cs.cuda_ms(torch, k4b, 20),
+                           "us": cs.device_us(torch, k4b, reps=10),
+                           "stats": stats}
+if "gray_wide" in groups:
     for i in (0, 1, 6, 7):
         case = cs.GRAYBOX_CASES[i]
         spec, kron, u, lap, c, w, gy = cs.graybox_case_inputs(torch, gb,
@@ -67,14 +114,21 @@ with torch.no_grad():
 print(json.dumps(out))
 '''
 
-PROFILES = (
-    ("profile_source", ("--ndim=2", "--problem=fisher_kpp", "--impl=fused")),
-    ("profile_source", ("--ndim=2", "--problem=allen_cahn", "--impl=fused")),
-    ("profile_surrogate", ("--problem=schrodinger", "--impl=fused",
-                           "--solve_mode=shooting")),
-    ("profile_surrogate", ("--problem=allen_cahn_2d", "--impl=fused",
-                           "--solve_mode=shooting")),
-)
+# group -> profiler runs
+PROFILES = {
+    "gray_wide": (
+        ("profile_source", ("--ndim=2", "--problem=fisher_kpp",
+                            "--impl=fused")),
+        ("profile_source", ("--ndim=2", "--problem=allen_cahn",
+                            "--impl=fused")),
+        ("profile_surrogate", ("--problem=schrodinger", "--impl=fused",
+                               "--solve_mode=shooting")),
+        ("profile_surrogate", ("--problem=allen_cahn_2d", "--impl=fused",
+                               "--solve_mode=shooting"))),
+    "lv": (
+        ("profile_lv", ("--impl=fused", "--solve_mode=fixed")),
+        ("profile_lv", ("--impl=fused", "--solve_mode=adaptive"))),
+}
 
 
 def run(root: str, argv: list[str]) -> dict:
@@ -89,15 +143,18 @@ def run(root: str, argv: list[str]) -> dict:
 
 
 def main(argv: list[str]) -> int:
-    out_file = None
+    out_file, groups = None, list(PROFILES)
     roots = []
     for a in argv:
         if a.startswith("--out="):
             out_file = a.split("=", 1)[1]
+        elif a.startswith("--groups="):
+            groups = a.split("=", 1)[1].split(",")
         else:
             roots.append(os.path.abspath(a))
-    if len(roots) != 2:
-        raise SystemExit("usage: compare_trees PARENT CHANGE [--out=FILE]")
+    if len(roots) != 2 or not set(groups) <= set(PROFILES):
+        raise SystemExit(f"usage: compare_trees PARENT CHANGE [--out=FILE] "
+                         f"[--groups={','.join(PROFILES)}]")
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("compare_trees: needs a CUDA device")
@@ -110,9 +167,10 @@ def main(argv: list[str]) -> int:
 
     turns = (roots[0], roots[1], roots[1], roots[0])
     for root in turns:
-        emit({"tree": names[root], "kernels": run(root, ["-c", KERNELS])})
+        emit({"tree": names[root], "kernels": run(
+            root, ["-c", KERNELS, ",".join(groups)])})
     for root in turns:
-        for module, args in PROFILES:
+        for module, args in (r for g in groups for r in PROFILES[g]):
             emit({"tree": names[root], "profile": module, "args": args,
                   "result": run(root, ["-m",
                                        f"kanodes_tpu_torch.experiments."

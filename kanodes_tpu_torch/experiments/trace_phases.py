@@ -1,35 +1,50 @@
-"""Where K5b and K7b spend a launch, phase by phase, on the card.
+"""Where K5b, K7b, K3b and K4b spend a launch, phase by phase, on the card.
 
-    python -m kanodes_tpu_torch.experiments.trace_phases ROOT [ROOT ...]
+    python -m kanodes_tpu_torch.experiments.trace_phases \\
+        [--kernels=K5b/K7b,K3b/K4b] ROOT [ROOT ...]
 
 For each ROOT (a checkout of this repository), copies its
 `kanodes_tpu_torch/` into a temporary directory, inserts `clock64()`
-stamps into the copy of `csrc/graybox.cu` (K5b) and `csrc/rk_fused_wide.cu`
-(K7b) at fixed places of the kernels' code, builds that copy and runs,
-with chip_smoke.py's inputs, K5b at Fisher-KPP 1-D [1, 26], Allen-Cahn
-1-D [1, 41] and the two [32, 32] fields, and K7b at the shooting groups
-(Schrödinger K = 7, 2-D Allen-Cahn K = 4, n = 40). Thread 0 of block 0
-adds the cycles between stamps into its phase's counter (so a phase
-inside a loop is thread 0's share of it, and a barrier's phase is its
-wait); one JSON line per kernel and case gives the cycles of each phase
-(SM clocks, one launch) and their total, then the card's name, power
-limit and top SM clock. The stamps cost a few percent of a launch.
+stamps into the copy's sources at fixed places of the kernels' code,
+builds that copy and runs, with chip_smoke.py's inputs, each family
+asked for (both by default):
+  * K5b/K7b (`csrc/graybox.cu`, `csrc/rk_fused_wide.cu`): K5b at
+    Fisher-KPP 1-D [1, 26], Allen-Cahn 1-D [1, 41] and the two [32, 32]
+    fields, and K7b at the shooting groups (Schrödinger K = 7, 2-D
+    Allen-Cahn K = 4, n = 40);
+  * K3b/K4b (`csrc/rk_fused.cu`, `csrc/rk_adaptive.cu` and the chain
+    routines of `csrc/kan_chain.cuh` / `kan_chain_warp.cuh`): K3b at n =
+    34, K = 1 and K4b at T = 35, K = 1 (LV defaults, the trainer's seeded
+    init), tsit5 [2,10,2] G=5 (`compare_trees.LV_ADJOINT_INPUTS`).
+Thread 0 of block 0 adds the cycles between stamps into its phase's
+counter (so a phase inside a loop is thread 0's share of it, and a
+barrier's phase is its wait); one JSON line per kernel and case gives the
+cycles of each phase (SM clocks, one launch) and their total. Then, per
+ROOT, one line with the registers, stack frame and spill bytes that
+nvcc's `-Xptxas -v` reports for the family's backward kernels in ROOT's
+own (uninstrumented) build, and last the card's name, power limit and
+top SM clock. The stamps cost a few percent of a launch.
 
-Two designs are known, by the code the stamps go into: the one-block
-K5b / K7b of the first port, and the four-lane K5b and cluster K7b that
-replaced them. A checkout whose kernels match neither raises. The
-instrumented copy is thrown away; nothing of ROOT changes. Needs nvcc and
-a CUDA device.
+Each family knows two designs by the code the stamps go into: the
+one-block K5b / K7b of the first port and the four-lane K5b and cluster
+K7b that replaced them; the one-thread-a-row K3b / K4b of the first port
+and the warp-a-row K3b / K4b that replaced them. A checkout whose
+kernels match neither design of a family raises. The instrumented copy
+is thrown away; nothing of ROOT changes. Needs nvcc and a CUDA device.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
+
+from kanodes_tpu_torch.experiments.compare_trees import LV_ADJOINT_INPUTS
 
 GB_HEAD = """#include "kan_chain.cuh"
 
@@ -54,8 +69,9 @@ GB_WRITE = ("  if (threadIdx.x == 0 && blockIdx.x == 0)\n"
             "    for (int i = 0; i < 16; ++i) g_trace[i] = s_tr[i];\n")
 WD_WRITE = GB_WRITE.replace("g_trace", "g_wtrace").replace("s_tr", "s_wtr")
 
-# design -> (file -> [(code, code with stamps)], K5b phases, K7b phases)
-DESIGNS = {
+# family -> design -> (file -> [(code, code with stamps)],
+#                      kernel -> its phase names)
+GRAY_WIDE = {
     "one-block K5b and K7b": ({
         "graybox.cu": [
             ('#include "kan_chain.cuh"\n', GB_HEAD),
@@ -136,13 +152,13 @@ DESIGNS = {
              + WD_WRITE),
             ('extern "C" {\n', WD_READ),
         ]},
-        ["load", "rebuild: stage inputs and barrier", "rebuild: operator",
-         "rebuild: phi", "rebuild: barrier", "seeds",
-         "reverse: operator", "reverse: dphi", "reverse: updates",
-         "reverse: dC/dW warp sums", "reverse: barrier after the sums",
-         "outputs"],
-        ["step input", "rebuild", "seeds", "stage barrier", "m2",
-         "m2 barrier", "t and barrier", "layer-1 VJP"]),
+        {"K5b": ["load", "rebuild: stage inputs and barrier",
+                 "rebuild: operator", "rebuild: phi", "rebuild: barrier",
+                 "seeds", "reverse: operator", "reverse: dphi",
+                 "reverse: updates", "reverse: dC/dW warp sums",
+                 "reverse: barrier after the sums", "outputs"],
+         "K7b": ["step input", "rebuild", "seeds", "stage barrier", "m2",
+                 "m2 barrier", "t and barrier", "layer-1 VJP"]}),
     "four-lane K5b and cluster K7b": ({
         "graybox.cu": [
             ('#include "kan_chain.cuh"\n', GB_HEAD),
@@ -232,16 +248,234 @@ DESIGNS = {
              "    }\n  }\n" + WD_WRITE),
             ('extern "C" {\n', WD_READ),
         ]},
-        ["load", "stage inputs", "barrier before the operator", "operator",
-         "phi", "seeds", "reverse barrier", "reverse operator",
-         "reverse dphi and updates", "du and the dC/dW reduction"],
-        ["step input", "rebuild", "seeds", "stage barrier", "m2 partial and "
-         "send", "m2 wait", "m2 coefficients and barrier", "t and barrier",
-         "VJP partials", "VJP barrier", "VJP combine"]),
+        {"K5b": ["load", "stage inputs", "barrier before the operator",
+                 "operator", "phi", "seeds", "reverse barrier",
+                 "reverse operator", "reverse dphi and updates",
+                 "du and the dC/dW reduction"],
+         "K7b": ["step input", "rebuild", "seeds", "stage barrier",
+                 "m2 partial and send", "m2 wait",
+                 "m2 coefficients and barrier", "t and barrier",
+                 "VJP partials", "VJP barrier", "VJP combine"]}),
 }
+
+
+# The LV adjoints K3b and K4b share their chain routines (csrc/kan_chain.cuh)
+# with K1, K2 and K8: the stamps there are compiled only in the two
+# instrumented files, which define KC_TRACE (the others get empty macros).
+KC_MACROS = r"""
+#ifdef KC_TRACE
+namespace {
+__shared__ unsigned long long s_ktr[16];
+__shared__ long long s_ktm;
+}  // namespace
+#define KC_TR_START() do { if (threadIdx.x == 0 && blockIdx.x == 0) { \
+  for (int i_ = 0; i_ < 16; ++i_) s_ktr[i_] = 0; s_ktm = clock64(); } \
+  } while (0)
+#define KC_TR(i) do { if (threadIdx.x == 0 && blockIdx.x == 0) { \
+  long long n_ = clock64(); s_ktr[i] += n_ - s_ktm; s_ktm = n_; } \
+  } while (0)
+#else
+#define KC_TR_START() do { } while (0)
+#define KC_TR(i) do { } while (0)
+#endif
+"""
+
+
+def kc_head(sym: str, header: str = "kan_chain.cuh") -> str:
+    return (f'#define KC_TRACE\n#include "{header}"\n\n'
+            f"__device__ unsigned long long {sym}[16];\n")
+
+
+def kc_read(fn: str, sym: str) -> str:
+    return (f'extern "C" {{\n\nvoid {fn}(unsigned long long* out) {{\n'
+            f"  cudaDeviceSynchronize();\n"
+            f"  cudaMemcpyFromSymbol(out, {sym}, sizeof({sym}));\n}}\n")
+
+
+def kc_write(sym: str) -> str:
+    return ("  if (threadIdx.x == 0 && blockIdx.x == 0)\n"
+            f"    for (int i = 0; i < 16; ++i) {sym}[i] = s_ktr[i];\n")
+
+
+LV_PHASES = ["parameter staging", "rebuild", "layer-2 VJP", "layer-1 VJP",
+             "record stores", "kbar bookkeeping", "step loads and carry",
+             "barrier", "parameter reduction", "seeds"]
+# In the chunked design thread 0 rebuilds its share of a chunk's steps with
+# their stage Jacobians (phase A), waits for the block ("barrier": the
+# other warps' rebuilds), then runs row 0's reverse recursion (phase B).
+CHUNKED_PHASES = ["parameter staging", "phase A: rebuild and Jacobians",
+                  "stage VJP (J and A2)", "kbar bookkeeping",
+                  "record stores", "step loads and carry", "barrier",
+                  "parameter reduction", "seeds"]
+
+LV_ADJOINTS = {
+    "one-thread K3b and K4b": ({
+        "kan_chain.cuh": [
+            ("#include <mutex>\n", "#include <mutex>\n" + KC_MACROS),
+            ("                  rec + L.swy1);\n",
+             "                  rec + L.swy1);\n  KC_TR(2);\n"),
+            ("                  rec + L.swx);\n",
+             "                  rec + L.swx);\n  KC_TR(3);\n"),
+            ("  for (int o = 0; o < d.O; ++o) rec[L.gk + o] = gk[o];\n}\n",
+             "  for (int o = 0; o < d.O; ++o) rec[L.gk + o] = gk[o];\n"
+             "  KC_TR(4);\n}\n"),
+            ("    for (int q = 0; q < d.I; ++q) kbar[s][q] = T.b[s] * gy[q];\n"
+             "  }\n",
+             "    for (int q = 0; q < d.I; ++q) kbar[s][q] = T.b[s] * gy[q];\n"
+             "  }\n  KC_TR(1);\n"),
+            ("      for (int q = 0; q < d.I; ++q) kbar[j][q] = kbar[j][q] + "
+             "a * dxi[q];\n    }\n",
+             "      for (int q = 0; q < d.I; ++q) kbar[j][q] = kbar[j][q] + "
+             "a * dxi[q];\n    }\n    KC_TR(5);\n"),
+        ],
+        "rk_fused.cu": [
+            ('#include "kan_chain.cuh"\n', kc_head("g_k3tr")),
+            ("                        int n_steps, int n_slots, ChainDims d, "
+             "StepTab T) {\n  extern __shared__ float smem[];\n"
+             "  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, "
+             "smem);\n",
+             "                        int n_steps, int n_slots, ChainDims d, "
+             "StepTab T) {\n  extern __shared__ float smem[];\n"
+             "  KC_TR_START();\n"
+             "  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, "
+             "smem);\n  KC_TR(0);\n"),
+            ("      kc_rk_step_adjoint_row(\n          x_in, xbar, dx,",
+             "      KC_TR(6);\n"
+             "      kc_rk_step_adjoint_row(\n          x_in, xbar, dx,"),
+            ("  __syncthreads();\n  kc_reduce_param_grads(scratch, n_steps * K "
+             "* n_slots, d, L, dc1, dw1, dc2,\n                        dw2);\n",
+             "  KC_TR(6);\n  __syncthreads();\n  KC_TR(7);\n"
+             "  kc_reduce_param_grads(scratch, n_steps * K "
+             "* n_slots, d, L, dc1, dw1, dc2,\n                        dw2);\n"
+             "  KC_TR(8);\n" + kc_write("g_k3tr")),
+            ('extern "C" {\n', kc_read("kc3_trace_read", "g_k3tr")),
+        ],
+        "rk_adaptive.cu": [
+            ('#include "kan_chain.cuh"\n', kc_head("g_k4tr")),
+            ("                    AdaptTab tab) {\n"
+             "  extern __shared__ float smem[];\n"
+             "  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, "
+             "smem);\n",
+             "                    AdaptTab tab) {\n"
+             "  extern __shared__ float smem[];\n  KC_TR_START();\n"
+             "  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, "
+             "smem);\n  KC_TR(0);\n"),
+            ("      kc_adaptive_stages(x_in, rk1 + ((size_t)s * K + r) * I, "
+             "dts, tab, d, p,\n                         xs, y1s, ks);\n",
+             "      KC_TR(6);\n"
+             "      kc_adaptive_stages(x_in, rk1 + ((size_t)s * K + r) * I, "
+             "dts, tab, d, p,\n                         xs, y1s, ks);\n"
+             "      KC_TR(1);\n"),
+            ("      for (int q = 0; q < I; ++q) xnew[q] = xbar[q];\n",
+             "      for (int q = 0; q < I; ++q) xnew[q] = xbar[q];\n"
+             "      KC_TR(9);\n"),
+            ("          for (int w = 0; w < L.width; ++w) rec[w] = 0.0f;\n",
+             "          for (int w = 0; w < L.width; ++w) rec[w] = 0.0f;\n"
+             "          KC_TR(4);\n"),
+            ("          have[j] = true;\n        }\n",
+             "          have[j] = true;\n        }\n        KC_TR(5);\n"),
+            ("    kc_chain_fwd(xr, d, p, y1s[0], k0);\n",
+             "    KC_TR(6);\n    kc_chain_fwd(xr, d, p, y1s[0], k0);\n"
+             "    KC_TR(1);\n"),
+            ("  __syncthreads();\n  kc_reduce_param_grads(scratch, (n_acc * "
+             "(S - 1) + 1) * K, d, L, dc1, dw1,\n"
+             "                        dc2, dw2);\n",
+             "  KC_TR(6);\n  __syncthreads();\n  KC_TR(7);\n"
+             "  kc_reduce_param_grads(scratch, (n_acc * "
+             "(S - 1) + 1) * K, d, L, dc1, dw1,\n"
+             "                        dc2, dw2);\n  KC_TR(8);\n"
+             + kc_write("g_k4tr")),
+            ('extern "C" {\n', kc_read("kc4_trace_read", "g_k4tr")),
+        ]},
+        {"K3b": LV_PHASES, "K4b": LV_PHASES}),
+    "warp-a-row K3b and K4b, chunked rebuild with stage Jacobians": ({
+        "kan_chain.cuh": [
+            ("#include <mutex>\n", "#include <mutex>\n" + KC_MACROS),
+        ],
+        "kan_chain_warp.cuh": [
+            ("  if (lane < O) rec[L.gk + lane] = gk[lane];\n  return dx;\n",
+             "  if (lane < O) rec[L.gk + lane] = gk[lane];\n  KC_TR(2);\n"
+             "  return dx;\n"),
+            ("w.kb[s][lane] = c.b[s] * gy;\n  __syncwarp();\n",
+             "w.kb[s][lane] = c.b[s] * gy;\n  __syncwarp();\n  KC_TR(8);\n"),
+            ("w.kb[j][lane]);\n    }\n    __syncwarp();\n",
+             "w.kb[j][lane]);\n    }\n    __syncwarp();\n    KC_TR(3);\n"),
+        ],
+        "rk_fused.cu": [
+            ('#include "kan_chain_warp.cuh"\n',
+             kc_head("g_k3tr", "kan_chain_warp.cuh")),
+            ("  extern __shared__ float smem[];\n  __shared__ WarpConsts c;\n",
+             "  extern __shared__ float smem[];\n  __shared__ WarpConsts c;\n"
+             "  KC_TR_START();\n"),
+            ("  const size_t fstep = (size_t)n_slots * kw_factor_layout(d)."
+             "width;\n",
+             "  const size_t fstep = (size_t)n_slots * kw_factor_layout(d)."
+             "width;\n  KC_TR(0);\n"),
+            ("        kw_rk_step_stages(x_in,",
+             "        KC_TR(5);\n        kw_rk_step_stages(x_in,"),
+            ("n_slots * L.width);\n      }\n      __syncthreads();\n",
+             "n_slots * L.width);\n        KC_TR(1);\n      }\n"
+             "      __syncthreads();\n      KC_TR(6);\n"),
+            ("          xbar = kw_rk_step_reverse(",
+             "          KC_TR(5);\n          xbar = kw_rk_step_reverse("),
+            ("      __syncthreads();\n    }\n    if (warp < R && lane < I)",
+             "      KC_TR(5);\n      __syncthreads();\n      KC_TR(6);\n    }\n"
+             "    if (warp < R && lane < I)"),
+            ("  kc_reduce_param_grads(scratch, n_steps * K * n_slots, d, L, "
+             "dc1, dw1, dc2,\n                        dw2);\n",
+             "  KC_TR(5);\n  kc_reduce_param_grads(scratch, n_steps * K * "
+             "n_slots, d, L, dc1, dw1, dc2,\n                        dw2);\n"
+             "  KC_TR(7);\n" + kc_write("g_k3tr")),
+            ('extern "C" {\n', kc_read("kc3_trace_read", "g_k3tr")),
+        ],
+        "rk_adaptive.cu": [
+            ('#include "kan_chain_warp.cuh"\n',
+             kc_head("g_k4tr", "kan_chain_warp.cuh")),
+            ("  extern __shared__ float smem[];\n  __shared__ WarpConsts c;\n",
+             "  extern __shared__ float smem[];\n  __shared__ WarpConsts c;\n"
+             "  KC_TR_START();\n"),
+            ("  const int n_acc = stats[0], sidx_final = stats[3];\n",
+             "  const int n_acc = stats[0], sidx_final = stats[3];\n"
+             "  KC_TR(0);\n"),
+            ("        kw_adaptive_stages(\n",
+             "        KC_TR(5);\n        kw_adaptive_stages(\n"),
+            ("            rstride);\n      }\n      __syncthreads();\n",
+             "            rstride);\n        KC_TR(1);\n      }\n"
+             "      __syncthreads();\n      KC_TR(6);\n"),
+            ("          float xnew = xbar;\n          __syncwarp();\n",
+             "          float xnew = xbar;\n          __syncwarp();\n"
+             "          KC_TR(8);\n"),
+            ("rec[q] = 0.0f;\n", "rec[q] = 0.0f;\n              KC_TR(4);\n"),
+            ("              have |= 1u << j;\n            }\n"
+             "            __syncwarp();\n",
+             "              have |= 1u << j;\n            }\n"
+             "            __syncwarp();\n            KC_TR(3);\n"),
+            ("      __syncthreads();\n    }\n    // the very first k1",
+             "      KC_TR(5);\n      __syncthreads();\n      KC_TR(6);\n    }\n"
+             "    // the very first k1"),
+            ("      kw_chain_fwd(w.xs[0], w.ks[0], fac, rec, d, c, p, L, w, "
+             "lane);\n",
+             "      KC_TR(5);\n      kw_chain_fwd(w.xs[0], w.ks[0], fac, rec, "
+             "d, c, p, L, w, lane);\n      KC_TR(1);\n"),
+            ("    __syncthreads();\n  }\n  kc_reduce_param_grads(",
+             "    KC_TR(5);\n    __syncthreads();\n    KC_TR(6);\n  }\n"
+             "  kc_reduce_param_grads("),
+            ("                        dc2, dw2);\n}\n",
+             "                        dc2, dw2);\n  KC_TR(7);\n"
+             + kc_write("g_k4tr") + "}\n"),
+            ('extern "C" {\n', kc_read("kc4_trace_read", "g_k4tr")),
+        ]},
+        {"K3b": CHUNKED_PHASES, "K4b": CHUNKED_PHASES}),
+}
+
+FAMILIES = {"K5b/K7b": GRAY_WIDE, "K3b/K4b": LV_ADJOINTS}
+# family -> the kernels (parts of their names) whose ptxas usage is shown
+PTXAS_OF = {"K5b/K7b": ("gb_bwd_kernel", "wd_bwd_kernel"),
+            "K3b/K4b": ("rk_multistep_bwd_kernel", "adaptive_bwd_kernel")}
 
 RUN = r"""
 import ctypes, json, sys
+import numpy as np
 import torch
 import chip_smoke as cs
 from kanodes_tpu_torch.ops import _cuda
@@ -249,7 +483,7 @@ from kanodes_tpu_torch.ops import graybox_fused as gb
 from kanodes_tpu_torch.ops import kdense_pallas as kp
 from kanodes_tpu_torch.ops import rk_fused_wide as tw
 from kanodes_tpu_torch.utils.precision import set_exact_f32
-k5_names, k7_names = json.loads(sys.argv[1])
+names = json.loads(sys.argv[1])
 set_exact_f32()
 lib = _cuda.library()
 
@@ -257,73 +491,156 @@ def read(fn):
     out = (ctypes.c_ulonglong * 16)()
     fn(out)
     return list(out)
+""" + LV_ADJOINT_INPUTS + """
+def emit(kernel, case, cyc):
+    cyc = cyc[:len(names[kernel])]
+    print(json.dumps({"kernel": kernel, "case": case,
+                      "cycles": dict(zip(names[kernel], cyc)),
+                      "total": sum(cyc)}), flush=True)
 
-for i in (0, 1, 6, 7):
-    case = cs.GRAYBOX_CASES[i]
-    spec, kron, u, lap, c, w, gy = cs.graybox_case_inputs(torch, gb, case)
-    st = (spec, case.solver, case.dt, case.D)
+if "K5b" in names:
+    for i in (0, 1, 6, 7):
+        case = cs.GRAYBOX_CASES[i]
+        spec, kron, u, lap, c, w, gy = cs.graybox_case_inputs(torch, gb,
+                                                              case)
+        st = (spec, case.solver, case.dt, case.D)
+        for _ in range(3):
+            gb._launch_bwd(*st, u, lap, c, w, gy, kron)
+        emit("K5b", case.label, read(lib.gb_trace_read))
+if "K7b" in names:
+    for i in (6, 9):
+        case = cs.WIDE_CASES[i]
+        ws, pp, x0, gys = cs.wide_case_inputs(torch, tw, kp, case)
+        k = tw._consts(ws, case.solver, case.dt)
+        ys = tw._launch_multistep_fwd(k, case.n, x0, pp)
+        tw._launch_multistep_bwd(k, case.n, x0, ys, pp, gys)
+        emit("K7b", case.label, read(lib.wd_trace_read))
+if "K3b" in names:
+    k3b, k4b, stats = lv_adjoint_launches(torch, np, cs)
     for _ in range(3):
-        gb._launch_bwd(*st, u, lap, c, w, gy, kron)
-    cyc = read(lib.gb_trace_read)[:len(k5_names)]
-    print(json.dumps({"kernel": "K5b", "case": case.label,
-                      "cycles": dict(zip(k5_names, cyc)),
-                      "total": sum(cyc)}), flush=True)
-for i in (6, 9):
-    case = cs.WIDE_CASES[i]
-    ws, pp, x0, gys = cs.wide_case_inputs(torch, tw, kp, case)
-    k = tw._consts(ws, case.solver, case.dt)
-    ys = tw._launch_multistep_fwd(k, case.n, x0, pp)
-    tw._launch_multistep_bwd(k, case.n, x0, ys, pp, gys)
-    cyc = read(lib.wd_trace_read)[:len(k7_names)]
-    print(json.dumps({"kernel": "K7b", "case": case.label,
-                      "cycles": dict(zip(k7_names, cyc)),
-                      "total": sum(cyc)}), flush=True)
+        k3b()
+    emit("K3b", "n=34 K=1 tsit5 [2,10,2] G=5", read(lib.kc3_trace_read))
+    for _ in range(3):
+        k4b()
+    emit("K4b", f"T=35 K=1 tsit5 LV defaults, seeded init, stats {stats}",
+         read(lib.kc4_trace_read))
 """
 
 
-def instrument(csrc: str) -> tuple[str, list, list]:
-    """Insert the stamps of the design whose code csrc holds; returns the
-    design's name and its K5b and K7b phase names."""
-    for name, (edits, k5, k7) in DESIGNS.items():
-        texts = {f: open(os.path.join(csrc, f)).read() for f in edits}
-        if all(all(t.count(old) >= 1 for old, _ in edits[f])
-               for f, t in texts.items()):
-            for f, pairs in edits.items():
-                t = texts[f]
-                for old, new in pairs:
-                    t = t.replace(old, new, 1)
-                with open(os.path.join(csrc, f), "w") as out:
-                    out.write(t)
-            return name, k5, k7
-    raise SystemExit(f"trace_phases: the kernels in {csrc} match no known "
-                     f"design ({', '.join(DESIGNS)})")
+def instrument(csrc: str, families) -> tuple[list, dict]:
+    """Insert, for each family, the stamps of the design whose code csrc
+    holds; returns the designs' names and every kernel's phase names."""
+    designs, names = [], {}
+    for family in families:
+        for name, (edits, phases) in FAMILIES[family].items():
+            texts = {f: open(os.path.join(csrc, f)).read() for f in edits
+                     if os.path.exists(os.path.join(csrc, f))}
+            if len(texts) == len(edits) and all(
+                    all(t.count(old) >= 1 for old, _ in edits[f])
+                    for f, t in texts.items()):
+                for f, pairs in edits.items():
+                    t = texts[f]
+                    for old, new in pairs:
+                        t = t.replace(old, new, 1)
+                    with open(os.path.join(csrc, f), "w") as out:
+                        out.write(t)
+                designs.append(name)
+                names.update(phases)
+                break
+        else:
+            raise SystemExit(f"trace_phases: the {family} kernels in {csrc} "
+                             f"match no known design "
+                             f"({', '.join(FAMILIES[family])})")
+    return designs, names
 
 
-def trace(root: str) -> list[dict]:
+def trace(root: str, families=tuple(FAMILIES)) -> list[dict]:
     root = os.path.abspath(root)
     with tempfile.TemporaryDirectory() as tmp:
         shutil.copytree(os.path.join(root, "kanodes_tpu_torch"),
                         os.path.join(tmp, "kanodes_tpu_torch"),
                         ignore=shutil.ignore_patterns("build", "__pycache__"))
-        name, k5, k7 = instrument(os.path.join(tmp, "kanodes_tpu_torch",
-                                               "csrc"))
+        designs, names = instrument(
+            os.path.join(tmp, "kanodes_tpu_torch", "csrc"), families)
         env = dict(os.environ, PYTHONPATH=os.pathsep.join((tmp, root)))
         proc = subprocess.run([sys.executable, "-c", RUN,
-                               json.dumps([k5, k7])], cwd=tmp, env=env,
+                               json.dumps(names)], cwd=tmp, env=env,
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             raise RuntimeError(f"{root}: traced run failed:\n"
                                f"{proc.stderr[-4000:]}")
-    return [dict(json.loads(ln), root=root, design=name)
+    return [dict(json.loads(ln), root=root, designs=designs)
             for ln in proc.stdout.strip().splitlines()]
 
 
+def build_report(root: str) -> tuple[dict, dict]:
+    """ROOT's own (uninstrumented) build: per kernel, the registers, stack
+    frame and spill bytes of nvcc's `-Xptxas -v` output, and a digest of
+    its SASS (`cuobjdump -sass`, the instructions' text only)."""
+    from kanodes_tpu_torch.ops._cuda import _nvcc, kernel_key, ptxas_usage
+    code = ("import json; from kanodes_tpu_torch.ops import _cuda; "
+            "path, log = _cuda.build(); print(json.dumps([str(path), log]))")
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copytree(os.path.join(root, "kanodes_tpu_torch"),
+                        os.path.join(tmp, "kanodes_tpu_torch"),
+                        ignore=shutil.ignore_patterns("build", "__pycache__"))
+        proc = subprocess.run([sys.executable, "-c", code], cwd=tmp,
+                              env=dict(os.environ, PYTHONPATH=tmp),
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{root}: build failed:\n"
+                               f"{proc.stderr[-4000:]}")
+        path, log = json.loads(proc.stdout.strip().splitlines()[-1])
+        cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+        sass = subprocess.run([cuobjdump, "-sass", path],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+    digests = {}
+    for part in sass.split("Function : ")[1:]:
+        name, body = part.split("\n", 1)
+        # the instructions without their addresses and encodings (the
+        # encodings carry relocated fields that differ between builds)
+        text = "\n".join(
+            re.sub(r"^\s*/\*[0-9a-f]+\*/\s*", "", ln).split(";")[0]
+            for ln in body.splitlines()
+            if re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln))
+        digests[kernel_key(name.strip())] = hashlib.sha256(
+            text.encode()).hexdigest()[:16]
+    return ptxas_usage(log), digests
+
+
 def main(argv: list[str]) -> int:
-    if not argv:
-        raise SystemExit("usage: trace_phases ROOT [ROOT ...]")
-    for root in argv:
-        for line in trace(root):
+    families = tuple(FAMILIES)
+    roots = []
+    for a in argv:
+        if a.startswith("--kernels="):
+            families = tuple(a.split("=", 1)[1].split(","))
+        else:
+            roots.append(a)
+    if not roots or not set(families) <= set(FAMILIES):
+        raise SystemExit(f"usage: trace_phases "
+                         f"[--kernels={','.join(FAMILIES)}] ROOT [ROOT ...]")
+    reports = {}
+    for root in roots:
+        for line in trace(root, families):
             print(json.dumps(line), flush=True)
+        usage, digests = build_report(os.path.abspath(root))
+        reports[root] = digests
+        print(json.dumps({"root": os.path.abspath(root), "ptxas": {
+            k: v for k, v in usage.items()
+            if any(n in k for f in families for n in PTXAS_OF[f])}}),
+            flush=True)
+    if len(roots) > 1:
+        # kernels whose SASS differs from the first root's (or is new)
+        first = reports[roots[0]]
+        for root in roots[1:]:
+            print(json.dumps({"root": os.path.abspath(root),
+                              "sass_differs_from_first_root": sorted(
+                                  k for k, v in reports[root].items()
+                                  if first.get(k) != v),
+                              "sass_same": sorted(
+                                  k for k, v in reports[root].items()
+                                  if first.get(k) == v)}), flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,"
                            "clocks.max.sm", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60,

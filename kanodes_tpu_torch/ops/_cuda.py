@@ -19,10 +19,12 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,13 +38,20 @@ SOURCES = {"rk_fused.cu": (), "kan_chain_apply.cu": (),
            "rk_adaptive.cu": ("-fmad=false",), "kdense_single.cu": (),
            "graybox.cu": (), "rk_fused_wide.cu": (),
            "rk_adaptive_members.cu": ("-fmad=false",)}
-HEADERS = ("kan_chain.cuh",)
+HEADERS = ("kan_chain.cuh", "kan_chain_warp.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # must equal KC_MAX_I, KC_MAX_H, KC_MAX_G, KC_MAX_STAGES, KC_MAX_ADAPT_ROWS
 # of kan_chain.cuh (checked against the library at load)
 MAX_I, MAX_H, MAX_G, MAX_STAGES, MAX_ADAPT_ROWS = 8, 32, 16, 7, 256
+# K3b/K4b (kan_chain_warp.cuh): KW_MAX_WARPS, the floats of one warp's
+# `struct WarpRow` at the caps above, and the dynamic shared memory a
+# launch may take
+MAX_KW_WARPS = 8
+WARP_ROW_FLOATS = (3 * MAX_STAGES * MAX_I + 2 * (MAX_I * MAX_G + MAX_I)
+                   + MAX_I + MAX_I * MAX_H)
+MAX_KW_SMEM = 232448 - 4096
 # K9 (kdense_single.cu): in_dims <= KD_MAX_I, out_dims <= KC_MAX_H
 MAX_SINGLE_I = 32
 # K5 (graybox.cu): GB_MAX_NODES, GB_MAX_N, GB_MAX_G, GB_MAX_STAGES
@@ -121,8 +130,10 @@ _SIGNATURES = {
     # x0, c1, w1, c2, w2, ys, K, n_steps, dims, tab, stream
     "kc_rk_multistep_fwd": [_P] * 6 + [_I] * 2 + [_P] * 3,
     # x0, ys, gys, c1, w1, c2, w2, dx0, dc1, dw1, dc2, dw2, scratch, K,
-    # n_steps, n_slots, dims, tab, stream
-    "kc_rk_multistep_bwd": [_P] * 13 + [_I] * 3 + [_P] * 3,
+    # n_steps, n_slots, warps, chunk, dims, tab, stream
+    "kc_rk_multistep_bwd": [_P] * 13 + [_I] * 5 + [_P] * 3,
+    # dims, K, warps, chunk, slots
+    "kw_smem_bytes": [_P] + [_I] * 4,
     # x, c1, w1, c2, w2, y, y1, K, dims, stream
     "kc_chain_apply_fwd": [_P] * 7 + [_I] + [_P] * 2,
     # x, y1, gy, c1, w1, c2, w2, dx, dc1, dw1, dc2, dw2, scratch, K, dims,
@@ -132,8 +143,8 @@ _SIGNATURES = {
     # max_steps, dims, tab, ctrl, stream
     "kc_adaptive_fwd": [_P] * 2 + [_I] + [_P] * 10 + [_I] * 2 + [_P] * 4,
     # x0, c1, w1, c2, w2, rx, rk1, rdt, rsx, stats, gys, T, dx0, dc1, dw1,
-    # dc2, dw2, scratch, K, dims, tab, stream
-    "kc_adaptive_bwd": [_P] * 11 + [_I] + [_P] * 6 + [_I] + [_P] * 3,
+    # dc2, dw2, scratch, K, warps, chunk, dims, tab, stream
+    "kc_adaptive_bwd": [_P] * 11 + [_I] + [_P] * 6 + [_I] * 3 + [_P] * 3,
     # x, c, w, y, K, dims, stream
     "kd_single_fwd": [_P] * 4 + [_I] + [_P] * 2,
     # x, gy, c, w, dx, dc, dw, scratch, K, dims, stream
@@ -228,6 +239,46 @@ def build() -> tuple[Path, str]:
             raise _failed(cmd, proc.returncode, log[-1])
         os.replace(so, path)   # atomic: concurrent builds race harmlessly
     return path, "".join(log)
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_PROPS = re.compile(r"Function properties for (\S+)")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_usage(log: str) -> dict[str, dict[str, int]]:
+    """Per kernel (mangled entry name) of a build's `-Xptxas -v` output:
+    registers, stack frame bytes, spill store and spill load bytes."""
+    out, entry, props = {}, None, None
+    for line in log.splitlines():
+        if m := _PTXAS_ENTRY.search(line):
+            entry = m.group(1)
+            out[entry] = {}
+        elif m := _PTXAS_PROPS.search(line):
+            props = m.group(1)
+        elif (m := _PTXAS_FRAME.search(line)) and props in out:
+            out[props].update(stack=int(m.group(1)),
+                              spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+        elif (m := _PTXAS_REGS.search(line)) and entry in out:
+            out[entry]["registers"] = int(m.group(1))
+    return out
+
+
+def kernel_key(mangled: str) -> str:
+    """A kernel's mangled name without the anonymous namespace's per-build
+    hash: its (length-prefixed) name and what follows it. The last such
+    name is the kernel's: digits of the hash may also prefix a window
+    that ends in "_kernel"."""
+    key = mangled
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        end = m.start() + len(m.group(1))
+        name = mangled[end:end + int(m.group(1))]
+        if name.endswith("_kernel"):
+            key = name + mangled[end + len(name):]
+    return key
 
 
 @functools.cache
@@ -347,6 +398,51 @@ def check_members_caps(spec, stages: int, K: int) -> None:
                 f"K8 caps: the {'backward' if backward else 'forward'} of "
                 f"[{I}, {H}, {O}] G={G} over K={K} rows needs {need} bytes "
                 f"of shared memory > {MAX_MB_SMEM}; use fewer rows")
+
+
+class AdjointPlan(NamedTuple):
+    """How K3b and K4b lay one block over K rows."""
+    lanes: int        # lanes of a warp on one row
+    warps: int        # warps of the block
+    threads: int
+    row_warps: int    # rows a group (a warp each in phase B)
+    chunk: int        # steps a chunk (phase A, then phase B)
+    smem_bytes: int   # dynamic shared memory
+
+
+def factor_floats(spec) -> int:
+    """Floats of one chain evaluation's factors (`kw_factor_layout`): its
+    Jacobian through the hidden layer, A2 [H, O] and A1 [I, H], and J =
+    dk/dx [O, I]."""
+    I, H, O = spec.in_dims, spec.hidden, spec.out_dims
+    return H * O + I * H + O * I
+
+
+def warp_adjoint_plan(spec, K: int, slots: int, n_steps: int) -> AdjointPlan:
+    """The launch plan of K3b and K4b (csrc/kan_chain_warp.cuh) over K
+    rows of n_steps steps (at most) of `slots` chain evaluations each:
+    MAX_KW_WARPS warps, so that 256 threads share phase A and the
+    parameter sums whatever K; rows in groups of up to that many, a warp
+    a row (H <= 32 lanes) in phase B; as many steps a chunk as fit the
+    factors of a group's rows in MAX_KW_SMEM beside the parameters and
+    one WarpRow a warp (`kw_smem_bytes` of the library computes the
+    same)."""
+    warps = MAX_KW_WARPS
+    row_warps = min(K, warps)
+    fixed = param_floats(spec) + warps * WARP_ROW_FLOATS
+    per_step = row_warps * slots * factor_floats(spec)
+    chunk = min(n_steps, (MAX_KW_SMEM // 4 - fixed) // per_step)
+    if chunk < 1:
+        raise ValueError(f"K3b/K4b: one step of {row_warps} rows does not "
+                         f"fit {MAX_KW_SMEM} bytes of shared memory")
+    return AdjointPlan(32, warps, 32 * warps, row_warps, chunk,
+                       4 * (fixed + chunk * per_step))
+
+
+def param_floats(spec) -> int:
+    """Floats of the chain parameters c1, w1, c2, w2 (`kc_param_floats`)."""
+    I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
+    return I * G * H + I * H + H * G * O + H * O
 
 
 def rec_width(spec) -> int:

@@ -394,6 +394,7 @@ def _launch_bwd(k: _Consts, x0, params, records, gys):
     n_rec = (max_steps * (k.tab.stages - 1) + 1) * K
     scratch = torch.empty(n_rec * _cuda.rec_width(k.spec),
                           dtype=torch.float32, device=x0.device)
+    plan = _cuda.warp_adjoint_plan(k.spec, K, k.tab.stages - 1, max_steps)
     dims, tab, _ = k.structs()
     ptr = _cuda.ptr
     lib = _cuda.library()
@@ -401,8 +402,8 @@ def _launch_bwd(k: _Consts, x0, params, records, gys):
         err = lib.kc_adaptive_bwd(
             ptr(x0), *map(ptr, params), ptr(rx), ptr(rk1), ptr(rdt),
             ptr(rsx), ptr(stats), ptr(gys), gys.shape[0], ptr(dx0),
-            *map(ptr, grads), ptr(scratch), K, ctypes.byref(dims),
-            ctypes.byref(tab), _cuda.stream())
+            *map(ptr, grads), ptr(scratch), K, plan.warps, plan.chunk,
+            ctypes.byref(dims), ctypes.byref(tab), _cuda.stream())
     LAUNCHES["fused_adaptive_odeint_bwd"] += 1
     _cuda.check(err, "fused_adaptive_odeint_bwd")
     return (dx0, *grads)

@@ -307,13 +307,15 @@ def _launch_multistep_bwd(k: _Consts, n_steps: int, x0, ys, params, gys):
     dx0 = torch.empty_like(x0)
     grads = [torch.empty_like(p) for p in params]
     scratch = _scratch(k, n_steps * K * k.n_slots, x0)
+    plan = _cuda.warp_adjoint_plan(k.spec, K, k.n_slots, n_steps)
     dims, tab = k.structs()
     lib = _cuda.library()
     with torch.cuda.device(x0.device):
         err = lib.kc_rk_multistep_bwd(
             _ptr(x0), _ptr(ys), _ptr(gys), *map(_ptr, params), _ptr(dx0),
             *map(_ptr, grads), _ptr(scratch), K, n_steps, k.n_slots,
-            ctypes.byref(dims), ctypes.byref(tab), _stream())
+            plan.warps, plan.chunk, ctypes.byref(dims), ctypes.byref(tab),
+            _stream())
     LAUNCHES["fused_rk_multistep_bwd"] += 1
     _cuda.check(err, "fused_rk_multistep_bwd")
     return (dx0, *grads)

@@ -8,6 +8,7 @@ device. Imports no JAX, so it also runs on the GPU host, which has none
 chip_smoke.py makes the same comparisons at more shapes and times them.
 """
 
+import ctypes
 import sys
 from pathlib import Path
 
@@ -17,6 +18,7 @@ import torch
 
 from kanodes_tpu_torch.models.kdense import KANChain, KDense
 from kanodes_tpu_torch.ode.integrate import StepController
+from kanodes_tpu_torch.ops import _cuda
 from kanodes_tpu_torch.ops import graybox_fused as gb
 from kanodes_tpu_torch.ops import kdense_pallas as kp
 from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
@@ -103,6 +105,80 @@ def test_backward_repeats_bit_for_bit(card):
     b = rk._launch_step_bwd(k, x, params, gy)
     for u, v in zip(a, b):
         assert torch.equal(u, v)
+
+
+def adjoint_sweep(card, kernel, spec, x0, params, seed):
+    """One LV adjoint sweep's launch on the card, tsit5: K3b over 12 steps
+    of dt 0.1, or K4b on the records of a save-clipped K4f solve (the 0.1
+    grid to 3.5, rtol 1e-3 / atol 1e-6). Returns (launch, the plain
+    backward's result)."""
+    rng = np.random.default_rng(seed)
+    K, I = x0.shape
+    if kernel == "K3b":
+        k = rk._consts(spec, "tsit5", 0.1)
+        ys = rk._launch_multistep_fwd(k, 12, x0, params)
+        gys = torch.tensor(rng.standard_normal((12, K, I)) / 12,
+                           dtype=torch.float32, device=card)
+        return (lambda: rk._launch_multistep_bwd(k, 12, x0, ys, params, gys),
+                rk.fused_rk_multistep_bwd_reference(spec, "tsit5", 0.1, 12,
+                                                    x0, ys, *params, gys))
+    ts = torch.arange(0, 36, dtype=torch.float32, device=card) * 0.1
+    k = ra._consts(spec, "tsit5", 1e-3, 1e-6, StepController(), None)
+    _, rec = ra._launch_fwd(k, 256, x0, ts, params)
+    gys = torch.tensor(rng.standard_normal((36, K, I)) / 36,
+                       dtype=torch.float32, device=card)
+    return (lambda: ra._launch_bwd(k, x0, params, rec, gys),
+            ra.fused_adaptive_odeint_bwd_reference(spec, "tsit5", x0,
+                                                   *params, rec, gys))
+
+
+@pytest.mark.parametrize("kernel", ["K3b", "K4b"])
+@pytest.mark.parametrize("K", [1, 3])
+def test_adjoint_sweeps_repeat_bit_for_bit(card, kernel, K):
+    """K3b and K4b (a warp a row, fixed-order sums): two launches on the
+    same inputs give the same bits."""
+    spec, x0, params, _ = inputs(card, K, seed=5)
+    launch, _ = adjoint_sweep(card, kernel, spec, x0, params, 5)
+    a, b = launch(), launch()
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("kernel", ["K3b", "K4b"])
+@pytest.mark.parametrize("chain", chip_smoke.CAP_CHAINS)
+def test_adjoint_sweeps_match_plain_at_the_caps(card, kernel, chain):
+    """K3b and K4b at the header's caps (I = O = 8, H = 32, G = 16, K = 3,
+    chip_smoke.cap_inputs): every lane of the warp on the row, I*G + I =
+    136 layer-1 terms over 32 lanes."""
+    spec, x0, params = chip_smoke.cap_inputs(torch, *chain, device=card)
+    launch, want = adjoint_sweep(card, kernel, spec, x0, params, 6)
+    for a, b in zip(launch(), want):
+        torch.testing.assert_close(a, b, **GRAD)
+
+
+@pytest.mark.parametrize("kernel", ["K3b", "K4b"])
+@pytest.mark.parametrize("K", [17, 256])
+def test_adjoint_sweeps_match_plain_over_row_groups(card, kernel, K):
+    """More rows than the block's 8 warps: the rows in groups of 8, each
+    group's steps rebuilt by every warp and replayed a warp a row (K4b
+    up to KC_MAX_ADAPT_ROWS = 256 rows)."""
+    spec, x0, params, _ = inputs(card, K, seed=7)
+    launch, want = adjoint_sweep(card, kernel, spec, x0, params, 7)
+    for a, b in zip(launch(), want):
+        torch.testing.assert_close(a, b, **GRAD)
+
+
+@pytest.mark.parametrize("K,slots,steps", [(1, 6, 34), (3, 6, 256),
+                                           (16, 3, 128), (256, 6, 256)])
+@pytest.mark.parametrize("widths,grid_len", [((2, 10, 2), 5),
+                                             ((8, 32, 8), 16)])
+def test_warp_adjoint_plan_bytes_match_the_library(card, K, slots, steps,
+                                                   widths, grid_len):
+    spec = chain_spec_of(KANChain.mlp_like(list(widths), grid_len=grid_len))
+    plan = _cuda.warp_adjoint_plan(spec, K, slots, steps)
+    lib = _cuda.library()
+    assert lib.kw_smem_bytes(ctypes.byref(_cuda.chain_dims(spec)), K,
+                             plan.warps, plan.chunk, slots) == plan.smem_bytes
 
 
 def test_cuda_wrapper_rejects_unsupported_input(card):

@@ -149,6 +149,11 @@ def cap_inputs(torch, basis, normalizer, seed=8, device="cuda"):
     return spec, t(rng.uniform(0.3, 2.0, (CAP_K, I))), params
 
 
+# K4f over more rows than a warp has lanes: 3 rows a warp over 11 warps,
+# and 16 rows a warp over 16 (`_cuda.adaptive_fwd_plan`)
+K4F_ROWS = (33, 256)
+
+
 class AdaptiveCase(NamedTuple):
     """A K4 kernel-vs-plain case. inputs "lv": the LV model's glorot init
     (torch seed 0) from u0 = (1, 1); "uniform": weights from
@@ -225,8 +230,8 @@ def adaptive_case_inputs(torch, case, device="cuda"):
 
 
 class MembersCase(NamedTuple):
-    """A K8 kernel-vs-plain case: S packed LV members [2,10,2], G=5, over
-    K rows. weights "init": member s is the LV init (glorot / 1e5, torch
+    """A K8 kernel-vs-plain case: S packed LV members [2,10,2] (or [2,
+    hidden, 2]), G=5, over K rows. weights "init": member s is the LV init (glorot / 1e5, torch
     seed s) from u0 = (1, 1); "uniform": every member's weights from
     U(-scale, scale), block-diagonal, and states from U(0.3, 2.0);
     "dense": the same draws over the whole packed matrices, so the
@@ -246,6 +251,7 @@ class MembersCase(NamedTuple):
     pi: bool = False
     dt0: float | None = None
     ends: bool = False
+    hidden: int = 10
 
 
 # Kernel and plain version must take the same steps per member, so every
@@ -296,6 +302,18 @@ MEMBERS_CASES = (
                 1e-6, 128, "uniform", seed=13, scale=0.5, dt0=3.0,
                 ends=True),
 )
+# K8 at the caps of `_cuda.check_members_caps` (the backward's phase A
+# shared memory binds): the most rows at the ensemble's packed width, and
+# the widest packed chain of 16 2-state members ([32, 112, 32]) with the
+# most rows it admits. Save-clipped steps, as the other train-grid cases.
+MEMBERS_CAP_CASES = (
+    MembersCase("caps: S=8 K=28 rows, the most [16,80,16] G=5 admits, "
+                "train grid", 8, 28, "tsit5", 1e-3, 1e-6, 128, "uniform",
+                seed=29, scale=0.3),
+    MembersCase("caps: S=16 [2,7,2] members, [32,112,32] G=5 over K=4 "
+                "rows, train grid", 16, 4, "tsit5", 1e-3, 1e-6, 128,
+                "uniform", seed=31, scale=0.3, hidden=7),
+)
 
 
 def members_case_inputs(torch, case, device="cuda"):
@@ -306,25 +324,25 @@ def members_case_inputs(torch, case, device="cuda"):
     from kanodes_tpu_torch.models import packed as pk
     from kanodes_tpu_torch.models.kdense import KANChain
     from kanodes_tpu_torch.ops.kdense_pallas import chain_spec_of
-    S, K, G = case.S, case.K, 5
+    S, K, G, Hm = case.S, case.K, 5, case.hidden
     rng = np.random.default_rng(case.seed)
-    member = KANChain.mlp_like([2, 10, 2], grid_len=G)
+    member = KANChain.mlp_like([2, Hm, 2], grid_len=G)
     chain = pk.pack_chain(member, S)
 
     def u(*shape):
         return rng.uniform(-case.scale, case.scale, shape)
 
     if case.weights == "dense":
-        layers = [{"C": u(2 * S, G, 10 * S), "W": u(2 * S, 10 * S)},
-                  {"C": u(10 * S, G, 2 * S), "W": u(10 * S, 2 * S)}]
+        layers = [{"C": u(2 * S, G, Hm * S), "W": u(2 * S, Hm * S)},
+                  {"C": u(Hm * S, G, 2 * S), "W": u(Hm * S, 2 * S)}]
     else:
         if case.weights == "init":
             members = [chain_params_to_numpy(lv.init_params(
                 lv.LVConfig(), member, torch.Generator().manual_seed(s)))
                 for s in range(S)]
         else:
-            members = [[{"C": u(2, G, 10), "W": u(2, 10)},
-                        {"C": u(10, G, 2), "W": u(10, 2)}]
+            members = [[{"C": u(2, G, Hm), "W": u(2, Hm)},
+                        {"C": u(Hm, G, 2), "W": u(Hm, 2)}]
                        for _ in range(S)]
         layers = pk.pack_params(member, members)
     params = [torch.tensor(np.asarray(p[k], dtype=np.float32).reshape(
@@ -725,10 +743,11 @@ def check_adaptive(torch, ra, spec, label, solver, rtol, atol, ms, ctrl,
 
 def phase_adaptive_kernels(torch, ra, spec, rng, StepController, max_err):
     """K4 vs its plain version on the card, LV width, ADAPTIVE_CASES, then
-    at the header's caps (CAP_CHAINS, save-clipped): one line per case.
-    Fails unless the LV-width cases, as the kernel ran them, took
-    rejected steps under both controllers and steps the controller
-    sized."""
+    at the header's caps (CAP_CHAINS, save-clipped), then at LV width over
+    K4F_ROWS rows (save-clipped; K4f's warps take 3 and 16 rows in turn):
+    one line per case. Fails unless the LV-width cases, as the kernel ran
+    them, took rejected steps under both controllers and steps the
+    controller sized."""
     import numpy as np
     seen = {"rejected_I": 0, "rejected_PI": 0, "controller_sized": 0}
     for case in ADAPTIVE_CASES:
@@ -753,6 +772,14 @@ def phase_adaptive_kernels(torch, ra, spec, rng, StepController, max_err):
                        f"max_steps=256 I saves=grid", "tsit5", 1e-3, 1e-6,
                        256, StepController(), None, x0, ts, params, gys,
                        max_err)
+    for K in K4F_ROWS:
+        x0, params = lv_inputs(np.random.default_rng(K), torch, K)
+        gys = torch.tensor(cap_rng.standard_normal((36, K, 2)) / 36,
+                           dtype=torch.float32, device="cuda")
+        check_adaptive(torch, ra, spec, f"tsit5 K={K} rtol=0.001 atol=1e-06 "
+                       f"max_steps=256 I saves=grid inputs=uniform(seed {K}, "
+                       f"+-0.3)", "tsit5", 1e-3, 1e-6, 256, StepController(),
+                       None, x0, ts, params, gys, max_err)
 
 
 def phase_trained_adaptive(torch, kp, ra, spec, rng, StepController,
@@ -1573,8 +1600,8 @@ def members_case_check(torch, ra, StepController, case, index, max_err,
 
 
 def phase_members_kernels(torch, ra, StepController, max_err):
-    """K8 vs its plain versions on the card, MEMBERS_CASES: one line per
-    case. K8f: per-member stats equal, ys by the float64 rule; K8b: each
+    """K8 vs its plain versions on the card, MEMBERS_CASES and then
+    MEMBERS_CAP_CASES: one line per case. K8f: per-member stats equal, ys by the float64 rule; K8b: each
     cotangent by `graybox_rule` against the plain backward on the kernel's
     records and that backward run in float64 (the float64 rule decides
     where plain f32 itself misses float64 by more than GRAD_TOL: the
@@ -1592,6 +1619,9 @@ def phase_members_kernels(torch, ra, StepController, max_err):
         seen["float64_rule"] += sum(g["rule"] == "float64"
                                     for g in line["grads"].values())
     assert all(seen.values()), f"K8 cases miss a regime: {seen}"
+    for index, case in enumerate(MEMBERS_CAP_CASES):
+        members_case_check(torch, ra, StepController, case, 200 + index,
+                           max_err)
 
 
 def phase_trained_members(torch, ra, StepController, trained, max_err):

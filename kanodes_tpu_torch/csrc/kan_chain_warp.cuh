@@ -2,7 +2,8 @@
 // with a warp on each row of the batch: the LV adjoint sweeps K3b
 // (rk_fused.cu) and K4b (rk_adaptive.cu). The same math as kc_chain_fwd /
 // kc_chain_vjp / kc_rk_step_adjoint_row (kan_chain.cuh), which the
-// one-thread kernels (K1, K2, K3f, K4f, K8) keep.
+// one-thread kernels (K1, K2, K3f) keep. At the end of the file, the chain
+// forward of K4f (rk_adaptive.cu) on a warp, bit for bit kc_chain_fwd's.
 //
 // Why: one thread per row ran each chain evaluation as a dependent chain
 // of ~3 * 10^4 cycles, its run-time-indexed per-row arrays on the stack,
@@ -303,4 +304,175 @@ __device__ inline float kw_rk_step_reverse(float gy, int stages, int slots,
     __syncwarp();
   }
   return dx;
+}
+
+// ---------------------------------------------------------------------------
+// The chain FORWARD of one row by one warp, bit for bit what kc_chain_fwd
+// gives in one thread of a file built with -fmad=false: K4f
+// (rk_adaptive.cu) runs it, and K3f can take it. Every product and sum is
+// an explicit __fmul_rn / __fadd_rn (and the elementwise functions below
+// spell theirs out the same way), so it rounds alike whatever the -fmad
+// flag of the file that includes it.
+//
+// Lane map: layer-1 term l = i*G + g, or the swish term of input l - I*G,
+// in lane l % 32; hidden unit h in lane h, which sums layer 1 for h in the
+// one-thread order (i then g, then the swish terms), normalizes y1_h and
+// forms the swish products swish(y1_h) w2[h, o]; layer-2 term m = h*G + g
+// in lane m % 32, which forms B(u_hg) c2[hg, o]; output o in lane o, which
+// adds the basis products up in the one-thread order (h then g) while lane
+// O + o adds the swish products (h), then lane o adds the two. A product
+// rounds the same whichever lane forms it, so only the order of each sum
+// matters, and it is kept.
+// ---------------------------------------------------------------------------
+
+#define KF_REG 16           // layer-1 terms whose c1 entry a lane keeps in
+                            // registers (the rest: shared memory)
+#define KF_MAX_WARPS 16     // a K4f block's warps at most
+
+__device__ __forceinline__ float kf_norm(float x, int kind) {
+  return kind == 0 ? tanhf(x) : __fdiv_rn(x, __fadd_rn(1.0f, fabsf(x)));
+}
+
+__device__ __forceinline__ float kf_basis(float u, int kind) {
+  if (kind == 0) return expf(-__fmul_rn(u, u));
+  if (kind == 1) return __fdiv_rn(1.0f, __fadd_rn(1.0f, __fmul_rn(u, u)));
+  const float t = tanhf(u);
+  return __fsub_rn(1.0f, __fmul_rn(t, t));
+}
+
+__device__ __forceinline__ float kf_swish(float x) {
+  return __fmul_rn(x, __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x))));
+}
+
+// (norm(x) - c) / h as kc_layer_fwd forms it
+__device__ __forceinline__ float kf_u(float xn, float c, float inv_h) {
+  return __fmul_rn(__fsub_rn(xn, c), inv_h);
+}
+
+// acc + v[0] + v[stride] + ... + v[(n-1) stride], added in that order; the
+// loads go ahead of the adds eight at a time
+__device__ __forceinline__ float kf_sum_in_order(float acc, const float* v,
+                                                 int n, int stride) {
+  int m = 0;
+  for (; m + 8 <= n; m += 8) {
+    float t[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) t[u] = v[(m + u) * stride];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc = __fadd_rn(acc, t[u]);
+  }
+  for (; m < n; ++m) acc = __fadd_rn(acc, v[m * stride]);
+  return acc;
+}
+
+// Lane h's slices of the parameters, kept in registers for a whole solve
+// (compile-time indices only): the first KF_REG entries of its column of
+// c1, its column of w1 and its row of w2.
+struct KfRegs {
+  float c1[KF_REG];
+  float w1[KC_MAX_I];
+  float w2[KC_MAX_I];
+};
+
+__device__ inline void kf_load_regs(KfRegs& r, const ChainParams& p,
+                                    const ChainDims& d, int lane) {
+  const int h = lane < d.H ? lane : 0;      // lanes >= H never use them
+#pragma unroll
+  for (int l = 0; l < KF_REG; ++l)
+    r.c1[l] = l < d.I * d.G ? p.c1[l * d.H + h] : 0.0f;
+#pragma unroll
+  for (int i = 0; i < KC_MAX_I; ++i) {
+    r.w1[i] = i < d.I ? p.w1[i * d.H + h] : 0.0f;
+    r.w2[i] = i < d.O ? p.w2[h * d.O + i] : 0.0f;
+  }
+}
+
+// The hidden unit of layer-2 term m = h*G + g (shared memory, filled once
+// by every thread of the block; a __syncthreads must follow).
+__device__ inline void kf_fill_l2(unsigned char* l2h, const ChainDims& d) {
+  for (int m = threadIdx.x; m < d.H * d.G; m += blockDim.x)
+    l2h[m] = (unsigned char)(m / d.G);
+}
+
+// Floats of one warp's forward workspace: the basis and swish terms of
+// layer 1 [I*G + I], the normalized hidden values [H], then layer 2's
+// products [H*G + H][O].
+__host__ __device__ inline int kf_chain_ws_floats(const ChainDims& d) {
+  return d.I * d.G + d.I + d.H + (d.H * d.G + d.H) * d.O;
+}
+
+// k = layer2(layer1(x)) for the warp-uniform input x (shared memory, d.I
+// values): lane o < O writes kout[o]. c holds the grid and the layer-1
+// term table (kw_fill_consts, then the terms), l2h the layer-2 term table
+// (kf_fill_l2), ws the warp's workspace of kf_chain_ws_floats(d) floats.
+// The caller syncs the warp before kout is read and before x or ws is
+// written again.
+__device__ inline void kf_chain_fwd(const float* x, float* kout,
+                                    const ChainDims& d, const WarpConsts& c,
+                                    const unsigned char* l2h,
+                                    const ChainParams& p, const KfRegs& rg,
+                                    float* ws, int lane) {
+  const int I = d.I, H = d.H, O = d.O, G = d.G, IG = I * G, HG = H * G;
+  float* b1 = ws;                  // [IG + I]
+  float* yn = b1 + IG + I;         // [H]
+  float* p2 = yn + H;              // [HG + H][O]
+  for (int l = lane; l < IG + I; l += KW_LANES) {
+    if (l < IG) {
+      const float xn = kf_norm(x[c.term_x[l]], d.normalizer);
+      b1[l] = kf_basis(kf_u(xn, c.term_c[l], d.inv_h), d.basis);
+    } else {
+      b1[l] = kf_swish(x[l - IG]);
+    }
+  }
+  __syncwarp();
+  if (lane < H) {
+    float ac = 0.0f;
+#pragma unroll
+    for (int l = 0; l < KF_REG; ++l)
+      if (l < IG) ac = __fadd_rn(ac, __fmul_rn(b1[l], rg.c1[l]));
+    for (int l = KF_REG; l < IG; ++l)
+      ac = __fadd_rn(ac, __fmul_rn(b1[l], p.c1[l * H + lane]));
+    float aw = 0.0f;
+#pragma unroll
+    for (int i = 0; i < KC_MAX_I; ++i)
+      if (i < I) aw = __fadd_rn(aw, __fmul_rn(b1[IG + i], rg.w1[i]));
+    const float y = __fadd_rn(ac, aw);
+    yn[lane] = kf_norm(y, d.normalizer);
+    const float sw = kf_swish(y);
+    float* out = p2 + (HG + lane) * O;
+#pragma unroll
+    for (int o = 0; o < KC_MAX_I; ++o)
+      if (o < O) out[o] = __fmul_rn(sw, rg.w2[o]);
+  }
+  __syncwarp();
+  // two terms a lane at a time, so that their basis functions overlap
+  for (int m = lane; m < HG; m += 2 * KW_LANES) {
+    const int m2 = m + KW_LANES < HG ? m + KW_LANES : m;
+    const int h = l2h[m], h2 = l2h[m2];
+    const float B = kf_basis(kf_u(yn[h], c.grid[m - h * G], d.inv_h),
+                             d.basis);
+    const float B2 = kf_basis(kf_u(yn[h2], c.grid[m2 - h2 * G], d.inv_h),
+                              d.basis);
+    float v[KC_MAX_I], v2[KC_MAX_I];
+#pragma unroll
+    for (int o = 0; o < KC_MAX_I; ++o) {
+      v[o] = o < O ? __fmul_rn(B, p.c2[m * O + o]) : 0.0f;
+      v2[o] = o < O ? __fmul_rn(B2, p.c2[m2 * O + o]) : 0.0f;
+    }
+#pragma unroll
+    for (int o = 0; o < KC_MAX_I; ++o)
+      if (o < O) {
+        p2[m * O + o] = v[o];
+        p2[m2 * O + o] = v2[o];
+      }
+  }
+  __syncwarp();
+  // lane o adds the basis products, lane O + o the swish products (one
+  // code path, different lengths)
+  float sum = 0.0f;
+  if (lane < 2 * O)
+    sum = kf_sum_in_order(0.0f, p2 + (lane < O ? lane : HG * O + lane - O),
+                          lane < O ? HG : H, O);
+  const float aw = __shfl_down_sync(0xffffffffu, sum, O);
+  if (lane < O) kout[lane] = __fadd_rn(sum, aw);
 }

@@ -20,28 +20,38 @@
 //
 // What bounds it on this card: the serial chain of controller
 // iterations, each s-1 dependent chain evaluations (tsit5: 6) plus a
-// block-wide reduction. Bytes and flops are far below a microsecond at
-// the LV shapes (K = 1, widths 2-10-2, G = 5).
+// block-wide reduction, and within an evaluation the latency of its
+// transcendental functions and of its ordered sums. Bytes and flops are
+// far below a microsecond at the LV shapes (K = 1, widths 2-10-2, G = 5).
 //
 // What the design does about it: the whole solve is ONE launch (and the
 // adjoint one more), as on the TPU, with no host round trip per
 // iteration: the accepted-step count stays on the device and the backward
-// reads it there. One block; one thread per row keeps its state, FSAL
-// carry and stages in registers; parameters sit in shared memory. The
-// controller is block-uniform: each row writes its squared scaled errors
-// to shared memory, thread 0 sums them in index order and updates the
-// controller scalars in shared memory, and after a __syncthreads every
-// thread reads the same accept/save/done decisions, so every thread takes
-// the same branches and loop count (the early exit is a uniform break).
-// The backward (K4b) needs no block-wide decision: every warp of the block
-// rebuilds accepted steps from their records, several at a time, with
-// each stage's Jacobian; then a warp a row replays the row's steps in
-// reverse (kan_chain_warp.cuh: the steps do not depend on each other in
-// the rebuild, and a stage's VJP is then a few multiply-adds); it stores
-// its parameter-cotangent operands per (step, stage), and the thread
-// owning each parameter sums them in record order (bitwise repeatable,
-// no float atomics). One thread a row ran K4b at ~30k cycles a chain
-// evaluation (PERF.md, the K3b/K4b trace).
+// reads it there. The forward (K4f) runs a warp a row (rows in turn when
+// K exceeds the block's warps, ops/_cuda.adaptive_fwd_plan) and spreads
+// each chain evaluation over the warp's lanes (kf_chain_fwd,
+// kan_chain_warp.cuh): the basis functions of both layers run in
+// parallel lanes, and each sum keeps the one-thread order, so K4f's
+// results are the bits of the one-thread kernel it replaced, which took
+// ~30k cycles an evaluation (PERF.md, the K4f/K8b trace). Lane h keeps its
+// slices of the parameters in registers, the row's stage vectors sit in
+// the warp's shared memory, nothing is on the stack. What bounds it now:
+// an evaluation is a chain of dependent phases (basis functions, lane h's
+// ordered sum, layer 2's basis functions, lane o's ordered sum of H*G + H
+// products), ~4k cycles. The controller is block-uniform: each row writes
+// its squared scaled errors to shared memory, thread 0 sums them in index
+// order and updates the controller scalars in shared memory, and after a
+// __syncthreads every thread reads the same accept/save/done decisions,
+// so every thread takes the same branches and loop count (the early exit
+// is a uniform break). The backward (K4b) needs no block-wide decision:
+// every warp of the block rebuilds accepted steps from their records,
+// several at a time, with each stage's Jacobian; then a warp a row
+// replays the row's steps in reverse (kan_chain_warp.cuh: the steps do not
+// depend on each other in the rebuild, and a stage's VJP is then a few
+// multiply-adds); it stores its parameter-cotangent operands per (step,
+// stage), and the thread owning each parameter sums them in record order
+// (bitwise repeatable, no float atomics). One thread a row ran K4b at ~30k
+// cycles a chain evaluation (PERF.md, the K3b/K4b trace).
 //
 // Numbers: accept/reject is a threshold at err == 1, so a one-ulp change
 // can change the step sequence. The file is built with -fmad=false, so
@@ -49,8 +59,10 @@
 // the plain PyTorch version's does; the stage increments are formed on
 // the device as (dts * a_ij) * k_j in the JAX kernel's order, since dt
 // changes every iteration. expf/logf/sqrtf are the IEEE-mode library
-// functions (no fast-math). K4b's chain multiply-adds are explicit fmaf
-// (the flag leaves them alone); it decides nothing.
+// functions (no fast-math). K4f's chain (kf_chain_fwd) writes every
+// product and sum as __fmul_rn / __fadd_rn, which round the same under
+// any flag. K4b's chain multiply-adds are explicit fmaf (the flag leaves
+// them alone); it decides nothing.
 
 #include "kan_chain_warp.cuh"
 
@@ -70,82 +82,105 @@ __device__ float kc_block_sum(const float* red, int n) {
   return total;
 }
 
-// The stages of one step from the step input x with signed step dts and
-// the FSAL value k1: ks[0] = k1, xs[i] / y1s[i] the inputs and hidden
-// activations of the chain evaluation of stage i >= 1.
-__device__ inline void kc_adaptive_stages(const float* x, const float* k1,
-                                          float dts, const AdaptTab& T,
-                                          const ChainDims& d,
-                                          const ChainParams& p,
-                                          float xs[][KC_MAX_I],
-                                          float y1s[][KC_MAX_H],
-                                          float ks[][KC_MAX_I]) {
-  for (int q = 0; q < d.I; ++q) ks[0][q] = k1[q];
-  for (int i = 1; i < T.stages; ++i) {
-    for (int q = 0; q < d.I; ++q) xs[i][q] = x[q];
-    for (int j = 0; j < i; ++j) {
-      if (T.a[i][j] == 0.0f) continue;
-      const float c = dts * T.a[i][j];
-      for (int q = 0; q < d.I; ++q) xs[i][q] = xs[i][q] + c * ks[j][q];
-    }
-    kc_chain_fwd(xs[i], d, p, y1s[i], ks[i]);
-  }
+// Floats of K4f's dynamic shared memory: the parameters, the K*I squared
+// scaled errors, each row's state (x, k1, the step's result y and its
+// last stage) and each warp's workspace (the stage input, the S stage
+// values and kf_chain_fwd's).
+__host__ __device__ inline size_t kf_smem_floats(const ChainDims& d, int K,
+                                                 int stages, int warps) {
+  const int I = d.I;
+  return kc_param_floats(d) + (size_t)K * I + (size_t)K * 4 * I
+         + (size_t)warps * (I + stages * I + kf_chain_ws_floats(d));
 }
 
-__global__ void __launch_bounds__(KC_MAX_ADAPT_ROWS)
+// K4f: a warp a row (rows r = warp, warp + warps, ... in turn), each chain
+// evaluation spread over the warp's lanes by kf_chain_fwd; state component
+// q in lane q < I. The controller stays block-uniform: thread 0 sums the
+// squared scaled errors in index order and decides, every thread reads the
+// decisions after a __syncthreads.
+__global__ void __launch_bounds__(KW_LANES * KF_MAX_WARPS)
 adaptive_fwd_kernel(const float* x0, const float* ts, int T_save,
                     const float* c1, const float* w1, const float* c2,
                     const float* w2, float* ys, float* rx, float* rk1,
                     float* rdt, int* rsx, int* stats, int K, int max_steps,
                     ChainDims d, AdaptTab tab, AdaptCtrl c) {
   extern __shared__ float smem[];
-  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, smem);
-  float* red = smem + kc_param_floats(d);   // K*I squared scaled entries
+  __shared__ WarpConsts wc;
+  __shared__ float s_e[KC_MAX_STAGES];
+  __shared__ unsigned char s_l2h[KC_MAX_H * KC_MAX_G];
   __shared__ float s_t, s_dt, s_err_prev;
   __shared__ int s_sidx, s_done, s_nacc, s_nrej, s_nit;
   __shared__ int s_accept, s_saved, s_slot, s_row;
-
-  const int I = d.I, n = K * I, S = tab.stages;
-  const int r = threadIdx.x;
-  const bool row = r < K;
-  float x[KC_MAX_I], k1[KC_MAX_I], y1[KC_MAX_I];
-  float xs[KC_MAX_STAGES][KC_MAX_I], ks[KC_MAX_STAGES][KC_MAX_I];
-  float y1s[KC_MAX_STAGES][KC_MAX_H];
+  const int all[KC_MAX_STAGES] = {1, 1, 1, 1, 1, 1, 1};
+  kw_fill_consts(wc, d, tab.stages, tab.a, tab.b, all);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < KC_MAX_STAGES; ++i)
+      s_e[i] = i < tab.stages ? tab.e[i] : 0.0f;
+  }
+  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, smem);
+  const int I = d.I, n = K * I, S = tab.stages, IG = I * d.G;
+  for (int l = threadIdx.x; l < IG + I; l += blockDim.x) {
+    wc.term_x[l] = l < IG ? l / d.G : l - IG;
+    wc.term_c[l] = l < IG ? wc.grid[l % d.G] : 0.0f;
+  }
+  kf_fill_l2(s_l2h, d);
+  const int warp = threadIdx.x / KW_LANES, lane = threadIdx.x % KW_LANES;
+  const int warps = blockDim.x / KW_LANES;
+  float* red = smem + kc_param_floats(d);        // K*I squared scaled errors
+  float* rows = red + n;                          // [K][x | k1 | y | klast]
+  float* ws = rows + (size_t)K * 4 * I
+              + (size_t)warp * (I + S * I + kf_chain_ws_floats(d));
+  float* xs = ws;                                 // the stage input [I]
+  float* ks = xs + I;                             // stage values [S][I]
+  float* cw = ks + S * I;                         // kf_chain_fwd's
+  KfRegs rg;
+  kf_load_regs(rg, p, d, lane);
+  __syncthreads();
+  const bool mine = lane < I;                     // lane q: component q
   const float t0 = ts[0];
   const float tdir = ts[T_save - 1] >= t0 ? 1.0f : -1.0f;
-  if (row) {
-    for (int q = 0; q < I; ++q) {
-      x[q] = x0[(size_t)r * I + q];
-      ys[(size_t)r * I + q] = x[q];
+  for (int r = warp; r < K; r += warps) {
+    float* row = rows + (size_t)r * 4 * I;
+    if (mine) {
+      const float v = x0[(size_t)r * I + lane];
+      row[lane] = v;
+      ys[(size_t)r * I + lane] = v;
+      xs[lane] = v;
     }
-    kc_chain_fwd(x, d, p, y1s[0], k1);
+    __syncwarp();
+    kf_chain_fwd(xs, row + I, d, wc, s_l2h, p, rg, cw, lane);
+    __syncwarp();
   }
 
   float dt = c.dt0;
   if (!c.has_dt0) {
     // integrate.initial_dt, single-leaf form (_initial_dt_inkernel)
-    float sc[KC_MAX_I];
-    if (row)
-      for (int q = 0; q < I; ++q) {
-        sc[q] = c.atol + c.rtol * fabsf(x[q]);
-        const float v = x[q] / sc[q];
-        red[r * I + q] = v * v;
+    for (int r = warp; r < K; r += warps)
+      if (mine) {
+        const float x = rows[(size_t)r * 4 * I + lane];
+        const float v = x / (c.atol + c.rtol * fabsf(x));
+        red[r * I + lane] = v * v;
       }
     const float d0 = sqrtf(kc_block_sum(red, n) / (float)n);
-    if (row)
-      for (int q = 0; q < I; ++q) {
-        const float v = k1[q] / sc[q];
-        red[r * I + q] = v * v;
+    for (int r = warp; r < K; r += warps)
+      if (mine) {
+        const float* row = rows + (size_t)r * 4 * I;
+        const float v = row[I + lane] / (c.atol + c.rtol * fabsf(row[lane]));
+        red[r * I + lane] = v * v;
       }
     const float d1 = sqrtf(kc_block_sum(red, n) / (float)n);
     const float h0 = (d0 < 1e-5f || d1 < 1e-5f) ? 1e-6f : 0.01f * d0 / d1;
-    if (row) {
-      float xh[KC_MAX_I], f1[KC_MAX_I];
-      for (int q = 0; q < I; ++q) xh[q] = x[q] + (tdir * h0) * k1[q];
-      kc_chain_fwd(xh, d, p, y1s[0], f1);
-      for (int q = 0; q < I; ++q) {
-        const float v = (f1[q] - k1[q]) / sc[q];
-        red[r * I + q] = v * v;
+    for (int r = warp; r < K; r += warps) {
+      const float* row = rows + (size_t)r * 4 * I;
+      if (mine) xs[lane] = row[lane] + (tdir * h0) * row[I + lane];
+      __syncwarp();
+      kf_chain_fwd(xs, ks, d, wc, s_l2h, p, rg, cw, lane);
+      __syncwarp();
+      if (mine) {
+        const float v = (ks[lane] - row[I + lane])
+                        / (c.atol + c.rtol * fabsf(row[lane]));
+        red[r * I + lane] = v * v;
       }
     }
     const float d2 = sqrtf(kc_block_sum(red, n) / (float)n) / h0;
@@ -173,19 +208,46 @@ adaptive_fwd_kernel(const float* x0, const float* ts, int T_save,
     const bool hit = dtv >= remaining;
     const float dt_used = hit ? remaining : dtv;
     const float dts = tdir * dt_used;
-    if (row) {
-      kc_adaptive_stages(x, k1, dts, tab, d, p, xs, y1s, ks);
-      for (int q = 0; q < I; ++q) {
-        float acc = x[q], err = 0.0f;
-        for (int i = 0; i < S; ++i) {
-          if (tab.b[i] != 0.0f) acc = acc + (dts * tab.b[i]) * ks[i][q];
-          if (tab.e[i] != 0.0f) err = err + (dts * tab.e[i]) * ks[i][q];
+    for (int r = warp; r < K; r += warps) {
+      float* row = rows + (size_t)r * 4 * I;
+      const float xq = mine ? row[lane] : 0.0f;
+      if (mine) ks[lane] = row[I + lane];
+      for (int i = 1; i < S; ++i) {
+        if (mine) {
+          // the loads first (wc.a[i][j] is zero for j >= i; ks[j] past the
+          // stages lies in the warp's workspace and is never used)
+          float av[KC_MAX_STAGES - 1], kv[KC_MAX_STAGES - 1];
+#pragma unroll
+          for (int j = 0; j < KC_MAX_STAGES - 1; ++j) {
+            av[j] = wc.a[i][j];
+            kv[j] = ks[j * I + lane];
+          }
+          float v = xq;
+#pragma unroll
+          for (int j = 0; j < KC_MAX_STAGES - 1; ++j)
+            if (av[j] != 0.0f) v = v + (dts * av[j]) * kv[j];
+          xs[lane] = v;
         }
-        y1[q] = acc;
-        const float scale = c.atol + c.rtol * fmaxf(fabsf(x[q]), fabsf(acc));
-        const float v = err / scale;
-        red[r * I + q] = v * v;
+        __syncwarp();
+        kf_chain_fwd(xs, ks + i * I, d, wc, s_l2h, p, rg, cw, lane);
+        __syncwarp();
       }
+      if (mine) {
+        float acc = xq, err = 0.0f;
+#pragma unroll
+        for (int i = 0; i < KC_MAX_STAGES; ++i) {
+          if (i >= S) break;
+          const float ki = ks[i * I + lane];
+          if (wc.b[i] != 0.0f) acc = acc + (dts * wc.b[i]) * ki;
+          if (s_e[i] != 0.0f) err = err + (dts * s_e[i]) * ki;
+        }
+        row[2 * I + lane] = acc;
+        row[3 * I + lane] = ks[(S - 1) * I + lane];
+        const float scale = c.atol + c.rtol * fmaxf(fabsf(xq), fabsf(acc));
+        const float v = err / scale;
+        red[r * I + lane] = v * v;
+      }
+      __syncwarp();
     }
     const float sq = kc_block_sum(red, n);
     if (threadIdx.x == 0) {
@@ -215,27 +277,28 @@ adaptive_fwd_kernel(const float* x0, const float* ts, int T_save,
       s_nit += 1;
     }
     __syncthreads();
-    if (row) {
-      if (s_accept) {
-        const size_t off = ((size_t)s_slot * K + r) * I;
-        for (int q = 0; q < I; ++q) {
-          rx[off + q] = x[q];
-          rk1[off + q] = k1[q];
-          x[q] = y1[q];
-          k1[q] = ks[S - 1][q];             // FSAL: the last stage
+    if (mine) {
+      for (int r = warp; r < K; r += warps) {
+        float* row = rows + (size_t)r * 4 * I;
+        const float y = row[2 * I + lane];
+        if (s_accept) {
+          const size_t off = ((size_t)s_slot * K + r) * I + lane;
+          rx[off] = row[lane];
+          rk1[off] = row[I + lane];
+          row[lane] = y;
+          row[I + lane] = row[3 * I + lane];   // FSAL: the last stage
         }
+        if (s_saved) ys[((size_t)s_row * K + r) * I + lane] = y;
       }
-      if (s_saved)
-        for (int q = 0; q < I; ++q)
-          ys[((size_t)s_row * K + r) * I + q] = y1[q];
     }
   }
 
   // unreached save rows get the final state (integrate._fill_unreached)
   const int sidx_final = s_sidx;
-  if (row)
-    for (int i = sidx_final; i < T_save; ++i)
-      for (int q = 0; q < I; ++q) ys[((size_t)i * K + r) * I + q] = x[q];
+  if (mine)
+    for (int r = warp; r < K; r += warps)
+      for (int i = sidx_final; i < T_save; ++i)
+        ys[((size_t)i * K + r) * I + lane] = rows[(size_t)r * 4 * I + lane];
   if (threadIdx.x == 0) {
     stats[0] = s_nacc;
     stats[1] = s_nrej;
@@ -416,16 +479,24 @@ int kc_adaptive_fwd(const float* x0, const float* ts, int T_save,
                     const float* c1, const float* w1, const float* c2,
                     const float* w2, float* ys, float* rx, float* rk1,
                     float* rdt, int* rsx, int* stats, int K, int max_steps,
-                    const ChainDims* d, const AdaptTab* tab,
+                    int warps, const ChainDims* d, const AdaptTab* tab,
                     const AdaptCtrl* ctrl, void* stream) {
-  const size_t smem = (kc_param_floats(*d) + (size_t)K * d->I) * sizeof(float);
+  if (warps < 1 || warps > KF_MAX_WARPS || warps > K)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      kf_smem_floats(*d, K, tab->stages, warps) * sizeof(float);
   cudaError_t err = kc_smem_opt_in(adaptive_fwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const int threads = (K + 31) / 32 * 32;
-  adaptive_fwd_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
+  adaptive_fwd_kernel<<<1, warps * KW_LANES, smem, (cudaStream_t)stream>>>(
       x0, ts, T_save, c1, w1, c2, w2, ys, rx, rk1, rdt, rsx, stats, K,
       max_steps, *d, *tab, *ctrl);
   return (int)cudaGetLastError();
+}
+
+// K4f's dynamic shared memory for `warps` warps (the wrapper's
+// adaptive_fwd_plan computes the same).
+int kf_smem_bytes(const ChainDims* d, int K, int stages, int warps) {
+  return (int)(kf_smem_floats(*d, K, stages, warps) * sizeof(float));
 }
 
 int kc_adaptive_bwd(const float* x0, const float* c1, const float* w1,

@@ -2,25 +2,31 @@
 repository on one card, in turns.
 
     python -m kanodes_tpu_torch.experiments.compare_trees PARENT CHANGE \\
-        [--out=FILE] [--groups=gray_wide,lv]
+        [--out=FILE] [--groups=gray_wide,lv,members]
 
 PARENT and CHANGE are the roots of two checkouts (for example a `git
 archive` of the parent commit unpacked in a directory .gitignore lists).
 For each root, in the order parent, change, change, parent, one
 subprocess builds that root's kernels and times, with chip_smoke.py's
 helpers and inputs (CUDA-event ms, `cuda_ms`, and the profiler's device
-µs, `device_us`), the kernels of each group asked for (both by default):
+µs, `device_us`), the kernels of each group asked for (all by default):
   * gray_wide: K5f and K5b (tsit5, grid 10) at Fisher-KPP 1-D [1, 26],
     Allen-Cahn 1-D [1, 41] and the [32, 32] fields of 2-D Fisher-KPP and
     Allen-Cahn; K7b at the shooting groups (Schrödinger K = 7, 2-D
     Allen-Cahn K = 4, n = 40); K10 at K = 1, n = 40 and 20 (both);
   * lv: K3b at n = 34, K = 1 and K4b at T = 35, K = 1 (LV defaults, the
-    trainer's seeded init; `LV_ADJOINT_INPUTS`).
+    trainer's seeded init; `LV_ADJOINT_INPUTS`); K4f at T = 35, K = 1
+    on the same init, and a sha256 of K4f's ys, records (the accepted
+    steps') and stats on every `chip_smoke.ADAPTIVE_CASES` input, at K =
+    33 and 256 rows and on the two cap chains (`ADAPTIVE_INPUTS`);
+  * members: K8b on MEMBERS_CASES[0] (8 LV members [16, 80, 16] G = 5
+    at the init, the train grid) with K8f's records.
 Then, in the same turns (host times swing on a shared host), the group's
 profiles: `profile_source --ndim=2` for Fisher-KPP and Allen-Cahn and
 `profile_surrogate --solve_mode=shooting` for Schrödinger and 2-D
 Allen-Cahn (gray_wide); `profile_lv --impl=fused` in fixed and adaptive
-mode (lv). Prints one JSON line per run (and writes them to FILE), then
+mode (lv); `lv_members --profile=1`, the ensemble's iteration
+(members). Prints one JSON line per run (and writes them to FILE), then
 the card's name and power limit. Needs a CUDA device.
 """
 
@@ -64,6 +70,83 @@ def lv_adjoint_launches(torch, np, cs):
             lambda: ra._launch_bwd(ka, u0, fp, rec, gya), rec[4].tolist())
 '''
 
+# K4f at LV defaults (T = 35, K = 1, the trainer's seeded init), K4f's
+# ys, records and stats hashed on chip_smoke's K4 inputs, and K8b on
+# MEMBERS_CASES[0] (8 LV members at the init, the train grid: the main
+# path's solve) with K8f's records. Uses only what every checkout with
+# chip_smoke's cap chains (`cap_inputs`, `CAP_CHAINS`) has.
+ADAPTIVE_INPUTS = r'''
+def lv_adaptive_launch(torch, np, cs):
+    from kanodes_tpu_torch.experiments import lv
+    from kanodes_tpu_torch.ode.integrate import StepController
+    from kanodes_tpu_torch.ops import kdense_pallas as kp
+    from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
+    cfg = lv.LVConfig()
+    model = lv.init_params(cfg, lv.make_model(cfg, "cuda"))
+    spec = kp.chain_spec_of(model)
+    data = lv.make_data(cfg, "cuda")
+    fp = [p.detach().contiguous() for p in kp.fused_params(model)]
+    u0 = data["X"][:1].contiguous()
+    ts = data["ts"][:data["n_train"]].contiguous()
+    ka = ra._consts(spec, "tsit5", cfg.rtol, cfg.atol, StepController(),
+                    None)
+    return lambda: ra._launch_fwd(ka, cfg.max_steps, u0, ts, fp)
+
+
+def k4f_hashes(torch, np, cs):
+    import hashlib
+    from kanodes_tpu_torch.models.kdense import KANChain
+    from kanodes_tpu_torch.ode.integrate import StepController
+    from kanodes_tpu_torch.ops import kdense_pallas as kp
+    from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
+    lv_spec = kp.chain_spec_of(KANChain.mlp_like([2, 10, 2], grid_len=5))
+    grid = torch.arange(0, 36, dtype=torch.float32, device="cuda") * 0.1
+    cases = []
+    for case in cs.ADAPTIVE_CASES:
+        x0, params, ts = cs.adaptive_case_inputs(torch, case)
+        cases.append((case.label(), lv_spec, case.solver, case.rtol,
+                      case.atol, case.max_steps,
+                      StepController.pi() if case.pi else StepController(),
+                      case.dt0, x0, ts, params))
+    for K in (33, 256):
+        x0, params = cs.lv_inputs(np.random.default_rng(K), torch, K)
+        cases.append((f"K={K} rows, tsit5 rtol=0.001", lv_spec, "tsit5",
+                      1e-3, 1e-6, 256, StepController(), None, x0, grid,
+                      params))
+    for basis, norm in cs.CAP_CHAINS:
+        spec, x0, params = cs.cap_inputs(torch, basis, norm)
+        cases.append((f"cap [8,32,8] G=16 {basis}/{norm}", spec, "tsit5",
+                      1e-3, 1e-6, 256, StepController(), None, x0, grid,
+                      params))
+    out = {}
+    for label, spec, solver, rtol, atol, ms, ctrl, dt0, x0, ts, params \
+            in cases:
+        k = ra._consts(spec, solver, rtol, atol, ctrl, dt0)
+        ys, (rx, rk1, rdt, rsx, stats) = ra._launch_fwd(k, ms, x0, ts,
+                                                        params)
+        n = int(stats[0])
+        h = hashlib.sha256()
+        for t in (ys, rx[:n], rk1[:n], rdt[:n], rsx[:n], stats):
+            h.update(t.cpu().numpy().tobytes())
+        out[label] = {"stats": stats.tolist(), "sha256": h.hexdigest()[:16]}
+    return out
+
+
+def members_bwd_launch(torch, np, cs):
+    from kanodes_tpu_torch.ode.integrate import StepController
+    from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
+    case = cs.MEMBERS_CASES[0]
+    spec, x0, params, ts = cs.members_case_inputs(torch, case)
+    k = ra._consts(spec, case.solver, case.rtol, case.atol,
+                   StepController(), case.dt0)
+    ys, rec = ra._launch_members_fwd(k, case.S, case.max_steps, x0, ts,
+                                     params)
+    gys = torch.tensor(np.random.default_rng(0).standard_normal(
+        tuple(ys.shape)) / ts.shape[0], dtype=torch.float32, device="cuda")
+    return (lambda: ra._launch_members_bwd(k, case.S, x0, params, rec, gys),
+            rec[6].tolist())
+'''
+
 KERNELS = r'''
 import json, sys
 import numpy as np
@@ -74,7 +157,7 @@ from kanodes_tpu_torch.ops import graybox_fused as gb
 from kanodes_tpu_torch.ops import kdense_pallas as kp
 from kanodes_tpu_torch.ops import rk_fused_wide as tw
 from kanodes_tpu_torch.utils.precision import set_exact_f32
-''' + LV_ADJOINT_INPUTS + r'''
+''' + LV_ADJOINT_INPUTS + ADAPTIVE_INPUTS + r'''
 groups = sys.argv[1].split(",")
 set_exact_f32()
 out = {}
@@ -86,6 +169,15 @@ if "lv" in groups:
     out["K4b T=35 K=1"] = {"ms": cs.cuda_ms(torch, k4b, 20),
                            "us": cs.device_us(torch, k4b, reps=10),
                            "stats": stats}
+    k4f = lv_adaptive_launch(torch, np, cs)
+    out["K4f T=35 K=1"] = {"ms": cs.cuda_ms(torch, k4f, 20),
+                           "us": cs.device_us(torch, k4f, reps=10)}
+    out["K4f sha256"] = k4f_hashes(torch, np, cs)
+if "members" in groups:
+    k8b, n_it = members_bwd_launch(torch, np, cs)
+    out["K8b MEMBERS_CASES[0]"] = {"ms": cs.cuda_ms(torch, k8b, 20),
+                                   "us": cs.device_us(torch, k8b, reps=10),
+                                   "iterations": n_it}
 if "gray_wide" in groups:
     for i in (0, 1, 6, 7):
         case = cs.GRAYBOX_CASES[i]
@@ -128,6 +220,7 @@ PROFILES = {
     "lv": (
         ("profile_lv", ("--impl=fused", "--solve_mode=fixed")),
         ("profile_lv", ("--impl=fused", "--solve_mode=adaptive"))),
+    "members": (("lv_members", ("--profile=1",)),),
 }
 
 

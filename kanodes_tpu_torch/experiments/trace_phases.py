@@ -1,13 +1,14 @@
-"""Where K5b, K7b, K3b and K4b spend a launch, phase by phase, on the card.
+"""Where K5b, K7b, K3b, K4b, K4f and K8b spend a launch, phase by phase,
+on the card.
 
     python -m kanodes_tpu_torch.experiments.trace_phases \\
-        [--kernels=K5b/K7b,K3b/K4b] ROOT [ROOT ...]
+        [--kernels=K5b/K7b,K3b/K4b,K4f/K8b] ROOT [ROOT ...]
 
 For each ROOT (a checkout of this repository), copies its
 `kanodes_tpu_torch/` into a temporary directory, inserts `clock64()`
 stamps into the copy's sources at fixed places of the kernels' code,
 builds that copy and runs, with chip_smoke.py's inputs, each family
-asked for (both by default):
+asked for (all by default):
   * K5b/K7b (`csrc/graybox.cu`, `csrc/rk_fused_wide.cu`): K5b at
     Fisher-KPP 1-D [1, 26], Allen-Cahn 1-D [1, 41] and the two [32, 32]
     fields, and K7b at the shooting groups (Schrödinger K = 7, 2-D
@@ -15,22 +16,30 @@ asked for (both by default):
   * K3b/K4b (`csrc/rk_fused.cu`, `csrc/rk_adaptive.cu` and the chain
     routines of `csrc/kan_chain.cuh` / `kan_chain_warp.cuh`): K3b at n =
     34, K = 1 and K4b at T = 35, K = 1 (LV defaults, the trainer's seeded
-    init), tsit5 [2,10,2] G=5 (`compare_trees.LV_ADJOINT_INPUTS`).
+    init), tsit5 [2,10,2] G=5 (`compare_trees.LV_ADJOINT_INPUTS`);
+  * K4f/K8b (`csrc/rk_adaptive.cu`, `csrc/rk_adaptive_members.cu`, and
+    for the warp forward `csrc/kan_chain_warp.cuh`): K4f at T = 35, K = 1
+    (LV defaults, the trainer's seeded init) and K8b on
+    MEMBERS_CASES[0], the main path's solve (`compare_trees.
+    ADAPTIVE_INPUTS`); K8b's three kernels of the new design share one
+    line, thread 0 of block 0 of each.
 Thread 0 of block 0 adds the cycles between stamps into its phase's
 counter (so a phase inside a loop is thread 0's share of it, and a
 barrier's phase is its wait); one JSON line per kernel and case gives the
 cycles of each phase (SM clocks, one launch) and their total. Then, per
 ROOT, one line with the registers, stack frame and spill bytes that
-nvcc's `-Xptxas -v` reports for the family's backward kernels in ROOT's
-own (uninstrumented) build, and last the card's name, power limit and
+nvcc's `-Xptxas -v` reports for the family's kernels in ROOT's own
+(uninstrumented) build, and last the card's name, power limit and
 top SM clock. The stamps cost a few percent of a launch.
 
 Each family knows two designs by the code the stamps go into: the
 one-block K5b / K7b of the first port and the four-lane K5b and cluster
 K7b that replaced them; the one-thread-a-row K3b / K4b of the first port
-and the warp-a-row K3b / K4b that replaced them. A checkout whose
-kernels match neither design of a family raises. The instrumented copy
-is thrown away; nothing of ROOT changes. Needs nvcc and a CUDA device.
+and the warp-a-row K3b / K4b that replaced them; the one-thread K4f and
+one-block K8b of the first port and the warp-a-row K4f and three-phase
+K8b that replaced them. A checkout whose kernels match neither design of
+a family raises. The instrumented copy is thrown away; nothing of ROOT
+changes. Needs nvcc and a CUDA device.
 """
 
 from __future__ import annotations
@@ -44,7 +53,8 @@ import subprocess
 import sys
 import tempfile
 
-from kanodes_tpu_torch.experiments.compare_trees import LV_ADJOINT_INPUTS
+from kanodes_tpu_torch.experiments.compare_trees import (ADAPTIVE_INPUTS,
+                                                         LV_ADJOINT_INPUTS)
 
 GB_HEAD = """#include "kan_chain.cuh"
 
@@ -468,10 +478,275 @@ LV_ADJOINTS = {
         {"K3b": CHUNKED_PHASES, "K4b": CHUNKED_PHASES}),
 }
 
-FAMILIES = {"K5b/K7b": GRAY_WIDE, "K3b/K4b": LV_ADJOINTS}
+
+def stamp_head(sym: str, tag: str) -> str:
+    """File-scope counters for stamps from any function of one file, by
+    thread 0 of block 0: {tag}_START() zeroes them, {tag}(i) adds the
+    cycles since the last stamp to phase i plus the offset s_{tag}o (0
+    unless the file sets it, so that one routine's phases can be counted
+    apart per caller), {tag}_WRITE() copies them to the device array sym."""
+    return f"""
+__device__ unsigned long long {sym}[16];
+__shared__ unsigned long long s_{tag}[16];
+__shared__ long long s_{tag}t;
+__shared__ int s_{tag}o;
+#define {tag}_START() do {{ if (threadIdx.x == 0 && blockIdx.x == 0) {{ \\
+  for (int i_ = 0; i_ < 16; ++i_) s_{tag}[i_] = 0; \\
+  s_{tag}o = 0; s_{tag}t = clock64(); }} }} while (0)
+#define {tag}(i) do {{ if (threadIdx.x == 0 && blockIdx.x == 0) {{ \\
+  long long n_ = clock64(); s_{tag}[(i) + s_{tag}o] += n_ - s_{tag}t; \\
+  s_{tag}t = n_; }} }} while (0)
+#define {tag}_WRITE() do {{ if (threadIdx.x == 0 && blockIdx.x == 0) \\
+  for (int i_ = 0; i_ < 16; ++i_) {sym}[i_] = s_{tag}[i_]; }} while (0)
+"""
+
+
+K4F_PHASES = ["parameter staging", "initial dt and first f(x0)",
+              "stages: layer 1", "stages: layer 2",
+              "stage inputs and loop top", "solution and error sums",
+              "kc_block_sum, controller and barriers",
+              "record and save stores", "fill and stats"]
+K8B_PHASES = ["set-up and fill cotangent", "record loads",
+              "stage rebuild (mb_chain)", "kbar set-up",
+              "VJP: features and m2", "VJP: input cotangents", "VJP: m1",
+              "VJP: parameter accumulation", "carry", "outputs",
+              "final f(x0): rebuild, features and m2",
+              "final: input cotangents", "final: m1",
+              "final: parameter accumulation"]
+
+ADAPTIVE_FWD_MEMBERS_BWD = {
+    "one-thread K4f and one-block K8b": ({
+        "rk_adaptive.cu": [
+            ("namespace {\n\n// Sum of red[0..n)",
+             stamp_head("g_k4ftr", "F4") + "namespace {\n\n// Sum of "
+             "red[0..n)"),
+            ("    kc_chain_fwd(xs[i], d, p, y1s[i], ks[i]);\n  }\n}\n",
+             "    F4(4);\n"
+             "    kc_layer_fwd(xs[i], d.I, d.H, p.c1, p.w1, d, y1s[i]);\n"
+             "    F4(2);\n"
+             "    kc_layer_fwd(y1s[i], d.H, d.O, p.c2, p.w2, d, ks[i]);\n"
+             "    F4(3);\n  }\n}\n"),
+            ("  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, "
+             "smem);\n  float* red",
+             "  F4_START();\n"
+             "  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, "
+             "smem);\n  F4(0);\n  float* red"),
+            ("  if (threadIdx.x == 0) {\n    s_t = t0;",
+             "  F4(1);\n  if (threadIdx.x == 0) {\n    s_t = t0;"),
+            ("    const float sq = kc_block_sum(red, n);\n",
+             "    F4(5);\n    const float sq = kc_block_sum(red, n);\n"),
+            ("      s_nit += 1;\n    }\n    __syncthreads();\n",
+             "      s_nit += 1;\n    }\n    __syncthreads();\n    F4(6);\n"),
+            ("          ys[((size_t)s_row * K + r) * I + q] = y1[q];\n    }\n"
+             "  }\n",
+             "          ys[((size_t)s_row * K + r) * I + q] = y1[q];\n    }\n"
+             "    F4(7);\n  }\n"),
+            ("    stats[3] = sidx_final;\n  }\n}\n",
+             "    stats[3] = sidx_final;\n  }\n  F4(8);\n  F4_WRITE();\n}\n"),
+            ('extern "C" {\n', kc_read("k4f_trace_read", "g_k4ftr")),
+        ],
+        "rk_adaptive_members.cu": [
+            ("namespace {\n\nconstexpr int kThreads = 256;\n",
+             stamp_head("g_k8btr", "B8")
+             + "namespace {\n\nconstexpr int kThreads = 256;\n"),
+            ("  __syncthreads();\n  mb_input_cotangent(hid, K, H, d, m2, dy1);\n"
+             "  __syncthreads();\n",
+             "  __syncthreads();\n  B8(4);\n"
+             "  mb_input_cotangent(hid, K, H, d, m2, dy1);\n"
+             "  __syncthreads();\n  B8(5);\n"),
+            ("    m1[t] = acc;\n  }\n  __syncthreads();\n"
+             "  mb_input_cotangent(x, K, I, d, m1, dx);\n",
+             "    m1[t] = acc;\n  }\n  __syncthreads();\n  B8(6);\n"
+             "  mb_input_cotangent(x, K, I, d, m1, dx);\n  B8(5);\n"),
+            ("    grads[q] += acc;\n  }\n  __syncthreads();\n}\n",
+             "    grads[q] += acc;\n  }\n  __syncthreads();\n  B8(7);\n}\n"),
+            ("  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, "
+             "smem);\n  const MbBwd L",
+             "  B8_START();\n"
+             "  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, "
+             "smem);\n  const MbBwd L"),
+            ("    k1bar[t] = 0.0f;\n  }\n  __syncthreads();\n",
+             "    k1bar[t] = 0.0f;\n  }\n  __syncthreads();\n  B8(0);\n"),
+            ("      k[t] = rk1[off + t];\n    }\n    __syncthreads();\n",
+             "      k[t] = rk1[off + t];\n    }\n    __syncthreads();\n"
+             "    B8(1);\n"),
+            ("      mb_chain(xs + i * KI, hid + i * KH, k + i * KI, K, d, p, "
+             "feat1, part);\n    }\n",
+             "      mb_chain(xs + i * KI, hid + i * KH, k + i * KI, K, d, p, "
+             "feat1, part);\n    }\n    B8(2);\n"),
+            ("    have[st - 1] = true;\n    __syncthreads();\n",
+             "    have[st - 1] = true;\n    __syncthreads();\n    B8(3);\n"),
+            ("        if (tab.a[i][j] != 0.0f) have[j] = true;\n"
+             "      __syncthreads();\n    }\n",
+             "        if (tab.a[i][j] != 0.0f) have[j] = true;\n"
+             "      __syncthreads();\n      B8(8);\n    }\n"),
+            ("      xbar[t] = xnew[t];\n    }\n    __syncthreads();\n  }\n",
+             "      xbar[t] = xnew[t];\n    }\n    __syncthreads();\n"
+             "    B8(8);\n  }\n"),
+            ("  // the very first k1 was f(x0): one chain VJP at the inputs\n",
+             "  if (threadIdx.x == 0) s_B8o = 6;\n"
+             "  // the very first k1 was f(x0): one chain VJP at the inputs\n"),
+            ("    else dw2[q - n_c1 - n_w1 - n_c2] = grads[q];\n  }\n}\n",
+             "    else dw2[q - n_c1 - n_w1 - n_c2] = grads[q];\n  }\n"
+             "  if (threadIdx.x == 0) s_B8o = 0;\n  B8(9);\n  B8_WRITE();\n}\n"),
+            ('extern "C" {\n', kc_read("k8b_trace_read", "g_k8btr")),
+        ]},
+        {"K4f": K4F_PHASES, "K8b": K8B_PHASES}),
+}
+
+WARP_K4F_PHASES = ["parameters, constants and register slices",
+                   "first f(x0) and initial dt: the rest", "stage inputs",
+                   "chain: layer-1 terms",
+                   "chain: hidden sums and swish products (lane h)",
+                   "chain: layer-2 basis and products (lane h*G + g)",
+                   "chain: output sums (lanes o, O + o)",
+                   "solution and error sums",
+                   "kc_block_sum, controller and barriers",
+                   "record and save stores", "fill and stats",
+                   "first f(x0) and initial dt: layer-1 terms",
+                   "first f(x0) and initial dt: hidden sums",
+                   "first f(x0) and initial dt: layer-2 products",
+                   "first f(x0) and initial dt: output sums"]
+# one line for K8b's three kernels: thread 0 of block 0 of each (phase A's
+# block 0 rebuilds the first recorded iteration, phase C's sums for hidden
+# unit 0)
+PHASED_K8B_PHASES = ["A: parameters and record loads", "A: stage inputs",
+                     "A: stage rebuild (mb_chain)",
+                     "A: features and derivative factors", "A: A2 and A1",
+                     "A: J", "B: fill cotangent and first copy",
+                     "B: seeds and loads", "B: wait for the staged Jacobians",
+                     "B: stage VJPs", "B: carry", "B: final f(x0) and dx0",
+                     "C: dy1 of a chunk", "C: [dc1 ; dw1] sums", "C: stores"]
+K8B_READ = """extern "C" {
+
+void k8b_trace_read(unsigned long long* out) {
+  unsigned long long a[16], b[16], c[16];
+  cudaDeviceSynchronize();
+  cudaMemcpyFromSymbol(a, g_k8ta, sizeof(a));
+  cudaMemcpyFromSymbol(b, g_k8tb, sizeof(b));
+  cudaMemcpyFromSymbol(c, g_k8tc, sizeof(c));
+  for (int i = 0; i < 16; ++i)
+    out[i] = i < 6 ? a[i] : i < 12 ? b[i - 6] : i < 15 ? c[i - 12] : 0;
+}
+"""
+ADAPTIVE_FWD_MEMBERS_BWD["warp-a-row K4f and three-phase K8b"] = ({
+    "kan_chain_warp.cuh": [
+        ('#pragma once\n\n#include "kan_chain.cuh"\n',
+         '#pragma once\n\n#include "kan_chain.cuh"\n\n#ifdef KF_TRACE\n'
+         '#define KF_TR(i) F4(i)\n#else\n#define KF_TR(i) do { } while (0)\n'
+         '#endif\n'),
+        ("  }\n  __syncwarp();\n  if (lane < H) {\n    float ac = 0.0f;\n",
+         "  }\n  __syncwarp();\n  KF_TR(3);\n  if (lane < H) {\n"
+         "    float ac = 0.0f;\n"),
+        ("  __syncwarp();\n  // two terms a lane at a time",
+         "  __syncwarp();\n  KF_TR(4);\n  // two terms a lane at a time"),
+        ("  __syncwarp();\n  // lane o adds the basis products",
+         "  __syncwarp();\n  KF_TR(5);\n  // lane o adds the basis products"),
+        ("  if (lane < O) kout[lane] = __fadd_rn(sum, aw);\n}\n",
+         "  if (lane < O) kout[lane] = __fadd_rn(sum, aw);\n  KF_TR(6);\n}\n"),
+    ],
+    "rk_adaptive.cu": [
+        ('#include "kan_chain_warp.cuh"\n',
+         "#define KF_TRACE\n" + stamp_head("g_k4ftr", "F4")
+         + '#include "kan_chain_warp.cuh"\n'),
+        ("  const int all[KC_MAX_STAGES] = {1, 1, 1, 1, 1, 1, 1};\n"
+         "  kw_fill_consts(wc, ",
+         "  F4_START();\n"
+         "  const int all[KC_MAX_STAGES] = {1, 1, 1, 1, 1, 1, 1};\n"
+         "  kw_fill_consts(wc, "),
+        ("  kf_load_regs(rg, p, d, lane);\n  __syncthreads();\n",
+         "  kf_load_regs(rg, p, d, lane);\n  __syncthreads();\n  F4(0);\n"
+         "  if (threadIdx.x == 0) s_F4o = 8;\n"),
+        ("  if (threadIdx.x == 0) {\n    s_t = t0;",
+         "  if (threadIdx.x == 0) s_F4o = 0;\n  F4(1);\n"
+         "  if (threadIdx.x == 0) {\n    s_t = t0;"),
+        ("        __syncwarp();\n        kf_chain_fwd(xs, ks + i * I, ",
+         "        __syncwarp();\n        F4(2);\n"
+         "        kf_chain_fwd(xs, ks + i * I, "),
+        ("    const float sq = kc_block_sum(red, n);\n",
+         "    F4(7);\n    const float sq = kc_block_sum(red, n);\n"),
+        ("      s_nit += 1;\n    }\n    __syncthreads();\n",
+         "      s_nit += 1;\n    }\n    __syncthreads();\n    F4(8);\n"),
+        ("        if (s_saved) ys[((size_t)s_row * K + r) * I + lane] = y;\n"
+         "      }\n    }\n  }\n",
+         "        if (s_saved) ys[((size_t)s_row * K + r) * I + lane] = y;\n"
+         "      }\n    }\n    F4(9);\n  }\n"),
+        ("    stats[3] = sidx_final;\n  }\n}\n",
+         "    stats[3] = sidx_final;\n  }\n  F4(10);\n  F4_WRITE();\n}\n"),
+        ('extern "C" {\n', kc_read("k4f_trace_read", "g_k4ftr")),
+    ],
+    "rk_adaptive_members.cu": [
+        ("namespace {\n\nconstexpr int kThreads = 256;\n",
+         stamp_head("g_k8ta", "BA") + stamp_head("g_k8tb", "BB")
+         + stamp_head("g_k8tc", "BC")
+         + "namespace {\n\nconstexpr int kThreads = 256;\n"),
+        ("  if (b < max_steps && b >= nit[0]) return;\n"
+         "  extern __shared__ float smem[];\n",
+         "  if (b < max_steps && b >= nit[0]) return;\n"
+         "  extern __shared__ float smem[];\n  BA_START();\n"),
+        ("    k[t] = rk1[(size_t)b * KI + t];\n  }\n  __syncthreads();\n",
+         "    k[t] = rk1[(size_t)b * KI + t];\n  }\n  __syncthreads();\n"
+         "  BA(0);\n"),
+        ("    __syncthreads();\n"
+         "    mb_chain(xs, hid, k + i * KI, K, d, p, feat, part);\n",
+         "    __syncthreads();\n    BA(1);\n"
+         "    mb_chain(xs, hid, k + i * KI, K, d, p, feat, part);\n"
+         "    BA(2);\n"),
+        ("* slab, L, smem);\n  }\n}\n",
+         "* slab, L, smem);\n  }\n  BA_WRITE();\n}\n"),
+        ("  __syncthreads();\n  for (int r0 = 0; r0 < K; r0 += L.rc) {\n",
+         "  __syncthreads();\n  BA(3);\n"
+         "  for (int r0 = 0; r0 < K; r0 += L.rc) {\n"),
+        ("    __syncthreads();\n"
+         "    for (int t = threadIdx.x; t < RC * O * I; t += blockDim.x) {\n",
+         "    __syncthreads();\n    BA(4);\n"
+         "    for (int t = threadIdx.x; t < RC * O * I; t += blockDim.x) {\n"),
+        ("      rec[(size_t)(r0 + rr) * W + R.j + e] = acc;\n    }\n"
+         "    __syncthreads();\n",
+         "      rec[(size_t)(r0 + rr) * W + R.j + e] = acc;\n    }\n"
+         "    __syncthreads();\n    BA(5);\n"),
+        ("  __shared__ float s_a[KC_MAX_STAGES][KC_MAX_STAGES];\n",
+         "  __shared__ float s_a[KC_MAX_STAGES][KC_MAX_STAGES];\n"
+         "  BB_START();\n"),
+        ("    mb_cp_commit();\n    for (int it = n_it - 1; it >= 0; --it) {\n",
+         "    mb_cp_commit();\n    BB(0);\n"
+         "    for (int it = n_it - 1; it >= 0; --it) {\n"),
+        ("      mb_cp_wait<1>();\n      __syncwarp();\n",
+         "      BB(1);\n      mb_cp_wait<1>();\n      __syncwarp();\n"
+         "      BB(2);\n"),
+        ("          kb[j] = (have >> j) & 1u ? kb[j] + contrib : contrib;\n"
+         "          have |= 1u << j;\n        }\n      }\n",
+         "          kb[j] = (have >> j) & 1u ? kb[j] + contrib : contrib;\n"
+         "          have |= 1u << j;\n        }\n        BB(3);\n      }\n"),
+        ("      next_sx = nxt2_sx;\n      __syncwarp();",
+         "      next_sx = nxt2_sx;\n      BB(4);\n      __syncwarp();"),
+        ("      dx0[(size_t)r * I + lane] = (xbar + dxi) + gys[(size_t)r * I + "
+         "lane];\n    __syncwarp();\n  }\n}\n",
+         "      dx0[(size_t)r * I + lane] = (xbar + dxi) + gys[(size_t)r * I + "
+         "lane];\n    __syncwarp();\n    BB(5);\n  }\n  BB_WRITE();\n}\n"),
+        ("  __shared__ size_t s_off[kThreads];\n",
+         "  __shared__ size_t s_off[kThreads];\n  BC_START();\n"),
+        ("        s_off[tid] = off;\n      }\n      __syncthreads();\n",
+         "        s_off[tid] = off;\n      }\n      __syncthreads();\n"
+         "      BC(0);\n"),
+        ("            mb_kahan_add(acc[s], cmp[s], f[u][s] * dy);\n        }\n"
+         "      }\n      __syncthreads();\n",
+         "            mb_kahan_add(acc[s], cmp[s], f[u][s] * dy);\n        }\n"
+         "      }\n      __syncthreads();\n      BC(1);\n"),
+        ("      else if (j < J1) dw1[(j - IG) * H + h] = acc[s];\n    }\n"
+         "    return;\n",
+         "      else if (j < J1) dw1[(j - IG) * H + h] = acc[s];\n    }\n"
+         "    BC(2);\n    BC_WRITE();\n    return;\n"),
+        ('extern "C" {\n', K8B_READ),
+    ]},
+    {"K4f": WARP_K4F_PHASES, "K8b": PHASED_K8B_PHASES})
+
+FAMILIES = {"K5b/K7b": GRAY_WIDE, "K3b/K4b": LV_ADJOINTS,
+            "K4f/K8b": ADAPTIVE_FWD_MEMBERS_BWD}
 # family -> the kernels (parts of their names) whose ptxas usage is shown
 PTXAS_OF = {"K5b/K7b": ("gb_bwd_kernel", "wd_bwd_kernel"),
-            "K3b/K4b": ("rk_multistep_bwd_kernel", "adaptive_bwd_kernel")}
+            "K3b/K4b": ("rk_multistep_bwd_kernel", "adaptive_bwd_kernel"),
+            "K4f/K8b": ("adaptive_fwd_kernel", "members_bwd")}
 
 RUN = r"""
 import ctypes, json, sys
@@ -491,7 +766,7 @@ def read(fn):
     out = (ctypes.c_ulonglong * 16)()
     fn(out)
     return list(out)
-""" + LV_ADJOINT_INPUTS + """
+""" + LV_ADJOINT_INPUTS + ADAPTIVE_INPUTS + """
 def emit(kernel, case, cyc):
     cyc = cyc[:len(names[kernel])]
     print(json.dumps({"kernel": kernel, "case": case,
@@ -524,6 +799,18 @@ if "K3b" in names:
         k4b()
     emit("K4b", f"T=35 K=1 tsit5 LV defaults, seeded init, stats {stats}",
          read(lib.kc4_trace_read))
+if "K4f" in names:
+    k4f = lv_adaptive_launch(torch, np, cs)
+    for _ in range(3):
+        k4f()
+    emit("K4f", "T=35 K=1 tsit5 LV defaults, seeded init",
+         read(lib.k4f_trace_read))
+if "K8b" in names:
+    k8b, n_it = members_bwd_launch(torch, np, cs)
+    for _ in range(3):
+        k8b()
+    emit("K8b", f"MEMBERS_CASES[0]: 8 LV members [16,80,16] G=5 at the "
+         f"init, T=35, {n_it} iterations", read(lib.k8b_trace_read))
 """
 
 

@@ -52,6 +52,8 @@ MAX_KW_WARPS = 8
 WARP_ROW_FLOATS = (3 * MAX_STAGES * MAX_I + 2 * (MAX_I * MAX_G + MAX_I)
                    + MAX_I + MAX_I * MAX_H)
 MAX_KW_SMEM = 232448 - 4096
+# K4f (kan_chain_warp.cuh): KF_MAX_WARPS, a block's warps at most
+MAX_KF_WARPS = 16
 # K9 (kdense_single.cu): in_dims <= KD_MAX_I, out_dims <= KC_MAX_H
 MAX_SINGLE_I = 32
 # K5 (graybox.cu): GB_MAX_NODES, GB_MAX_N, GB_MAX_G, GB_MAX_STAGES
@@ -61,6 +63,9 @@ MAX_WIDE_I, MAX_WIDE_H, MAX_WIDE_G, MAX_WIDE_STAGES = 2048, 16, 16, 7
 # K8 (rk_adaptive_members.cu): MB_MAX_I, KC_MAX_G, KC_MAX_STAGES and the
 # dynamic shared memory a launch may take, MB_MAX_SMEM
 MAX_MB_I, MAX_MB_SMEM = 32, 232448 - 4096
+# K8b's phase B (rk_adaptive_members.cu): MB_SWEEP_MAX_WARPS, and the
+# threads of its other two launches (kThreads)
+MAX_MB_SWEEP_WARPS, MB_THREADS = 8, 256
 
 _NORMALIZERS = {"tanh": 0, "softsign": 1}
 _BASES = {"rbf": 0, "iqf": 1, "rswaf": 2}
@@ -140,8 +145,10 @@ _SIGNATURES = {
     # stream
     "kc_chain_apply_bwd": [_P] * 13 + [_I] + [_P] * 2,
     # x0, ts, T, c1, w1, c2, w2, ys, rx, rk1, rdt, rsx, stats, K,
-    # max_steps, dims, tab, ctrl, stream
-    "kc_adaptive_fwd": [_P] * 2 + [_I] + [_P] * 10 + [_I] * 2 + [_P] * 4,
+    # max_steps, warps, dims, tab, ctrl, stream
+    "kc_adaptive_fwd": [_P] * 2 + [_I] + [_P] * 10 + [_I] * 3 + [_P] * 4,
+    # dims, K, stages, warps
+    "kf_smem_bytes": [_P] + [_I] * 3,
     # x0, c1, w1, c2, w2, rx, rk1, rdt, rsx, stats, gys, T, dx0, dc1, dw1,
     # dc2, dw2, scratch, K, warps, chunk, dims, tab, stream
     "kc_adaptive_bwd": [_P] * 11 + [_I] + [_P] * 6 + [_I] * 3 + [_P] * 3,
@@ -167,8 +174,10 @@ _SIGNATURES = {
     # K, S, max_steps, dims, tab, ctrl, stream
     "mb_adaptive_fwd": [_P] * 2 + [_I] + [_P] * 12 + [_I] * 3 + [_P] * 4,
     # x0, c1, w1, c2, w2, rx, rk1, rdt, racc, rsx, mstats, nit, gys, T,
-    # dx0, dc1, dw1, dc2, dw2, K, S, dims, tab, stream
-    "mb_adaptive_bwd": [_P] * 13 + [_I] + [_P] * 5 + [_I] * 2 + [_P] * 3,
+    # dx0, dc1, dw1, dc2, dw2, scratch, K, S, max_steps, dims, tab, stream
+    "mb_adaptive_bwd": [_P] * 13 + [_I] + [_P] * 6 + [_I] * 3 + [_P] * 3,
+    # dims, K, stages, out [5]
+    "mb_bwd_plan": [_P] + [_I] * 2 + [_P],
     # dims, K, stages, backward
     "mb_smem_bytes": [_P] + [_I] * 3,
     # tab, which (0: K7f, 1: K10's chain, 2: K7b)
@@ -437,6 +446,75 @@ def warp_adjoint_plan(spec, K: int, slots: int, n_steps: int) -> AdjointPlan:
                          f"fit {MAX_KW_SMEM} bytes of shared memory")
     return AdjointPlan(32, warps, 32 * warps, row_warps, chunk,
                        4 * (fixed + chunk * per_step))
+
+
+class AdaptiveFwdPlan(NamedTuple):
+    """How K4f lays one block over K rows."""
+    warps: int          # warps of the block, a warp a row
+    rows_per_warp: int  # rows a warp takes in turn, at most
+    threads: int
+    smem_bytes: int     # dynamic shared memory
+
+
+def adaptive_fwd_plan(spec, K: int, stages: int) -> AdaptiveFwdPlan:
+    """The launch plan of K4f (csrc/rk_adaptive.cu) over K rows: a warp a
+    row, rows in turn; as few rows a warp as MAX_KF_WARPS warps allow,
+    then as few warps as carry that many rows each (K = 33: 3 rows a warp,
+    11 warps), and fewer warps where their workspaces do not fit
+    MAX_KW_SMEM beside the parameters, the K*I squared errors and each
+    row's state (`kf_smem_bytes` of the library computes the same)."""
+    I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
+    per_warp = I + stages * I + I * G + I + H + (H * G + H) * O
+    fixed = param_floats(spec) + K * I + 4 * K * I
+    fit = (MAX_KW_SMEM // 4 - fixed) // per_warp
+    if fit < 1:
+        raise ValueError(f"K4f: {K} rows do not fit {MAX_KW_SMEM} bytes of "
+                         f"shared memory")
+    rows = -(-K // min(K, MAX_KF_WARPS, fit))
+    warps = -(-K // rows)
+    return AdaptiveFwdPlan(warps, rows, 32 * warps,
+                           4 * (fixed + warps * per_warp))
+
+
+class MembersBwdPlan(NamedTuple):
+    """K8b's three launches (csrc/rk_adaptive_members.cu) and its scratch."""
+    rec_width: int      # floats of one (evaluation, row) record
+    slots: int          # evaluation slots: max_steps * (S-1) + the f(x0)
+    scratch_floats: int  # the records
+    rebuild_smem: int   # phase A's dynamic shared memory, bytes
+    sweep_warps: int    # phase B's warps (a warp a row)
+    sweep_smem: int     # phase B's dynamic shared memory, bytes
+    param_blocks: int   # phase C's blocks
+
+
+def members_bwd_plan(spec, K: int, stages: int,
+                     max_steps: int) -> MembersBwdPlan:
+    """K8b's plan for a packed chain [I -> H -> I] over K rows of at most
+    max_steps recorded iterations of an s-stage pair (`mb_bwd_plan` of the
+    library computes the same). Phase A: one block of MB_THREADS per
+    iteration and one for the first f(x0), K8f's buffers, A2 and A1 of as
+    many rows at a time as K8f's feature and partial-sum buffers hold (at
+    least one, at most G + 1) over those buffers, and the layers'
+    derivative factors in shared memory. Phase B: a warp a row, up to
+    MAX_MB_SWEEP_WARPS, each with two buffers of an iteration's
+    Jacobians. Phase C: a block per hidden unit and MB_THREADS entries of
+    [dc2 ; dw2] a block."""
+    I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
+    width = I * (G + 1) + H * (G + 1) + H * O + O * I + O
+    slots = max_steps * (stages - 1) + 1
+    KI, KH = K * I, K * H
+    feat = K * max(I, H) * (G + 1)
+    part = max(MB_THREADS, K * max(H, O))
+    rc = max(1, min(K, G + 1, (feat + part) // (H * (O + I))))
+    rebuild = (param_floats(spec) + (stages + 2) * KI + KH
+               + max(feat + part, rc * H * (O + I))
+               + (KI + KH) * G + 2 * (KI + KH))
+    per_warp = 2 * (stages - 1) * O * I
+    warps = max(1, min(K, MAX_MB_SWEEP_WARPS, (MAX_MB_SMEM // 4) // per_warp))
+    return MembersBwdPlan(
+        width, slots, slots * K * width,
+        4 * rebuild, warps, 4 * warps * per_warp,
+        H + -(-(H * (G + 1) * O) // MB_THREADS))
 
 
 def param_floats(spec) -> int:

@@ -34,8 +34,10 @@ memory, error norms over its own (K, d) block), the fused counterpart of
 `ode/integrate.odeint_members`. The forward (K8f) records every active
 iteration (x_in, k1, and per member the signed dt, accepted-and-
 unfinished, the save row or -1); the backward (K8b) replays them in
-reverse, rejected members passing their k1 cotangent through. The
-kernels are `csrc/rk_adaptive_members.cu`; the chain is evaluated dense
+reverse, rejected members passing their k1 cotangent through: every
+iteration rebuilt at once with its stage Jacobians, then the recursion a
+warp a row, then the parameter sums. The kernels are
+`csrc/rk_adaptive_members.cu`; the chain is evaluated dense
 over the packed width, so raw parameter cotangents are non-zero off the
 member blocks unless the parameters are masked (`packed.apply_mask`).
 Its plain versions are `fused_adaptive_members_odeint_reference` and
@@ -63,7 +65,8 @@ from kanodes_tpu_torch.ops.rk_fused import _check_launch, check_bwd_precision
 
 
 # kernel launches since the last reset_launch_counts(); each wrapper adds
-# one where it launches its kernel, and nowhere else
+# one where it launches its kernel, and nowhere else (K8b's one call of
+# three launches, phases A, B and C, counts one)
 LAUNCHES = {"fused_adaptive_odeint_fwd": 0, "fused_adaptive_odeint_bwd": 0,
             "fused_adaptive_members_odeint_fwd": 0,
             "fused_adaptive_members_odeint_bwd": 0}
@@ -364,14 +367,15 @@ def _launch_fwd(k: _Consts, max_steps: int, x0, ts, params):
     rsx = torch.empty(max_steps, dtype=torch.int32, device=dev)
     stats = torch.empty(4, dtype=torch.int32, device=dev)
     dims, tab, ctrl = k.structs()
+    plan = _cuda.adaptive_fwd_plan(k.spec, K, k.tab.stages)
     ptr = _cuda.ptr
     lib = _cuda.library()
     with torch.cuda.device(dev):
         err = lib.kc_adaptive_fwd(
             ptr(x0), ptr(ts), T, *map(ptr, params), ptr(ys), ptr(rx),
             ptr(rk1), ptr(rdt), ptr(rsx), ptr(stats), K, max_steps,
-            ctypes.byref(dims), ctypes.byref(tab), ctypes.byref(ctrl),
-            _cuda.stream())
+            plan.warps, ctypes.byref(dims), ctypes.byref(tab),
+            ctypes.byref(ctrl), _cuda.stream())
     LAUNCHES["fused_adaptive_odeint_fwd"] += 1
     _cuda.check(err, "fused_adaptive_odeint_fwd")
     return ys, (rx, rk1, rdt, rsx, stats)
@@ -773,6 +777,9 @@ def _launch_members_bwd(k: _Consts, S: int, x0, params, records, gys):
     _cuda.check_tensors(gys, rx, rk1, rdt)
     dx0 = torch.empty_like(x0)
     grads = [torch.empty_like(p) for p in params]
+    plan = _cuda.members_bwd_plan(k.spec, K, k.tab.stages, max_steps)
+    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                          device=x0.device)
     dims, tab, _ = k.structs()
     ptr = _cuda.ptr
     lib = _cuda.library()
@@ -780,8 +787,9 @@ def _launch_members_bwd(k: _Consts, S: int, x0, params, records, gys):
         err = lib.mb_adaptive_bwd(
             ptr(x0), *map(ptr, params), ptr(rx), ptr(rk1), ptr(rdt),
             ptr(racc), ptr(rsx), ptr(mstats), ptr(nit), ptr(gys),
-            gys.shape[0], ptr(dx0), *map(ptr, grads), K, S,
-            ctypes.byref(dims), ctypes.byref(tab), _cuda.stream())
+            gys.shape[0], ptr(dx0), *map(ptr, grads), ptr(scratch), K, S,
+            max_steps, ctypes.byref(dims), ctypes.byref(tab),
+            _cuda.stream())
     LAUNCHES["fused_adaptive_members_odeint_bwd"] += 1
     _cuda.check(err, "fused_adaptive_members_odeint_bwd")
     return (dx0, *grads)
@@ -831,8 +839,9 @@ def fused_adaptive_members_odeint(spec: ChainSpec, solver: str, rtol: float,
                                   ctrl: StepController, dt0: float | None,
                                   n_members: int, x0, ts, c1, w1, c2, w2,
                                   bwd_precision: str = "highest"):
-    """The per-member bounded adaptive solve as ONE kernel (+ ONE for
-    backward), the fused counterpart of `ode/integrate.odeint_members`.
+    """The per-member bounded adaptive solve as ONE kernel (+ one call of
+    three for backward), the fused counterpart of
+    `ode/integrate.odeint_members`.
 
     x0: [K, S*d] member-major packed batch (`models/packed.py`); ts: [T]
     float32 save times on x0's device. Each member runs its own

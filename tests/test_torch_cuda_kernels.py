@@ -685,17 +685,125 @@ def test_members_kernels_match_plain(card, index):
 
 
 def test_members_wrapper_rejects_unsupported_input(card):
-    """K8's caps: 8 LV members fit over 8 rows, not over 16 (the
-    backward's shared memory)."""
+    """K8's caps: 8 LV members fit over 28 rows, not over 29 (the
+    backward's phase A shared memory; the one-block backward it replaced
+    took 8)."""
     case = chip_smoke.MEMBERS_CASES[0]
     spec, _, params, ts = chip_smoke.members_case_inputs(torch, case)
     k = ra._consts(spec, "tsit5", 1e-3, 1e-6, StepController(), None)
-    ys, _ = ra._launch_members_fwd(k, 8, 8, torch.ones(8, 16, device=card),
+    ys, _ = ra._launch_members_fwd(k, 8, 8, torch.ones(28, 16, device=card),
                                    ts, params)
-    assert ys.shape == (35, 8, 16)
+    assert ys.shape == (35, 28, 16)
     with pytest.raises(ValueError, match="shared memory"):
-        ra._launch_members_fwd(k, 8, 8, torch.ones(16, 16, device=card), ts,
+        ra._launch_members_fwd(k, 8, 8, torch.ones(29, 16, device=card), ts,
                                params)
+
+
+def members_check(card, case, index):
+    """K8 on one MembersCase: the plain version's per-member stats, ys by
+    chip_smoke.f64_rule, and K8b on the kernel's records against the plain
+    backward and float64 by chip_smoke.graybox_rule, twice, bit for bit."""
+    spec, x0, params, ts = chip_smoke.members_case_inputs(torch, case)
+    ctrl = StepController.pi() if case.pi else StepController()
+    k = ra._consts(spec, case.solver, case.rtol, case.atol, ctrl, case.dt0)
+    ys, rec = ra._launch_members_fwd(k, case.S, case.max_steps, x0, ts,
+                                     params)
+    args = (spec, case.solver, case.rtol, case.atol, case.max_steps, ctrl,
+            case.dt0, case.S)
+    ys_ref, rec_ref = ra.fused_adaptive_members_odeint_reference(
+        *args, x0, ts, *params)
+    assert rec[5].tolist() == rec_ref[5].tolist()
+    assert rec[6].tolist() == rec_ref[6].tolist()
+    ys64, _ = ra.fused_adaptive_members_odeint_reference(
+        *args, x0.double(), ts.double(), *(p.double() for p in params))
+    failures = []
+    chip_smoke.f64_rule(failures, "ys", ys, ys_ref, ys64)
+    gys = torch.tensor(np.random.default_rng(index).standard_normal(
+        tuple(ys.shape)) / ts.shape[0], dtype=torch.float32, device=card)
+    got = ra._launch_members_bwd(k, case.S, x0, params, rec, gys)
+    again = ra._launch_members_bwd(k, case.S, x0, params, rec, gys)
+    want, want64 = chip_smoke.members_bwd_references(torch, ra, case, spec,
+                                                     x0, params, rec, gys)
+    for name, a, b, c, ref in zip(chip_smoke.MEMBERS_NAMES, got, again, want,
+                                  want64):
+        assert torch.equal(a, b), name
+        chip_smoke.graybox_rule(torch, failures, name, a, c, ref, GRAD)
+    assert not failures, failures
+
+
+@pytest.mark.parametrize("index", range(len(chip_smoke.MEMBERS_CAP_CASES)))
+def test_members_kernels_match_plain_at_the_caps(card, index):
+    """K8 at the caps check_members_caps admits: 8 LV members over the
+    most rows (28), and the widest packed chain of 16 2-state members
+    ([32, 112, 32]) over the most rows it admits (4); K8b's phase B then
+    takes several rows a warp, phase A several chunks of rows."""
+    members_check(card, chip_smoke.MEMBERS_CAP_CASES[index], 200 + index)
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_members_backward_repeats_bit_for_bit(card, K):
+    """K8b's three launches (every sum in a fixed order, no float atomics)
+    give the same bits twice, on the main path's solve and over 4 rows."""
+    case = chip_smoke.MEMBERS_CASES[0]._replace(K=K)
+    spec, x0, params, ts = chip_smoke.members_case_inputs(torch, case)
+    k = ra._consts(spec, "tsit5", 1e-3, 1e-6, StepController(), None)
+    ys, rec = ra._launch_members_fwd(k, 8, case.max_steps, x0, ts, params)
+    gys = torch.randn_like(ys)
+    a = ra._launch_members_bwd(k, 8, x0, params, rec, gys)
+    b = ra._launch_members_bwd(k, 8, x0, params, rec, gys)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("K", [1, 3, 33, 256])
+def test_adaptive_forward_matches_plain_over_rows(card, K):
+    """K4f, a warp a row and up to 16 rows a warp in turn, against the
+    plain forward on save-clipped steps (tsit5, the 0.1 grid to 3.5,
+    rtol 1e-3 / atol 1e-6): the same stats, ys by chip_smoke.f64_rule,
+    and the same bits on a second launch."""
+    spec = chain_spec_of(KANChain.mlp_like([2, 10, 2], grid_len=5))
+    x0, params = chip_smoke.lv_inputs(np.random.default_rng(K), torch, K)
+    ts = torch.arange(0, 36, dtype=torch.float32, device=card) * 0.1
+    k = ra._consts(spec, "tsit5", 1e-3, 1e-6, StepController(), None)
+    ys, rec = ra._launch_fwd(k, 256, x0, ts, params)
+    ys2, rec2 = ra._launch_fwd(k, 256, x0, ts, params)
+    n = int(rec[4][0])
+    assert torch.equal(ys, ys2)
+    for a, b in zip(rec, rec2):
+        assert torch.equal(a[:n] if a.dim() else a, b[:n] if b.dim() else b)
+    ys_ref, rec_ref = ra.fused_adaptive_odeint_reference(
+        spec, "tsit5", 1e-3, 1e-6, 256, StepController(), None, x0, ts,
+        *params)
+    assert rec[4].tolist() == rec_ref[4].tolist()
+    ys64, _ = ra.fused_adaptive_odeint_reference(
+        spec, "tsit5", 1e-3, 1e-6, 256, StepController(), None, x0.double(),
+        ts.double(), *(p.double() for p in params))
+    failures = []
+    chip_smoke.f64_rule(failures, "ys", ys, ys_ref, ys64)
+    assert not failures, failures
+
+
+@pytest.mark.parametrize("widths,grid_len", [((2, 10, 2), 5),
+                                             ((8, 32, 8), 16),
+                                             ((16, 80, 16), 5),
+                                             ((32, 112, 32), 5)])
+@pytest.mark.parametrize("K", [1, 3, 28, 256])
+def test_adaptive_plans_match_the_library(card, widths, grid_len, K):
+    """The host plans of K4f and K8b give the bytes, warps and blocks the
+    library's own layouts give."""
+    spec = chain_spec_of(KANChain.mlp_like(list(widths), grid_len=grid_len))
+    dims = ctypes.byref(_cuda.chain_dims(spec))
+    lib = _cuda.library()
+    if widths[0] <= 8 and widths[1] <= 32:
+        plan = _cuda.adaptive_fwd_plan(spec, K, 7)
+        assert lib.kf_smem_bytes(dims, K, 7, plan.warps) == plan.smem_bytes
+    mb = _cuda.members_bwd_plan(spec, K, 7, 70)
+    out = (ctypes.c_int * 5)()
+    lib.mb_bwd_plan(dims, K, 7, out)
+    assert tuple(out) == (mb.rec_width, mb.rebuild_smem, mb.sweep_warps,
+                          mb.sweep_smem, mb.param_blocks)
+    assert lib.mb_smem_bytes(dims, K, 7, 1) == max(mb.rebuild_smem,
+                                                   mb.sweep_smem)
 
 
 def test_members_run_on_card_launches_exactly(card):

@@ -120,8 +120,11 @@ def lv_inputs(rng, torch, K, scale=0.3, device="cuda"):
     return x, params
 
 
-# K3 cases (n steps, K rows) at LV width
-MULTISTEP_CASES = ((34, 1), (140, 1), (12, 3))
+# K3 cases (n steps, K rows) at LV width; K3f runs a warp a row, 16 a
+# block (`_cuda.multistep_fwd_plan`): one block full (16), two (17, 33,
+# 34) and many (300)
+MULTISTEP_CASES = ((34, 1), (140, 1), (12, 3), (34, 16), (34, 17), (34, 33),
+                   (34, 34), (34, 300))
 # The header's caps (kan_chain.cuh: I, O <= 8, H <= 32, G <= 16), where K3b
 # and K4b spread a row over every lane of a warp, at K = 3 rows; small
 # weights keep eight coupled states tame. One chain of each kind.
@@ -590,25 +593,27 @@ def finish_phase(line, failures):
 
 
 def check_multistep(torch, rk, spec, label, n, x0, params, gys, failures,
-                    max_err):
+                    max_err, dt=0.1):
     """K3f by the float64 rule and K3b against the plain backward and
-    autograd on one input (tsit5, dt 0.1); K3b launched twice must repeat
-    bit for bit. Returns K3f's detail."""
-    k = rk._consts(spec, "tsit5", 0.1)
+    autograd on one input (tsit5, step dt); K3f and K3b launched twice
+    must repeat bit for bit. Returns K3f's detail."""
+    k = rk._consts(spec, "tsit5", dt)
     ys = rk._launch_multistep_fwd(k, n, x0, params)
-    ys_ref = rk.fused_rk_multistep_reference(spec, "tsit5", 0.1, n, x0,
+    if not torch.equal(ys, rk._launch_multistep_fwd(k, n, x0, params)):
+        failures.append(f"K3f {label}: a second launch differs")
+    ys_ref = rk.fused_rk_multistep_reference(spec, "tsit5", dt, n, x0,
                                              *params)
     ys64 = rk.fused_rk_multistep_reference(
-        spec, "tsit5", 0.1, n, x0.double(), *(p.double() for p in params))
+        spec, "tsit5", dt, n, x0.double(), *(p.double() for p in params))
     detail = f64_rule(failures, f"K3f {label}", ys, ys_ref, ys64)
     max_err["fused_rk_multistep_fwd"] = max(
         max_err["fused_rk_multistep_fwd"], detail["max_abs_err"])
     g = rk._launch_multistep_bwd(k, n, x0, ys, params, gys)
-    g_ref = rk.fused_rk_multistep_bwd_reference(spec, "tsit5", 0.1, n, x0,
+    g_ref = rk.fused_rk_multistep_bwd_reference(spec, "tsit5", dt, n, x0,
                                                 ys, *params, gys)
     xs = [t.clone().requires_grad_() for t in (x0, *params)]
     g_auto = torch.autograd.grad(
-        rk.fused_rk_multistep_reference(spec, "tsit5", 0.1, n, *xs), xs, gys)
+        rk.fused_rk_multistep_reference(spec, "tsit5", dt, n, *xs), xs, gys)
     check_grads(failures, max_err, "fused_rk_multistep_bwd", f"K3b {label}",
                 g, g_ref, g_auto)
     again = rk._launch_multistep_bwd(k, n, x0, ys, params, gys)
@@ -780,6 +785,30 @@ def phase_adaptive_kernels(torch, ra, spec, rng, StepController, max_err):
                        f"max_steps=256 I saves=grid inputs=uniform(seed {K}, "
                        f"+-0.3)", "tsit5", 1e-3, 1e-6, 256, StepController(),
                        None, x0, ts, params, gys, max_err)
+
+
+def phase_trained_fixed(torch, kp, rk, spec, rng, finals, max_err):
+    """K3 vs its plain version on the parameters the fused fixed main-path
+    run ended with, at the shapes that run gives it: the train trajectory
+    (n_train - 1 steps, K = 1; K3f by the float64 rule, K3b against the
+    plain backward and autograd) and the eval's (every save time)."""
+    out = finals["fused/fixed"]
+    cfg, data = out["cfg"], out["data"]
+    params = [p.detach().contiguous() for p in kp.fused_params(out["model"])]
+    u0 = data["X"][:1].contiguous()
+    failures, detail = [], []
+    for name, T in (("train", data["n_train"]),
+                    ("eval", len(data["ts_host"]))):
+        n = (T - 1) * cfg.substeps
+        gys = torch.tensor(rng.standard_normal((n, 1, 2)) / n,
+                           dtype=torch.float32, device="cuda")
+        detail.append(check_multistep(
+            torch, rk, spec, f"trained params, {name}: n={n} K=1", n, u0,
+            params, gys, failures, max_err, dt=cfg.dt / cfg.substeps))
+    torch.cuda.synchronize()
+    finish_phase({"phase": "trained_fixed", "kernels": "K3",
+                  "fwd_tol": FWD_TOL, "grad_tol": GRAD_TOL,
+                  "multistep_fwd": detail}, failures)
 
 
 def phase_trained_adaptive(torch, kp, ra, spec, rng, StepController,
@@ -2073,6 +2102,7 @@ def main() -> int:
                    members_launches):
         for name in KERNELS:
             launches[name] += counts[name]
+    phase_trained_fixed(torch, kp, rk, spec, rng, finals, max_err)
     trained = phase_trained_adaptive(torch, kp, ra, spec, rng,
                                      StepController, finals, max_err)
     phase_trained_members(torch, ra, StepController, members_out, max_err)

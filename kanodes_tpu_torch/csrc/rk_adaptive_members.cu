@@ -39,23 +39,37 @@
 // What the design does about it: the whole solve is ONE launch and its
 // adjoint one call of three launches, with no host round trip per
 // iteration (the iteration count stays on the device). The forward (K8f)
-// is one block of 256 threads, the parameters (60 KB at S = 8, above the
-// 48 KB default: opted in) in shared memory. The packed state is too wide
-// for one thread a row, so the threads run over the packed width: the
-// basis values of a layer's inputs are computed once per evaluation into
-// shared memory, then each output (row, column) is a contraction over
-// [basis | swish] x [C ; W] split into chunks across threads and summed
-// chunk by chunk in a fixed order. Per-member controller state lives in shared memory,
-// member s's decisions made by thread s; every thread takes the same
-// branches, so barriers and the early exit are block-uniform.
+// is one block of MB_FWD_WARPS warps, the parameters (60 KB at S = 8,
+// above the 48 KB default: opted in) in shared memory, each output's
+// column of [C ; W] stored as a row. The packed state is too wide for one
+// thread a row, so the threads run over the packed width: each output
+// (row, column) is a contraction over [basis | swish] x [C ; W] cut into
+// the chunks of the one-block forward K8f was (256 threads, mb_matvec),
+// each chunk added in order, the chunks added in order. That forward
+// spent ~12k cycles an evaluation: features with run-time divisions,
+// chunk sums whose loads waited one by one, six barriers (PERF.md, the
+// K3f/K8f trace). Now an output's chunks sit in one group of lanes of one
+// warp (mb_split), so adding them needs no block barrier; that group then
+// forms the next layer's features of the output's value: layer 2's from a
+// hidden value, or the next stage's input and its layer-1 features from a
+// stage value. An evaluation is two such warp-local phases and two
+// barriers. Features and the columns of M are stored chunk by chunk with
+// a skew that puts a group's lanes on distinct banks; where each warp has
+// one warp-load, a lane keeps its chunk of M in registers for the whole
+// solve. Every product and sum, and the stage, error and controller
+// arithmetic, is the one-block forward's, so K8f returns its bits.
+// Per-member controller state lives in shared memory, member s's
+// decisions made by thread s, which sets up the next iteration at once;
+// every thread takes the same branches, so barriers and the early exit
+// are block-uniform.
 //
 // The backward (K8b) ran in that one block too, each iteration's six
 // rebuilds and six VJPs in turn, half of its time adding every VJP's
 // parameter cotangents (PERF.md, the K4f/K8b trace). A recorded
 // iteration's rebuild needs nothing of another iteration, so it runs in
 // three phases: A, a block per recorded iteration (and one for the first
-// f(x0)) rebuilds the stages from K8f's records with K8f's own chain
-// routine (so they round as K8f's did) and stores per chain evaluation and
+// f(x0)) rebuilds the stages from K8f's records with the one-block chain
+// routine mb_chain (whose bits K8f keeps) and stores per chain evaluation and
 // row the layers' input features, A2 = dk/dy1 and the Jacobian J = dk/dx;
 // B, one block, a warp a row, runs the reverse recursion with a stage's
 // VJP as dx = J^T kbar (the Jacobians of the next iteration copied into
@@ -75,6 +89,9 @@
 #define MB_MAX_I 32              // packed state width, so members S <= 32
 #define MB_MAX_MEMBERS MB_MAX_I
 #define MB_LANES 32
+// the threads of the one-block K8f, whose chunk boundaries K8f keeps;
+// K8b's phase A runs kThreads = as many, so its mb_matvec cuts the same
+#define MB_CHUNK_THREADS 256
 // dynamic shared memory a block may take: the H100's 227 KB less 4 KB
 // for the kernels' static per-member arrays
 #define MB_MAX_SMEM (232448 - 4096)
@@ -95,26 +112,85 @@ __host__ __device__ inline int mb_part_floats(const ChainDims& d, int K) {
   return mb_max(kThreads, K * mb_max(d.H, d.O));
 }
 
-// Shared-memory layout of the forward (offsets in floats, after the
-// staged parameters c1 | w1 | c2 | w2).
+// K8f runs MB_FWD_WARPS warps; the chunk boundaries of its output sums
+// are those of the one-block forward it replaced, which ran
+// MB_CHUNK_THREADS threads (mb_matvec at that blockDim.x, as K8b's phase A
+// still runs it).
+#define MB_FWD_WARPS 8
+#define MB_REG 32     // chunk terms of M a lane keeps in registers
+
+// How K8f splits one layer's output sums out [K, N] = feat [K, J] x M [J,
+// N]: each sum in P chunks, P = MB_CHUNK_THREADS / (K N) clamped to [1,
+// J], of `chunk` = ceil(J / P) terms, added in order (mb_matvec's
+// boundaries); an output's chunks in one warp, in a group of lp = min(P,
+// 32) lanes, lane c0 taking chunks c0, c0 + lp, ...; opw = 32 / lp groups
+// a warp-load, `slots` warp-loads in all. A row of features, and the
+// column of M of one output, is stored chunk by chunk with sk floats after
+// each chunk (sk makes chunk + sk odd), row stride rs: the lanes of a group
+// then read distinct banks (a chunk of 32 terms put them all in one bank
+// otherwise); without the skew (sk = 0) the row is the plain one, rs = J.
+struct MbSplit {
+  int J, N, KN, P, chunk, lp, opw, slots, sk, rs;
+  unsigned mg;  // ceil(2^32 / chunk) (chunk >= 2): j / chunk as a product
+};
+
+__host__ __device__ inline MbSplit mb_split(int K, int J, int N, bool skew) {
+  MbSplit s;
+  s.J = J;
+  s.N = N;
+  s.KN = K * N;
+  const int P = MB_CHUNK_THREADS / s.KN;
+  s.P = P < 1 ? 1 : (P > J ? J : P);
+  s.chunk = (J + s.P - 1) / s.P;
+  s.lp = s.P < MB_LANES ? s.P : MB_LANES;
+  s.opw = MB_LANES / s.lp;
+  s.slots = (s.KN + s.opw - 1) / s.opw;
+  s.sk = skew ? (s.chunk % 2 == 0 ? 1 : 2) : 0;
+  s.rs = skew ? s.P * (s.chunk + s.sk) : J;
+  s.mg = s.chunk > 1 ? 0xFFFFFFFFu / (unsigned)s.chunk + 1u : 0u;
+  return s;
+}
+
+// where column j of a row sits in the chunked layout (j / chunk as the
+// high word of j * mg, exact while j * chunk < 2^32)
+__device__ __forceinline__ int mb_col(const MbSplit& s, int j) {
+  if (!s.sk) return j;
+  const int c = s.chunk > 1 ? (int)__umulhi((unsigned)j, s.mg) : j;
+  return j + c * s.sk;
+}
+
+// Shared-memory layout of K8f (offsets in floats): the parameters as
+// [c1 ; w1]^T [H][rs1] and [c2 ; w2]^T [O][rs2] (each output's column of
+// M as a chunked row), the state, the stage values, the step's result,
+// the squared scaled errors, both layers' features [K][rs] and the chunk
+// partials.
 struct MbFwd {
-  int x, k, xs, y1, red, hid, feat, part, floats;
+  int m1, m2, x, k, y1, red, feat1, feat2, part, floats;
 };
 
 __host__ __device__ inline MbFwd mb_fwd_layout(const ChainDims& d, int K,
-                                               int stages) {
-  const int KI = K * d.I;
+                                               int stages, bool skew) {
+  const int KI = K * d.I, J1 = d.I * (d.G + 1), J2 = d.H * (d.G + 1);
+  const MbSplit s1 = mb_split(K, J1, d.H, skew);
+  const MbSplit s2 = mb_split(K, J2, d.O, skew);
   MbFwd L;
-  L.x = kc_param_floats(d);
+  L.m1 = 0;
+  L.m2 = L.m1 + d.H * s1.rs;
+  L.x = L.m2 + d.O * s2.rs;
   L.k = L.x + KI;              // stage derivatives; k[0] is the FSAL k1
-  L.xs = L.k + stages * KI;    // the stage input being evaluated
-  L.y1 = L.xs + KI;            // the step's result
+  L.y1 = L.k + stages * KI;    // the step's result
   L.red = L.y1 + KI;           // squared scaled errors
-  L.hid = L.red + KI;          // layer 1's output
-  L.feat = L.hid + K * d.H;
-  L.part = L.feat + mb_feat_floats(d, K);
-  L.floats = L.part + mb_part_floats(d, K);
+  L.feat1 = L.red + KI;        // [K][rs1]
+  L.feat2 = L.feat1 + K * s1.rs;
+  L.part = L.feat2 + K * s2.rs;
+  L.floats = L.part + mb_max(s1.KN * s1.P, s2.KN * s2.P);
   return L;
+}
+
+// K8f skews its rows where that layout fits MB_MAX_SMEM.
+__host__ __device__ inline bool mb_fwd_skew(const ChainDims& d, int K,
+                                            int stages) {
+  return mb_fwd_layout(d, K, stages, true).floats * 4 <= MB_MAX_SMEM;
 }
 
 // K8b's record of one (chain evaluation, row), offsets in floats: the
@@ -137,9 +213,10 @@ __host__ __device__ inline MbRec mb_rec_layout(const ChainDims& d) {
   return r;
 }
 
-// Shared-memory layout of phase A (after the staged parameters): K8f's
-// buffers, A2 [rc, H, O] and A1 [rc, H, I] of a chunk of rc rows over
-// K8f's feature and partial-sum buffers (free once the chain is
+// Shared-memory layout of phase A (after the staged parameters): the
+// one-block chain's buffers (mb_chain: stage vectors, hidden values,
+// features, partial sums), A2 [rc, H, O] and A1 [rc, H, I] of a chunk of
+// rc rows over the feature and partial-sum buffers (free once the chain is
 // evaluated; the region grows past them only for a chunk of one row, by
 // less than the parameters' floats, so phase A never takes more than the
 // one-block backward it replaced), then the derivative factors of the two
@@ -194,6 +271,9 @@ __host__ __device__ inline int mb_sweep_warps(const ChainDims& d, int K,
   return w < 1 ? 1 : w;
 }
 
+// The one-block chain of K8b's phase A, whose bits K8f keeps: mb_features,
+// mb_matvec (at blockDim.x = MB_CHUNK_THREADS), mb_chain.
+//
 // feat [K, n_in*(G+1)]: the basis of each input (column i*G+g) and its
 // swish (column n_in*G+i), the rows of [C ; W] they multiply.
 __device__ void mb_features(const float* xin, int K, int n_in,
@@ -346,23 +426,201 @@ __device__ inline float mb_factor(const AdaptCtrl& c, float err_nrm,
   return fminf(fmaxf(fac, c.min_factor), c.max_factor);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// v[0] * m[0] + v[1] * m[1] + ... over n terms, added to 0 in that order
+// (mul, then add: the file is built with -fmad=false), as mb_matvec adds
+// a chunk; the loads go ahead of the arithmetic eight at a time
+__device__ __forceinline__ float mb_dot_in_order(const float* v,
+                                                 const float* m, int n) {
+  float acc = 0.0f;
+  int j = 0;
+  for (; j + 8 <= n; j += 8) {
+    float a[8], b[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      a[u] = v[j + u];
+      b[u] = m[j + u];
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc += a[u] * b[u];
+  }
+  for (; j < n; ++j) acc += v[j] * m[j];
+  return acc;
+}
+
+// p[0] + p[1] + ... + p[n-1], added in that order, the loads eight ahead
+__device__ __forceinline__ float mb_sum_in_order(const float* p, int n) {
+  float acc = p[0];
+  int c = 1;
+  for (; c + 8 <= n; c += 8) {
+    float a[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) a[u] = p[c + u];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc += a[u];
+  }
+  for (; c < n; ++c) acc += p[c];
+  return acc;
+}
+
+// Features q = c0, c0 + step, ... <= G of the value v of unit u of a
+// layer with n_in inputs, into its chunked row of features f (split s):
+// the basis (column u*G + q, q < G) and the swish (column n_in*G + u), as
+// mb_features forms them.
+__device__ __forceinline__ void mb_unit_features(float v, int u, int n_in,
+                                                 int c0, int step,
+                                                 const ChainDims& d,
+                                                 const float* grid,
+                                                 const MbSplit& s, float* f) {
+  const float xn = kc_norm(v, d.normalizer);
+  for (int q = c0; q <= d.G; q += step) {
+    if (q < d.G)
+      f[mb_col(s, u * d.G + q)] = kc_basis((xn - grid[q]) * d.inv_h, d.basis);
+    else
+      f[mb_col(s, n_in * d.G + u)] = kc_swish(v);
+  }
+}
+
+// x + (dts a[0]) k[0] + ... + (dts a[ns-1]) k[ns-1] over the nonzero
+// a[j] (a row of s_a), added in that order as the one-block K8f formed a
+// stage input, with k[j] = ks[j * KI] for j < ns - 1 and k[ns - 1] = kl;
+// the loads go first
+__device__ __forceinline__ float mb_stage_input(float x, float dts,
+                                                const float* a, int ns,
+                                                const float* ks, int KI,
+                                                float kl) {
+  float av[KC_MAX_STAGES - 1], kv[KC_MAX_STAGES - 1];
+#pragma unroll
+  for (int j = 0; j < KC_MAX_STAGES - 1; ++j) {
+    av[j] = j < ns ? a[j] : 0.0f;
+    kv[j] = j == ns - 1 ? kl : ks[j * KI];
+  }
+#pragma unroll
+  for (int j = 0; j < KC_MAX_STAGES - 1; ++j)
+    if (av[j] != 0.0f) x = x + (dts * av[j]) * kv[j];
+  return x;
+}
+
+// Whether each warp has one warp-load of split s at most and each lane
+// one chunk of at most MB_REG terms: the lanes then keep their chunk of M
+// in registers for the whole solve (mb_slice).
+__device__ __forceinline__ bool mb_in_registers(const MbSplit& s,
+                                                int warps) {
+  return s.slots <= warps && s.P <= MB_LANES && s.chunk <= MB_REG;
+}
+
+// Lane (g, c0)'s chunk of M^T (Mt [N][s.rs]) for its warp's warp-load,
+// zero past the chunk, where mb_in_registers holds (else untouched).
+__device__ __forceinline__ void mb_slice(const MbSplit& s, const float* Mt,
+                                         bool reg, int warp, int g, int c0,
+                                         float (&mr)[MB_REG]) {
+  const int o = warp * s.opw + g;
+  const bool act = reg && g < s.opw && o < s.KN;
+  const int n = act ? o % s.N : 0;
+  const int len = act ? min(s.chunk, s.J - c0 * s.chunk) : 0;
+  const float* m = Mt + (size_t)n * s.rs + c0 * (s.chunk + s.sk);
+#pragma unroll
+  for (int u = 0; u < MB_REG; ++u) mr[u] = u < len ? m[u] : 0.0f;
+}
+
+// One layer's output sums by the split s (feat [K][s.rs], Mt [N][s.rs], or
+// the lane's chunk of M in registers mr where reg): each lane adds its
+// chunks, the group's first lane adds the chunks in order, and every lane
+// of the group then runs tail(r, n, value, c0) for output (r, n).
+// Warp-synchronous: no block barrier inside; (g, c0) is the lane's group
+// and place in it.
+template <typename Tail>
+__device__ inline void mb_layer(const MbSplit& s, const float* feat,
+                                const float* Mt, bool reg,
+                                const float (&mr)[MB_REG], float* part,
+                                int warp, int warps, int lane, int g, int c0,
+                                Tail tail) {
+  for (int sl = warp; sl < s.slots; sl += warps) {
+    const int o = sl * s.opw + g;
+    const bool act = g < s.opw && o < s.KN;
+    int r = 0, n = o;
+    if (act && s.KN != s.N) {
+      r = o / s.N;
+      n = o - r * s.N;
+    }
+    if (act && reg) {
+      // the warp's one warp-load, the lane's one chunk (c0)
+      const int len = min(s.chunk, s.J - c0 * s.chunk);
+      const float* f = feat + (size_t)r * s.rs + c0 * (s.chunk + s.sk);
+      // every term past the chunk is 0 * 0: adding +0 to a sum begun at
+      // +0 changes no bit, and no load leaves the chunk
+      float fv[MB_REG];
+#pragma unroll
+      for (int u = 0; u < MB_REG; ++u) fv[u] = u < len ? f[u] : 0.0f;
+      float acc = 0.0f;
+#pragma unroll
+      for (int u = 0; u < MB_REG; ++u) acc += fv[u] * mr[u];
+      part[o * s.P + c0] = acc;
+    } else if (act) {
+      const float* f = feat + (size_t)r * s.rs;
+      const float* m = Mt + (size_t)n * s.rs;
+      for (int c = c0; c < s.P; c += s.lp) {
+        const int len = min(s.chunk, s.J - c * s.chunk);
+        const int off = c * (s.chunk + s.sk);
+        part[o * s.P + c] = len > 0 ? mb_dot_in_order(f + off, m + off, len)
+                                    : 0.0f;
+      }
+    }
+    __syncwarp();
+    float v = 0.0f;
+    if (act && c0 == 0) v = mb_sum_in_order(part + o * s.P, s.P);
+    v = __shfl_sync(0xffffffffu, v, lane - c0);
+    if (act) tail(r, n, v, c0);
+    __syncwarp();
+  }
+}
+
+// Member s's controller set-up for the iteration ahead: the save row, the
+// step and whether it hits the save time; its signed step also into
+// s_dtc[q] for each of its dm state components q.
+__device__ inline void mb_setup(int s, int dm, const float* ts, int T_save,
+                                float tdir, const float* s_t,
+                                const float* s_dt, const int* s_sidx,
+                                int* s_row, float* s_tsave, int* s_hit,
+                                float* s_dtu, float* s_dts, float* s_dtc) {
+  const int row = min(s_sidx[s], T_save - 1);
+  const float t_save = ts[row];
+  const float remaining = (t_save - s_t[s]) * tdir;
+  const bool hit = s_dt[s] >= remaining;
+  const float dt_used = hit ? remaining : s_dt[s];
+  s_row[s] = row;
+  s_tsave[s] = t_save;
+  s_hit[s] = hit;
+  s_dtu[s] = dt_used;
+  s_dts[s] = tdir * dt_used;
+  for (int q = s * dm; q < (s + 1) * dm; ++q) s_dtc[q] = s_dts[s];
+}
+
+// K8f: MB_FWD_WARPS warps, one block. An evaluation is two warp-local
+// phases, each ending in the block's barrier: layer 1's sums (each
+// output's chunks in one warp, mb_split), whose groups then form layer 2's
+// features of their hidden value; layer 2's sums, whose groups then form
+// the next stage's input and its layer-1 features (or, after the last
+// stage, the step's result and error terms). Member s's controller in
+// thread s, which also sets up the next iteration right after deciding.
+__global__ void __launch_bounds__(MB_FWD_WARPS * MB_LANES)
 members_fwd_kernel(const float* x0, const float* ts, int T_save,
                    const float* c1, const float* w1, const float* c2,
                    const float* w2, float* ys, float* rx, float* rk1,
                    float* rdt, int* racc, int* rsx, int* mstats, int* nit,
-                   int K, int S, int max_steps, ChainDims d, AdaptTab tab,
-                   AdaptCtrl c) {
+                   int K, int S, int max_steps, int skew, ChainDims d,
+                   AdaptTab tab, AdaptCtrl c) {
   extern __shared__ float smem[];
-  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, smem);
-  const MbFwd L = mb_fwd_layout(d, K, tab.stages);
+  const int I = d.I, H = d.H, G = d.G, KI = K * I, dm = I / S;
+  const int st = tab.stages, J1 = I * (G + 1), J2 = H * (G + 1);
+  const MbFwd L = mb_fwd_layout(d, K, st, skew);
+  float* m1 = smem + L.m1;
+  float* m2 = smem + L.m2;
   float* x = smem + L.x;
   float* k = smem + L.k;
-  float* xs = smem + L.xs;
   float* y1 = smem + L.y1;
   float* red = smem + L.red;
-  float* hid = smem + L.hid;
-  float* feat = smem + L.feat;
+  float* feat1 = smem + L.feat1;
+  float* feat2 = smem + L.feat2;
   float* part = smem + L.part;
   // per-member controller state, member s's entries written by thread s
   __shared__ float s_t[MB_MAX_MEMBERS], s_dt[MB_MAX_MEMBERS];
@@ -373,54 +631,146 @@ members_fwd_kernel(const float* x0, const float* ts, int T_save,
   __shared__ int s_nacc[MB_MAX_MEMBERS], s_nrej[MB_MAX_MEMBERS];
   __shared__ int s_nitv[MB_MAX_MEMBERS], s_hit[MB_MAX_MEMBERS];
   __shared__ int s_ok[MB_MAX_MEMBERS], s_saved[MB_MAX_MEMBERS];
-  __shared__ int s_row[MB_MAX_MEMBERS];
+  __shared__ int s_row[MB_MAX_MEMBERS], s_srow[MB_MAX_MEMBERS];
+  __shared__ float s_dtc[MB_MAX_I];      // s_dts of state component q
   __shared__ int s_all_done;
+  __shared__ float s_a[KC_MAX_STAGES][KC_MAX_STAGES];
+  __shared__ float s_grid[KC_MAX_G];
 
-  const int I = d.I, KI = K * I, dm = I / S, st = tab.stages;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
   const float n_blk = (float)(K * dm);
+  const int warp = tid / MB_LANES, lane = tid % MB_LANES;
+  const int warps = nt / MB_LANES;
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < KC_MAX_STAGES; ++i)
+#pragma unroll
+      for (int j = 0; j < KC_MAX_STAGES; ++j) s_a[i][j] = tab.a[i][j];
+#pragma unroll
+    for (int g = 0; g < KC_MAX_G; ++g) s_grid[g] = d.grid[g];
+  }
+  const MbSplit s1 = mb_split(K, J1, H, skew), s2 = mb_split(K, J2, I, skew);
+  // the parameters: [c1 ; w1][j, h] at m1 + h*rs1 + col(j), [c2 ; w2][j,
+  // o] at m2 + o*rs2 + col(j)
+  for (int e = tid; e < J1 * H; e += nt) {
+    const int j = e / H, h = e - j * H;
+    m1[h * s1.rs + mb_col(s1, j)] = j < I * G ? c1[e] : w1[e - I * G * H];
+  }
+  for (int e = tid; e < J2 * I; e += nt) {
+    const int j = e / I, o = e - j * I;
+    m2[o * s2.rs + mb_col(s2, j)] = j < H * G ? c2[e] : w2[e - H * G * I];
+  }
+  const int g1 = lane / s1.lp, c01 = lane - g1 * s1.lp;
+  const int g2 = lane / s2.lp, c02 = lane - g2 * s2.lp;
+  const bool reg1 = mb_in_registers(s1, warps);
+  const bool reg2 = mb_in_registers(s2, warps);
   const float t0 = ts[0];
   const float tdir = ts[T_save - 1] >= t0 ? 1.0f : -1.0f;
-  for (int t = tid; t < KI; t += blockDim.x) {
+  for (int t = tid; t < KI; t += nt) {
     x[t] = x0[t];
     ys[t] = x0[t];
   }
   __syncthreads();
-  mb_chain(x, hid, k, K, d, p, feat, part);           // k1 = f(x0)
+  float mr1[MB_REG], mr2[MB_REG];
+  mb_slice(s1, m1, reg1, warp, g1, c01, mr1);
+  mb_slice(s2, m2, reg2, warp, g2, c02, mr2);
+
+  // Layer-1 features of the chain input of every row, by the block: x
+  // (stage 0), x + (tdir h0) k1 (stage -1: the initial-dt probe) or the
+  // input of stage `stage` >= 1, each formed as K8f's one-block loop
+  // formed it.
+  auto input_features = [&](int stage) {
+    for (int u = tid; u < K * I * (G + 1); u += nt) {
+      const int q = u % (G + 1), ri = u / (G + 1);
+      const int t = ri, i = ri % I;
+      float v = x[t];
+      if (stage < 0)
+        v = x[t] + (tdir * s_h0[i / dm]) * k[t];
+      else if (stage > 0)
+        v = mb_stage_input(x[t], s_dtc[i], s_a[stage], stage, k + t, KI,
+                           k[(stage - 1) * KI + t]);
+      mb_unit_features(v, i, I, q, G + 1, d, s_grid, s1,
+                       feat1 + (size_t)(ri / I) * s1.rs);
+    }
+  };
+  // One chain evaluation, its layer-1 features in feat1 (visible to the
+  // block): out [K, I] = the chain's value. next >= 1: the groups of layer
+  // 2 form stage next's input and its layer-1 features; next == st: the
+  // step's result y1 and squared scaled errors red. Ends in __syncthreads.
+  auto evaluate = [&](float* out, int next) {
+    mb_layer(s1, feat1, m1, reg1, mr1, part, warp, warps, lane, g1, c01,
+             [&](int r, int h, float v, int c0) {
+               mb_unit_features(v, h, H, c0, s1.lp, d, s_grid, s2,
+                                feat2 + (size_t)r * s2.rs);
+             });
+    __syncthreads();
+    mb_layer(s2, feat2, m2, reg2, mr2, part, warp, warps, lane, g2, c02,
+             [&](int r, int n, float v, int c0) {
+               const int t = r * I + n;
+               if (c0 == 0) out[t] = v;
+               if (next >= 1 && next < st) {
+                 // stage next's input, stage next - 1's value from v (its
+                 // store above is this lane's, not yet the group's)
+                 const float xv = mb_stage_input(x[t], s_dtc[n], s_a[next],
+                                                 next, k + t, KI, v);
+                 mb_unit_features(xv, n, I, c0, s2.lp, d, s_grid, s1,
+                                  feat1 + (size_t)r * s1.rs);
+               } else if (next == st && c0 == 0) {
+                 const float dts = s_dtc[n];
+                 float acc = x[t], err = 0.0f;
+                 for (int i = 0; i < st; ++i) {
+                   const float ki = i == st - 1 ? v : k[i * KI + t];
+                   if (tab.b[i] != 0.0f) acc = acc + (dts * tab.b[i]) * ki;
+                   if (tab.e[i] != 0.0f) err = err + (dts * tab.e[i]) * ki;
+                 }
+                 y1[t] = acc;
+                 const float e =
+                     err / (c.atol + c.rtol * fmaxf(fabsf(x[t]), fabsf(acc)));
+                 red[t] = e * e;
+               }
+             });
+    __syncthreads();
+  };
+
+  input_features(0);
+  __syncthreads();
+  evaluate(k, 0);                                     // k1 = f(x0)
 
   if (!c.has_dt0) {
     // integrate._initial_dt_members, every norm over the member's block
-    for (int t = tid; t < KI; t += blockDim.x) {
+    for (int t = tid; t < KI; t += nt) {
       const float v = x[t] / (c.atol + c.rtol * fabsf(x[t]));
       red[t] = v * v;
     }
     __syncthreads();
-    if (tid < S) s_h0[tid] = sqrtf(mb_member_sum(red, K, I, dm, tid) / n_blk);
+    if (tid < S) s_h0[tid] = sqrtf(mb_member_sum(red, K, I, dm, tid) /
+                                   n_blk);
     __syncthreads();
-    for (int t = tid; t < KI; t += blockDim.x) {
+    for (int t = tid; t < KI; t += nt) {
       const float v = k[t] / (c.atol + c.rtol * fabsf(x[t]));
       red[t] = v * v;
     }
     __syncthreads();
     if (tid < S) {
       const float d0 = s_h0[tid];
-      const float d1 = sqrtf(mb_member_sum(red, K, I, dm, tid) / n_blk);
+      const float d1 =
+          sqrtf(mb_member_sum(red, K, I, dm, tid) / n_blk);
       s_d1[tid] = d1;
       s_h0[tid] = (d0 < 1e-5f || d1 < 1e-5f) ? 1e-6f : 0.01f * d0 / d1;
     }
     __syncthreads();
-    for (int t = tid; t < KI; t += blockDim.x)
-      xs[t] = x[t] + (tdir * s_h0[(t % I) / dm]) * k[t];
+    input_features(-1);
     __syncthreads();
-    mb_chain(xs, hid, y1, K, d, p, feat, part);
-    for (int t = tid; t < KI; t += blockDim.x) {
+    evaluate(y1, 0);
+    for (int t = tid; t < KI; t += nt) {
       const float v = (y1[t] - k[t]) / (c.atol + c.rtol * fabsf(x[t]));
       red[t] = v * v;
     }
     __syncthreads();
     if (tid < S) {
       const float h0 = s_h0[tid];
-      const float d2 = sqrtf(mb_member_sum(red, K, I, dm, tid) / n_blk) / h0;
+      const float d2 =
+          sqrtf(mb_member_sum(red, K, I, dm, tid) / n_blk) / h0;
       const float dmax = fmaxf(s_d1[tid], d2);
       const float h1 = dmax <= 1e-15f ? fmaxf(1e-6f, h0 * 1e-3f)
                                       : expf(c.idt_exp * logf(0.01f / dmax));
@@ -435,6 +785,8 @@ members_fwd_kernel(const float* x0, const float* ts, int T_save,
     s_sidx[tid] = 1;
     s_done[tid] = T_save <= 1;
     s_nacc[tid] = s_nrej[tid] = s_nitv[tid] = 0;
+    mb_setup(tid, dm, ts, T_save, tdir, s_t, s_dt, s_sidx, s_row, s_tsave,
+             s_hit, s_dtu, s_dts, s_dtc);
   }
   if (tid == 0) s_all_done = T_save <= 1;
   __syncthreads();
@@ -442,46 +794,13 @@ members_fwd_kernel(const float* x0, const float* ts, int T_save,
   int n_it = 0;                                // active iterations
   for (int it = 0; it < max_steps; ++it) {
     if (s_all_done) break;                     // block-uniform early exit
-    if (tid < S) {
-      const int row = min(s_sidx[tid], T_save - 1);
-      const float t_save = ts[row];
-      const float remaining = (t_save - s_t[tid]) * tdir;
-      const bool hit = s_dt[tid] >= remaining;
-      const float dt_used = hit ? remaining : s_dt[tid];
-      s_row[tid] = row;
-      s_tsave[tid] = t_save;
-      s_hit[tid] = hit;
-      s_dtu[tid] = dt_used;
-      s_dts[tid] = tdir * dt_used;
-    }
+    input_features(1);
     __syncthreads();
-    for (int i = 1; i < st; ++i) {
-      for (int t = tid; t < KI; t += blockDim.x) {
-        const float dts = s_dts[(t % I) / dm];
-        float v = x[t];
-        for (int j = 0; j < i; ++j)
-          if (tab.a[i][j] != 0.0f) v = v + (dts * tab.a[i][j]) * k[j * KI + t];
-        xs[t] = v;
-      }
-      __syncthreads();
-      mb_chain(xs, hid, k + i * KI, K, d, p, feat, part);
-    }
-    for (int t = tid; t < KI; t += blockDim.x) {
-      const float dts = s_dts[(t % I) / dm];
-      float acc = x[t], err = 0.0f;
-      for (int i = 0; i < st; ++i) {
-        const float ki = k[i * KI + t];
-        if (tab.b[i] != 0.0f) acc = acc + (dts * tab.b[i]) * ki;
-        if (tab.e[i] != 0.0f) err = err + (dts * tab.e[i]) * ki;
-      }
-      y1[t] = acc;
-      const float v = err / (c.atol + c.rtol * fmaxf(fabsf(x[t]), fabsf(acc)));
-      red[t] = v * v;
-    }
-    __syncthreads();
+    for (int i = 1; i < st; ++i) evaluate(k + i * KI, i + 1);
     if (tid < S) {
       const int s = tid;
-      const float err_nrm = sqrtf(mb_member_sum(red, K, I, dm, s) / n_blk);
+      const float err_nrm =
+          sqrtf(mb_member_sum(red, K, I, dm, s) / n_blk);
       const float dt_used = s_dtu[s];
       const bool accept = (err_nrm <= 1.0f) || (dt_used <= c.dt_min);
       const float fac = mb_factor(c, err_nrm, s_ep[s]);
@@ -498,15 +817,18 @@ members_fwd_kernel(const float* x0, const float* ts, int T_save,
       if (!done) s_dt[s] = fmaxf(dt_used * fac, c.dt_min);
       s_ok[s] = ok;
       s_saved[s] = saved;
+      s_srow[s] = s_row[s];
       s_nacc[s] += ok;
       s_nrej[s] += !accept && !done;
       s_nitv[s] += !done;
       s_sidx[s] += saved;
       s_done[s] = done || s_sidx[s] >= T_save;
+      mb_setup(s, dm, ts, T_save, tdir, s_t, s_dt, s_sidx, s_row, s_tsave,
+               s_hit, s_dtu, s_dts, s_dtc);
     }
     __syncthreads();
     const size_t off = (size_t)n_it * KI;
-    for (int t = tid; t < KI; t += blockDim.x) {
+    for (int t = tid; t < KI; t += nt) {
       const int m = (t % I) / dm;
       rx[off + t] = x[t];
       rk1[off + t] = k[t];
@@ -514,7 +836,7 @@ members_fwd_kernel(const float* x0, const float* ts, int T_save,
         x[t] = y1[t];
         k[t] = k[(st - 1) * KI + t];             // FSAL: the last stage
       }
-      if (s_saved[m]) ys[(size_t)s_row[m] * KI + t] = y1[t];
+      if (s_saved[m]) ys[(size_t)s_srow[m] * KI + t] = y1[t];
     }
     if (tid == 0) {
       int all = 1;
@@ -526,7 +848,7 @@ members_fwd_kernel(const float* x0, const float* ts, int T_save,
   }
 
   // rows a member never reached get its final state
-  for (int e = tid; e < (T_save - 1) * KI; e += blockDim.x) {
+  for (int e = tid; e < (T_save - 1) * KI; e += nt) {
     const int i = 1 + e / KI, t = e % KI;
     if (s_sidx[(t % I) / dm] <= i) ys[(size_t)i * KI + t] = x[t];
   }
@@ -940,11 +1262,35 @@ void mb_caps(int* out) {
 // takes only static shared memory).
 int mb_smem_bytes(const ChainDims* d, int K, int stages, int backward) {
   if (!backward)
-    return mb_fwd_layout(*d, K, stages).floats * (int)sizeof(float);
+    return mb_fwd_layout(*d, K, stages, mb_fwd_skew(*d, K, stages)).floats
+           * (int)sizeof(float);
   const int a = mb_rebuild_layout(*d, K, stages).floats;
   const int b =
       mb_sweep_warps(*d, K, stages) * mb_sweep_warp_floats(*d, stages);
   return (a > b ? a : b) * (int)sizeof(float);
+}
+
+// K8f's plan (the wrapper's members_fwd_plan computes the same): out =
+// [threads, skew, shared bytes, then per layer P, chunk, lp, opw, slots,
+// sk, rs]; returns 0.
+int mb_fwd_plan(const ChainDims* d, int K, int stages, int* out) {
+  const bool skew = mb_fwd_skew(*d, K, stages);
+  out[0] = MB_FWD_WARPS * MB_LANES;
+  out[1] = skew;
+  out[2] = mb_fwd_layout(*d, K, stages, skew).floats * (int)sizeof(float);
+  const MbSplit s[2] = {mb_split(K, d->I * (d->G + 1), d->H, skew),
+                        mb_split(K, d->H * (d->G + 1), d->O, skew)};
+  for (int l = 0; l < 2; ++l) {
+    int* o = out + 3 + 7 * l;
+    o[0] = s[l].P;
+    o[1] = s[l].chunk;
+    o[2] = s[l].lp;
+    o[3] = s[l].opw;
+    o[4] = s[l].slots;
+    o[5] = s[l].sk;
+    o[6] = s[l].rs;
+  }
+  return 0;
 }
 
 // K8b's plan (the wrapper's members_bwd_plan computes the same): out =
@@ -973,12 +1319,15 @@ int mb_adaptive_fwd(const float* x0, const float* ts, int T_save,
                     int K, int S, int max_steps, const ChainDims* d,
                     const AdaptTab* tab, const AdaptCtrl* ctrl,
                     void* stream) {
-  const size_t smem = mb_smem_bytes(d, K, tab->stages, 0);
-  cudaError_t err = kc_smem_opt_in(members_fwd_kernel, smem);
+  const bool skew = mb_fwd_skew(*d, K, tab->stages);
+  const size_t smem =
+      mb_fwd_layout(*d, K, tab->stages, skew).floats * sizeof(float);
+  auto kernel = members_fwd_kernel;
+  cudaError_t err = kc_smem_opt_in(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  members_fwd_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<1, MB_FWD_WARPS * MB_LANES, smem, (cudaStream_t)stream>>>(
       x0, ts, T_save, c1, w1, c2, w2, ys, rx, rk1, rdt, racc, rsx, mstats,
-      nit, K, S, max_steps, *d, *tab, *ctrl);
+      nit, K, S, max_steps, skew, *d, *tab, *ctrl);
   return (int)cudaGetLastError();
 }
 

@@ -18,9 +18,20 @@
 //   * one launch per RK step (K2) or per whole trajectory (K3), and one
 //     more for the backward, as on the TPU, so the host makes 2 launches
 //     per training iteration instead of one per op;
-//   * forwards and K2b: one thread per batch row runs all stages (and,
-//     in K3f, all steps) with its state in registers/local memory,
-//     parameters and grid constants staged once in shared memory;
+//   * K2f and K2b: one thread per batch row runs all stages with its
+//     state in registers/local memory, parameters and grid constants
+//     staged once in shared memory;
+//   * K3f: a warp a row, up to KF_MAX_WARPS rows a block and as many
+//     blocks as the rows need (`multistep_fwd_plan` in ops/_cuda.py); the
+//     row's n steps run in its warp with no block barrier, each chain
+//     evaluation spread over the lanes by K4f's kf_chain_fwd
+//     (kan_chain_warp.cuh), lane h's slices of the parameters in
+//     registers for the whole trajectory, the stage vectors in the warp's
+//     shared memory. One thread a row took ~34k cycles an evaluation, 71%
+//     of it layer 2, in an 800-byte stack frame (PERF.md, the K3f/K8f
+//     trace). Its products and sums round as a -fmad=false build's do;
+//     the stage inputs and the step's sum are explicit fmaf, as this
+//     file's default contraction made of the one-thread loops;
 //   * K3b: every warp of the block rebuilds steps from the stored step
 //     inputs, several at a time, with each stage's Jacobian, then a warp
 //     a row runs the reverse recursion, where a stage's VJP is a few
@@ -71,22 +82,77 @@ rk_step_bwd_kernel(const float* x, const float* gy, const float* c1,
   kc_reduce_param_grads(scratch, K * n_slots, d, L, dc1, dw1, dc2, dw2);
 }
 
-__global__ void __launch_bounds__(kFwdThreads)
+// Floats of K3f's dynamic shared memory: the parameters and, for each
+// warp, its row's stage input [I], stage values [S][I] and kf_chain_fwd's
+// workspace.
+__host__ __device__ inline size_t k3f_smem_floats(const ChainDims& d,
+                                                  int stages, int warps) {
+  return kc_param_floats(d)
+         + (size_t)warps * (d.I + stages * d.I + kf_chain_ws_floats(d));
+}
+
+// K3f: a warp a row (row blockIdx.x * warps + warp), the row's n steps
+// in the warp with no block barrier; state component q in lane q < I,
+// each chain evaluation spread over the lanes by kf_chain_fwd, lane h's
+// slices of the parameters in registers for the whole trajectory.
+__global__ void __launch_bounds__(KW_LANES * KF_MAX_WARPS)
 rk_multistep_fwd_kernel(const float* x0, const float* c1, const float* w1,
                         const float* c2, const float* w2, float* ys, int K,
                         int n_steps, ChainDims d, StepTab T) {
   extern __shared__ float smem[];
+  __shared__ WarpConsts wc;
+  __shared__ unsigned char s_l2h[KC_MAX_H * KC_MAX_G];
+  kw_fill_consts(wc, d, T.stages, T.a, T.b, T.needed);
   const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, smem);
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const int I = d.I, S = T.stages, IG = I * d.G;
+  for (int l = threadIdx.x; l < IG + I; l += blockDim.x) {
+    wc.term_x[l] = l < IG ? l / d.G : l - IG;
+    wc.term_c[l] = l < IG ? wc.grid[l % d.G] : 0.0f;
+  }
+  kf_fill_l2(s_l2h, d);
+  const int warp = threadIdx.x / KW_LANES, lane = threadIdx.x % KW_LANES;
+  const int warps = blockDim.x / KW_LANES;
+  float* xs = smem + kc_param_floats(d)
+              + (size_t)warp * (I + S * I + kf_chain_ws_floats(d));
+  float* ks = xs + I;                             // stage values [S][I]
+  float* cw = ks + S * I;                         // kf_chain_fwd's
+  KfRegs rg;
+  kf_load_regs(rg, p, d, lane);
+  __syncthreads();
+  const int r = blockIdx.x * warps + warp;
   if (r >= K) return;
-  float x[KC_MAX_I], y[KC_MAX_I];
-  for (int q = 0; q < d.I; ++q) x[q] = x0[r * d.I + q];
+  const bool mine = lane < I;                     // lane q: component q
+  float x = mine ? x0[(size_t)r * I + lane] : 0.0f;
   for (int s = 0; s < n_steps; ++s) {
-    kc_rk_step_row(x, y, T, d, p);
-    float* out = ys + ((size_t)s * K + r) * d.I;
-    for (int q = 0; q < d.I; ++q) {
-      out[q] = y[q];
-      x[q] = y[q];
+    for (int i = 0; i < S; ++i) {
+      if (!wc.needed[i]) continue;
+      if (mine) {
+        // the loads first (wc.a[i][j] is zero for j >= i and for a stage
+        // j no output needs; ks[j] of such a stage, or past the stages in
+        // the warp's workspace, is never used)
+        float av[KC_MAX_STAGES - 1], kv[KC_MAX_STAGES - 1];
+#pragma unroll
+        for (int j = 0; j < KC_MAX_STAGES - 1; ++j) {
+          av[j] = wc.a[i][j];
+          kv[j] = ks[j * I + lane];
+        }
+        float v = x;
+#pragma unroll
+        for (int j = 0; j < KC_MAX_STAGES - 1; ++j)
+          if (av[j] != 0.0f) v = fmaf(av[j], kv[j], v);
+        xs[lane] = v;
+      }
+      __syncwarp();
+      kf_chain_fwd(xs, ks + i * I, d, wc, s_l2h, p, rg, cw, lane);
+      __syncwarp();
+    }
+    if (mine) {
+      float y = x;
+#pragma unroll
+      for (int i = 0; i < KC_MAX_STAGES; ++i)
+        if (i < S && wc.b[i] != 0.0f) y = fmaf(wc.b[i], ks[i * I + lane], y);
+      ys[((size_t)s * K + r) * I + lane] = y;
+      x = y;
     }
   }
 }
@@ -201,16 +267,24 @@ int kc_rk_step_bwd(const float* x, const float* gy, const float* c1,
 
 int kc_rk_multistep_fwd(const float* x0, const float* c1, const float* w1,
                         const float* c2, const float* w2, float* ys, int K,
-                        int n_steps, const ChainDims* d, const StepTab* T,
-                        void* stream) {
-  const size_t smem = kc_param_floats(*d) * sizeof(float);
+                        int n_steps, int warps, const ChainDims* d,
+                        const StepTab* T, void* stream) {
+  if (warps < 1 || warps > KF_MAX_WARPS || K < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = k3f_smem_floats(*d, T->stages, warps) * sizeof(float);
   cudaError_t err = kc_smem_opt_in(rk_multistep_fwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (K + kFwdThreads - 1) / kFwdThreads;
-  rk_multistep_fwd_kernel<<<blocks, kFwdThreads, smem,
+  const int blocks = (K + warps - 1) / warps;
+  rk_multistep_fwd_kernel<<<blocks, warps * KW_LANES, smem,
                             (cudaStream_t)stream>>>(x0, c1, w1, c2, w2, ys, K,
                                                     n_steps, *d, *T);
   return (int)cudaGetLastError();
+}
+
+// K3f's dynamic shared memory for `warps` warps (the wrapper's
+// multistep_fwd_plan computes the same).
+int kc_multistep_fwd_smem_bytes(const ChainDims* d, int stages, int warps) {
+  return (int)(k3f_smem_floats(*d, stages, warps) * sizeof(float));
 }
 
 int kc_rk_multistep_bwd(const float* x0, const float* ys, const float* gys,

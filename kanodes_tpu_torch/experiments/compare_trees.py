@@ -19,8 +19,12 @@ helpers and inputs (CUDA-event ms, `cuda_ms`, and the profiler's device
     on the same init, and a sha256 of K4f's ys, records (the accepted
     steps') and stats on every `chip_smoke.ADAPTIVE_CASES` input, at K =
     33 and 256 rows and on the two cap chains (`ADAPTIVE_INPUTS`);
-  * members: K8b on MEMBERS_CASES[0] (8 LV members [16, 80, 16] G = 5
-    at the init, the train grid) with K8f's records.
+    K3f at n = 34 and 140, K = 1 on that init, and the largest
+    |difference| of K3f's ys between the two trees there, over K = 17 and
+    300 rows and on the cap chains (`k3f_outputs`);
+  * members: K8f and K8b on MEMBERS_CASES[0] (8 LV members [16, 80, 16]
+    G = 5 at the init, the train grid), and a sha256 of K8f's outputs and
+    of K8b's gradients on every members input (`members_hashes`).
 Then, in the same turns (host times swing on a shared host), the group's
 profiles: `profile_source --ndim=2` for Fisher-KPP and Allen-Cahn and
 `profile_surrogate --solve_mode=shooting` for Schrödinger and 2-D
@@ -132,6 +136,92 @@ def k4f_hashes(torch, np, cs):
     return out
 
 
+def lv_fixed_launch(torch, np, cs, n_steps):
+    from kanodes_tpu_torch.experiments import lv
+    from kanodes_tpu_torch.ops import kdense_pallas as kp
+    from kanodes_tpu_torch.ops import rk_fused as rk
+    cfg = lv.LVConfig()
+    model = lv.init_params(cfg, lv.make_model(cfg, "cuda"))
+    spec = kp.chain_spec_of(model)
+    data = lv.make_data(cfg, "cuda")
+    fp = [p.detach().contiguous() for p in kp.fused_params(model)]
+    u0 = data["X"][:1].contiguous()
+    k = rk._consts(spec, "tsit5", cfg.dt / cfg.substeps)
+    return lambda: rk._launch_multistep_fwd(k, n_steps, u0, fp)
+
+
+def members_fwd_launch(torch, np, cs):
+    from kanodes_tpu_torch.ode.integrate import StepController
+    from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
+    case = cs.MEMBERS_CASES[0]
+    spec, x0, params, ts = cs.members_case_inputs(torch, case)
+    k = ra._consts(spec, case.solver, case.rtol, case.atol,
+                   StepController(), case.dt0)
+    return lambda: ra._launch_members_fwd(k, case.S, case.max_steps, x0, ts,
+                                          params)
+
+
+def k3f_outputs(torch, np, cs):
+    """K3f's ys on the LV seeded init at n = 34 and 140, over K = 17 and
+    300 rows of LV-width inputs and on the two cap chains (n = 12), as
+    lists, for the largest |difference| between two trees."""
+    from kanodes_tpu_torch.models.kdense import KANChain
+    from kanodes_tpu_torch.ops import kdense_pallas as kp
+    from kanodes_tpu_torch.ops import rk_fused as rk
+    out = {f"LV seeded init n={n} K=1": lv_fixed_launch(torch, np, cs, n)()
+           for n in (34, 140)}
+    spec = kp.chain_spec_of(KANChain.mlp_like([2, 10, 2], grid_len=5))
+    k = rk._consts(spec, "tsit5", 0.1)
+    for K in (17, 300):
+        x0, params = cs.lv_inputs(np.random.default_rng(K), torch, K)
+        out[f"n=34 K={K}"] = rk._launch_multistep_fwd(k, 34, x0, params)
+    for basis, norm in cs.CAP_CHAINS:
+        cap_spec, x0, params = cs.cap_inputs(torch, basis, norm)
+        kc = rk._consts(cap_spec, "tsit5", 0.1)
+        out[f"cap {basis}/{norm} n=12 K={x0.shape[0]}"] = \
+            rk._launch_multistep_fwd(kc, 12, x0, params)
+    return {key: ys.cpu().double().numpy().ravel().tolist()
+            for key, ys in out.items()}
+
+
+def members_hashes(torch, np, cs):
+    """sha256 of K8f's outputs (ys; rx, rk1, rdt, racc, rsx over the
+    recorded iterations; mstats, nit) and of K8b's gradients, on every
+    MEMBERS_CASES and MEMBERS_CAP_CASES input and on 8 LV members over K =
+    16 rows at the init's weights."""
+    import hashlib
+    from kanodes_tpu_torch.ode.integrate import StepController
+    from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
+    cases = [(case, cs.members_case_inputs(torch, case))
+             for case in (*cs.MEMBERS_CASES, *cs.MEMBERS_CAP_CASES)]
+    case = cs.MEMBERS_CASES[0]
+    spec, x0, params, ts = cs.members_case_inputs(torch, case)
+    x16 = torch.tensor(np.random.default_rng(16).uniform(0.5, 1.5, (16, 16)),
+                       dtype=torch.float32, device="cuda")
+    cases.append((case._replace(label="S=8 LV init, K=16 rows", K=16),
+                  (spec, x16, params, ts)))
+    out = {}
+    for i, (case, (spec, x0, params, ts)) in enumerate(cases):
+        ctrl = StepController.pi() if case.pi else StepController()
+        k = ra._consts(spec, case.solver, case.rtol, case.atol, ctrl,
+                       case.dt0)
+        ys, rec = ra._launch_members_fwd(k, case.S, case.max_steps, x0, ts,
+                                         params)
+        n = int(rec[6][0])
+        gys = torch.tensor(np.random.default_rng(i).standard_normal(
+            tuple(ys.shape)) / ts.shape[0], dtype=torch.float32,
+            device="cuda")
+        grads = ra._launch_members_bwd(k, case.S, x0, params, rec, gys)
+        hf, hb = hashlib.sha256(), hashlib.sha256()
+        for t in (ys, *(r[:n] for r in rec[:5]), rec[5], rec[6]):
+            hf.update(t.cpu().numpy().tobytes())
+        for t in grads:
+            hb.update(t.cpu().numpy().tobytes())
+        out[case.label] = {"iterations": n, "K8f": hf.hexdigest()[:16],
+                           "K8b": hb.hexdigest()[:16]}
+    return out
+
+
 def members_bwd_launch(torch, np, cs):
     from kanodes_tpu_torch.ode.integrate import StepController
     from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
@@ -173,7 +263,16 @@ if "lv" in groups:
     out["K4f T=35 K=1"] = {"ms": cs.cuda_ms(torch, k4f, 20),
                            "us": cs.device_us(torch, k4f, reps=10)}
     out["K4f sha256"] = k4f_hashes(torch, np, cs)
+    for n in (34, 140):
+        k3f = lv_fixed_launch(torch, np, cs, n)
+        out[f"K3f n={n} K=1"] = {"ms": cs.cuda_ms(torch, k3f, 20),
+                                 "us": cs.device_us(torch, k3f, reps=10)}
+    out["K3f ys"] = k3f_outputs(torch, np, cs)
 if "members" in groups:
+    k8f = members_fwd_launch(torch, np, cs)
+    out["K8f MEMBERS_CASES[0]"] = {"ms": cs.cuda_ms(torch, k8f, 20),
+                                   "us": cs.device_us(torch, k8f, reps=10)}
+    out["K8 sha256"] = members_hashes(torch, np, cs)
     k8b, n_it = members_bwd_launch(torch, np, cs)
     out["K8b MEMBERS_CASES[0]"] = {"ms": cs.cuda_ms(torch, k8b, 20),
                                    "us": cs.device_us(torch, k8b, reps=10),
@@ -259,9 +358,15 @@ def main(argv: list[str]) -> int:
         print(json.dumps(obj), flush=True)
 
     turns = (roots[0], roots[1], roots[1], roots[0])
+    ys = {}
     for root in turns:
-        emit({"tree": names[root], "kernels": run(
-            root, ["-c", KERNELS, ",".join(groups)])})
+        kernels = run(root, ["-c", KERNELS, ",".join(groups)])
+        ys.setdefault(names[root], kernels.pop("K3f ys", None))
+        emit({"tree": names[root], "kernels": kernels})
+    if ys.get("parent") and ys.get("change"):
+        emit({"K3f ys, largest |change - parent|": {
+            key: max(abs(a - b) for a, b in zip(ys["change"][key], v))
+            for key, v in ys["parent"].items()}})
     for root in turns:
         for module, args in (r for g in groups for r in PROFILES[g]):
             emit({"tree": names[root], "profile": module, "args": args,

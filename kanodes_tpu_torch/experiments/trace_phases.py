@@ -1,8 +1,8 @@
-"""Where K5b, K7b, K3b, K4b, K4f and K8b spend a launch, phase by phase,
-on the card.
+"""Where K5b, K7b, K3b, K4b, K4f, K8b, K3f and K8f spend a launch, phase
+by phase, on the card.
 
     python -m kanodes_tpu_torch.experiments.trace_phases \\
-        [--kernels=K5b/K7b,K3b/K4b,K4f/K8b] ROOT [ROOT ...]
+        [--kernels=K5b/K7b,K3b/K4b,K4f/K8b,K3f/K8f] ROOT [ROOT ...]
 
 For each ROOT (a checkout of this repository), copies its
 `kanodes_tpu_torch/` into a temporary directory, inserts `clock64()`
@@ -22,22 +22,29 @@ asked for (all by default):
     (LV defaults, the trainer's seeded init) and K8b on
     MEMBERS_CASES[0], the main path's solve (`compare_trees.
     ADAPTIVE_INPUTS`); K8b's three kernels of the new design share one
-    line, thread 0 of block 0 of each.
+    line, thread 0 of block 0 of each;
+  * K3f/K8f (`csrc/rk_fused.cu`, `csrc/rk_adaptive_members.cu`, and the
+    chain routines of `csrc/kan_chain.cuh` / `kan_chain_warp.cuh`): K3f
+    at n = 34, K = 1 (LV defaults, the trainer's seeded init) and K8f on
+    MEMBERS_CASES[0] (`lv_fixed_launch`, `members_fwd_launch`); a stamp
+    shared with another family (kf_chain_fwd's) is put in once.
 Thread 0 of block 0 adds the cycles between stamps into its phase's
 counter (so a phase inside a loop is thread 0's share of it, and a
 barrier's phase is its wait); one JSON line per kernel and case gives the
 cycles of each phase (SM clocks, one launch) and their total. Then, per
 ROOT, one line with the registers, stack frame and spill bytes that
 nvcc's `-Xptxas -v` reports for the family's kernels in ROOT's own
-(uninstrumented) build, and last the card's name, power limit and
-top SM clock. The stamps cost a few percent of a launch.
+(uninstrumented) build with each kernel's SASS instruction count, and
+last the card's name, power limit and top SM clock. A stamp costs ~100
+cycles: a few percent of most launches, ~20% of the warp-split K8f's.
 
 Each family knows two designs by the code the stamps go into: the
 one-block K5b / K7b of the first port and the four-lane K5b and cluster
 K7b that replaced them; the one-thread-a-row K3b / K4b of the first port
 and the warp-a-row K3b / K4b that replaced them; the one-thread K4f and
 one-block K8b of the first port and the warp-a-row K4f and three-phase
-K8b that replaced them. A checkout whose kernels match neither design of
+K8b that replaced them; the one-thread K3f and one-block K8f and the
+warp-a-row K3f and warp-split K8f that replaced them. A checkout whose kernels match neither design of
 a family raises. The instrumented copy is thrown away; nothing of ROOT
 changes. Needs nvcc and a CUDA device.
 """
@@ -484,7 +491,9 @@ def stamp_head(sym: str, tag: str) -> str:
     thread 0 of block 0: {tag}_START() zeroes them, {tag}(i) adds the
     cycles since the last stamp to phase i plus the offset s_{tag}o (0
     unless the file sets it, so that one routine's phases can be counted
-    apart per caller), {tag}_WRITE() copies them to the device array sym."""
+    apart per caller; the index is taken mod 16, so a kernel of the file
+    that never zeroed the offset stays in bounds), {tag}_WRITE() copies
+    them to the device array sym."""
     return f"""
 __device__ unsigned long long {sym}[16];
 __shared__ unsigned long long s_{tag}[16];
@@ -494,7 +503,8 @@ __shared__ int s_{tag}o;
   for (int i_ = 0; i_ < 16; ++i_) s_{tag}[i_] = 0; \\
   s_{tag}o = 0; s_{tag}t = clock64(); }} }} while (0)
 #define {tag}(i) do {{ if (threadIdx.x == 0 && blockIdx.x == 0) {{ \\
-  long long n_ = clock64(); s_{tag}[(i) + s_{tag}o] += n_ - s_{tag}t; \\
+  long long n_ = clock64(); s_{tag}[((i) + s_{tag}o) & 15] += \\
+  n_ - s_{tag}t; \\
   s_{tag}t = n_; }} }} while (0)
 #define {tag}_WRITE() do {{ if (threadIdx.x == 0 && blockIdx.x == 0) \\
   for (int i_ = 0; i_ < 16; ++i_) {sym}[i_] = s_{tag}[i_]; }} while (0)
@@ -741,12 +751,210 @@ ADAPTIVE_FWD_MEMBERS_BWD["warp-a-row K4f and three-phase K8b"] = ({
     ]},
     {"K4f": WARP_K4F_PHASES, "K8b": PHASED_K8B_PHASES})
 
+ONE_THREAD_K3F_PHASES = ["parameter staging", "stage inputs", "layer 1",
+                         "layer 2", "step sum and stores"]
+# thread 0 of the block; every __syncthreads wait goes to "barriers"
+ONE_BLOCK_K8F_PHASES = ["parameter staging",
+                        "initial dt and first f(x0): the rest",
+                        "controller set-up (thread s)", "stage inputs",
+                        "chain: layer-1 features",
+                        "chain: layer-1 matvec partials",
+                        "chain: layer-1 partial combination",
+                        "chain: layer-2 features",
+                        "chain: layer-2 matvec partials",
+                        "chain: layer-2 partial combination",
+                        "solution and error terms",
+                        "error norm and controller (thread s)",
+                        "record stores and done flag", "barriers",
+                        "fill and stats"]
+K8F_HEAD = stamp_head("g_k8ftr", "F8") + "__shared__ int s_F8L;\n"
+LV_FIXED_MEMBERS_FWD = {
+    "one-thread K3f and one-block K8f": ({
+        "kan_chain.cuh": [
+            ("#include <mutex>\n",
+             "#include <mutex>\n\n#ifdef K3F_TRACE\n#define K3T(i) F3(i)\n"
+             "#else\n#define K3T(i) do { } while (0)\n#endif\n"),
+            ("    kc_chain_fwd(xi, d, p, y1, ks[s]);\n  }\n",
+             "    K3T(1);\n    kc_layer_fwd(xi, d.I, d.H, p.c1, p.w1, d, y1);\n"
+             "    K3T(2);\n"
+             "    kc_layer_fwd(y1, d.H, d.O, p.c2, p.w2, d, ks[s]);\n"
+             "    K3T(3);\n  }\n"),
+        ],
+        "rk_fused.cu": [
+            ('#include "kan_chain_warp.cuh"\n',
+             "#define K3F_TRACE\n" + stamp_head("g_k3ftr", "F3")
+             + '#include "kan_chain_warp.cuh"\n'),
+            ("  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, "
+             "smem);\n  const int r = blockIdx.x * blockDim.x + threadIdx.x;\n"
+             "  if (r >= K) return;\n",
+             "  F3_START();\n"
+             "  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, "
+             "smem);\n  F3(0);\n"
+             "  const int r = blockIdx.x * blockDim.x + threadIdx.x;\n"
+             "  if (r >= K) return;\n"),
+            ("      out[q] = y[q];\n      x[q] = y[q];\n    }\n  }\n}\n",
+             "      out[q] = y[q];\n      x[q] = y[q];\n    }\n    F3(4);\n"
+             "  }\n  F3_WRITE();\n}\n"),
+            ('extern "C" {\n', kc_read("k3f_trace_read", "g_k3ftr")),
+        ],
+        "rk_adaptive_members.cu": [
+            ("namespace {\n\nconstexpr int kThreads = 256;\n",
+             K8F_HEAD + "namespace {\n\nconstexpr int kThreads = 256;\n"),
+            ("    part[t] = acc;\n  }\n  __syncthreads();\n",
+             "    part[t] = acc;\n  }\n  F8(s_F8L);\n  __syncthreads();\n"
+             "  F8(13);\n"),
+            ("    out[t] = acc;\n  }\n  __syncthreads();\n}\n",
+             "    out[t] = acc;\n  }\n  F8(s_F8L + 1);\n  __syncthreads();\n"
+             "  F8(13);\n}\n"),
+            ("  mb_features(xin, K, d.I, d, feat);\n  __syncthreads();\n"
+             "  mb_matvec(feat, K, d.I * (d.G + 1), p.c1, d.H, part, hid);\n"
+             "  mb_features(hid, K, d.H, d, feat);\n  __syncthreads();\n",
+             "  mb_features(xin, K, d.I, d, feat);\n  F8(4);\n"
+             "  __syncthreads();\n  F8(13);\n"
+             "  if (threadIdx.x == 0) s_F8L = 5;\n"
+             "  mb_matvec(feat, K, d.I * (d.G + 1), p.c1, d.H, part, hid);\n"
+             "  mb_features(hid, K, d.H, d, feat);\n  F8(7);\n"
+             "  __syncthreads();\n  F8(13);\n"
+             "  if (threadIdx.x == 0) s_F8L = 8;\n"),
+            ("  extern __shared__ float smem[];\n"
+             "  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, "
+             "smem);\n  const MbFwd L = mb_fwd_layout(d, K, tab.stages);\n",
+             "  extern __shared__ float smem[];\n  F8_START();\n"
+             "  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, "
+             "smem);\n  F8(0);\n"
+             "  const MbFwd L = mb_fwd_layout(d, K, tab.stages);\n"),
+            ("  if (tid == 0) s_all_done = T_save <= 1;\n  __syncthreads();\n",
+             "  if (tid == 0) s_all_done = T_save <= 1;\n  __syncthreads();\n"
+             "  F8(1);\n"),
+            ("      s_dts[tid] = tdir * dt_used;\n    }\n    __syncthreads();\n",
+             "      s_dts[tid] = tdir * dt_used;\n    }\n    F8(2);\n"
+             "    __syncthreads();\n    F8(13);\n"),
+            ("        xs[t] = v;\n      }\n      __syncthreads();\n"
+             "      mb_chain(xs, hid, k + i * KI, K, d, p, feat, part);\n",
+             "        xs[t] = v;\n      }\n      F8(3);\n      __syncthreads();\n"
+             "      F8(13);\n"
+             "      mb_chain(xs, hid, k + i * KI, K, d, p, feat, part);\n"),
+            ("      red[t] = v * v;\n    }\n    __syncthreads();\n"
+             "    if (tid < S) {\n      const int s = tid;\n",
+             "      red[t] = v * v;\n    }\n    F8(10);\n    __syncthreads();\n"
+             "    F8(13);\n    if (tid < S) {\n      const int s = tid;\n"),
+            ("      s_done[s] = done || s_sidx[s] >= T_save;\n    }\n"
+             "    __syncthreads();\n",
+             "      s_done[s] = done || s_sidx[s] >= T_save;\n    }\n"
+             "    F8(11);\n    __syncthreads();\n    F8(13);\n"),
+            ("    ++n_it;\n    __syncthreads();\n  }\n",
+             "    ++n_it;\n    F8(12);\n    __syncthreads();\n    F8(13);\n"
+             "  }\n"),
+            ("  if (tid == 0) nit[0] = n_it;\n}\n",
+             "  if (tid == 0) nit[0] = n_it;\n  F8(14);\n  F8_WRITE();\n}\n"),
+            ('extern "C" {\n', kc_read("k8f_trace_read", "g_k8ftr")),
+        ]},
+        {"K3f": ONE_THREAD_K3F_PHASES, "K8f": ONE_BLOCK_K8F_PHASES}),
+}
+
+WARP_K3F_PHASES = ["parameters, constants and register slices",
+                   "step sum and stores", "stage inputs",
+                   "chain: layer-1 terms",
+                   "chain: hidden sums and swish products (lane h)",
+                   "chain: layer-2 basis and products (lane h*G + g)",
+                   "chain: output sums (lanes o, O + o)"]
+# thread 0 is lane 0 of group 0 of both layers' splits: it adds chunk 0
+# and then all chunks of output 0
+SPLIT_K8F_PHASES = ["parameters, tables and state",
+                    "initial dt and first f(x0): the rest",
+                    "stage-1 input features (block)",
+                    "layer 1: chunk sums (lane)",
+                    "layer 1: chunks added in order, shuffle",
+                    "layer 2's features (group)",
+                    "layer 2: chunk sums (lane)",
+                    "layer 2: chunks added in order, shuffle",
+                    "next stage's input and features, or result and errors "
+                    "(group)",
+                    "barriers", "controller and next set-up (thread s)",
+                    "record stores and done flag", "fill and stats",
+                    "a warp-load's set-up (both layers)",
+                    "wait at __syncwarp after the chunk sums (both layers)"]
+LV_FIXED_MEMBERS_FWD["warp-a-row K3f and warp-split K8f"] = ({
+    # the stamps of kf_chain_fwd, as the K4f/K8b family puts them
+    "kan_chain_warp.cuh": ADAPTIVE_FWD_MEMBERS_BWD[
+        "warp-a-row K4f and three-phase K8b"][0]["kan_chain_warp.cuh"],
+    "rk_fused.cu": [
+        ('#include "kan_chain_warp.cuh"\n',
+         "#define KF_TRACE\n" + stamp_head("g_k3ftr", "F3")
+         + "#define F4(i) F3(i)\n" + '#include "kan_chain_warp.cuh"\n'),
+        ("  __shared__ unsigned char s_l2h[KC_MAX_H * KC_MAX_G];\n"
+         "  kw_fill_consts(wc, d, T.stages, T.a, T.b, T.needed);\n",
+         "  __shared__ unsigned char s_l2h[KC_MAX_H * KC_MAX_G];\n"
+         "  F3_START();\n"
+         "  kw_fill_consts(wc, d, T.stages, T.a, T.b, T.needed);\n"),
+        ("  kf_load_regs(rg, p, d, lane);\n  __syncthreads();\n"
+         "  const int r = blockIdx.x * warps + warp;\n",
+         "  kf_load_regs(rg, p, d, lane);\n  __syncthreads();\n  F3(0);\n"
+         "  const int r = blockIdx.x * warps + warp;\n"),
+        ("      __syncwarp();\n"
+         "      kf_chain_fwd(xs, ks + i * I, d, wc, s_l2h, p, rg, cw, lane);\n",
+         "      __syncwarp();\n      F3(2);\n"
+         "      kf_chain_fwd(xs, ks + i * I, d, wc, s_l2h, p, rg, cw, lane);\n"),
+        ("      ys[((size_t)s * K + r) * I + lane] = y;\n      x = y;\n    }\n"
+         "  }\n}\n",
+         "      ys[((size_t)s * K + r) * I + lane] = y;\n      x = y;\n    }\n"
+         "    F3(1);\n  }\n  F3_WRITE();\n}\n"),
+        ('extern "C" {\n', kc_read("k3f_trace_read", "g_k3ftr")),
+    ],
+    "rk_adaptive_members.cu": [
+        ("namespace {\n\nconstexpr int kThreads = 256;\n",
+         K8F_HEAD + "namespace {\n\nconstexpr int kThreads = 256;\n"),
+        ("      n = o - r * s.N;\n    }\n",
+         "      n = o - r * s.N;\n    }\n    F8(13);\n"),
+        ("                    : 0.0f;\n      }\n    }\n    __syncwarp();\n",
+         "                    : 0.0f;\n      }\n    }\n    F8(s_F8L);\n"
+         "    __syncwarp();\n    F8(14);\n"),
+        ("    v = __shfl_sync(0xffffffffu, v, lane - c0);\n"
+         "    if (act) tail(r, n, v, c0);\n    __syncwarp();\n",
+         "    v = __shfl_sync(0xffffffffu, v, lane - c0);\n    F8(s_F8L + 1);\n"
+         "    if (act) tail(r, n, v, c0);\n    __syncwarp();\n"
+         "    F8(s_F8L + 2);\n"),
+        ("  extern __shared__ float smem[];\n"
+         "  const int I = d.I, H = d.H, G = d.G, KI = K * I, dm = I / S;\n",
+         "  extern __shared__ float smem[];\n  F8_START();\n"
+         "  const int I = d.I, H = d.H, G = d.G, KI = K * I, dm = I / S;\n"),
+        ("    x[t] = x0[t];\n    ys[t] = x0[t];\n  }\n  __syncthreads();\n",
+         "    x[t] = x0[t];\n    ys[t] = x0[t];\n  }\n  __syncthreads();\n"
+         "  F8(0);\n"),
+        ("  auto evaluate = [&](float* out, int next) {\n",
+         "  auto evaluate = [&](float* out, int next) {\n"
+         "    if (tid == 0) s_F8L = 3;\n"),
+        ("             });\n    __syncthreads();\n    mb_layer(s2,",
+         "             });\n    __syncthreads();\n    F8(9);\n"
+         "    if (tid == 0) s_F8L = 6;\n    mb_layer(s2,"),
+        ("             });\n    __syncthreads();\n  };\n",
+         "             });\n    __syncthreads();\n    F8(9);\n  };\n"),
+        ("  if (tid == 0) s_all_done = T_save <= 1;\n  __syncthreads();\n",
+         "  if (tid == 0) s_all_done = T_save <= 1;\n  __syncthreads();\n"
+         "  F8(1);\n"),
+        ("    input_features(1);\n    __syncthreads();\n",
+         "    input_features(1);\n    F8(2);\n    __syncthreads();\n"
+         "    F8(9);\n"),
+        ("    }\n    __syncthreads();\n    const size_t off = (size_t)n_it * KI;\n",
+         "    }\n    F8(10);\n    __syncthreads();\n    F8(9);\n"
+         "    const size_t off = (size_t)n_it * KI;\n"),
+        ("    ++n_it;\n    __syncthreads();\n  }\n",
+         "    ++n_it;\n    F8(11);\n    __syncthreads();\n    F8(9);\n"
+         "  }\n"),
+        ("  if (tid == 0) nit[0] = n_it;\n}\n",
+         "  if (tid == 0) nit[0] = n_it;\n  F8(12);\n  F8_WRITE();\n}\n"),
+        ('extern "C" {\n', kc_read("k8f_trace_read", "g_k8ftr")),
+    ]},
+    {"K3f": WARP_K3F_PHASES, "K8f": SPLIT_K8F_PHASES})
+
 FAMILIES = {"K5b/K7b": GRAY_WIDE, "K3b/K4b": LV_ADJOINTS,
-            "K4f/K8b": ADAPTIVE_FWD_MEMBERS_BWD}
+            "K4f/K8b": ADAPTIVE_FWD_MEMBERS_BWD,
+            "K3f/K8f": LV_FIXED_MEMBERS_FWD}
 # family -> the kernels (parts of their names) whose ptxas usage is shown
 PTXAS_OF = {"K5b/K7b": ("gb_bwd_kernel", "wd_bwd_kernel"),
             "K3b/K4b": ("rk_multistep_bwd_kernel", "adaptive_bwd_kernel"),
-            "K4f/K8b": ("adaptive_fwd_kernel", "members_bwd")}
+            "K4f/K8b": ("adaptive_fwd_kernel", "members_bwd"),
+            "K3f/K8f": ("rk_multistep_fwd_kernel", "members_fwd_kernel")}
 
 RUN = r"""
 import ctypes, json, sys
@@ -805,6 +1013,18 @@ if "K4f" in names:
         k4f()
     emit("K4f", "T=35 K=1 tsit5 LV defaults, seeded init",
          read(lib.k4f_trace_read))
+if "K3f" in names:
+    k3f = lv_fixed_launch(torch, np, cs, 34)
+    for _ in range(3):
+        k3f()
+    emit("K3f", "n=34 K=1 tsit5 LV defaults, seeded init",
+         read(lib.k3f_trace_read))
+if "K8f" in names:
+    k8f = members_fwd_launch(torch, np, cs)
+    for _ in range(3):
+        k8f()
+    emit("K8f", "MEMBERS_CASES[0]: 8 LV members [16,80,16] G=5 at the "
+         "init, T=35", read(lib.k8f_trace_read))
 if "K8b" in names:
     k8b, n_it = members_bwd_launch(torch, np, cs)
     for _ in range(3):
@@ -822,13 +1042,16 @@ def instrument(csrc: str, families) -> tuple[list, dict]:
         for name, (edits, phases) in FAMILIES[family].items():
             texts = {f: open(os.path.join(csrc, f)).read() for f in edits
                      if os.path.exists(os.path.join(csrc, f))}
+            # an edit another family already made (the same stamps in a
+            # shared header) is made once
             if len(texts) == len(edits) and all(
-                    all(t.count(old) >= 1 for old, _ in edits[f])
+                    all(old in t or new in t for old, new in edits[f])
                     for f, t in texts.items()):
                 for f, pairs in edits.items():
                     t = texts[f]
                     for old, new in pairs:
-                        t = t.replace(old, new, 1)
+                        if new not in t:
+                            t = t.replace(old, new, 1)
                     with open(os.path.join(csrc, f), "w") as out:
                         out.write(t)
                 designs.append(name)
@@ -862,8 +1085,9 @@ def trace(root: str, families=tuple(FAMILIES)) -> list[dict]:
 
 def build_report(root: str) -> tuple[dict, dict]:
     """ROOT's own (uninstrumented) build: per kernel, the registers, stack
-    frame and spill bytes of nvcc's `-Xptxas -v` output, and a digest of
-    its SASS (`cuobjdump -sass`, the instructions' text only)."""
+    frame and spill bytes of nvcc's `-Xptxas -v` output with the count of
+    its SASS instructions, and a digest of its SASS (`cuobjdump -sass`,
+    the instructions' text only)."""
     from kanodes_tpu_torch.ops._cuda import _nvcc, kernel_key, ptxas_usage
     code = ("import json; from kanodes_tpu_torch.ops import _cuda; "
             "path, log = _cuda.build(); print(json.dumps([str(path), log]))")
@@ -882,7 +1106,7 @@ def build_report(root: str) -> tuple[dict, dict]:
         sass = subprocess.run([cuobjdump, "-sass", path],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
-    digests = {}
+    digests, sizes = {}, {}
     for part in sass.split("Function : ")[1:]:
         name, body = part.split("\n", 1)
         # the instructions without their addresses and encodings (the
@@ -893,7 +1117,12 @@ def build_report(root: str) -> tuple[dict, dict]:
             if re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln))
         digests[kernel_key(name.strip())] = hashlib.sha256(
             text.encode()).hexdigest()[:16]
-    return ptxas_usage(log), digests
+        sizes[name.strip()] = text.count("\n") + 1
+    usage = ptxas_usage(log)
+    for k, v in usage.items():
+        if k in sizes:
+            v["sass_instructions"] = sizes[k]
+    return usage, digests
 
 
 def main(argv: list[str]) -> int:

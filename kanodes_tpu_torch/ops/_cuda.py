@@ -52,7 +52,7 @@ MAX_KW_WARPS = 8
 WARP_ROW_FLOATS = (3 * MAX_STAGES * MAX_I + 2 * (MAX_I * MAX_G + MAX_I)
                    + MAX_I + MAX_I * MAX_H)
 MAX_KW_SMEM = 232448 - 4096
-# K4f (kan_chain_warp.cuh): KF_MAX_WARPS, a block's warps at most
+# K4f and K3f (kan_chain_warp.cuh): KF_MAX_WARPS, a block's warps at most
 MAX_KF_WARPS = 16
 # K9 (kdense_single.cu): in_dims <= KD_MAX_I, out_dims <= KC_MAX_H
 MAX_SINGLE_I = 32
@@ -66,6 +66,9 @@ MAX_MB_I, MAX_MB_SMEM = 32, 232448 - 4096
 # K8b's phase B (rk_adaptive_members.cu): MB_SWEEP_MAX_WARPS, and the
 # threads of its other two launches (kThreads)
 MAX_MB_SWEEP_WARPS, MB_THREADS = 8, 256
+# K8f (rk_adaptive_members.cu): MB_CHUNK_THREADS, whose count sets the
+# chunks of every output sum, and MB_FWD_WARPS, the warps it runs
+MB_CHUNK_THREADS, MB_FWD_WARPS = 256, 8
 
 _NORMALIZERS = {"tanh": 0, "softsign": 1}
 _BASES = {"rbf": 0, "iqf": 1, "rswaf": 2}
@@ -132,8 +135,10 @@ _SIGNATURES = {
     # x, gy, c1, w1, c2, w2, dx, dc1, dw1, dc2, dw2, scratch, K, n_slots,
     # dims, tab, stream
     "kc_rk_step_bwd": [_P] * 12 + [_I] * 2 + [_P] * 3,
-    # x0, c1, w1, c2, w2, ys, K, n_steps, dims, tab, stream
-    "kc_rk_multistep_fwd": [_P] * 6 + [_I] * 2 + [_P] * 3,
+    # x0, c1, w1, c2, w2, ys, K, n_steps, warps, dims, tab, stream
+    "kc_rk_multistep_fwd": [_P] * 6 + [_I] * 3 + [_P] * 3,
+    # dims, stages, warps
+    "kc_multistep_fwd_smem_bytes": [_P] + [_I] * 2,
     # x0, ys, gys, c1, w1, c2, w2, dx0, dc1, dw1, dc2, dw2, scratch, K,
     # n_steps, n_slots, warps, chunk, dims, tab, stream
     "kc_rk_multistep_bwd": [_P] * 13 + [_I] * 5 + [_P] * 3,
@@ -178,6 +183,8 @@ _SIGNATURES = {
     "mb_adaptive_bwd": [_P] * 13 + [_I] + [_P] * 6 + [_I] * 3 + [_P] * 3,
     # dims, K, stages, out [5]
     "mb_bwd_plan": [_P] + [_I] * 2 + [_P],
+    # dims, K, stages, out [17]
+    "mb_fwd_plan": [_P] + [_I] * 2 + [_P],
     # dims, K, stages, backward
     "mb_smem_bytes": [_P] + [_I] * 3,
     # tab, which (0: K7f, 1: K10's chain, 2: K7b)
@@ -474,6 +481,87 @@ def adaptive_fwd_plan(spec, K: int, stages: int) -> AdaptiveFwdPlan:
     warps = -(-K // rows)
     return AdaptiveFwdPlan(warps, rows, 32 * warps,
                            4 * (fixed + warps * per_warp))
+
+
+class MultistepFwdPlan(NamedTuple):
+    """How K3f lays its blocks over K rows."""
+    warps: int          # warps of a block, a warp a row
+    blocks: int
+    threads: int        # of a block
+    smem_bytes: int     # dynamic shared memory of a block
+
+
+def multistep_fwd_plan(spec, K: int, stages: int) -> MultistepFwdPlan:
+    """The launch plan of K3f (csrc/rk_fused.cu) over K rows: a warp a
+    row; as few blocks as MAX_KF_WARPS warps a block allow, fewer warps a
+    block where their workspaces do not fit MAX_KW_SMEM beside the
+    parameters, then as few warps a block as carry the rows over those
+    blocks (K = 17: 2 blocks of 9 warps). The library's
+    `kc_multistep_fwd_smem_bytes` computes the same bytes."""
+    I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
+    per_warp = I + stages * I + I * G + I + H + (H * G + H) * O
+    fixed = param_floats(spec)
+    fit = (MAX_KW_SMEM // 4 - fixed) // per_warp
+    if fit < 1 or K < 1:
+        raise ValueError(f"K3f: no warp of [{I}, {H}, {O}] G={G} fits "
+                         f"{MAX_KW_SMEM} bytes of shared memory, or K={K} "
+                         f"< 1")
+    blocks = -(-K // min(K, MAX_KF_WARPS, fit))
+    warps = -(-K // blocks)
+    return MultistepFwdPlan(warps, blocks, 32 * warps,
+                            4 * (fixed + warps * per_warp))
+
+
+class MembersSplit(NamedTuple):
+    """How K8f splits one layer's output sums [K, N] = feat [K, J] x
+    M [J, N] (`struct MbSplit`)."""
+    P: int        # chunks a sum (MB_CHUNK_THREADS / (K N), within [1, J])
+    chunk: int    # terms a chunk, ceil(J / P)
+    lp: int       # lanes of a group (one output), min(P, 32)
+    opw: int      # groups a warp-load, 32 // lp
+    slots: int    # warp-loads in all, ceil(K N / opw)
+    sk: int       # skew floats after each chunk of a row (0: plain rows)
+    rs: int       # row stride: P (chunk + sk), or J without the skew
+
+
+def members_split(K: int, J: int, N: int, skew: bool) -> MembersSplit:
+    """`mb_split`: an output's chunks in one group of one warp; the chunk
+    boundaries are those of the one-block K8f of MB_CHUNK_THREADS
+    threads; with the skew, chunk + sk is odd."""
+    P = min(max(MB_CHUNK_THREADS // (K * N), 1), J)
+    chunk, lp = -(-J // P), min(P, 32)
+    sk = (1 if chunk % 2 == 0 else 2) if skew else 0
+    return MembersSplit(P, chunk, lp, 32 // lp, -(-(K * N) // (32 // lp)),
+                        sk, P * (chunk + sk) if skew else J)
+
+
+class MembersFwdPlan(NamedTuple):
+    """K8f's launch (csrc/rk_adaptive_members.cu)."""
+    threads: int
+    skew: bool          # chunked rows skewed (else plain rows)
+    smem_bytes: int     # dynamic shared memory
+    layer1: MembersSplit
+    layer2: MembersSplit
+
+
+def members_fwd_plan(spec, K: int, stages: int) -> MembersFwdPlan:
+    """K8f's plan for a packed chain [I -> H -> I] over K rows
+    (`mb_fwd_plan` of the library computes the same): MB_FWD_WARPS warps;
+    the two layers' M^T [N][rs] and features [K][rs], skewed where that
+    fits MAX_MB_SMEM; the state, S stage values, the step's result, the
+    squared errors and the chunk partials."""
+    I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
+    J1, J2 = I * (G + 1), H * (G + 1)
+
+    def plan(skew):
+        s1 = members_split(K, J1, H, skew)
+        s2 = members_split(K, J2, O, skew)
+        floats = ((H + K) * s1.rs + (O + K) * s2.rs + (stages + 3) * K * I
+                  + max(K * H * s1.P, K * O * s2.P))
+        return MembersFwdPlan(32 * MB_FWD_WARPS, skew, 4 * floats, s1, s2)
+
+    skewed = plan(True)
+    return skewed if skewed.smem_bytes <= MAX_MB_SMEM else plan(False)
 
 
 class MembersBwdPlan(NamedTuple):

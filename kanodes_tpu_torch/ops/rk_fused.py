@@ -286,12 +286,14 @@ def _launch_multistep_fwd(k: _Consts, n_steps: int, x0, params):
     K = _check_launch(k.spec, x0, params, 0)
     ys = torch.empty((n_steps,) + tuple(x0.shape), dtype=torch.float32,
                      device=x0.device)
+    plan = _cuda.multistep_fwd_plan(k.spec, K, k.stages)
     dims, tab = k.structs()
     lib = _cuda.library()
     with torch.cuda.device(x0.device):
         err = lib.kc_rk_multistep_fwd(_ptr(x0), *map(_ptr, params), _ptr(ys),
-                                      K, n_steps, ctypes.byref(dims),
-                                      ctypes.byref(tab), _stream())
+                                      K, n_steps, plan.warps,
+                                      ctypes.byref(dims), ctypes.byref(tab),
+                                      _stream())
     LAUNCHES["fused_rk_multistep_fwd"] += 1
     _cuda.check(err, "fused_rk_multistep_fwd")
     return ys

@@ -820,3 +820,77 @@ def test_members_run_on_card_launches_exactly(card):
     assert ra.LAUNCHES["fused_adaptive_members_odeint_bwd"] == 4
     assert out["loss_history"].shape == (4, 8)
     assert bool(torch.isfinite(out["loss_history"]).all())
+
+
+@pytest.mark.parametrize("K", [1, 16, 17, 33, 300])
+def test_multistep_forward_matches_plain_over_row_groups(card, K):
+    """K3f, a warp a row and 16 rows a block, one block (1, 16), two (17,
+    33) and nineteen (300): against the plain forward by
+    chip_smoke.f64_rule over 34 steps, and the same bits on a second
+    launch."""
+    spec, x0, params, _ = inputs(card, K, seed=K)
+    k = rk._consts(spec, "tsit5", 0.1)
+    ys = rk._launch_multistep_fwd(k, 34, x0, params)
+    assert torch.equal(ys, rk._launch_multistep_fwd(k, 34, x0, params))
+    ys_ref = rk.fused_rk_multistep_reference(spec, "tsit5", 0.1, 34, x0,
+                                             *params)
+    ys64 = rk.fused_rk_multistep_reference(
+        spec, "tsit5", 0.1, 34, x0.double(), *(p.double() for p in params))
+    failures = []
+    chip_smoke.f64_rule(failures, f"K3f K={K}", ys, ys_ref, ys64)
+    assert not failures, failures
+
+
+@pytest.mark.parametrize("K", [2, 8, 16, 28])
+def test_members_forward_matches_plain_over_rows(card, K):
+    """K8f over K rows of 8 LV members ([16,80,16] G=5) on the train grid
+    (uniform +-0.3 weights, save-clipped steps): the plain version's
+    per-member stats, ys by chip_smoke.f64_rule, and the same bits on a
+    second launch (records over the active iterations, stats)."""
+    case = chip_smoke.MEMBERS_CAP_CASES[0]._replace(K=K)
+    spec, x0, params, ts = chip_smoke.members_case_inputs(torch, case)
+    k = ra._consts(spec, "tsit5", case.rtol, case.atol, StepController(),
+                   None)
+    ys, rec = ra._launch_members_fwd(k, 8, case.max_steps, x0, ts, params)
+    ys2, rec2 = ra._launch_members_fwd(k, 8, case.max_steps, x0, ts, params)
+    n = int(rec[6][0])
+    assert torch.equal(ys, ys2)
+    for a, b in zip(rec[:5], rec2[:5]):
+        assert torch.equal(a[:n], b[:n])
+    assert torch.equal(rec[5], rec2[5]) and torch.equal(rec[6], rec2[6])
+    args = (spec, "tsit5", case.rtol, case.atol, case.max_steps,
+            StepController(), None, 8)
+    ys_ref, rec_ref = ra.fused_adaptive_members_odeint_reference(
+        *args, x0, ts, *params)
+    assert rec[5].tolist() == rec_ref[5].tolist()
+    ys64, _ = ra.fused_adaptive_members_odeint_reference(
+        *args, x0.double(), ts.double(), *(p.double() for p in params))
+    failures = []
+    chip_smoke.f64_rule(failures, "ys", ys, ys_ref, ys64)
+    assert not failures, failures
+
+
+@pytest.mark.parametrize("widths,grid_len", [((2, 10, 2), 5),
+                                             ((8, 32, 8), 16),
+                                             ((16, 80, 16), 5),
+                                             ((32, 112, 32), 5),
+                                             ((6, 30, 6), 5)])
+@pytest.mark.parametrize("K", [1, 4, 17, 28, 300])
+def test_forward_plans_match_the_library(card, widths, grid_len, K):
+    """The host plans of K3f (multistep_fwd_plan) and K8f
+    (members_fwd_plan) give the bytes, skew and splits the library's own
+    layouts give."""
+    spec = chain_spec_of(KANChain.mlp_like(list(widths), grid_len=grid_len))
+    dims = ctypes.byref(_cuda.chain_dims(spec))
+    lib = _cuda.library()
+    if widths[0] <= 8 and widths[1] <= 32:
+        plan = _cuda.multistep_fwd_plan(spec, K, 7)
+        assert lib.kc_multistep_fwd_smem_bytes(dims, 7, plan.warps) == \
+            plan.smem_bytes
+    mf = _cuda.members_fwd_plan(spec, K, 7)
+    out = (ctypes.c_int * 17)()
+    lib.mb_fwd_plan(dims, K, 7, out)
+    assert tuple(out[:3]) == (mf.threads, int(mf.skew), mf.smem_bytes)
+    for layer, split in ((0, mf.layer1), (1, mf.layer2)):
+        assert tuple(out[3 + 7 * layer:10 + 7 * layer]) == tuple(split)
+    assert lib.mb_smem_bytes(dims, K, 7, 0) == mf.smem_bytes

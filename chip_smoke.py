@@ -15,8 +15,13 @@ through `experiments.pde_source.run(..., device="cuda")` in five (1-D
 Fisher-KPP fused and plain, 1-D Allen-Cahn, 2-D Fisher-KPP and 2-D
 Allen-Cahn fused), the
 PDE full-state surrogate trainer through `experiments.pde_surrogate.run(
-..., device="cuda")` in five (Schrödinger fused fixed and shooting, 2-D
-Allen-Cahn fused shooting, Burgers through the wide kernels and plain) and
+..., device="cuda")` in nine (Schrödinger fused fixed and shooting, 2-D
+Allen-Cahn fused shooting, Burgers through the wide kernels and plain,
+Burgers and 1-D Allen-Cahn fused fixed and shooting on the narrow route,
+K2's medium flavor), the packed seed sweep of
+`scripts/lv_multiseed_packed.py` through
+`experiments.lv_members.run_packed_phases(..., device="cuda")` (K2/K3's
+medium flavor, its four phases cut in iterations) and
 `KDense.apply(impl="pallas")`, checks from the launch counters that each
 run went through its kernels, holds the adaptive kernel to its plain
 version again on the parameters that run ended with (train and eval
@@ -94,8 +99,16 @@ MEMBERS_KERNELS = {
     "fused_adaptive_members_odeint_bwd": (
         "kanodes_tpu/ops/rk_adaptive_fused.py:701", _K8),
 }
+# K2/K3 past kan_chain.cuh's caps: the medium flavor, a block a row
+# (csrc/kan_chain_block.cuh, launched from rk_fused.cu)
+MID_KERNELS = {
+    "fused_rk_step_fwd_mid": ("kanodes_tpu/ops/rk_fused.py:144", _RK),
+    "fused_rk_step_bwd_mid": ("kanodes_tpu/ops/rk_fused.py:167", _RK),
+    "fused_rk_multistep_fwd_mid": ("kanodes_tpu/ops/rk_fused.py:311", _RK),
+    "fused_rk_multistep_bwd_mid": ("kanodes_tpu/ops/rk_fused.py:346", _RK),
+}
 KERNELS = {**LV_KERNELS, **SOURCE_KERNELS, **KDENSE_KERNELS, **WIDE_KERNELS,
-           **MEMBERS_KERNELS}
+           **MEMBERS_KERNELS, **MID_KERNELS}
 
 
 def emit(obj) -> None:
@@ -596,30 +609,33 @@ def check_multistep(torch, rk, spec, label, n, x0, params, gys, failures,
                     max_err, dt=0.1):
     """K3f by the float64 rule and K3b against the plain backward and
     autograd on one input (tsit5, step dt); K3f and K3b launched twice
-    must repeat bit for bit. Returns K3f's detail."""
+    must repeat bit for bit. Past kan_chain.cuh's caps the launches are
+    the medium flavor's (K3f-m, K3b-m). Returns K3f's detail."""
     k = rk._consts(spec, "tsit5", dt)
+    sfx, m = ("", "") if k.flavor == "small" else ("_mid", "-m")
+    label = f"{m} {label}"
     ys = rk._launch_multistep_fwd(k, n, x0, params)
     if not torch.equal(ys, rk._launch_multistep_fwd(k, n, x0, params)):
-        failures.append(f"K3f {label}: a second launch differs")
+        failures.append(f"K3f{label}: a second launch differs")
     ys_ref = rk.fused_rk_multistep_reference(spec, "tsit5", dt, n, x0,
                                              *params)
     ys64 = rk.fused_rk_multistep_reference(
         spec, "tsit5", dt, n, x0.double(), *(p.double() for p in params))
-    detail = f64_rule(failures, f"K3f {label}", ys, ys_ref, ys64)
-    max_err["fused_rk_multistep_fwd"] = max(
-        max_err["fused_rk_multistep_fwd"], detail["max_abs_err"])
+    detail = f64_rule(failures, f"K3f{label}", ys, ys_ref, ys64)
+    max_err["fused_rk_multistep_fwd" + sfx] = max(
+        max_err["fused_rk_multistep_fwd" + sfx], detail["max_abs_err"])
     g = rk._launch_multistep_bwd(k, n, x0, ys, params, gys)
     g_ref = rk.fused_rk_multistep_bwd_reference(spec, "tsit5", dt, n, x0,
                                                 ys, *params, gys)
     xs = [t.clone().requires_grad_() for t in (x0, *params)]
     g_auto = torch.autograd.grad(
         rk.fused_rk_multistep_reference(spec, "tsit5", dt, n, *xs), xs, gys)
-    check_grads(failures, max_err, "fused_rk_multistep_bwd", f"K3b {label}",
-                g, g_ref, g_auto)
+    check_grads(failures, max_err, "fused_rk_multistep_bwd" + sfx,
+                f"K3b{label}", g, g_ref, g_auto)
     again = rk._launch_multistep_bwd(k, n, x0, ys, params, gys)
     if not all(torch.equal(a, b) for a, b in zip(g, again)):
-        failures.append(f"K3b {label}: a second launch differs")
-    return {"case": label, **detail}
+        failures.append(f"K3b{label}: a second launch differs")
+    return {"case": label.strip(), **detail}
 
 
 def phase_kernels(torch, rk, spec, rng, max_err):
@@ -665,6 +681,109 @@ def phase_kernels(torch, rk, spec, rng, max_err):
         cases.append(f"K3 {label}")
     torch.cuda.synchronize()
     finish_phase({"phase": "kernel_vs_plain", "kernels": "K2, K3",
+                  "cases": cases, "fwd_tol": FWD_TOL, "grad_tol": GRAD_TOL,
+                  "multistep_fwd": k3f_detail}, failures)
+
+
+class MidCase(NamedTuple):
+    """A K2-m (n = 0: one step of K rows) or K3-m (n steps of K rows) case
+    at a chain past kan_chain.cuh's caps, weights from U(-scale, scale)
+    and states from U(-1, 1), tsit5 at step dt."""
+    label: str
+    widths: tuple
+    G: int
+    basis: str
+    normalizer: str
+    scale: float
+    K: int
+    n: int
+    dt: float
+
+
+# Burgers [41,10,41] G=5 and 1-D Allen-Cahn G=10 (softsign, rbf: the
+# surrogates' chains) at their main path's rows: K = 1 (the trajectory
+# loss), 4 (the shooting group of four segments); the packed 8-member LV
+# chain [16,80,16] G=5 iqf (tanh) at 34 and 31 rows (shooting, L = 1 and
+# 4) and its fixed-mode K3 (n = 34, K = 1); Burgers' whole trajectory in
+# one K3 launch (n = 180); every basis and normalizer at Burgers' widths
+_BUR_M, _PACK = (41, 10, 41), (16, 80, 16)
+MID_CASES = (
+    MidCase("burgers K2 K=1", _BUR_M, 5, "rbf", "softsign", 0.1, 1, 0, 5e-3),
+    MidCase("burgers K2 K=4", _BUR_M, 5, "rbf", "softsign", 0.1, 4, 0, 5e-3),
+    MidCase("allen_cahn K2 K=1", _BUR_M, 10, "rbf", "softsign", 0.1, 1, 0,
+            5e-3),
+    MidCase("allen_cahn K2 K=4", _BUR_M, 10, "rbf", "softsign", 0.1, 4, 0,
+            5e-3),
+    MidCase("packed K2 K=34", _PACK, 5, "iqf", "tanh", 0.05, 34, 0, 0.1),
+    MidCase("packed K2 K=31", _PACK, 5, "iqf", "tanh", 0.05, 31, 0, 0.1),
+    MidCase("packed K3 n=34 K=1", _PACK, 5, "iqf", "tanh", 0.05, 1, 34, 0.1),
+    MidCase("burgers K3 n=180 K=1", _BUR_M, 5, "rbf", "softsign", 0.1, 1,
+            180, 5e-3),
+) + tuple(
+    MidCase(f"{basis}/{norm} K3 n=20 K=2", _BUR_M, 5, basis, norm, 0.1, 2,
+            20, 5e-3)
+    for basis in ("rbf", "iqf", "rswaf") for norm in ("tanh", "softsign"))
+
+
+def mid_case_inputs(torch, kp, case, seed, device="cuda"):
+    """(spec, x [K, I], params) of a MidCase, numpy seed `seed`."""
+    import numpy as np
+    (I, H, O), G = case.widths, case.G
+    spec = kp.ChainSpec(I, H, O, G, normalizer=case.normalizer,
+                        basis=case.basis)
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+    params = [t(rng.uniform(-case.scale, case.scale, s))
+              for s in ((I * G, H), (I, H), (H * G, O), (H, O))]
+    return spec, t(rng.uniform(-1.0, 1.0, (case.K, I))), params
+
+
+def phase_mid_kernels(torch, rk, kp, max_err):
+    """K2-m and K3-m against their plain versions on the card (MID_CASES):
+    K2f-m elementwise and K3f-m by the float64 rule, the backwards
+    against the plain backward and autograd through the plain forward;
+    every backward launched twice repeats bit for bit. One line."""
+    import numpy as np
+    failures, cases, k3f_detail = [], [], []
+    for i, case in enumerate(MID_CASES):
+        spec, x, params = mid_case_inputs(torch, kp, case, 40 + i)
+        k = rk._consts(spec, "tsit5", case.dt)
+        assert k.flavor == "medium", (case.label, k.flavor)
+        rng = np.random.default_rng(60 + i)
+        if case.n:
+            gys = torch.tensor(
+                rng.standard_normal((case.n, case.K, spec.in_dims))
+                / (case.n * case.K), dtype=torch.float32, device="cuda")
+            k3f_detail.append(check_multistep(
+                torch, rk, spec, case.label, case.n, x, params, gys,
+                failures, max_err, dt=case.dt))
+        else:
+            gy = torch.tensor(rng.standard_normal(tuple(x.shape)),
+                              dtype=torch.float32, device="cuda")
+            y = rk._launch_step_fwd(k, x, params)
+            y_ref = rk.fused_rk_step_reference(spec, "tsit5", case.dt, x,
+                                               *params)
+            e = assert_close(failures, f"K2f-m {case.label}", y, y_ref,
+                             FWD_TOL)
+            max_err["fused_rk_step_fwd_mid"] = max(
+                max_err["fused_rk_step_fwd_mid"], e)
+            g = rk._launch_step_bwd(k, x, params, gy)
+            g_ref = rk.fused_rk_step_bwd_reference(spec, "tsit5", case.dt,
+                                                   x, *params, gy)
+            xs = [t.clone().requires_grad_() for t in (x, *params)]
+            g_auto = torch.autograd.grad(rk.fused_rk_step_reference(
+                spec, "tsit5", case.dt, *xs), xs, gy)
+            check_grads(failures, max_err, "fused_rk_step_bwd_mid",
+                        f"K2b-m {case.label}", g, g_ref, g_auto)
+            again = rk._launch_step_bwd(k, x, params, gy)
+            if not all(torch.equal(a, b) for a, b in zip(g, again)):
+                failures.append(f"K2b-m {case.label}: a second launch "
+                                f"differs")
+        cases.append(case.label)
+    torch.cuda.synchronize()
+    finish_phase({"phase": "kernel_vs_plain", "kernels": "K2-m, K3-m",
                   "cases": cases, "fwd_tol": FWD_TOL, "grad_tol": GRAD_TOL,
                   "multistep_fwd": k3f_detail}, failures)
 
@@ -1042,21 +1161,56 @@ SURROGATE_RUNS = (
         eval_every=30)),
     ("burgers xla fixed", dict(problem="burgers", impl="xla", iters=8,
                                eval_every=8)),
+    # the narrow route (wide_kernels=None, JAX's default): K2-m a step
+    ("burgers fused fixed (narrow)", dict(problem="burgers", impl="fused",
+                                          iters=30, eval_every=30)),
+    ("burgers fused shooting (narrow)", dict(
+        problem="burgers", impl="fused", solve_mode="shooting", iters=30,
+        eval_every=30)),
+    ("allen_cahn fused fixed (narrow)", dict(
+        problem="allen_cahn", impl="fused", iters=30, eval_every=30)),
+    ("allen_cahn fused shooting (narrow)", dict(
+        problem="allen_cahn", impl="fused", solve_mode="shooting",
+        iters=30, eval_every=30)),
 )
 
 
-def expected_surrogate_launches(sg, cfg, data):
+def expected_surrogate_launches(sg, cfg, data, model):
     """Kernel launches one pde_surrogate.run() implies, from its static
     step plan. Wide fused path: one K7f per snapshot interval for every
     trajectory loss and eval (the reference's float32 snapshot times are
     no exact multiples of the base step, so there is no single launch),
     each with one K10 in the backward (K = 1); a shooting loss is one K7f
     per group of equally long segments, and one K10 (a single segment) or
-    K7b in the backward."""
+    K7b in the backward. Narrow fused path (K2/K3 in the chain's flavor):
+    one K2f a step of every trajectory loss and eval (one K3f for the
+    whole trajectory on a uniform grid), one K2f a step of each shooting
+    group, and as many backwards."""
+    from kanodes_tpu_torch.ode.tableaus import get_tableau
+    from kanodes_tpu_torch.ops._cuda import fused_rk_flavor
+    from kanodes_tpu_torch.ops.kdense_pallas import chain_spec_of
     iters, n_evals = train_blocks(cfg, cfg.resolved_chunk())
     plan = sg.step_plan(cfg, data)
     want = {k: 0 for k in KERNELS}
     if cfg.impl != "fused":
+        return want, plan
+    wide = (model.in_dims * model.layers[0].grid_len > 2048
+            if cfg.wide_kernels is None else cfg.wide_kernels)
+    if not wide:
+        sfx = ("" if fused_rk_flavor(chain_spec_of(model), get_tableau(
+            cfg.rk_solver).stages) == "small" else "_mid")
+        kind = "multistep" if plan["uniform"] else "step"
+        traj = 1 if plan["uniform"] else plan["total_steps"]
+        fwd = traj * n_evals
+        if cfg.solve_mode == "shooting":
+            steps = sum(max(int(round(length / plan["base_h"])), 1)
+                        for length, _ in plan["groups"])
+            want["fused_rk_step_fwd" + sfx] = iters * steps
+            want["fused_rk_step_bwd" + sfx] = iters * steps
+        else:
+            fwd += iters * traj
+            want[f"fused_rk_{kind}_bwd{sfx}"] = iters * traj
+        want[f"fused_rk_{kind}_fwd{sfx}"] += fwd
         return want, plan
     per_traj = 1 if plan["uniform"] else len(plan["interval_steps"])
     fwd, lr, std = per_traj * n_evals, 0, 0
@@ -1109,7 +1263,8 @@ def phase_surrogate_main_path(torch, sg, tw, modules, card):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = read_counts(modules)
-        want, plan = expected_surrogate_launches(sg, cfg, out["data"])
+        want, plan = expected_surrogate_launches(sg, cfg, out["data"],
+                                                 out["model"])
         assert counts == want, f"{label}: launches {counts} != {want}"
         for name in KERNELS:
             launches[name] += counts[name]
@@ -1191,7 +1346,8 @@ def phase_surrogate_main_path(torch, sg, tw, modules, card):
                   "shape": list(starts.shape), "n_steps": n_steps,
                   "launches": {k: v for k, v in counts.items() if v},
                   "card": card}, failures)
-    for name in WIDE_KERNELS:
+    for name in (*WIDE_KERNELS, "fused_rk_step_fwd_mid",
+                 "fused_rk_step_bwd_mid"):
         assert launches[name] > 0, f"{name} never launched on the main path"
     return launches
 
@@ -1766,6 +1922,189 @@ def phase_members_main_path(torch, lv, lvm, pk, modules, card):
     return launches, fused
 
 
+# the packed seed sweep's four phases (scripts/lv_multiseed_packed.py:
+# 10000, 6000, 7000, 7000 iterations), cut to these
+PACKED_PHASE_ITERS = (300, 200, 200, 200)
+
+
+def packed_loss_and_grads(torch, lv, lvm, pk, cfg, members, device,
+                          f64=False):
+    """The packed ensemble's [8] loss vector under cfg and the gradients of
+    its sum at `members` (8 member param lists), with the masked packed
+    chain on `device`: on the card through the kernels, on the CPU
+    through their plain versions (in float64 with `f64`)."""
+    built = lvm.build(cfg, 8, device, member_params=members)
+    model, data = built["model"], built["data"]
+    if f64:
+        model.double()
+        data = dict(data, X=data["X"].double())
+    loss_fn, _, _ = lv.make_ode_fns(cfg, model, data,
+                                    reduce_fn=pk.member_mean(8), n_members=8)
+    vec = loss_fn(model)
+    grads = torch.autograd.grad(vec.sum(), list(model.parameters()))
+    return vec.detach().cpu(), [g.cpu() for g in grads]
+
+
+def phase_packed_phases(torch, lv, lvm, pk, modules, card):
+    """The packed seed sweep of scripts/lv_multiseed_packed.py on the card
+    (`lv_members.run_packed_phases`): 8 iqf LV members as one [16, 80, 16]
+    chain, the script's four phases (fused shooting with segment_len 1
+    and 4, fused fixed at two learning rates) cut to PACKED_PHASE_ITERS.
+    Exact launches: a shooting loss L K2f-m and L K2b-m (34 and 31 rows),
+    a fixed loss one K3f-m and one K3b-m (n = 34, K = 1), each phase's
+    eval one K3f-m (n = 140). In every phase each member's loss is finite
+    and its joint best below its first. At the final parameters the fused
+    shooting (L = 4) and fixed losses and gradients on the card equal the
+    same objectives' plain versions on the CPU by the float64 rule: a
+    trained ensemble's loss is a small residual, whose f32 rounding its
+    gradient magnifies, so each is held to the plain version run in
+    float64 (the kernel's error at most twice plain f32's, plus 1e-6 of
+    the largest entry). Returns the launches."""
+    import dataclasses
+    from types import SimpleNamespace
+    from kanodes_tpu_torch.interop import chain_params_to_numpy
+    phases = [(m, L, lr, n) for (m, L, lr, _), n in
+              zip(lvm.PACKED_PHASES, PACKED_PHASE_ITERS)]
+    torch.cuda.synchronize()
+    reset_counts(modules)
+    t0 = time.perf_counter()
+    res = lvm.run_packed_phases(phases, 8, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts(modules)
+    want = {k: 0 for k in KERNELS}
+    for mode, L, _, n in phases:
+        iters, n_evals = train_blocks(
+            SimpleNamespace(iters=n, eval_every=n),
+            lvm.TrainConfig.max_iters_per_call)
+        want["fused_rk_multistep_fwd_mid"] += n_evals
+        if mode == "shooting":
+            want["fused_rk_step_fwd_mid"] += iters * L
+            want["fused_rk_step_bwd_mid"] += iters * L
+        else:
+            want["fused_rk_multistep_fwd_mid"] += iters
+            want["fused_rk_multistep_bwd_mid"] += iters
+    assert counts == want, f"packed phases: launches {counts} != {want}"
+    assert all(t.is_cuda for t in res["model"].parameters()), \
+        "a result left the card"
+    for ph in res["phases"]:
+        first, best = torch.tensor(ph["first_loss"]), \
+            torch.tensor(ph["best_loss"])
+        assert bool(torch.isfinite(torch.tensor(ph["last_loss"])).all()), \
+            f"non-finite loss in {ph}"
+        assert bool((best < first).all()), \
+            f"packed phase {ph['solve_mode']} L={ph['segment_len']}: " \
+            f"member losses at the joint best {best.tolist()} !< first " \
+            f"{first.tolist()}"
+    final = chain_params_to_numpy(res["model"])
+    members = [pk.extract_member(res["member_model"], final, 8, s)
+               for s in range(8)]
+    failures, parity = [], {}
+    base = lv.LVConfig(impl="fused", basis="iqf")
+    for mode, L in (("shooting", 4), ("fixed", 1)):
+        cfg = dataclasses.replace(base, solve_mode=mode, segment_len=L)
+        lk, gk = packed_loss_and_grads(torch, lv, lvm, pk, cfg, members,
+                                       "cuda")
+        lp, gp = packed_loss_and_grads(torch, lv, lvm, pk, cfg, members,
+                                       "cpu")
+        l64, g64 = packed_loss_and_grads(torch, lv, lvm, pk, cfg, members,
+                                         "cpu", f64=True)
+        errs = []
+        for what, a, b, c in zip(["loss", "dC1", "dW1", "dC2", "dW2"],
+                                 [lk, *gk], [lp, *gp], [l64, *g64]):
+            err_k = float((a.double() - c).abs().max())
+            err_p = float((b.double() - c).abs().max())
+            slack = 1e-6 * float(c.abs().max())
+            if err_k > 2 * err_p + slack:
+                failures.append(f"packed {mode} {what}: error vs float64 "
+                                f"{err_k:.3e} > 2 x plain f32's "
+                                f"{err_p:.3e} + {slack:.3e}")
+            errs.append({"what": what, "kernel_err_vs_f64": err_k,
+                         "plain_f32_err_vs_f64": err_p,
+                         "max_abs_kernel_vs_plain": float(
+                             (a - b).abs().max())})
+        parity[f"{mode} L={L}"] = {"kernel_loss": lk.tolist(),
+                                   "plain_loss": lp.tolist(),
+                                   "f64_rule": errs}
+    for name in MID_KERNELS:
+        assert counts[name] > 0, f"{name} never launched on the main path"
+    finish_phase({"phase": "packed_phases", "members": 8,
+                  "widths": [16, 80, 16], "basis": "iqf",
+                  "phases": res["phases"],
+                  "best_traj_train_mse": res["best_traj_train_mse"],
+                  "launches": {k: v for k, v in counts.items() if v},
+                  "seconds": seconds, "final_parity": parity,
+                  "card": card}, failures)
+    return counts
+
+
+def phase_mid_timings(torch, rk, kp, card):
+    """K2-m and K3-m against their plain versions at the main path's
+    shapes: K2 at Burgers K = 1 (fixed mode, 180 an iteration each way)
+    and K = 4 (the shooting group), 1-D Allen-Cahn K = 1, the packed chain
+    at K = 34 (shooting, L = 1); K3 at the packed chain's n = 34, K = 1
+    (fixed) and its eval's n = 140, and Burgers' whole trajectory (n =
+    180). CUDA-event ms, the profiler's device µs per launch, the bound
+    from `utils/kernel_bounds.py`. The kernels line takes Burgers K = 1
+    for K2 and the packed n = 34 for K3."""
+    from kanodes_tpu_torch.utils import kernel_bounds as kb
+    cases, reps_of = {}, {}
+
+    def add(label, case):
+        reps_of[label] = 5 if case.n > 34 else 20
+        spec, x, params = mid_case_inputs(torch, kp, case, 90)
+        k = rk._consts(spec, "tsit5", case.dt)
+        grid = rk._grid_of(k, x)
+        dims = (spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len)
+        K, n, s = case.K, case.n, k.n_slots
+        if not n:
+            gy = torch.randn_like(x)
+            cases[label] = {
+                "fused_rk_step_fwd_mid": (
+                    lambda: rk._launch_step_fwd(k, x, params),
+                    lambda: rk._step_fwd_plain(k, x, params, grid),
+                    kb.bound(*kb.rk_step_fwd(dims, K, s))),
+                "fused_rk_step_bwd_mid": (
+                    lambda: rk._launch_step_bwd(k, x, params, gy),
+                    lambda: rk._step_bwd_plain(k, x, params, grid, gy),
+                    kb.bound(*kb.rk_step_bwd(dims, K, s)))}
+            return
+        ys = rk._launch_multistep_fwd(k, n, x, params)
+        gys = torch.randn_like(ys) / n
+        cases[label] = {
+            "fused_rk_multistep_fwd_mid": (
+                lambda: rk._launch_multistep_fwd(k, n, x, params),
+                lambda: rk._multistep_fwd_plain(k, n, x, params, grid),
+                kb.bound(*kb.rk_multistep_fwd(dims, K, n, s))),
+            "fused_rk_multistep_bwd_mid": (
+                lambda: rk._launch_multistep_bwd(k, n, x, ys, params, gys),
+                lambda: rk._multistep_bwd_plain(k, n, x, ys, params, grid,
+                                                gys),
+                kb.bound(*kb.rk_multistep_bwd(dims, K, n, s)))}
+
+    by_label = {c.label: c for c in MID_CASES}
+    for label in ("burgers K2 K=1", "burgers K2 K=4", "allen_cahn K2 K=1",
+                  "packed K2 K=34", "packed K3 n=34 K=1",
+                  "burgers K3 n=180 K=1"):
+        add(label, by_label[label])
+    add("packed K3 n=140 K=1 (eval)",
+        by_label["packed K3 n=34 K=1"]._replace(n=140))
+    timed = {}
+    with torch.no_grad():
+        for label, kernels in cases.items():
+            timed[label] = {}
+            reps = reps_of[label]
+            for name, (kern, plain, bound) in kernels.items():
+                t = kernel_vs_plain_ms(torch, kern, plain, bound, reps=reps,
+                                       plain_reps=2)
+                t["device_us"] = device_us(torch, kern, reps=10)
+                timed[label][name] = t
+    emit({"phase": "timings", "path": "K2-m, K3-m (narrow surrogates, "
+          "packed ensemble)", "solver": "tsit5", "cases": timed,
+          "card": card})
+    return {**timed["burgers K2 K=1"], **timed["packed K3 n=34 K=1"]}
+
+
 def phase_members_timings(torch, lvm, ra, trained, card):
     """K8f/K8b against their plain versions at the slice's shapes, on the
     parameters the fused members run ended with: the train grid (T = 35,
@@ -2085,6 +2424,7 @@ def main() -> int:
     spec = kp.chain_spec_of(KANChain.mlp_like([2, 10, 2], grid_len=5))
     max_err = {k: 0.0 for k in KERNELS}
     phase_kernels(torch, rk, spec, rng, max_err)
+    phase_mid_kernels(torch, rk, kp, max_err)
     phase_chain_kernels(torch, kp, KANChain, rng, max_err)
     phase_adaptive_kernels(torch, ra, spec, rng, StepController, max_err)
     phase_graybox_kernels(torch, gb, max_err)
@@ -2097,6 +2437,7 @@ def main() -> int:
     members_launches, members_out = phase_members_main_path(
         torch, lv, lvm, pk, modules, card)
     for counts in (phase_surrogate_main_path(torch, sg, tw, modules, card),
+                   phase_packed_phases(torch, lv, lvm, pk, modules, card),
                    phase_source_main_path(torch, ps, modules, card),
                    phase_kdense_pallas(torch, modules, KDense, card),
                    members_launches):
@@ -2111,6 +2452,7 @@ def main() -> int:
     times.update(phase_source_timings(torch, gb, kp, card))
     times.update(phase_wide_timings(torch, tw, kp, card))
     times.update(phase_members_timings(torch, lvm, ra, members_out, card))
+    times.update(phase_mid_timings(torch, rk, kp, card))
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -30,7 +30,7 @@ MODULE_COMMANDS: dict[str, tuple[str, str]] = {
                   "PDE full-state surrogate training (--problem=burgers|"
                   "allen_cahn|allen_cahn_2d|schrodinger, --solve_mode=fixed|"
                   "shooting, --impl=xla|fused, --wide_kernels=1 for the "
-                  "41-column problems, --key=value overrides, "
+                  "wide kernels at any width, --key=value overrides, "
                   "--device=cuda|cpu, default cuda)"),
 }
 

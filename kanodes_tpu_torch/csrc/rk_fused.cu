@@ -47,9 +47,15 @@
 //     order: a fixed order, no float atomics, so results repeat bit for
 //     bit. The TPU kernel's `_bwd_window` GEMM batching is a TPU latency
 //     trick and is not ported; only the gradients must match.
+//   * chains past those kernels' caps (I, O <= 8, H <= 32: the Burgers and
+//     1-D Allen-Cahn surrogates, the packed LV ensemble) take the medium
+//     flavor, a block a row (kan_chain_block.cuh): kb_rk_step_fwd (K2f-m),
+//     kb_rk_step_bwd (K2b-m), kb_rk_multistep_fwd (K3f-m) and
+//     kb_rk_multistep_bwd (K3b-m); each backward is two launches, the
+//     rows' reverse recursion and the parameter sums.
 // Launches go on the caller's stream; nothing here allocates or syncs.
 
-#include "kan_chain_warp.cuh"
+#include "kan_chain_block.cuh"
 
 namespace {
 
@@ -217,6 +223,146 @@ rk_multistep_bwd_kernel(const float* x0, const float* ys, const float* gys,
                         dw2);
 }
 
+// ---------------------------------------------------------------------------
+// The medium flavor: a block a row (kan_chain_block.cuh)
+// ---------------------------------------------------------------------------
+
+// K2f-m: one RK step of row blockIdx.x.
+__global__ void __launch_bounds__(KB_THREADS)
+kb_step_fwd_kernel(const float* x, const float* c1, const float* w1,
+                   const float* c2, const float* w2, float* y, ChainDims d,
+                   StepTab T) {
+  extern __shared__ float smem[];
+  __shared__ WarpConsts c;
+  kw_fill_consts(c, d, T.stages, T.a, T.b, T.needed);
+  const BlockParams p = kb_stage_params(c1, w1, c2, w2, d, smem);
+  const int I = d.I, r = blockIdx.x;
+  float* xr = smem + kc_param_floats(d);
+  float* xi = xr + I;
+  float* ks = xi + I;
+  float* ws = ks + T.stages * I;
+  for (int q = threadIdx.x; q < I; q += blockDim.x)
+    xr[q] = x[(size_t)r * I + q];
+  __syncthreads();
+  kb_rk_step(xr, xr, T.stages, d, c, p, xi, ks, ws);
+  for (int q = threadIdx.x; q < I; q += blockDim.x)
+    y[(size_t)r * I + q] = xr[q];
+}
+
+// K3f-m: n_steps RK steps of row blockIdx.x, every post-step state stored
+// at ys [n_steps, K, I].
+__global__ void __launch_bounds__(KB_THREADS)
+kb_multistep_fwd_kernel(const float* x0, const float* c1, const float* w1,
+                        const float* c2, const float* w2, float* ys, int K,
+                        int n_steps, ChainDims d, StepTab T) {
+  extern __shared__ float smem[];
+  __shared__ WarpConsts c;
+  kw_fill_consts(c, d, T.stages, T.a, T.b, T.needed);
+  const BlockParams p = kb_stage_params(c1, w1, c2, w2, d, smem);
+  const int I = d.I, r = blockIdx.x;
+  float* xr = smem + kc_param_floats(d);
+  float* xi = xr + I;
+  float* ks = xi + I;
+  float* ws = ks + T.stages * I;
+  for (int q = threadIdx.x; q < I; q += blockDim.x)
+    xr[q] = x0[(size_t)r * I + q];
+  __syncthreads();
+  for (int s = 0; s < n_steps; ++s) {
+    kb_rk_step(xr, xr, T.stages, d, c, p, xi, ks, ws);
+    for (int q = threadIdx.x; q < I; q += blockDim.x)
+      ys[((size_t)s * K + r) * I + q] = xr[q];
+  }
+}
+
+// K2b-m, its first launch: the step adjoint of row blockIdx.x; dx and the
+// row's n_slots records at scratch + r * n_slots * width.
+__global__ void __launch_bounds__(KB_THREADS)
+kb_step_bwd_kernel(const float* x, const float* gy, const float* c1,
+                   const float* w1, const float* c2, const float* w2,
+                   float* dx, float* scratch, int n_slots, ChainDims d,
+                   StepTab T) {
+  extern __shared__ float smem[];
+  __shared__ WarpConsts c;
+  kw_fill_consts(c, d, T.stages, T.a, T.b, T.needed);
+  const BlockParams p = kb_stage_params(c1, w1, c2, w2, d, smem);
+  const RecLayout L = kc_rec_layout(d.I, d.H, d.O, d.G);
+  const int I = d.I, r = blockIdx.x;
+  const BlockAdjRows a = kb_adj_rows(smem + kc_param_floats(d), d, T.stages);
+  for (int q = threadIdx.x; q < I; q += blockDim.x) {
+    a.x[q] = x[(size_t)r * I + q];
+    a.gy[q] = gy[(size_t)r * I + q];
+  }
+  __syncthreads();
+  kb_rk_step_adjoint(a, T.stages, n_slots, d, c, p, L,
+                     scratch + (size_t)r * n_slots * L.width);
+  for (int q = threadIdx.x; q < I; q += blockDim.x)
+    dx[(size_t)r * I + q] = a.dx[q];
+}
+
+// K3b-m, its first launch: the reverse sweep of row blockIdx.x over the
+// stored states, the cotangent gys[s] of every stored state folded in;
+// the records of step s at scratch + (s * K + r) * n_slots * width.
+__global__ void __launch_bounds__(KB_THREADS)
+kb_multistep_bwd_kernel(const float* x0, const float* ys, const float* gys,
+                        const float* c1, const float* w1, const float* c2,
+                        const float* w2, float* dx0, float* scratch, int K,
+                        int n_steps, int n_slots, ChainDims d, StepTab T) {
+  extern __shared__ float smem[];
+  __shared__ WarpConsts c;
+  kw_fill_consts(c, d, T.stages, T.a, T.b, T.needed);
+  const BlockParams p = kb_stage_params(c1, w1, c2, w2, d, smem);
+  const RecLayout L = kc_rec_layout(d.I, d.H, d.O, d.G);
+  const int I = d.I, r = blockIdx.x;
+  const BlockAdjRows a = kb_adj_rows(smem + kc_param_floats(d), d, T.stages);
+  for (int q = threadIdx.x; q < I; q += blockDim.x) a.dx[q] = 0.0f;
+  for (int s = n_steps - 1; s >= 0; --s) {
+    // input state of step s: ys[s-1] (x0 for the first step)
+    const float* x_in = s == 0 ? x0 + (size_t)r * I
+                               : ys + ((size_t)(s - 1) * K + r) * I;
+    for (int q = threadIdx.x; q < I; q += blockDim.x) {
+      a.x[q] = x_in[q];
+      a.gy[q] = a.dx[q] + gys[((size_t)s * K + r) * I + q];
+    }
+    __syncthreads();
+    kb_rk_step_adjoint(a, T.stages, n_slots, d, c, p, L,
+                       scratch + ((size_t)s * K + r) * n_slots * L.width);
+  }
+  for (int q = threadIdx.x; q < I; q += blockDim.x)
+    dx0[(size_t)r * I + q] = a.dx[q];
+}
+
+// The second launch of K2b-m and K3b-m: the parameter cotangents from the
+// n_rec records, a thread a parameter.
+__global__ void __launch_bounds__(KB_THREADS)
+kb_param_sums_kernel(const float* scratch, int n_rec, ChainDims d,
+                     float* dc1, float* dw1, float* dc2, float* dw2) {
+  const RecLayout L = kc_rec_layout(d.I, d.H, d.O, d.G);
+  kb_param_sums(scratch, n_rec, d, L, dc1, dw1, dc2, dw2);
+}
+
+// Launch the parameter sums over n_rec records.
+cudaError_t kb_launch_param_sums(const float* scratch, int n_rec,
+                                 const ChainDims& d, float* dc1, float* dw1,
+                                 float* dc2, float* dw2, cudaStream_t st) {
+  const int n = kc_param_floats(d);
+  kb_param_sums_kernel<<<(n + KB_THREADS - 1) / KB_THREADS, KB_THREADS, 0,
+                         st>>>(scratch, n_rec, d, dc1, dw1, dc2, dw2);
+  return cudaGetLastError();
+}
+
+// Opt a medium-flavor kernel in to its shared memory; refuse a chain past
+// the caps (the wrapper checks them first).
+template <typename Kernel>
+cudaError_t kb_prepare(Kernel kernel, const ChainDims& d, int stages,
+                       bool backward, size_t* smem) {
+  *smem = kb_smem_floats(d, stages, backward) * sizeof(float);
+  if (d.I < 1 || d.I > KB_MAX_I || d.O != d.I || d.H < 1 || d.H > KB_MAX_H
+      || d.G < 2 || d.G > KC_MAX_G || stages < 1 || stages > KC_MAX_STAGES
+      || *smem > KB_MAX_SMEM)
+    return cudaErrorInvalidValue;
+  return kc_smem_opt_in(kernel, *smem);
+}
+
 }  // namespace
 
 extern "C" {
@@ -313,6 +459,90 @@ int kw_smem_bytes(const ChainDims* d, int K, int warps, int chunk,
                   int slots) {
   return (int)(kw_smem_floats(*d, warps, K < warps ? K : warps, chunk,
                               slots) * sizeof(float));
+}
+
+// The medium flavor's caps, for the wrapper to check its own copy
+// against: out[0..4] = KB_MAX_I, KB_MAX_H, KC_MAX_G, KC_MAX_STAGES,
+// KB_MAX_SMEM.
+void kb_caps(int* out) {
+  out[0] = KB_MAX_I;
+  out[1] = KB_MAX_H;
+  out[2] = KC_MAX_G;
+  out[3] = KC_MAX_STAGES;
+  out[4] = KB_MAX_SMEM;
+}
+
+// The dynamic shared memory of a medium-flavor launch (the wrapper's
+// `block_smem_floats` computes the same).
+int kb_smem_bytes(const ChainDims* d, int stages, int backward) {
+  return (int)(kb_smem_floats(*d, stages, backward != 0) * sizeof(float));
+}
+
+int kb_rk_step_fwd(const float* x, const float* c1, const float* w1,
+                   const float* c2, const float* w2, float* y, int K,
+                   const ChainDims* d, const StepTab* T, void* stream) {
+  size_t smem;
+  cudaError_t err = kb_prepare(kb_step_fwd_kernel, *d, T->stages, false,
+                               &smem);
+  if (err != cudaSuccess) return (int)err;
+  if (K < 1) return (int)cudaErrorInvalidValue;
+  kb_step_fwd_kernel<<<K, KB_THREADS, smem, (cudaStream_t)stream>>>(
+      x, c1, w1, c2, w2, y, *d, *T);
+  return (int)cudaGetLastError();
+}
+
+int kb_rk_step_bwd(const float* x, const float* gy, const float* c1,
+                   const float* w1, const float* c2, const float* w2,
+                   float* dx, float* dc1, float* dw1, float* dc2, float* dw2,
+                   float* scratch, int K, int n_slots, const ChainDims* d,
+                   const StepTab* T, void* stream) {
+  size_t smem;
+  cudaError_t err = kb_prepare(kb_step_bwd_kernel, *d, T->stages, true,
+                               &smem);
+  if (err != cudaSuccess) return (int)err;
+  if (K < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  kb_step_bwd_kernel<<<K, KB_THREADS, smem, st>>>(
+      x, gy, c1, w1, c2, w2, dx, scratch, n_slots, *d, *T);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)kb_launch_param_sums(scratch, K * n_slots, *d, dc1, dw1, dc2,
+                                   dw2, st);
+}
+
+int kb_rk_multistep_fwd(const float* x0, const float* c1, const float* w1,
+                        const float* c2, const float* w2, float* ys, int K,
+                        int n_steps, const ChainDims* d, const StepTab* T,
+                        void* stream) {
+  size_t smem;
+  cudaError_t err = kb_prepare(kb_multistep_fwd_kernel, *d, T->stages, false,
+                               &smem);
+  if (err != cudaSuccess) return (int)err;
+  if (K < 1 || n_steps < 1) return (int)cudaErrorInvalidValue;
+  kb_multistep_fwd_kernel<<<K, KB_THREADS, smem, (cudaStream_t)stream>>>(
+      x0, c1, w1, c2, w2, ys, K, n_steps, *d, *T);
+  return (int)cudaGetLastError();
+}
+
+int kb_rk_multistep_bwd(const float* x0, const float* ys, const float* gys,
+                        const float* c1, const float* w1, const float* c2,
+                        const float* w2, float* dx0, float* dc1, float* dw1,
+                        float* dc2, float* dw2, float* scratch, int K,
+                        int n_steps, int n_slots, const ChainDims* d,
+                        const StepTab* T, void* stream) {
+  size_t smem;
+  cudaError_t err = kb_prepare(kb_multistep_bwd_kernel, *d, T->stages, true,
+                               &smem);
+  if (err != cudaSuccess) return (int)err;
+  if (K < 1 || n_steps < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  kb_multistep_bwd_kernel<<<K, KB_THREADS, smem, st>>>(
+      x0, ys, gys, c1, w1, c2, w2, dx0, scratch, K, n_steps, n_slots, *d,
+      *T);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)kb_launch_param_sums(scratch, n_steps * K * n_slots, *d, dc1,
+                                   dw1, dc2, dw2, st);
 }
 
 }  // extern "C"

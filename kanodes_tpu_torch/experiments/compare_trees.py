@@ -2,7 +2,7 @@
 repository on one card, in turns.
 
     python -m kanodes_tpu_torch.experiments.compare_trees PARENT CHANGE \\
-        [--out=FILE] [--groups=gray_wide,lv,members]
+        [--out=FILE] [--groups=gray_wide,lv,members,small]
 
 PARENT and CHANGE are the roots of two checkouts (for example a `git
 archive` of the parent commit unpacked in a directory .gitignore lists).
@@ -24,7 +24,12 @@ helpers and inputs (CUDA-event ms, `cuda_ms`, and the profiler's device
     300 rows and on the cap chains (`k3f_outputs`);
   * members: K8f and K8b on MEMBERS_CASES[0] (8 LV members [16, 80, 16]
     G = 5 at the init, the train grid), and a sha256 of K8f's outputs and
-    of K8b's gradients on every members input (`members_hashes`).
+    of K8b's gradients on every members input (`members_hashes`);
+  * small: a sha256 of K2's and K3's outputs on the chains within
+    kan_chain.cuh's caps (K2 at K = 34, tsit5 and rk4; K3 at n = 34, K =
+    1 and on the two cap chains) and of the loss history of 64 LV fused
+    shooting iterations (`small_flavor_hashes`), to show that a tree's
+    chains within the caps keep their parent's bits.
 Then, in the same turns (host times swing on a shared host), the group's
 profiles: `profile_source --ndim=2` for Fisher-KPP and Allen-Cahn and
 `profile_surrogate --solve_mode=shooting` for Schrödinger and 2-D
@@ -222,6 +227,52 @@ def members_hashes(torch, np, cs):
     return out
 
 
+def small_flavor_hashes(torch, np, cs):
+    """sha256 of K2f's y and K2b's gradients (LV width, K = 34, tsit5 and
+    rk4), K3f's ys and K3b's gradients (n = 34, K = 1; n = 12 on the cap
+    chains) and the loss history of 64 LV fused shooting iterations."""
+    import hashlib
+    from kanodes_tpu_torch.experiments import lv
+    from kanodes_tpu_torch.models.kdense import KANChain
+    from kanodes_tpu_torch.ops import kdense_pallas as kp
+    from kanodes_tpu_torch.ops import rk_fused as rk
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+    rng = np.random.default_rng(0)
+    spec = kp.chain_spec_of(KANChain.mlp_like([2, 10, 2], grid_len=5))
+    out = {}
+    for solver in ("tsit5", "rk4"):
+        x, params = cs.lv_inputs(rng, torch, 34)
+        gy = torch.tensor(rng.standard_normal((34, 2)), dtype=torch.float32,
+                          device="cuda")
+        k = rk._consts(spec, solver, 0.1)
+        out[f"K2 {solver} K=34"] = digest(
+            rk._launch_step_fwd(k, x, params),
+            *rk._launch_step_bwd(k, x, params, gy))
+    cases = [("LV", spec, *cs.lv_inputs(rng, torch, 1), 34)]
+    for basis, norm in cs.CAP_CHAINS:
+        cases.append((f"cap {basis}/{norm}",
+                      *cs.cap_inputs(torch, basis, norm), 12))
+    for label, spec_i, x0, params, n in cases:
+        k = rk._consts(spec_i, "tsit5", 0.1)
+        ys = rk._launch_multistep_fwd(k, n, x0, params)
+        gys = torch.tensor(rng.standard_normal(tuple(ys.shape)) / n,
+                           dtype=torch.float32, device="cuda")
+        out[f"K3 {label} n={n}"] = digest(
+            ys, *rk._launch_multistep_bwd(k, n, x0, ys, params, gys))
+    with torch.enable_grad():
+        cfg = lv.LVConfig(impl="fused", solve_mode="shooting", lr=1.5e-2,
+                          iters=64, eval_every=32)
+        res = lv.run(cfg, device="cuda",
+                     generator=torch.Generator().manual_seed(cfg.seed))
+    out["LV fused shooting, 64 iterations"] = digest(res["loss_history"])
+    return out
+
+
 def members_bwd_launch(torch, np, cs):
     from kanodes_tpu_torch.ode.integrate import StepController
     from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
@@ -277,6 +328,8 @@ if "members" in groups:
     out["K8b MEMBERS_CASES[0]"] = {"ms": cs.cuda_ms(torch, k8b, 20),
                                    "us": cs.device_us(torch, k8b, reps=10),
                                    "iterations": n_it}
+if "small" in groups:
+    out["small flavor sha256"] = small_flavor_hashes(torch, np, cs)
 if "gray_wide" in groups:
     for i in (0, 1, 6, 7):
         case = cs.GRAYBOX_CASES[i]
@@ -320,6 +373,7 @@ PROFILES = {
         ("profile_lv", ("--impl=fused", "--solve_mode=fixed")),
         ("profile_lv", ("--impl=fused", "--solve_mode=adaptive"))),
     "members": (("lv_members", ("--profile=1",)),),
+    "small": (),
 }
 
 

@@ -12,13 +12,21 @@ odeint_members` on the chain. The gradient is that of the member sum and
 best-tracking is joint (`train/loop.py`).
 
 Run:  python -m kanodes_tpu_torch.experiments.lv_members
-      [--n_members=8] [--device=cuda|cpu] [--profile=1] [--key=value ...]
+      [--n_members=8] [--device=cuda|cpu] [--profile=1]
+      [--phases=1] [--key=value ...]
       (LVConfig fields; default cuda, which raises without a card)
 
 It prints the per-member final losses and losses at the joint best,
 iterations per second and member-iterations per second; `--profile=1`
 measures instead, as
 `experiments/profile_lv.py` does (`profile_lv.measure`, on the card).
+
+`run_packed_phases` is the port's counterpart of
+`scripts/lv_multiseed_packed.py`: 8 seeds of the iqf LV model packed as
+one [16, 80, 16] chain, trained through fused shooting (segment_len 1,
+then 4: K2 over 34 and 31 rows) and fused fixed mode (K3, n = 34, K = 1),
+the script's four phases in turn (`--phases=1`). At this width K2/K3
+run their medium flavor, a block a row.
 """
 
 from __future__ import annotations
@@ -108,6 +116,67 @@ def run_members(cfg: lv.LVConfig | None = None, n_members: int = 8, *,
     return out
 
 
+# scripts/lv_multiseed_packed.py:44-47: (solve_mode, segment_len, lr, iters)
+PACKED_PHASES = (("shooting", 1, 3e-3, 10_000), ("shooting", 4, 1e-3, 6_000),
+                 ("fixed", 0, 3e-4, 7_000), ("fixed", 0, 1e-4, 7_000))
+
+
+def run_packed_phases(phases=PACKED_PHASES, n_members: int = 8, *,
+                      basis: str = "iqf", device="cuda",
+                      member_params: list | None = None) -> dict[str, Any]:
+    """The packed seed sweep of scripts/lv_multiseed_packed.py: members
+    seeded 0..S-1 (`lv.init_params`, or `member_params`) of the LV model
+    with `basis`, packed and masked, trained phase by phase (`phases`:
+    (solve_mode, segment_len, lr, iters)) through impl="fused" with the
+    per-member mean loss. A phase with the previous one's mode and
+    segment length resumes its Adam state at the new learning rate, as
+    the script does; each phase's one eval comes at its end. Returns per
+    phase its seconds (host clock to the phase's last loss on the host)
+    and first, last and joint-best per-member losses, the per-member best
+    trajectory loss over the fixed phases' iterations
+    ("best_traj_train_mse"), the packed model and the member chain."""
+    base = lv.LVConfig(impl="fused", basis=basis)
+    built = build(base, n_members, device, member_params=member_params)
+    packed, data = built["model"], built["data"]
+    fns, out, prev, opt_state = {}, [], None, None
+    best_traj = None
+    for mode, L, lr, iters in phases:
+        key = (mode, L)
+        if key not in fns:
+            cfg = dataclasses.replace(base, solve_mode=mode,
+                                      segment_len=max(L, 1))
+            fns[key] = lv.make_ode_fns(cfg, packed, data,
+                                       reduce_fn=member_mean(n_members),
+                                       n_members=n_members)
+        if key == prev:
+            for group in opt_state["param_groups"]:
+                group["lr"] = lr
+        else:
+            opt_state = None
+        loss_fn, eval_fn, _ = fns[key]
+        t0 = time.perf_counter()
+        res = train(loss_fn, packed, TrainConfig(lr=lr, iters=iters,
+                                                 eval_every=iters),
+                    eval_fn=eval_fn, stacked=False, opt_state=opt_state)
+        losses = res["loss_history"].cpu()        # waits for the device
+        seconds = time.perf_counter() - t0
+        opt_state, prev = res["opt_state"], key
+        if mode == "fixed":
+            best = losses.min(dim=0).values
+            best_traj = best if best_traj is None else torch.minimum(
+                best_traj, best)
+        out.append({"solve_mode": mode, "segment_len": L, "lr": lr,
+                    "iters": iters, "seconds": seconds,
+                    "first_loss": losses[0].tolist(),
+                    "last_loss": losses[-1].tolist(),
+                    "best_loss": res["best_loss"].tolist(),
+                    "eval": res["eval_history"][-1].tolist()})
+    return {"phases": out, "model": packed,
+            "member_model": built["member_model"], "data": data,
+            "best_traj_train_mse": (None if best_traj is None
+                                    else best_traj.tolist())}
+
+
 def profile(cfg: lv.LVConfig, n_members: int, iters: int = 20,
             warmup: int = 5) -> dict:
     """`profile_lv.measure` of the packed ensemble's iterations (the
@@ -125,7 +194,7 @@ def profile(cfg: lv.LVConfig, n_members: int, iters: int = 20,
 def main(argv: list[str]) -> int:
     from kanodes_tpu_torch.train.config import override_from_args
 
-    opts = {"n_members": 8, "profile": 0, "warmup": 5}
+    opts = {"n_members": 8, "profile": 0, "warmup": 5, "phases": 0}
     device, rest = "cuda", []
     for a in argv:
         key, _, value = a.lstrip("-").partition("=")
@@ -138,6 +207,16 @@ def main(argv: list[str]) -> int:
     cfg = override_from_args(dataclasses.replace(DEFAULT_CFG, iters=2000),
                              rest)
     S = opts["n_members"]
+    if opts["phases"]:
+        res = run_packed_phases(PACKED_PHASES, S, device=device)
+        for ph in res["phases"]:
+            print(json.dumps(ph), flush=True)
+        best = res["best_traj_train_mse"]
+        print(json.dumps({"best_traj_train_mse": best,
+                          "below_8.3e-7": sum(b < 8.3e-7 for b in best),
+                          "seconds": sum(p["seconds"]
+                                         for p in res["phases"])}))
+        return 0
     if opts["profile"]:
         require_device(device)
         print(json.dumps(profile(cfg, S, min(cfg.iters, 20),

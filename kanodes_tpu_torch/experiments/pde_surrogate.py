@@ -20,10 +20,15 @@ snapshot trajectory as ONE launch of K7 and its backward as one of K10
 (K == 1), and a shooting loss as one K7 forward and one backward (K7b,
 or K10 for a single segment) per group of equally long segments
 (`ops/rk_fused_wide.py`, `csrc/rk_fused_wide.cu`). The narrow flavor
-belongs to K2/K3 of `ops/rk_fused.py`, whose kernels cap the state at 8
-columns: it raises, naming the ROADMAP item that brings it, and Burgers
-and 1-D Allen-Cahn (41 columns) run with `wide_kernels=True` or
-`impl="xla"`. Kernels
+(below, and the default for Burgers and 1-D Allen-Cahn, [41, 10, 41])
+runs K2 of `ops/rk_fused.py` once per step: a trajectory loss steps each
+snapshot interval (one K2f launch and one K2b a step: 180 each at
+Burgers' reference grid, whose float32 snapshot times miss the uniform
+test), a shooting loss steps each group of equally long segments as one
+batch; on a uniform step grid the trajectory is one K3 launch each way.
+At these widths K2/K3 run their medium flavor, a block a row
+(`csrc/kan_chain_block.cuh`); a chain past its caps raises ValueError
+naming ROADMAP.md 2a. Kernels
 run on CUDA tensors and their plain versions on CPU tensors. The sharded
 path (`mesh=`), `run_grid_refinement` and `bwd_precision="bf16"` raise
 NotImplementedError naming their ROADMAP.md item.
@@ -234,8 +239,7 @@ def make_fns(cfg: SurrogateConfig, model: KANChain,
             if cfg.wide_kernels is None else cfg.wide_kernels)
     fused_trajectory = None
     if impl == "fused" and wide:
-        # the narrow kernels keep a row's whole state in one thread; wide
-        # states go to the kernels that spread it over a block
+        # wide states go to the kernels that spread a row over a cluster
         from kanodes_tpu_torch.ops.kdense_pallas import fused_params
         from kanodes_tpu_torch.ops.rk_fused_wide import (
             fused_rk_multistep_wide, wide_chain_adapter)
@@ -254,16 +258,33 @@ def make_fns(cfg: SurrogateConfig, model: KANChain,
                                              None, cfg.bwd_precision)
                 return ys[rows_t][:, 0, :ws.I]
     elif impl == "fused":
-        # the narrow flavor (K2/K3 behind fused_rk_step and
-        # fused_rk_multistep) keeps a row's whole state in one thread and
-        # caps it at 8 columns; every surrogate has more, so the check
-        # raises, naming the ROADMAP item that brings this branch
+        # the narrow flavor: K2 stepped n times per advance, and K3 for
+        # the whole trajectory when the step grid is uniform (JAX
+        # pde_surrogate.py:201-225); at these widths the medium K2/K3 run,
+        # a block a row. A chain past their caps raises here, on every
+        # device
         from kanodes_tpu_torch.ops import _cuda
-        from kanodes_tpu_torch.ops.kdense_pallas import chain_spec_of
-        _cuda.check_chain_caps(chain_spec_of(model))
-        raise NotImplementedError(
-            "the narrow fused surrogate path is not ported yet (ROADMAP.md, "
-            "'K2/K3 at medium widths'); pass wide_kernels=True")
+        from kanodes_tpu_torch.ops.kdense_pallas import (chain_spec_of,
+                                                         fused_params)
+        from kanodes_tpu_torch.ops.rk_fused import (fused_rk_multistep,
+                                                    fused_rk_step)
+        spec = chain_spec_of(model)
+        _cuda.fused_rk_flavor(spec, get_tableau(cfg.rk_solver).stages)
+
+        def fused_advance(m, x, n_steps, dt_total):
+            fp = fused_params(m)
+            h = dt_total / n_steps
+            for _ in range(n_steps):
+                x = fused_rk_step(spec, cfg.rk_solver, h, x, *fp,
+                                  cfg.bwd_precision)
+            return x
+
+        if uniform:
+            def fused_trajectory(m):
+                ys = fused_rk_multistep(spec, cfg.rk_solver, base_h,
+                                        total_steps, u0[None],
+                                        *fused_params(m), cfg.bwd_precision)
+                return ys[rows_t][:, 0, :]
 
     def predict(m):
         if impl == "fused" and fused_trajectory is not None:

@@ -2,6 +2,11 @@
 
     python -m kanodes_tpu_torch.experiments.profile_surrogate \\
         [--iters=20] [--warmup=5] [--key=value ...]  (SurrogateConfig fields)
+    python -m kanodes_tpu_torch.experiments.profile_surrogate --runs=narrow
+
+`--runs=narrow` measures, one line each in one process, Burgers and 1-D
+Allen-Cahn fused fixed and shooting on the narrow route (K2/K3 a block a
+row), then Burgers fused fixed on the wide kernels beside them.
 
 Builds the trainer as `experiments/pde_surrogate.py` does (the chain's
 seeded init), then measures it as `profile_lv` does (`profile_lv.measure`):
@@ -13,6 +18,7 @@ JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 
@@ -36,18 +42,33 @@ def profile(cfg: ps.SurrogateConfig, iters: int = 20, warmup: int = 5,
                    top)
 
 
+# --runs=narrow: (problem, solve_mode, wide_kernels), impl="fused"
+NARROW_RUNS = (("burgers", "fixed", None), ("burgers", "shooting", None),
+               ("allen_cahn", "fixed", None), ("allen_cahn", "shooting", None),
+               ("burgers", "fixed", True))
+
+
 def main(argv: list[str]) -> int:
     opts = {"iters": 20, "warmup": 5}
-    rest = []
+    runs, rest = None, []
     for a in argv:
         key = a.lstrip("-").split("=", 1)[0]
         if key in opts and "=" in a:
             opts[key] = int(a.split("=", 1)[1])
+        elif key == "runs":
+            runs = a.split("=", 1)[1]
         else:
             rest.append(a)
-    cfg = override_from_args(ps.SurrogateConfig(), rest)
-    print(json.dumps(profile(cfg, opts["iters"], opts["warmup"])),
-          flush=True)
+    if runs not in (None, "narrow"):
+        raise ValueError(f"--runs takes 'narrow', got {runs!r}")
+    base = override_from_args(ps.SurrogateConfig(), rest)
+    cfgs = [base] if runs is None else [
+        dataclasses.replace(base, problem=p, impl="fused", solve_mode=m,
+                            wide_kernels=w) for p, m, w in NARROW_RUNS]
+    for cfg in cfgs:
+        rec = profile(cfg, opts["iters"], opts["warmup"])
+        rec["wide_kernels"] = cfg.wide_kernels
+        print(json.dumps(rec), flush=True)
     return 0
 
 

@@ -38,7 +38,7 @@ SOURCES = {"rk_fused.cu": (), "kan_chain_apply.cu": (),
            "rk_adaptive.cu": ("-fmad=false",), "kdense_single.cu": (),
            "graybox.cu": (), "rk_fused_wide.cu": (),
            "rk_adaptive_members.cu": ("-fmad=false",)}
-HEADERS = ("kan_chain.cuh", "kan_chain_warp.cuh")
+HEADERS = ("kan_chain.cuh", "kan_chain_warp.cuh", "kan_chain_block.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -54,6 +54,10 @@ WARP_ROW_FLOATS = (3 * MAX_STAGES * MAX_I + 2 * (MAX_I * MAX_G + MAX_I)
 MAX_KW_SMEM = 232448 - 4096
 # K4f and K3f (kan_chain_warp.cuh): KF_MAX_WARPS, a block's warps at most
 MAX_KF_WARPS = 16
+# K2/K3 at medium widths, a block a row (kan_chain_block.cuh): KB_MAX_I,
+# KB_MAX_H and the dynamic shared memory a launch may take, KB_MAX_SMEM
+# (G and the stages: KC_MAX_G, KC_MAX_STAGES); KB_THREADS a block
+MAX_KB_I, MAX_KB_H, MAX_KB_SMEM, KB_THREADS = 1024, 256, 232448 - 4096, 256
 # K9 (kdense_single.cu): in_dims <= KD_MAX_I, out_dims <= KC_MAX_H
 MAX_SINGLE_I = 32
 # K5 (graybox.cu): GB_MAX_NODES, GB_MAX_N, GB_MAX_G, GB_MAX_STAGES
@@ -139,6 +143,18 @@ _SIGNATURES = {
     "kc_rk_multistep_fwd": [_P] * 6 + [_I] * 3 + [_P] * 3,
     # dims, stages, warps
     "kc_multistep_fwd_smem_bytes": [_P] + [_I] * 2,
+    # the medium flavor: x, c1, w1, c2, w2, y, K, dims, tab, stream
+    "kb_rk_step_fwd": [_P] * 6 + [_I] + [_P] * 3,
+    # x, gy, c1, w1, c2, w2, dx, dc1, dw1, dc2, dw2, scratch, K, n_slots,
+    # dims, tab, stream
+    "kb_rk_step_bwd": [_P] * 12 + [_I] * 2 + [_P] * 3,
+    # x0, c1, w1, c2, w2, ys, K, n_steps, dims, tab, stream
+    "kb_rk_multistep_fwd": [_P] * 6 + [_I] * 2 + [_P] * 3,
+    # x0, ys, gys, c1, w1, c2, w2, dx0, dc1, dw1, dc2, dw2, scratch, K,
+    # n_steps, n_slots, dims, tab, stream
+    "kb_rk_multistep_bwd": [_P] * 13 + [_I] * 3 + [_P] * 3,
+    # dims, stages, backward
+    "kb_smem_bytes": [_P] + [_I] * 2,
     # x0, ys, gys, c1, w1, c2, w2, dx0, dc1, dw1, dc2, dw2, scratch, K,
     # n_steps, n_slots, warps, chunk, dims, tab, stream
     "kc_rk_multistep_bwd": [_P] * 13 + [_I] * 5 + [_P] * 3,
@@ -194,6 +210,7 @@ _SIGNATURES = {
 # caps function -> the wrapper's values it must report
 _CAPS = {
     "kc_caps": (MAX_I, MAX_H, MAX_G, MAX_STAGES, MAX_ADAPT_ROWS),
+    "kb_caps": (MAX_KB_I, MAX_KB_H, MAX_G, MAX_STAGES, MAX_KB_SMEM),
     "kd_caps": (MAX_SINGLE_I, MAX_H, MAX_G),
     "gb_caps": (MAX_GB_NODES, MAX_GB_N, MAX_GB_G, MAX_GB_STAGES),
     "wd_caps": (MAX_WIDE_I, MAX_WIDE_H, MAX_WIDE_G, MAX_WIDE_STAGES),
@@ -374,14 +391,64 @@ def chain_dims(spec) -> ChainDims:
 
 
 def check_chain_caps(spec) -> None:
+    """The one-thread / one-warp caps of kan_chain.cuh (K1-K4)."""
     I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
     if not (1 <= I <= MAX_I and 1 <= O <= MAX_I and 1 <= H <= MAX_H
             and 2 <= G <= MAX_G):
         raise ValueError(f"kernel caps: I, O <= {MAX_I}, H <= {MAX_H}, "
                          f"2 <= G <= {MAX_G}; got I={I}, O={O}, H={H}, G={G} "
-                         f"(wider states: ROADMAP.md, 'K2/K3 at medium "
-                         f"widths'; the wide kernels of ops/rk_fused_wide.py "
-                         f"take them)")
+                         f"(wider chains: ROADMAP.md 2a.1; K2/K3 take them "
+                         f"a block a row, ops/rk_fused.py; the wide kernels "
+                         f"of ops/rk_fused_wide.py take wide states)")
+
+
+def block_smem_floats(spec, stages: int, backward: bool) -> int:
+    """Floats of a medium-flavor launch's dynamic shared memory (the
+    library's `kb_smem_bytes` / 4, kan_chain_block.cuh `kb_smem_floats`):
+    the parameters; the forward's state, stage input and stage values
+    [S][I], or the adjoint's step input, cotangent and dx, stage inputs,
+    values and cotangents [S][I] and hidden vectors [S][H]; one
+    evaluation's workspace [I*(G+1) + H + H*(G+1)]."""
+    I, H, G = spec.in_dims, spec.hidden, spec.grid_len
+    rows = (3 * I + stages * (3 * I + H) if backward
+            else 2 * I + stages * I)
+    return param_floats(spec) + rows + I * (G + 1) + H + H * (G + 1)
+
+
+def check_block_caps(spec, stages: int) -> None:
+    """The medium flavor's caps (K2/K3 a block a row, kan_chain_block.cuh)
+    for a chain [I -> H -> I] under an s-stage tableau: I <= MAX_KB_I,
+    H <= MAX_KB_H, G and the stages within kan_chain.cuh's caps, and both
+    launches' shared memory within MAX_KB_SMEM. Past them: ValueError."""
+    I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
+    where = ("(ROADMAP.md 2a: K2/K3 past the medium caps are not ported; "
+             "wide states take the kernels of ops/rk_fused_wide.py)")
+    if not (1 <= I <= MAX_KB_I and O == I and 1 <= H <= MAX_KB_H
+            and 2 <= G <= MAX_G and 1 <= stages <= MAX_STAGES):
+        raise ValueError(f"K2/K3 medium caps: I = O <= {MAX_KB_I}, H <= "
+                         f"{MAX_KB_H}, 2 <= G <= {MAX_G}, stages <= "
+                         f"{MAX_STAGES}; got I={I}, O={O}, H={H}, G={G}, "
+                         f"stages={stages} {where}")
+    for backward in (False, True):
+        need = 4 * block_smem_floats(spec, stages, backward)
+        if need > MAX_KB_SMEM:
+            raise ValueError(
+                f"K2/K3 medium caps: the {'backward' if backward else 'forward'}"
+                f" of [{I}, {H}, {O}] G={G} needs {need} bytes of shared "
+                f"memory > {MAX_KB_SMEM} {where}")
+
+
+@functools.lru_cache(maxsize=64)
+def fused_rk_flavor(spec, stages: int) -> str:
+    """Which K2/K3 kernels take a chain: "small" (a thread a row for K2, a
+    warp a row for K3: I, O <= 8, H <= 32, G <= 16) or "medium" (a block a
+    row, within `check_block_caps`); raises ValueError past both."""
+    try:
+        check_chain_caps(spec)
+    except ValueError:
+        check_block_caps(spec, stages)
+        return "medium"
+    return "small"
 
 
 def check_wide_caps(spec, stages: int) -> None:

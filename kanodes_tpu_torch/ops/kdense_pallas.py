@@ -191,12 +191,15 @@ def kan_chain_apply_bwd_reference(spec: ChainSpec, x, y1, c1, w1, c2, w2,
 # CUDA launch wrappers of K1
 # ---------------------------------------------------------------------------
 
-def check_chain_launch(spec: ChainSpec, x, params, n_leading: int = 0) -> int:
-    """Validate a launch of a chain kernel: caps, x [..., K, I] with
+def check_chain_launch(spec: ChainSpec, x, params, n_leading: int = 0,
+                       caps: bool = True) -> int:
+    """Validate a launch of a chain kernel: kan_chain.cuh's caps (unless
+    the caller has checked its own: `caps=False`), x [..., K, I] with
     `n_leading` leading axes, the four parameter shapes, float32,
     contiguous. Returns K."""
     I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
-    _cuda.check_chain_caps(spec)
+    if caps:
+        _cuda.check_chain_caps(spec)
     if x.dim() != n_leading + 2 or x.shape[-1] != I or x.shape[-2] < 1:
         raise ValueError(f"state shape {tuple(x.shape)} does not end in "
                          f"[K, {I}]")

@@ -61,7 +61,7 @@ from kanodes_tpu_torch.ode.tableaus import Tableau, get_tableau
 from kanodes_tpu_torch.ops import _cuda
 from kanodes_tpu_torch.ops.kdense_pallas import (ChainSpec, _chain_f,
                                                  _chain_vjp, grid_of)
-from kanodes_tpu_torch.ops.rk_fused import _check_launch, check_bwd_precision
+from kanodes_tpu_torch.ops.rk_fused import check_bwd_precision, check_rhs_launch
 
 
 # kernel launches since the last reset_launch_counts(); each wrapper adds
@@ -346,7 +346,7 @@ def fused_adaptive_odeint_bwd_reference(spec: ChainSpec, solver: str,
 # ---------------------------------------------------------------------------
 
 def _check_rows(k: _Consts, x0, params) -> int:
-    K = _check_launch(k.spec, x0, params, 0)
+    K = check_rhs_launch(k.spec, x0, params, 0)
     if K > _cuda.MAX_ADAPT_ROWS:
         raise ValueError(f"the adaptive kernel runs one block of K rows; "
                          f"K={K} > {_cuda.MAX_ADAPT_ROWS}")

@@ -7,7 +7,13 @@ and its discrete adjoint as one more. `fused_rk_multistep` runs
 `n_steps` whole steps in one launch and returns every post-step state
 `[n_steps, K, I]`; its backward is one reverse sweep that takes a
 cotangent for every stored state. The kernels are hand-written CUDA
-(`csrc/rk_fused.cu`, `csrc/kan_chain.cuh`).
+(`csrc/rk_fused.cu`). Two flavors (`_cuda.fused_rk_flavor`): chains
+within kan_chain.cuh's caps (I, O <= 8, H <= 32, G <= 16; the LV model)
+take K2f/K2b (a thread a row) and K3f/K3b (a warp a row); wider chains
+(the Burgers and 1-D Allen-Cahn surrogates [41, 10, 41], the packed LV
+ensemble [16, 80, 16]) take the medium flavor K2f-m, K2b-m, K3f-m and
+K3b-m, a block a row (`csrc/kan_chain_block.cuh`), up to
+`_cuda.check_block_caps`; past those a launch raises ValueError.
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor runs
 the plain PyTorch version of the same math (`_step_fwd_plain`,
@@ -15,7 +21,10 @@ the plain PyTorch version of the same math (`_step_fwd_plain`,
 between the two. The plain versions are exported for tests and
 `chip_smoke.py` as `fused_rk_step_reference` (differentiable by
 autograd), `fused_rk_step_bwd_reference` (the explicit adjoint), and the
-same pair for the multistep. `LAUNCHES` counts kernel launches.
+same pair for the multistep: they are shape-generic, so they are the
+plain versions of both flavors. `LAUNCHES` counts kernel launches, the
+medium flavor's under its own names (`..._mid`; each backward's two
+launches, the rows and the parameter sums, count as one).
 
 The reverse recursion of the backward (rk_fused.py:19-24):
     x_bar = g ;  kbar_i = dt * b_i * g
@@ -46,7 +55,9 @@ Tensor = torch.Tensor
 # kernel launches since the last reset_launch_counts(); each wrapper adds
 # one where it launches its kernel, and nowhere else
 LAUNCHES = {"fused_rk_step_fwd": 0, "fused_rk_step_bwd": 0,
-            "fused_rk_multistep_fwd": 0, "fused_rk_multistep_bwd": 0}
+            "fused_rk_multistep_fwd": 0, "fused_rk_multistep_bwd": 0,
+            "fused_rk_step_fwd_mid": 0, "fused_rk_step_bwd_mid": 0,
+            "fused_rk_multistep_fwd_mid": 0, "fused_rk_multistep_bwd_mid": 0}
 
 
 def reset_launch_counts() -> None:
@@ -99,6 +110,12 @@ class _Consts:
         self.dtb = [float(np.float32(dt * b)) for b in tab.b]
         self.n_slots = sum(self.needed)
         self._dims = self._tab = None
+
+    @property
+    def flavor(self) -> str:
+        """"small" or "medium" (`_cuda.fused_rk_flavor`); raises past the
+        medium caps."""
+        return _cuda.fused_rk_flavor(self.spec, self.stages)
 
     # the chain the stages evaluate (the wide kernels' constants override
     # both with the grid-major layout of their parameters)
@@ -236,26 +253,46 @@ def fused_rk_multistep_bwd_reference(spec: ChainSpec, solver: str,
 # CUDA launch wrappers
 # ---------------------------------------------------------------------------
 
-def _check_launch(spec: ChainSpec, x, params, n_leading: int) -> int:
-    """Validate a launch against the kernels' contract; returns K."""
+def _check_rhs(spec: ChainSpec) -> None:
     if spec.out_dims != spec.in_dims:
         raise ValueError(f"an ODE right-hand side maps I -> I; got "
                          f"out_dims {spec.out_dims} != in_dims "
                          f"{spec.in_dims}")
+
+
+def _check_launch(spec: ChainSpec, x, params, n_leading: int,
+                  stages: int = _cuda.MAX_STAGES) -> int:
+    """Validate a K2/K3 launch against the kernels' contract, the caps of
+    the chain's flavor under an s-stage tableau included (default: the
+    most stages); returns K."""
+    _check_rhs(spec)
+    _cuda.fused_rk_flavor(spec, stages)     # raises past the medium caps
+    return check_chain_launch(spec, x, params, n_leading, caps=False)
+
+
+def check_rhs_launch(spec: ChainSpec, x, params, n_leading: int) -> int:
+    """Validate a launch of a kernel on kan_chain.cuh's one-thread /
+    one-warp chain (K4): an I -> I chain within its caps; returns K."""
+    _check_rhs(spec)
     return check_chain_launch(spec, x, params, n_leading)
 
 
+def _count(k: _Consts, name: str) -> str:
+    name = name if k.flavor == "small" else name + "_mid"
+    LAUNCHES[name] += 1
+    return name
+
+
 def _launch_step_fwd(k: _Consts, x, params):
-    K = _check_launch(k.spec, x, params, 0)
+    K = _check_launch(k.spec, x, params, 0, k.stages)
     y = torch.empty_like(x)
     dims, tab = k.structs()
     lib = _cuda.library()
+    launch = lib.kc_rk_step_fwd if k.flavor == "small" else lib.kb_rk_step_fwd
     with torch.cuda.device(x.device):
-        err = lib.kc_rk_step_fwd(_ptr(x), *map(_ptr, params), _ptr(y), K,
-                                 ctypes.byref(dims), ctypes.byref(tab),
-                                 _stream())
-    LAUNCHES["fused_rk_step_fwd"] += 1
-    _cuda.check(err, "fused_rk_step_fwd")
+        err = launch(_ptr(x), *map(_ptr, params), _ptr(y), K,
+                     ctypes.byref(dims), ctypes.byref(tab), _stream())
+    _cuda.check(err, _count(k, "fused_rk_step_fwd"))
     return y
 
 
@@ -265,42 +302,44 @@ def _scratch(k: _Consts, n_rec: int, like: Tensor) -> Tensor:
 
 
 def _launch_step_bwd(k: _Consts, x, params, gy):
-    K = _check_launch(k.spec, x, params, 0)
+    K = _check_launch(k.spec, x, params, 0, k.stages)
     gy = gy.contiguous()
     dx = torch.empty_like(x)
     grads = [torch.empty_like(p) for p in params]
     scratch = _scratch(k, K * k.n_slots, x)
     dims, tab = k.structs()
     lib = _cuda.library()
+    launch = lib.kc_rk_step_bwd if k.flavor == "small" else lib.kb_rk_step_bwd
     with torch.cuda.device(x.device):
-        err = lib.kc_rk_step_bwd(_ptr(x), _ptr(gy), *map(_ptr, params),
-                                 _ptr(dx), *map(_ptr, grads), _ptr(scratch),
-                                 K, k.n_slots, ctypes.byref(dims),
-                                 ctypes.byref(tab), _stream())
-    LAUNCHES["fused_rk_step_bwd"] += 1
-    _cuda.check(err, "fused_rk_step_bwd")
+        err = launch(_ptr(x), _ptr(gy), *map(_ptr, params), _ptr(dx),
+                     *map(_ptr, grads), _ptr(scratch), K, k.n_slots,
+                     ctypes.byref(dims), ctypes.byref(tab), _stream())
+    _cuda.check(err, _count(k, "fused_rk_step_bwd"))
     return (dx, *grads)
 
 
 def _launch_multistep_fwd(k: _Consts, n_steps: int, x0, params):
-    K = _check_launch(k.spec, x0, params, 0)
+    K = _check_launch(k.spec, x0, params, 0, k.stages)
     ys = torch.empty((n_steps,) + tuple(x0.shape), dtype=torch.float32,
                      device=x0.device)
-    plan = _cuda.multistep_fwd_plan(k.spec, K, k.stages)
     dims, tab = k.structs()
     lib = _cuda.library()
     with torch.cuda.device(x0.device):
-        err = lib.kc_rk_multistep_fwd(_ptr(x0), *map(_ptr, params), _ptr(ys),
-                                      K, n_steps, plan.warps,
-                                      ctypes.byref(dims), ctypes.byref(tab),
-                                      _stream())
-    LAUNCHES["fused_rk_multistep_fwd"] += 1
-    _cuda.check(err, "fused_rk_multistep_fwd")
+        if k.flavor == "small":
+            plan = _cuda.multistep_fwd_plan(k.spec, K, k.stages)
+            err = lib.kc_rk_multistep_fwd(
+                _ptr(x0), *map(_ptr, params), _ptr(ys), K, n_steps,
+                plan.warps, ctypes.byref(dims), ctypes.byref(tab), _stream())
+        else:
+            err = lib.kb_rk_multistep_fwd(
+                _ptr(x0), *map(_ptr, params), _ptr(ys), K, n_steps,
+                ctypes.byref(dims), ctypes.byref(tab), _stream())
+    _cuda.check(err, _count(k, "fused_rk_multistep_fwd"))
     return ys
 
 
 def _launch_multistep_bwd(k: _Consts, n_steps: int, x0, ys, params, gys):
-    K = _check_launch(k.spec, x0, params, 0)
+    K = _check_launch(k.spec, x0, params, 0, k.stages)
     gys = gys.contiguous()
     if tuple(ys.shape) != (n_steps, K, k.spec.in_dims) or \
             tuple(gys.shape) != tuple(ys.shape):
@@ -309,17 +348,22 @@ def _launch_multistep_bwd(k: _Consts, n_steps: int, x0, ys, params, gys):
     dx0 = torch.empty_like(x0)
     grads = [torch.empty_like(p) for p in params]
     scratch = _scratch(k, n_steps * K * k.n_slots, x0)
-    plan = _cuda.warp_adjoint_plan(k.spec, K, k.n_slots, n_steps)
     dims, tab = k.structs()
     lib = _cuda.library()
     with torch.cuda.device(x0.device):
-        err = lib.kc_rk_multistep_bwd(
-            _ptr(x0), _ptr(ys), _ptr(gys), *map(_ptr, params), _ptr(dx0),
-            *map(_ptr, grads), _ptr(scratch), K, n_steps, k.n_slots,
-            plan.warps, plan.chunk, ctypes.byref(dims), ctypes.byref(tab),
-            _stream())
-    LAUNCHES["fused_rk_multistep_bwd"] += 1
-    _cuda.check(err, "fused_rk_multistep_bwd")
+        if k.flavor == "small":
+            plan = _cuda.warp_adjoint_plan(k.spec, K, k.n_slots, n_steps)
+            err = lib.kc_rk_multistep_bwd(
+                _ptr(x0), _ptr(ys), _ptr(gys), *map(_ptr, params),
+                _ptr(dx0), *map(_ptr, grads), _ptr(scratch), K, n_steps,
+                k.n_slots, plan.warps, plan.chunk, ctypes.byref(dims),
+                ctypes.byref(tab), _stream())
+        else:
+            err = lib.kb_rk_multistep_bwd(
+                _ptr(x0), _ptr(ys), _ptr(gys), *map(_ptr, params),
+                _ptr(dx0), *map(_ptr, grads), _ptr(scratch), K, n_steps,
+                k.n_slots, ctypes.byref(dims), ctypes.byref(tab), _stream())
+    _cuda.check(err, _count(k, "fused_rk_multistep_bwd"))
     return (dx0, *grads)
 
 

@@ -1,8 +1,9 @@
 """Wide-state fused RK kernels (port of `kanodes_tpu/ops/rk_fused_wide.py`).
 
-The narrow kernels of `ops/rk_fused.py` keep a row's whole state in one
-thread; a full-state PDE surrogate ([402,10,402] Schrödinger,
-[1024,10,1024] 2-D Allen-Cahn) needs the wide axis spread over a block.
+The narrow kernels of `ops/rk_fused.py` keep a row's parameters in one
+block's shared memory (a thread, a warp or a block a row); a full-state
+PDE surrogate ([402,10,402] Schrödinger, [1024,10,1024] 2-D Allen-Cahn)
+needs the wide axis spread over a cluster of blocks.
 `fused_rk_step_wide` runs one RK step of a PADDED state `x [K, Ipad]`
 (K6), `fused_rk_multistep_wide` runs `n_steps` of them in one launch and
 returns every post-step state `[n_steps, K, Ipad]` (K7); each backward is

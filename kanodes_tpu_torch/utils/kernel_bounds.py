@@ -346,8 +346,28 @@ def table(n_adapt: int = 35, n_members: tuple[int, int] = (34, 140)
          *wide_multistep_bwd(wd, 1, 40, s), 40 * 2 * s),
     ]
     # the other shapes the ported kernels of the source and KDense paths
-    # run at, as extra bounds on their rows
+    # run at, as extra bounds on their rows; K2/K3's medium flavor (a block
+    # a row) at the chains past the one-thread caps: the Burgers and 1-D
+    # Allen-Cahn surrogates (K = 1 a trajectory step, 4 the shooting
+    # group) and the packed LV ensemble (34 and 31 shooting rows, n = 34)
+    bu, ac = (41, 10, 41, 5), (41, 10, 41, 10)
+    mid_step = [("Burgers [41,10,41] G=5, K=1", bu, 1),
+                ("Burgers, K=4", bu, 4),
+                ("1-D Allen-Cahn [41,10,41] G=10, K=1", ac, 1),
+                ("8 packed LV members [16,80,16], K=34", pk, 34),
+                ("8 packed LV members, K=31", pk, 31)]
+    mid_multi = [("8 packed LV members, 34 steps, K=1", pk, 34),
+                 ("8 packed LV members, the eval's 140 steps, K=1", pk, 140),
+                 ("Burgers, 180 steps (single launch), K=1", bu, 180)]
     also = {
+        "K2f": [(f"medium: {lbl}", *rk_step_fwd(d, K, s))
+                for lbl, d, K in mid_step],
+        "K2b": [(f"medium: {lbl}", *rk_step_bwd(d, K, s))
+                for lbl, d, K in mid_step],
+        "K3f": [(f"medium: {lbl}", *rk_multistep_fwd(d, 1, n, s))
+                for lbl, d, n in mid_multi],
+        "K3b": [(f"medium: {lbl}", *rk_multistep_bwd(d, 1, n, s))
+                for lbl, d, n in mid_multi],
         "K5f": [(lbl, *graybox_step_fwd(nn, nN, kr, g, s))
                 for lbl, nn, nN, kr in GRAYBOX_SHAPES[1:]],
         "K5b": [(lbl, *graybox_step_bwd(nn, nN, kr, g, s))

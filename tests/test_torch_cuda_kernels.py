@@ -97,6 +97,52 @@ def test_multistep_kernels_match_plain(card, n_steps, K):
         torch.testing.assert_close(a, b, **GRAD)
 
 
+@pytest.mark.parametrize("index", [0, 3, 4, 6])
+def test_medium_kernels_match_plain(card, index):
+    """K2-m (K3-m for a case with steps) through the public ops at the
+    main path's chains past kan_chain.cuh's caps: one launch each way,
+    counted under the medium flavor's names, values and gradients within
+    the JAX suite's tolerances of the plain versions."""
+    case = chip_smoke.MID_CASES[index]
+    spec, x, params = chip_smoke.mid_case_inputs(torch, kp, case, index,
+                                                 device=card)
+    leaves = [t.clone().requires_grad_() for t in (x, *params)]
+    rk.reset_launch_counts()
+    if case.n:
+        ys = rk.fused_rk_multistep(spec, "tsit5", case.dt, case.n, *leaves)
+        ref = rk.fused_rk_multistep_reference(spec, "tsit5", case.dt,
+                                              case.n, x, *params)
+        name = "fused_rk_multistep"
+    else:
+        ys = rk.fused_rk_step(spec, "tsit5", case.dt, *leaves)
+        ref = rk.fused_rk_step_reference(spec, "tsit5", case.dt, x, *params)
+        name = "fused_rk_step"
+    gys = torch.randn_like(ys)
+    got = torch.autograd.grad(ys, leaves, gys)
+    assert {k: v for k, v in rk.LAUNCHES.items() if v} == {
+        f"{name}_fwd_mid": 1, f"{name}_bwd_mid": 1}
+    torch.testing.assert_close(ys, ref, **FWD)
+    refs = [t.clone().requires_grad_() for t in (x, *params)]
+    fn = (rk.fused_rk_multistep_reference if case.n
+          else rk.fused_rk_step_reference)
+    args = (spec, "tsit5", case.dt) + ((case.n,) if case.n else ())
+    want = torch.autograd.grad(fn(*args, *refs), refs, gys)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **GRAD)
+
+
+@pytest.mark.parametrize("widths,G", [((41, 10, 41), 5), ((41, 10, 41), 10),
+                                      ((16, 80, 16), 5), ((9, 4, 9), 5)])
+def test_medium_shared_memory_matches_the_library(card, widths, G):
+    lib = _cuda.library()
+    spec = kp.ChainSpec(*widths, G)
+    for stages in (4, 7):
+        for backward in (False, True):
+            assert lib.kb_smem_bytes(ctypes.byref(_cuda.chain_dims(spec)),
+                                     stages, int(backward)) == \
+                4 * _cuda.block_smem_floats(spec, stages, backward)
+
+
 def test_backward_repeats_bit_for_bit(card):
     spec, x, params, rng = inputs(card, 34, seed=2)
     gy = torch.ones_like(x)

@@ -184,13 +184,22 @@ def test_make_ode_fns_checks():
     with pytest.raises(ValueError, match="n_members"):
         T.make_ode_fns(T.LVConfig(solve_mode="adaptive"), model, data,
                        reduce_fn=reduce)
-    # four LV members are wider than K1-K4 take (I <= 8, H <= 32)
+    # four LV members are wider than K1 takes (I <= 8, H <= 32); K2/K3
+    # take them in their medium flavor, up to H <= 256: 30 members are past
     wide = lv_members.build(T.LVConfig(solve_mode="fixed"), 4, "cpu")
-    for cfg in (T.LVConfig(solve_mode="adaptive", impl="pallas"),
-                T.LVConfig(solve_mode="shooting", impl="fused")):
-        with pytest.raises(ValueError, match="H <= 32"):
-            T.make_ode_fns(cfg, wide["model"], wide["data"],
-                           reduce_fn=pk.member_mean(4), n_members=4)
+    with pytest.raises(ValueError, match="H <= 32"):
+        T.make_ode_fns(T.LVConfig(solve_mode="adaptive", impl="pallas"),
+                       wide["model"], wide["data"],
+                       reduce_fn=pk.member_mean(4), n_members=4)
+    for mode in ("shooting", "fixed"):
+        T.make_ode_fns(T.LVConfig(solve_mode=mode, impl="fused"),
+                       wide["model"], wide["data"],
+                       reduce_fn=pk.member_mean(4), n_members=4)
+    past = lv_members.build(T.LVConfig(solve_mode="fixed"), 30, "cpu")
+    with pytest.raises(ValueError, match="H <= 256"):
+        T.make_ode_fns(T.LVConfig(solve_mode="shooting", impl="fused"),
+                       past["model"], past["data"],
+                       reduce_fn=pk.member_mean(30), n_members=30)
 
 
 def test_run_members_on_cpu_and_its_entry_point(capsys):

@@ -235,11 +235,12 @@ def test_what_is_not_ported_raises_naming_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="bf16"):
         T.make_fns(dataclasses.replace(cfg, impl="fused",
                                        bwd_precision="bf16"), model, data)
-    # the narrow fused flavor (auto below in_dims*grid_len = 2048): K2/K3
-    # cap the state at 8 columns, these surrogates have 9 and more
-    with pytest.raises(ValueError, match="K2/K3 at medium widths"):
-        T.make_fns(dataclasses.replace(cfg, impl="fused",
-                                       wide_kernels=None), model, data)
+    # the narrow fused flavor (auto below in_dims*grid_len = 2048) runs
+    # K2/K3 a block a row up to H <= 256: a wider hidden layer is past
+    wide_h = dataclasses.replace(cfg, impl="fused", wide_kernels=None,
+                                 hidden=300)
+    with pytest.raises(ValueError, match="ROADMAP.md 2a"):
+        T.make_fns(wide_h, T.make_model(wide_h, data, "cpu"), data)
     with pytest.raises(ValueError, match="impl"):
         T.make_fns(dataclasses.replace(cfg, impl="pallas"), model, data)
 

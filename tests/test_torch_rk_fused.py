@@ -209,8 +209,11 @@ def test_launch_checks_reject_what_the_kernels_do_not_take(lv_chain):
         trk._check_launch(spec, torch.ones(4, 3), params, 0)
     with pytest.raises(ValueError, match="c1"):
         trk._check_launch(spec, ok, [params[0][:5]] + params[1:], 0)
-    wide = chain_spec_of(KANChain.mlp_like([2, 40, 2], grid_len=5))
-    with pytest.raises(ValueError, match="caps"):
-        trk._check_launch(wide, ok, params, 0)
+    # past the medium flavor's caps: H <= 256, and the shared memory of a
+    # block a row ([41, 64, 41] G=16: 89k floats of parameters)
+    for widths, G in (([2, 300, 2], 5), ([41, 64, 41], 16)):
+        past = chain_spec_of(KANChain.mlp_like(widths, grid_len=G))
+        with pytest.raises(ValueError, match="medium caps"):
+            trk._check_launch(past, ok, params, 0)
     with pytest.raises(ValueError, match="several devices"):
         trk._on_cuda(ok, torch.ones(2, device="meta"))

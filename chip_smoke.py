@@ -705,8 +705,10 @@ class MidCase(NamedTuple):
 # loss), 4 (the shooting group of four segments); the packed 8-member LV
 # chain [16,80,16] G=5 iqf (tanh) at 34 and 31 rows (shooting, L = 1 and
 # 4) and its fixed-mode K3 (n = 34, K = 1); Burgers' whole trajectory in
-# one K3 launch (n = 180); every basis and normalizer at Burgers' widths
-_BUR_M, _PACK = (41, 10, 41), (16, 80, 16)
+# one K3 launch (n = 180); every basis and normalizer at Burgers' widths;
+# a chain whose adjoint takes the compact shared-memory layout
+# (`_cuda.block_compact`), K2 and K3
+_BUR_M, _PACK, _COMPACT = (41, 10, 41), (16, 80, 16), (100, 40, 100)
 MID_CASES = (
     MidCase("burgers K2 K=1", _BUR_M, 5, "rbf", "softsign", 0.1, 1, 0, 5e-3),
     MidCase("burgers K2 K=4", _BUR_M, 5, "rbf", "softsign", 0.1, 4, 0, 5e-3),
@@ -722,7 +724,12 @@ MID_CASES = (
 ) + tuple(
     MidCase(f"{basis}/{norm} K3 n=20 K=2", _BUR_M, 5, basis, norm, 0.1, 2,
             20, 5e-3)
-    for basis in ("rbf", "iqf", "rswaf") for norm in ("tanh", "softsign"))
+    for basis in ("rbf", "iqf", "rswaf") for norm in ("tanh", "softsign")
+) + (
+    MidCase("compact K2 K=2", _COMPACT, 5, "iqf", "tanh", 0.05, 2, 0, 2e-3),
+    MidCase("compact K3 n=8 K=2", _COMPACT, 5, "rbf", "softsign", 0.05, 2, 8,
+            2e-3),
+)
 
 
 def mid_case_inputs(torch, kp, case, seed, device="cuda"):
@@ -785,7 +792,39 @@ def phase_mid_kernels(torch, rk, kp, max_err):
     torch.cuda.synchronize()
     finish_phase({"phase": "kernel_vs_plain", "kernels": "K2-m, K3-m",
                   "cases": cases, "fwd_tol": FWD_TOL, "grad_tol": GRAD_TOL,
-                  "multistep_fwd": k3f_detail}, failures)
+                  "multistep_fwd": k3f_detail,
+                  "plan_mirrors": check_block_mirrors(kp, failures)},
+                 failures)
+
+
+def check_block_mirrors(kp, failures):
+    """The wrapper's copies of the medium flavor's work split and shared
+    memory (`_cuda.block_plan`, `block_smem_floats`) against the
+    library's (`kb_plan`, `kb_smem_bytes`) on every MID_CASES chain."""
+    import ctypes
+    from kanodes_tpu_torch.ops import _cuda
+    lib = _cuda.library()
+    checked = set()
+    for case in MID_CASES:
+        (I, H, O), G = case.widths, case.G
+        spec = kp.ChainSpec(I, H, O, G, normalizer=case.normalizer,
+                            basis=case.basis)
+        if (I, H, O, G) in checked:
+            continue
+        checked.add((I, H, O, G))
+        dims = ctypes.byref(_cuda.chain_dims(spec))
+        got = (ctypes.c_int * 12)()
+        lib.kb_plan(dims, got)
+        p = _cuda.block_plan(spec)
+        if list(got) != [*p.f1, *p.f2, *p.v1, *p.v2]:
+            failures.append(f"kb_plan {list(got)} != block_plan {p} at "
+                            f"[{I},{H},{O}] G={G}")
+        for backward in (0, 1):
+            if lib.kb_smem_bytes(dims, 7, backward) != \
+                    4 * _cuda.block_smem_floats(spec, 7, bool(backward)):
+                failures.append(f"kb_smem_bytes != block_smem_floats at "
+                                f"[{I},{H},{O}] G={G} backward={backward}")
+    return sorted(checked)
 
 
 def phase_chain_kernels(torch, kp, KANChain, rng, max_err):

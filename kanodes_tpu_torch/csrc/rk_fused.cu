@@ -51,8 +51,8 @@
 //     1-D Allen-Cahn surrogates, the packed LV ensemble) take the medium
 //     flavor, a block a row (kan_chain_block.cuh): kb_rk_step_fwd (K2f-m),
 //     kb_rk_step_bwd (K2b-m), kb_rk_multistep_fwd (K3f-m) and
-//     kb_rk_multistep_bwd (K3b-m); each backward is two launches, the
-//     rows' reverse recursion and the parameter sums.
+//     kb_rk_multistep_bwd (K3b-m). K2b-m and K3b-m are two launches
+//     each, the rows' reverse recursion and the parameter sums.
 // Launches go on the caller's stream; nothing here allocates or syncs.
 
 #include "kan_chain_block.cuh"
@@ -227,112 +227,129 @@ rk_multistep_bwd_kernel(const float* x0, const float* ys, const float* gys,
 // The medium flavor: a block a row (kan_chain_block.cuh)
 // ---------------------------------------------------------------------------
 
-// K2f-m: one RK step of row blockIdx.x.
+// Every medium-flavor kernel starts alike: the tableau's constants, the
+// parameters' copies issued, the partials `lead` floats after them, the
+// thread's walks (their divisions overlap the copies); the caller then
+// loads its rows and calls kb_stage_wait.
+#define KB_SETUP(lead)                                               \
+  extern __shared__ float smem[];                                    \
+  __shared__ WarpConsts c;                                           \
+  kw_fill_consts(c, d, T.stages, T.a, T.b, T.needed);                \
+  const KbCtx k = kb_stage(c1, w1, c2, w2, d, plan, lead, smem);     \
+  const int warp = threadIdx.x / KW_LANES, lane = threadIdx.x % KW_LANES; \
+  const KbLanes ln = kb_lanes(d, plan, warp, lane);                  \
+  const int I = d.I, r = blockIdx.x
+
+// K2f-m: one RK step of row blockIdx.x. kCompact: the layout
+// (plan.compact, kb_compact).
+template <bool kCompact>
 __global__ void __launch_bounds__(KB_THREADS)
 kb_step_fwd_kernel(const float* x, const float* c1, const float* w1,
                    const float* c2, const float* w2, float* y, ChainDims d,
-                   StepTab T) {
-  extern __shared__ float smem[];
-  __shared__ WarpConsts c;
-  kw_fill_consts(c, d, T.stages, T.a, T.b, T.needed);
-  const BlockParams p = kb_stage_params(c1, w1, c2, w2, d, smem);
-  const int I = d.I, r = blockIdx.x;
-  float* xr = smem + kc_param_floats(d);
-  float* xi = xr + I;
-  float* ks = xi + I;
-  float* ws = ks + T.stages * I;
-  for (int q = threadIdx.x; q < I; q += blockDim.x)
-    xr[q] = x[(size_t)r * I + q];
-  __syncthreads();
-  kb_rk_step(xr, xr, T.stages, d, c, p, xi, ks, ws);
-  for (int q = threadIdx.x; q < I; q += blockDim.x)
-    y[(size_t)r * I + q] = xr[q];
+                   StepTab T, KbPlan plan) {
+  // the row's first components load while the block sets up
+  const float* xr = x + (size_t)blockIdx.x * d.I;
+  const float x0 = threadIdx.x < d.I ? xr[threadIdx.x] : 0.0f;
+  KB_SETUP(0);
+  float* acc = k.rows;                            // [S + 1][I]
+  for (int q = threadIdx.x; q < I; q += KB_THREADS)
+    kb_acc_set(acc, T.stages, I, q, q < KB_THREADS ? x0 : xr[q]);
+  kb_stage_wait();
+  const int last =
+      kb_rk_stages<kCompact>(k, ln, acc, nullptr, T.stages, d, c, lane);
+  for (int q = threadIdx.x; q < I; q += KB_THREADS)
+    y[(size_t)r * I + q] =
+        kb_step_out<kCompact>(acc, k, I, T.stages, last, c, q);
 }
 
 // K3f-m: n_steps RK steps of row blockIdx.x, every post-step state stored
-// at ys [n_steps, K, I].
+// at ys [n_steps, K, I]. kCompact: as K2f-m's.
+template <bool kCompact>
 __global__ void __launch_bounds__(KB_THREADS)
 kb_multistep_fwd_kernel(const float* x0, const float* c1, const float* w1,
                         const float* c2, const float* w2, float* ys, int K,
-                        int n_steps, ChainDims d, StepTab T) {
-  extern __shared__ float smem[];
-  __shared__ WarpConsts c;
-  kw_fill_consts(c, d, T.stages, T.a, T.b, T.needed);
-  const BlockParams p = kb_stage_params(c1, w1, c2, w2, d, smem);
-  const int I = d.I, r = blockIdx.x;
-  float* xr = smem + kc_param_floats(d);
-  float* xi = xr + I;
-  float* ks = xi + I;
-  float* ws = ks + T.stages * I;
-  for (int q = threadIdx.x; q < I; q += blockDim.x)
-    xr[q] = x0[(size_t)r * I + q];
-  __syncthreads();
+                        int n_steps, ChainDims d, StepTab T, KbPlan plan) {
+  KB_SETUP(0);
+  float* acc = k.rows;                            // [S + 1][I]
+  for (int q = threadIdx.x; q < I; q += KB_THREADS)
+    kb_acc_set(acc, T.stages, I, q, x0[(size_t)r * I + q]);
+  kb_stage_wait();
   for (int s = 0; s < n_steps; ++s) {
-    kb_rk_step(xr, xr, T.stages, d, c, p, xi, ks, ws);
-    for (int q = threadIdx.x; q < I; q += blockDim.x)
-      ys[((size_t)s * K + r) * I + q] = xr[q];
+    const int last = kb_rk_stages<kCompact>(k, ln, acc, nullptr, T.stages,
+                                            d, c, lane);
+    for (int q = threadIdx.x; q < I; q += KB_THREADS) {
+      const float y = kb_step_out<kCompact>(acc, k, I, T.stages, last, c, q);
+      ys[((size_t)s * K + r) * I + q] = y;
+      kb_acc_set(acc, T.stages, I, q, y);
+    }
+    __syncthreads();
   }
 }
 
-// K2b-m, its first launch: the step adjoint of row blockIdx.x; dx and the
-// row's n_slots records at scratch + r * n_slots * width.
+// K2b-m, its first launch: the step adjoint of row blockIdx.x; dx, and
+// its n_slots records at scratch + r * n_slots * width. kCompact: the
+// layout (plan.compact).
+template <bool kCompact>
 __global__ void __launch_bounds__(KB_THREADS)
 kb_step_bwd_kernel(const float* x, const float* gy, const float* c1,
                    const float* w1, const float* c2, const float* w2,
                    float* dx, float* scratch, int n_slots, ChainDims d,
-                   StepTab T) {
-  extern __shared__ float smem[];
-  __shared__ WarpConsts c;
-  kw_fill_consts(c, d, T.stages, T.a, T.b, T.needed);
-  const BlockParams p = kb_stage_params(c1, w1, c2, w2, d, smem);
+                   StepTab T, KbPlan plan) {
+  // the row's first components load while the block sets up
+  const float* xr = x + (size_t)blockIdx.x * d.I;
+  const float* gyr = gy + (size_t)blockIdx.x * d.I;
+  const float x0 = threadIdx.x < d.I ? xr[threadIdx.x] : 0.0f;
+  const float g0 = threadIdx.x < d.I ? gyr[threadIdx.x] : 0.0f;
+  KB_SETUP(kb_adj_lead(d, T.stages, kCompact));
   const RecLayout L = kc_rec_layout(d.I, d.H, d.O, d.G);
-  const int I = d.I, r = blockIdx.x;
-  const BlockAdjRows a = kb_adj_rows(smem + kc_param_floats(d), d, T.stages);
-  for (int q = threadIdx.x; q < I; q += blockDim.x) {
-    a.x[q] = x[(size_t)r * I + q];
-    a.gy[q] = gy[(size_t)r * I + q];
+  const BlockAdjRows a = kb_adj_rows(k, d, T.stages, kCompact);
+  for (int q = threadIdx.x; q < I; q += KB_THREADS) {
+    kb_acc_set(a.acc, T.stages, I, q, q < KB_THREADS ? x0 : xr[q]);
+    a.gy[q] = q < KB_THREADS ? g0 : gyr[q];
   }
-  __syncthreads();
-  kb_rk_step_adjoint(a, T.stages, n_slots, d, c, p, L,
-                     scratch + (size_t)r * n_slots * L.width);
-  for (int q = threadIdx.x; q < I; q += blockDim.x)
+  kb_stage_wait();
+  kb_rk_step_adjoint<kCompact>(k, ln, a, T.stages, n_slots, d, c, L,
+                               scratch + (size_t)r * n_slots * L.width, warp,
+                               lane);
+  for (int q = threadIdx.x; q < I; q += KB_THREADS)
     dx[(size_t)r * I + q] = a.dx[q];
 }
 
 // K3b-m, its first launch: the reverse sweep of row blockIdx.x over the
 // stored states, the cotangent gys[s] of every stored state folded in;
 // the records of step s at scratch + (s * K + r) * n_slots * width.
+// kCompact: as K2b-m's.
+template <bool kCompact>
 __global__ void __launch_bounds__(KB_THREADS)
 kb_multistep_bwd_kernel(const float* x0, const float* ys, const float* gys,
                         const float* c1, const float* w1, const float* c2,
                         const float* w2, float* dx0, float* scratch, int K,
-                        int n_steps, int n_slots, ChainDims d, StepTab T) {
-  extern __shared__ float smem[];
-  __shared__ WarpConsts c;
-  kw_fill_consts(c, d, T.stages, T.a, T.b, T.needed);
-  const BlockParams p = kb_stage_params(c1, w1, c2, w2, d, smem);
+                        int n_steps, int n_slots, ChainDims d, StepTab T,
+                        KbPlan plan) {
+  KB_SETUP(kb_adj_lead(d, T.stages, kCompact));
   const RecLayout L = kc_rec_layout(d.I, d.H, d.O, d.G);
-  const int I = d.I, r = blockIdx.x;
-  const BlockAdjRows a = kb_adj_rows(smem + kc_param_floats(d), d, T.stages);
-  for (int q = threadIdx.x; q < I; q += blockDim.x) a.dx[q] = 0.0f;
+  const BlockAdjRows a = kb_adj_rows(k, d, T.stages, kCompact);
+  for (int q = threadIdx.x; q < I; q += KB_THREADS) a.dx[q] = 0.0f;
+  kb_stage_wait();
   for (int s = n_steps - 1; s >= 0; --s) {
     // input state of step s: ys[s-1] (x0 for the first step)
     const float* x_in = s == 0 ? x0 + (size_t)r * I
                                : ys + ((size_t)(s - 1) * K + r) * I;
-    for (int q = threadIdx.x; q < I; q += blockDim.x) {
-      a.x[q] = x_in[q];
+    for (int q = threadIdx.x; q < I; q += KB_THREADS) {
+      kb_acc_set(a.acc, T.stages, I, q, x_in[q]);
       a.gy[q] = a.dx[q] + gys[((size_t)s * K + r) * I + q];
     }
     __syncthreads();
-    kb_rk_step_adjoint(a, T.stages, n_slots, d, c, p, L,
-                       scratch + ((size_t)s * K + r) * n_slots * L.width);
+    kb_rk_step_adjoint<kCompact>(
+        k, ln, a, T.stages, n_slots, d, c, L,
+        scratch + ((size_t)s * K + r) * n_slots * L.width, warp, lane);
   }
-  for (int q = threadIdx.x; q < I; q += blockDim.x)
+  for (int q = threadIdx.x; q < I; q += KB_THREADS)
     dx0[(size_t)r * I + q] = a.dx[q];
 }
 
-// The second launch of K2b-m and K3b-m: the parameter cotangents from the
-// n_rec records, a thread a parameter.
+// The second launch of K2b-m and K3b-m: the parameter
+// cotangents from the n_rec records, a thread a parameter.
 __global__ void __launch_bounds__(KB_THREADS)
 kb_param_sums_kernel(const float* scratch, int n_rec, ChainDims d,
                      float* dc1, float* dw1, float* dc2, float* dw2) {
@@ -350,8 +367,8 @@ cudaError_t kb_launch_param_sums(const float* scratch, int n_rec,
   return cudaGetLastError();
 }
 
-// Opt a medium-flavor kernel in to its shared memory; refuse a chain past
-// the caps (the wrapper checks them first).
+// Opt a medium-flavor kernel in to its shared memory (kb_smem_floats);
+// refuse a chain past the caps (the wrapper checks them first).
 template <typename Kernel>
 cudaError_t kb_prepare(Kernel kernel, const ChainDims& d, int stages,
                        bool backward, size_t* smem) {
@@ -478,32 +495,54 @@ int kb_smem_bytes(const ChainDims* d, int stages, int backward) {
   return (int)(kb_smem_floats(*d, stages, backward != 0) * sizeof(float));
 }
 
+// The medium flavor's work split for a chain (the wrapper's `block_plan`
+// computes the same): out[0..11] = f1's C, R, Tc, Rg, f2's, v1's S, per,
+// v2's.
+void kb_plan(const ChainDims* d, int* out) {
+  const KbPlan p = kb_plan_of(*d);
+  const KbSplit f[2] = {p.f1, p.f2};
+  const KbVjp v[2] = {p.v1, p.v2};
+  for (int i = 0; i < 2; ++i) {
+    out[4 * i] = f[i].C;
+    out[4 * i + 1] = f[i].R;
+    out[4 * i + 2] = f[i].Tc;
+    out[4 * i + 3] = f[i].Rg;
+    out[8 + 2 * i] = v[i].S;
+    out[9 + 2 * i] = v[i].per;
+  }
+}
+
 int kb_rk_step_fwd(const float* x, const float* c1, const float* w1,
                    const float* c2, const float* w2, float* y, int K,
                    const ChainDims* d, const StepTab* T, void* stream) {
+  const KbPlan plan = kb_plan_for(*d, T->stages);
+  const auto kernel =
+      plan.compact ? kb_step_fwd_kernel<true> : kb_step_fwd_kernel<false>;
   size_t smem;
-  cudaError_t err = kb_prepare(kb_step_fwd_kernel, *d, T->stages, false,
-                               &smem);
+  cudaError_t err = kb_prepare(kernel, *d, T->stages, false, &smem);
   if (err != cudaSuccess) return (int)err;
   if (K < 1) return (int)cudaErrorInvalidValue;
-  kb_step_fwd_kernel<<<K, KB_THREADS, smem, (cudaStream_t)stream>>>(
-      x, c1, w1, c2, w2, y, *d, *T);
+  kernel<<<K, KB_THREADS, smem, (cudaStream_t)stream>>>(x, c1, w1, c2, w2, y,
+                                                        *d, *T, plan);
   return (int)cudaGetLastError();
 }
 
+// scratch: K * n_slots records.
 int kb_rk_step_bwd(const float* x, const float* gy, const float* c1,
                    const float* w1, const float* c2, const float* w2,
                    float* dx, float* dc1, float* dw1, float* dc2, float* dw2,
                    float* scratch, int K, int n_slots, const ChainDims* d,
                    const StepTab* T, void* stream) {
-  size_t smem;
-  cudaError_t err = kb_prepare(kb_step_bwd_kernel, *d, T->stages, true,
-                               &smem);
-  if (err != cudaSuccess) return (int)err;
   if (K < 1) return (int)cudaErrorInvalidValue;
+  const KbPlan plan = kb_plan_for(*d, T->stages);
+  const auto kernel =
+      plan.compact ? kb_step_bwd_kernel<true> : kb_step_bwd_kernel<false>;
+  size_t smem;
+  cudaError_t err = kb_prepare(kernel, *d, T->stages, true, &smem);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  kb_step_bwd_kernel<<<K, KB_THREADS, smem, st>>>(
-      x, gy, c1, w1, c2, w2, dx, scratch, n_slots, *d, *T);
+  kernel<<<K, KB_THREADS, smem, st>>>(x, gy, c1, w1, c2, w2, dx, scratch,
+                                      n_slots, *d, *T, plan);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)kb_launch_param_sums(scratch, K * n_slots, *d, dc1, dw1, dc2,
@@ -514,13 +553,16 @@ int kb_rk_multistep_fwd(const float* x0, const float* c1, const float* w1,
                         const float* c2, const float* w2, float* ys, int K,
                         int n_steps, const ChainDims* d, const StepTab* T,
                         void* stream) {
+  const KbPlan plan = kb_plan_for(*d, T->stages);
+  const auto kernel = plan.compact ? kb_multistep_fwd_kernel<true>
+                                   : kb_multistep_fwd_kernel<false>;
   size_t smem;
-  cudaError_t err = kb_prepare(kb_multistep_fwd_kernel, *d, T->stages, false,
-                               &smem);
+  cudaError_t err = kb_prepare(kernel, *d, T->stages, false, &smem);
   if (err != cudaSuccess) return (int)err;
   if (K < 1 || n_steps < 1) return (int)cudaErrorInvalidValue;
-  kb_multistep_fwd_kernel<<<K, KB_THREADS, smem, (cudaStream_t)stream>>>(
-      x0, c1, w1, c2, w2, ys, K, n_steps, *d, *T);
+  kernel<<<K, KB_THREADS, smem, (cudaStream_t)stream>>>(x0, c1, w1, c2, w2, ys,
+                                                        K, n_steps, *d, *T,
+                                                        plan);
   return (int)cudaGetLastError();
 }
 
@@ -530,15 +572,17 @@ int kb_rk_multistep_bwd(const float* x0, const float* ys, const float* gys,
                         float* dc2, float* dw2, float* scratch, int K,
                         int n_steps, int n_slots, const ChainDims* d,
                         const StepTab* T, void* stream) {
+  const KbPlan plan = kb_plan_for(*d, T->stages);
+  const auto kernel = plan.compact ? kb_multistep_bwd_kernel<true>
+                                   : kb_multistep_bwd_kernel<false>;
   size_t smem;
-  cudaError_t err = kb_prepare(kb_multistep_bwd_kernel, *d, T->stages, true,
-                               &smem);
+  cudaError_t err = kb_prepare(kernel, *d, T->stages, true, &smem);
   if (err != cudaSuccess) return (int)err;
   if (K < 1 || n_steps < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  kb_multistep_bwd_kernel<<<K, KB_THREADS, smem, st>>>(
-      x0, ys, gys, c1, w1, c2, w2, dx0, scratch, K, n_steps, n_slots, *d,
-      *T);
+  kernel<<<K, KB_THREADS, smem, st>>>(x0, ys, gys, c1, w1, c2, w2, dx0,
+                                      scratch, K, n_steps, n_slots, *d, *T,
+                                      plan);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)kb_launch_param_sums(scratch, n_steps * K * n_slots, *d, dc1,

@@ -2,7 +2,7 @@
 repository on one card, in turns.
 
     python -m kanodes_tpu_torch.experiments.compare_trees PARENT CHANGE \\
-        [--out=FILE] [--groups=gray_wide,lv,members,small]
+        [--out=FILE] [--groups=gray_wide,lv,members,small,mid]
 
 PARENT and CHANGE are the roots of two checkouts (for example a `git
 archive` of the parent commit unpacked in a directory .gitignore lists).
@@ -29,14 +29,21 @@ helpers and inputs (CUDA-event ms, `cuda_ms`, and the profiler's device
     kan_chain.cuh's caps (K2 at K = 34, tsit5 and rk4; K3 at n = 34, K =
     1 and on the two cap chains) and of the loss history of 64 LV fused
     shooting iterations (`small_flavor_hashes`), to show that a tree's
-    chains within the caps keep their parent's bits.
+    chains within the caps keep their parent's bits;
+  * mid: K2f-m, K2b-m, K3f-m and K3b-m (the medium flavor, a block a
+    row) at chip_smoke's `phase_mid_timings` shapes (`mid_launches`):
+    Burgers [41,10,41] G=5 K2 at K = 1 and 4, 1-D Allen-Cahn G=10 at K =
+    1, the packed 8-member LV chain [16,80,16] at K = 34; K3 at the packed
+    n = 34 and 140, K = 1, and Burgers n = 180.
 Then, in the same turns (host times swing on a shared host), the group's
 profiles: `profile_source --ndim=2` for Fisher-KPP and Allen-Cahn and
 `profile_surrogate --solve_mode=shooting` for Schrödinger and 2-D
 Allen-Cahn (gray_wide); `profile_lv --impl=fused` in fixed and adaptive
 mode (lv); `lv_members --profile=1`, the ensemble's iteration
-(members). Prints one JSON line per run (and writes them to FILE), then
-the card's name and power limit. Needs a CUDA device.
+(members); `profile_surrogate --runs=narrow` (its five lines) and the
+packed seed sweep's fixed phase, 300 iterations after 50 of warm-up, in
+ms an iteration (mid). Prints one JSON line per run (and writes them to
+FILE), then the card's name and power limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -273,6 +280,41 @@ def small_flavor_hashes(torch, np, cs):
     return out
 
 
+def mid_launches(torch, np, cs):
+    """label -> (kernel name, launch) at phase_mid_timings' shapes."""
+    from kanodes_tpu_torch.ops import kdense_pallas as kp
+    from kanodes_tpu_torch.ops import rk_fused as rk
+    by_label = {c.label: c for c in cs.MID_CASES}
+    out = {}
+    for label in ("burgers K2 K=1", "burgers K2 K=4", "allen_cahn K2 K=1",
+                  "packed K2 K=34"):
+        case = by_label[label]
+        spec, x, params = cs.mid_case_inputs(torch, kp, case, 90)
+        k = rk._consts(spec, "tsit5", case.dt)
+        gy = torch.tensor(np.random.default_rng(0).standard_normal(
+            tuple(x.shape)), dtype=torch.float32, device="cuda")
+        out["K2f-m " + label] = (lambda k=k, x=x, p=params:
+                                 rk._launch_step_fwd(k, x, p))
+        out["K2b-m " + label] = (lambda k=k, x=x, p=params, g=gy:
+                                 rk._launch_step_bwd(k, x, p, g))
+    base = by_label["packed K3 n=34 K=1"]
+    for label, case in (("packed K3 n=34 K=1", base),
+                        ("packed K3 n=140 K=1", base._replace(n=140)),
+                        ("burgers K3 n=180 K=1",
+                         by_label["burgers K3 n=180 K=1"])):
+        spec, x, params = cs.mid_case_inputs(torch, kp, case, 90)
+        k = rk._consts(spec, "tsit5", case.dt)
+        ys = rk._launch_multistep_fwd(k, case.n, x, params)
+        gys = torch.tensor(np.random.default_rng(1).standard_normal(
+            tuple(ys.shape)) / case.n, dtype=torch.float32, device="cuda")
+        out["K3f-m " + label] = (lambda k=k, n=case.n, x=x, p=params:
+                                 rk._launch_multistep_fwd(k, n, x, p))
+        out["K3b-m " + label] = (
+            lambda k=k, n=case.n, x=x, ys=ys, p=params, g=gys:
+            rk._launch_multistep_bwd(k, n, x, ys, p, g))
+    return out
+
+
 def members_bwd_launch(torch, np, cs):
     from kanodes_tpu_torch.ode.integrate import StepController
     from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
@@ -330,6 +372,11 @@ if "members" in groups:
                                    "iterations": n_it}
 if "small" in groups:
     out["small flavor sha256"] = small_flavor_hashes(torch, np, cs)
+if "mid" in groups:
+    for label, f in mid_launches(torch, np, cs).items():
+        reps = 5 if "n=1" in label and "K3" in label else 20
+        out[label] = {"ms": cs.cuda_ms(torch, f, reps),
+                      "us": cs.device_us(torch, f, reps=10)}
 if "gray_wide" in groups:
     for i in (0, 1, 6, 7):
         case = cs.GRAYBOX_CASES[i]
@@ -358,7 +405,21 @@ if "gray_wide" in groups:
 print(json.dumps(out))
 '''
 
-# group -> profiler runs
+# the packed seed sweep's fixed phase (scripts/lv_multiseed_packed.py's
+# third): 50 iterations, then 300 more on the same Adam state, timed
+PACKED_FIXED = r'''
+import json
+from kanodes_tpu_torch.experiments import lv_members as lvm
+from kanodes_tpu_torch.utils.precision import set_exact_f32
+set_exact_f32()
+res = lvm.run_packed_phases((("fixed", 0, 3e-4, 50), ("fixed", 0, 3e-4, 300)))
+ph = res["phases"][1]
+print(json.dumps({"run": "packed seed sweep, fixed phase: 300 iterations "
+                  "after 50", "ms_per_iter": 1e3 * ph["seconds"] / ph["iters"],
+                  "last_loss": ph["last_loss"]}))
+'''
+
+# group -> profiler runs ("-c": a program's text)
 PROFILES = {
     "gray_wide": (
         ("profile_source", ("--ndim=2", "--problem=fisher_kpp",
@@ -374,18 +435,22 @@ PROFILES = {
         ("profile_lv", ("--impl=fused", "--solve_mode=adaptive"))),
     "members": (("lv_members", ("--profile=1",)),),
     "small": (),
+    "mid": (("profile_surrogate", ("--runs=narrow",)),
+            ("-c", (PACKED_FIXED,))),
 }
 
 
-def run(root: str, argv: list[str]) -> dict:
-    """One subprocess in `root`; its last stdout line as JSON."""
+def run(root: str, argv: list[str]):
+    """One subprocess in `root`; its stdout's JSON lines (one: as is)."""
     env = dict(os.environ, PYTHONPATH=root)
     proc = subprocess.run([sys.executable, *argv], cwd=root, env=env,
                           capture_output=True, text=True, timeout=1200)
     if proc.returncode != 0:
-        raise RuntimeError(f"{root}: {' '.join(argv)} failed "
+        raise RuntimeError(f"{root}: {' '.join(argv)[:200]} failed "
                            f"({proc.returncode}):\n{proc.stderr[-4000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    return lines[0] if len(lines) == 1 else lines
 
 
 def main(argv: list[str]) -> int:
@@ -423,10 +488,11 @@ def main(argv: list[str]) -> int:
             for key, v in ys["parent"].items()}})
     for root in turns:
         for module, args in (r for g in groups for r in PROFILES[g]):
-            emit({"tree": names[root], "profile": module, "args": args,
-                  "result": run(root, ["-m",
-                                       f"kanodes_tpu_torch.experiments."
-                                       f"{module}", *args])})
+            argv = (["-c", *args] if module == "-c" else
+                    ["-m", f"kanodes_tpu_torch.experiments.{module}", *args])
+            emit({"tree": names[root], "profile": module,
+                  "args": args if module != "-c" else "program",
+                  "result": run(root, argv)})
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60,

@@ -1,8 +1,8 @@
-"""Where K5b, K7b, K3b, K4b, K4f, K8b, K3f and K8f spend a launch, phase
-by phase, on the card.
+"""Where K5b, K7b, K3b, K4b, K4f, K8b, K3f, K8f, K2f-m and K2b-m spend a
+launch, phase by phase, on the card.
 
     python -m kanodes_tpu_torch.experiments.trace_phases \\
-        [--kernels=K5b/K7b,K3b/K4b,K4f/K8b,K3f/K8f] ROOT [ROOT ...]
+        [--kernels=K5b/K7b,K3b/K4b,K4f/K8b,K3f/K8f,K2f-m/K2b-m] ROOT [...]
 
 For each ROOT (a checkout of this repository), copies its
 `kanodes_tpu_torch/` into a temporary directory, inserts `clock64()`
@@ -27,7 +27,12 @@ asked for (all by default):
     chain routines of `csrc/kan_chain.cuh` / `kan_chain_warp.cuh`): K3f
     at n = 34, K = 1 (LV defaults, the trainer's seeded init) and K8f on
     MEMBERS_CASES[0] (`lv_fixed_launch`, `members_fwd_launch`); a stamp
-    shared with another family (kf_chain_fwd's) is put in once.
+    shared with another family (kf_chain_fwd's) is put in once;
+  * K2f-m/K2b-m (`csrc/kan_chain_block.cuh`, `csrc/rk_fused.cu`): the
+    medium flavor's RK step and its adjoint at chip_smoke's MID_CASES
+    Burgers K = 1 and 4, 1-D Allen-Cahn K = 1 and the packed K = 34, its
+    per-evaluation phases summed over the step's stages; the
+    parameter-sum launch as thread 0's own cycles.
 Thread 0 of block 0 adds the cycles between stamps into its phase's
 counter (so a phase inside a loop is thread 0's share of it, and a
 barrier's phase is its wait); one JSON line per kernel and case gives the
@@ -44,8 +49,10 @@ K7b that replaced them; the one-thread-a-row K3b / K4b of the first port
 and the warp-a-row K3b / K4b that replaced them; the one-thread K4f and
 one-block K8b of the first port and the warp-a-row K4f and three-phase
 K8b that replaced them; the one-thread K3f and one-block K8f and the
-warp-a-row K3f and warp-split K8f that replaced them. A checkout whose kernels match neither design of
-a family raises. The instrumented copy is thrown away; nothing of ROOT
+warp-a-row K3f and warp-split K8f that replaced them; the four-phase
+K2f-m / K2b-m of the first medium flavor and the two-barrier design that
+replaced them. A checkout whose kernels match neither design of a family
+raises. The instrumented copy is thrown away; nothing of ROOT
 changes. Needs nvcc and a CUDA device.
 """
 
@@ -947,14 +954,186 @@ LV_FIXED_MEMBERS_FWD["warp-a-row K3f and warp-split K8f"] = ({
     ]},
     {"K3f": WARP_K3F_PHASES, "K8f": SPLIT_K8F_PHASES})
 
+# K2f-m / K2b-m (kan_chain_block.cuh, launched from rk_fused.cu): the
+# stamps of the block routines go into the header under the tag KB; the
+# separate parameter-sum launch keeps thread 0's own cycles in g_kbsum.
+KB_HEAD = '#include "kan_chain_warp.cuh"\n' + stamp_head("g_kbtr", "KB")
+KB_READ = (kc_read("kbtr_read", "g_kbtr")
+           + "\nvoid kbsum_read(unsigned long long* out) {\n"
+           "  cudaDeviceSynchronize();\n"
+           "  cudaMemcpyFromSymbol(out, g_kbsum, sizeof(g_kbsum));\n"
+           "  static const unsigned long long zero[16] = {0};\n"
+           "  cudaMemcpyToSymbol(g_kbsum, zero, sizeof(zero));\n}\n")
+KB_SUMS = ("  const RecLayout L = kc_rec_layout(d.I, d.H, d.O, d.G);\n"
+           "  kb_param_sums(scratch, n_rec, d, L, dc1, dw1, dc2, dw2);\n}\n",
+           "  const long long t0_ = clock64();\n"
+           "  const RecLayout L = kc_rec_layout(d.I, d.H, d.O, d.G);\n"
+           "  kb_param_sums(scratch, n_rec, d, L, dc1, dw1, dc2, dw2);\n"
+           "  if (threadIdx.x == 0 && blockIdx.x == 0) g_kbsum[0] = "
+           "clock64() - t0_;\n}\n")
+FOUR_PHASE_K2FM = ["parameter staging and constants", "state load",
+                   "stage input", "layer-1 features", "layer-1 matvec",
+                   "layer-2 features", "layer-2 matvec",
+                   "step sum and store"]
+FOUR_PHASE_K2BM = ["parameter staging and constants", "loads",
+                   "rebuild: stage input", "rebuild: layer-1 features",
+                   "rebuild: layer-1 matvec", "rebuild: layer-2 features",
+                   "rebuild: layer-2 matvec", "seeds",
+                   "reverse: layer-2 terms and gk record",
+                   "reverse: dy1", "reverse: layer-1 terms",
+                   "reverse: dx and kbar", "dx store",
+                   "parameter sums (second launch, thread 0)"]
+MID_STEP = {
+    "four-phase K2f-m and K2b-m": ({
+        "kan_chain_block.cuh": [
+            ('#include "kan_chain_warp.cuh"\n', KB_HEAD
+             + "__device__ unsigned long long g_kbsum[16];\n"),
+            ("  __syncthreads();\n  BlockParams p;\n",
+             "  __syncthreads();\n  KB(0);\n  BlockParams p;\n"),
+            ("  kb_features(x, d.I, d, c, b1);\n  __syncthreads();\n"
+             "  kb_matvec_rows(p.c1t, b1, d.H, kb_l1(d), y1);\n"
+             "  __syncthreads();\n  kb_features(y1, d.H, d, c, b2);\n"
+             "  __syncthreads();\n"
+             "  kb_matvec_rows(p.c2t, b2, d.O, kb_l2(d), kout);\n"
+             "  __syncthreads();\n}\n",
+             "  kb_features(x, d.I, d, c, b1);\n  __syncthreads();\n  KB(3);\n"
+             "  kb_matvec_rows(p.c1t, b1, d.H, kb_l1(d), y1);\n"
+             "  __syncthreads();\n  KB(4);\n  kb_features(y1, d.H, d, c, b2);\n"
+             "  __syncthreads();\n  KB(5);\n"
+             "  kb_matvec_rows(p.c2t, b2, d.O, kb_l2(d), kout);\n"
+             "  __syncthreads();\n  KB(6);\n}\n"),
+            ("    xi[q] = v;\n  }\n  __syncthreads();\n}\n",
+             "    xi[q] = v;\n  }\n  __syncthreads();\n  KB(2);\n}\n"),
+            ("    y[q] = acc;\n  }\n  __syncthreads();\n}\n",
+             "    y[q] = acc;\n  }\n  __syncthreads();\n  KB(7);\n}\n"),
+            ("    for (int s = 0; s < stages; ++s) a.kb[s * I + q] = c.b[s] * g;"
+             "\n  }\n  __syncthreads();\n",
+             "    for (int s = 0; s < stages; ++s) a.kb[s * I + q] = c.b[s] * g;"
+             "\n  }\n  __syncthreads();\n  KB(7);\n"),
+            ("    for (int o = threadIdx.x; o < O; o += blockDim.x) "
+             "r[L.gk + o] = gk[o];\n    __syncthreads();\n",
+             "    for (int o = threadIdx.x; o < O; o += blockDim.x) "
+             "r[L.gk + o] = gk[o];\n    __syncthreads();\n    KB(8);\n"),
+            ("      r[L.dy1 + h] = v;\n    }\n    __syncthreads();\n",
+             "      r[L.dy1 + h] = v;\n    }\n    __syncthreads();\n    KB(9);\n"),
+            ("    kb_layer_terms(p.c1t, dy1, H, xs, I, d, c, t1, r + L.b1);\n"
+             "    __syncthreads();\n",
+             "    kb_layer_terms(p.c1t, dy1, H, xs, I, d, c, t1, r + L.b1);\n"
+             "    __syncthreads();\n    KB(10);\n"),
+            ("a.kb[j * I + q] + aj * v;\n      }\n    }\n    __syncthreads();\n"
+             "  }\n}\n",
+             "a.kb[j * I + q] + aj * v;\n      }\n    }\n    __syncthreads();\n"
+             "    KB(11);\n  }\n}\n"),
+        ],
+        "rk_fused.cu": [
+            ("float* y, ChainDims d,\n                   StepTab T) {\n"
+             "  extern __shared__ float smem[];\n",
+             "float* y, ChainDims d,\n                   StepTab T) {\n"
+             "  extern __shared__ float smem[];\n  KB_START();\n"),
+            ("    xr[q] = x[(size_t)r * I + q];\n  __syncthreads();\n"
+             "  kb_rk_step(xr, xr, T.stages, d, c, p, xi, ks, ws);\n"
+             "  for (int q = threadIdx.x; q < I; q += blockDim.x)\n"
+             "    y[(size_t)r * I + q] = xr[q];\n}\n",
+             "    xr[q] = x[(size_t)r * I + q];\n  __syncthreads();\n  KB(1);\n"
+             "  kb_rk_step(xr, xr, T.stages, d, c, p, xi, ks, ws);\n"
+             "  for (int q = threadIdx.x; q < I; q += blockDim.x)\n"
+             "    y[(size_t)r * I + q] = xr[q];\n  KB(7);\n  KB_WRITE();\n}\n"),
+            ("float* dx, float* scratch, int n_slots, ChainDims d,\n"
+             "                   StepTab T) {\n"
+             "  extern __shared__ float smem[];\n",
+             "float* dx, float* scratch, int n_slots, ChainDims d,\n"
+             "                   StepTab T) {\n"
+             "  extern __shared__ float smem[];\n  KB_START();\n"),
+            ("    a.gy[q] = gy[(size_t)r * I + q];\n  }\n  __syncthreads();\n"
+             "  kb_rk_step_adjoint(",
+             "    a.gy[q] = gy[(size_t)r * I + q];\n  }\n  __syncthreads();\n"
+             "  KB(1);\n  kb_rk_step_adjoint("),
+            ("    dx[(size_t)r * I + q] = a.dx[q];\n}\n\n// K3b-m",
+             "    dx[(size_t)r * I + q] = a.dx[q];\n  KB(12);\n  KB_WRITE();\n"
+             "}\n\n// K3b-m"),
+            KB_SUMS,
+            ('extern "C" {\n', KB_READ),
+        ]},
+        {"K2f-m": FOUR_PHASE_K2FM, "K2b-m": FOUR_PHASE_K2BM}),
+}
+
+TWO_BARRIER_K2FM = ["set-up: constants, copies issued, walks, state",
+                    "staging wait (cp.async, barrier)",
+                    "layer 1: stage inputs, terms, partials",
+                    "barrier after layer 1",
+                    "layer 2: hidden values, terms, partials",
+                    "barrier after layer 2", "step sum and store"]
+TWO_BARRIER_K2BM = ["set-up: constants, copies issued, walks, loads",
+                    "staging wait (cp.async, barrier)",
+                    "rebuild: layer 1", "rebuild: barrier after layer 1",
+                    "rebuild: layer 2", "rebuild: barrier after layer 2",
+                    "seeds", "reverse: layer-2 VJP and gk record",
+                    "reverse: barrier after layer 2",
+                    "reverse: layer-1 VJP, dx and kbar",
+                    "reverse: barrier after layer 1", "dx store",
+                    "parameter sums (second launch, thread 0)"]
+MID_STEP["two-barrier K2f-m and K2b-m"] = ({
+    "kan_chain_block.cuh": [
+        ('#include "kan_chain_warp.cuh"\n', KB_HEAD
+         + "__device__ unsigned long long g_kbsum[16];\n"),
+        ("k.part1, lane);\n  __syncthreads();\n",
+         "k.part1, lane);\n  KB(2);\n  __syncthreads();\n  KB(3);\n"),
+        ("k.part2, lane);\n  __syncthreads();\n}\n",
+         "k.part2, lane);\n  KB(4);\n  __syncthreads();\n"
+         "  KB(5);\n}\n"),
+        ("    for (int s = 0; s < stages; ++s) a.kb[s * I + q] = c.b[s] * g;\n"
+         "  }\n  __syncthreads();\n",
+         "    for (int s = 0; s < stages; ++s) a.kb[s * I + q] = c.b[s] * g;\n"
+         "  }\n  __syncthreads();\n  KB(6);\n"),
+        ("warp, lane);\n    __syncthreads();\n    kb_layer_vjp<kCompact>(k.P1",
+         "warp, lane);\n    KB(7);\n    __syncthreads();\n"
+         "    KB(8);\n    kb_layer_vjp<kCompact>(k.P1"),
+        ("warp, lane);\n    __syncthreads();\n  }\n}\n",
+         "warp, lane);\n    KB(9);\n    __syncthreads();\n"
+         "    KB(10);\n  }\n}\n"),
+    ],
+    "rk_fused.cu": [
+        ("float* y, ChainDims d,\n                   StepTab T, KbPlan plan) "
+         "{\n",
+         "float* y, ChainDims d,\n                   StepTab T, KbPlan plan) "
+         "{\n  KB_START();\n"),
+        ("    kb_acc_set(acc, T.stages, I, q, q < KB_THREADS ? x0 : xr[q]);\n"
+         "  kb_stage_wait();\n",
+         "    kb_acc_set(acc, T.stages, I, q, q < KB_THREADS ? x0 : xr[q]);\n"
+         "  KB(0);\n  kb_stage_wait();\n  KB(1);\n"),
+        ("        kb_step_out<kCompact>(acc, k, I, T.stages, last, c, q);\n}\n",
+         "        kb_step_out<kCompact>(acc, k, I, T.stages, last, c, q);\n"
+         "  KB(6);\n  KB_WRITE();\n}\n"),
+        ("                   StepTab T, KbPlan plan) {\n"
+         "  // the row's first components load while the block sets up\n"
+         "  const float* xr = x + (size_t)blockIdx.x * d.I;\n"
+         "  const float* gyr",
+         "                   StepTab T, KbPlan plan) {\n  KB_START();\n"
+         "  // the row's first components load while the block sets up\n"
+         "  const float* xr = x + (size_t)blockIdx.x * d.I;\n"
+         "  const float* gyr"),
+        ("    a.gy[q] = q < KB_THREADS ? g0 : gyr[q];\n  }\n"
+         "  kb_stage_wait();\n",
+         "    a.gy[q] = q < KB_THREADS ? g0 : gyr[q];\n  }\n  KB(0);\n"
+         "  kb_stage_wait();\n  KB(1);\n"),
+        ("    dx[(size_t)r * I + q] = a.dx[q];\n}\n\n// K3b-m",
+         "    dx[(size_t)r * I + q] = a.dx[q];\n  KB(11);\n  KB_WRITE();\n"
+         "}\n\n// K3b-m"),
+        KB_SUMS,
+        ('extern "C" {\n', KB_READ),
+    ]},
+    {"K2f-m": TWO_BARRIER_K2FM, "K2b-m": TWO_BARRIER_K2BM})
+
 FAMILIES = {"K5b/K7b": GRAY_WIDE, "K3b/K4b": LV_ADJOINTS,
             "K4f/K8b": ADAPTIVE_FWD_MEMBERS_BWD,
-            "K3f/K8f": LV_FIXED_MEMBERS_FWD}
+            "K3f/K8f": LV_FIXED_MEMBERS_FWD, "K2f-m/K2b-m": MID_STEP}
 # family -> the kernels (parts of their names) whose ptxas usage is shown
 PTXAS_OF = {"K5b/K7b": ("gb_bwd_kernel", "wd_bwd_kernel"),
             "K3b/K4b": ("rk_multistep_bwd_kernel", "adaptive_bwd_kernel"),
             "K4f/K8b": ("adaptive_fwd_kernel", "members_bwd"),
-            "K3f/K8f": ("rk_multistep_fwd_kernel", "members_fwd_kernel")}
+            "K3f/K8f": ("rk_multistep_fwd_kernel", "members_fwd_kernel"),
+            "K2f-m/K2b-m": ("kb_step_fwd_kernel", "kb_step_bwd_kernel",
+                            "kb_param_sums_kernel")}
 
 RUN = r"""
 import ctypes, json, sys
@@ -1025,6 +1204,23 @@ if "K8f" in names:
         k8f()
     emit("K8f", "MEMBERS_CASES[0]: 8 LV members [16,80,16] G=5 at the "
          "init, T=35", read(lib.k8f_trace_read))
+if "K2f-m" in names:
+    from kanodes_tpu_torch.ops import rk_fused as rk
+    by_label = {c.label: c for c in cs.MID_CASES}
+    for label in ("burgers K2 K=1", "allen_cahn K2 K=1", "burgers K2 K=4",
+                  "packed K2 K=34"):
+        case = by_label[label]
+        spec, x, params = cs.mid_case_inputs(torch, kp, case, 90)
+        k = rk._consts(spec, "tsit5", case.dt)
+        gy = torch.tensor(np.random.default_rng(0).standard_normal(
+            tuple(x.shape)), dtype=torch.float32, device="cuda")
+        for _ in range(3):
+            rk._launch_step_fwd(k, x, params)
+        emit("K2f-m", label, read(lib.kbtr_read))
+        for _ in range(3):
+            rk._launch_step_bwd(k, x, params, gy)
+        emit("K2b-m", label, read(lib.kbtr_read)[:len(names["K2b-m"]) - 1]
+             + read(lib.kbsum_read)[:1])
 if "K8b" in names:
     k8b, n_it = members_bwd_launch(torch, np, cs)
     for _ in range(3):

@@ -58,6 +58,8 @@ MAX_KF_WARPS = 16
 # KB_MAX_H and the dynamic shared memory a launch may take, KB_MAX_SMEM
 # (G and the stages: KC_MAX_G, KC_MAX_STAGES); KB_THREADS a block
 MAX_KB_I, MAX_KB_H, MAX_KB_SMEM, KB_THREADS = 1024, 256, 232448 - 4096, 256
+# its KB_WARPS and KB_NR (rows of a forward tile)
+KB_WARPS, KB_NR = KB_THREADS // 32, 16
 # K9 (kdense_single.cu): in_dims <= KD_MAX_I, out_dims <= KC_MAX_H
 MAX_SINGLE_I = 32
 # K5 (graybox.cu): GB_MAX_NODES, GB_MAX_N, GB_MAX_G, GB_MAX_STAGES
@@ -155,6 +157,8 @@ _SIGNATURES = {
     "kb_rk_multistep_bwd": [_P] * 13 + [_I] * 3 + [_P] * 3,
     # dims, stages, backward
     "kb_smem_bytes": [_P] + [_I] * 2,
+    # dims, out [12]
+    "kb_plan": [_P, _P],
     # x0, ys, gys, c1, w1, c2, w2, dx0, dc1, dw1, dc2, dw2, scratch, K,
     # n_steps, n_slots, warps, chunk, dims, tab, stream
     "kc_rk_multistep_bwd": [_P] * 13 + [_I] * 5 + [_P] * 3,
@@ -402,17 +406,105 @@ def check_chain_caps(spec) -> None:
                          f"of ops/rk_fused_wide.py take wide states)")
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class BlockSplit(NamedTuple):
+    """One layer's forward split in the medium flavor (`KbSplit`): C
+    chunks of its terms, Tc terms each, times R groups of its rows, Rg rows
+    each (C R = KB_WARPS); warp w takes chunk w // R and group w % R."""
+    C: int
+    R: int
+    Tc: int
+    Rg: int
+
+
+class BlockVjp(NamedTuple):
+    """One layer's VJP split (`KbVjp`): warp w takes the inputs [w per, (w
+    + 1) per) with their G + 1 terms; S lanes share a term."""
+    S: int
+    per: int
+
+
+class BlockPlan(NamedTuple):
+    """The medium flavor's work split of a chain (`kb_plan_of`)."""
+    f1: BlockSplit     # layer 1 forward: I (G + 1) terms, H rows
+    f2: BlockSplit     # layer 2 forward: H (G + 1) terms, O rows
+    v1: BlockVjp       # layer 1 VJP: I inputs, H rows
+    v2: BlockVjp       # layer 2 VJP: H inputs, O rows
+
+
+def _block_split(n_terms: int, n_rows: int) -> BlockSplit:
+    best, best_cost = None, None
+    C = 1
+    while C <= KB_WARPS:
+        R, Tc = KB_WARPS // C, _cdiv(n_terms, C)
+        Rg = _cdiv(n_rows, R)
+        cost = (_cdiv(Rg, KB_NR) * (_cdiv(Tc, 32) * (32 + 2 * min(Rg, KB_NR))
+                                    + 64) + 4 * C)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = BlockSplit(C, R, Tc, Rg), cost
+        C *= 2
+    return best
+
+
+def _block_vjp(n_in: int, n_rows: int, G: int) -> BlockVjp:
+    per = _cdiv(n_in, KB_WARPS)
+    terms = per * (G + 1)
+    costs = [(_cdiv(terms, 32 // (1 << lg)) * _cdiv(n_rows, 1 << lg)
+              + 8 * lg, 1 << lg) for lg in range(6)]
+    return BlockVjp(min(costs, key=lambda c: c[0])[1], per)
+
+
+@functools.lru_cache(maxsize=64)
+def block_plan(spec) -> BlockPlan:
+    """The medium flavor's work split of a chain (kan_chain_block.cuh
+    `kb_plan_of`, exported as the library's `kb_plan`): per layer, the
+    forward's chunks of terms and groups of rows with the fewest issue
+    slots by a rough count, and the VJP's lanes a term with the shortest
+    dependent chain."""
+    I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
+    return BlockPlan(_block_split(I * (G + 1), H), _block_split(H * (G + 1), O),
+                     _block_vjp(I, H, G), _block_vjp(H, O, G))
+
+
+def _block_layout_floats(spec, stages: int, backward: bool,
+                         compact: bool) -> int:
+    I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
+    p = block_plan(spec)
+    s1, s2 = (H, O) if compact else (H | 1, O | 1)
+    params = I * (G + 1) * s1 + H * (G + 1) * s2
+    rows1, rows2 = (p.f1.C, p.f2.C) if compact else (KB_WARPS, KB_WARPS)
+    fwd = rows1 * H + rows2 * O + (stages + 1) * I
+    if not backward:
+        return params + fwd
+    lead = 2 * I + stages * (I + H) + (
+        0 if compact else stages * (I + H) * (G + 1))
+    vjp_terms = max(_cdiv(I, KB_WARPS), _cdiv(H, KB_WARPS)) * (G + 1)
+    return params + lead + max(fwd, stages * I + H + KB_WARPS * vjp_terms)
+
+
+def block_compact(spec, stages: int) -> bool:
+    """Whether a chain takes the medium flavor's compact layout
+    (kan_chain_block.cuh `kb_compact`): its adjoint does not fit the
+    padded one with the VJP factors kept."""
+    return 4 * _block_layout_floats(spec, stages, True, False) > MAX_KB_SMEM
+
+
 def block_smem_floats(spec, stages: int, backward: bool) -> int:
     """Floats of a medium-flavor launch's dynamic shared memory (the
     library's `kb_smem_bytes` / 4, kan_chain_block.cuh `kb_smem_floats`):
-    the parameters; the forward's state, stage input and stage values
-    [S][I], or the adjoint's step input, cotangent and dx, stage inputs,
-    values and cotangents [S][I] and hidden vectors [S][H]; one
-    evaluation's workspace [I*(G+1) + H + H*(G+1)]."""
-    I, H, G = spec.in_dims, spec.hidden, spec.grid_len
-    rows = (3 * I + stages * (3 * I + H) if backward
-            else 2 * I + stages * I)
-    return param_floats(spec) + rows + I * (G + 1) + H + H * (G + 1)
+    the parameters staged at an odd row stride, [I (G + 1)][H | 1] and [H
+    (G + 1)][O | 1] (compact: at H and O); for the adjoint its output
+    cotangent and dx [I], stage inputs [S][I], hidden vectors [S][H] and,
+    but compact, the terms' VJP factors [S][(I + H)(G + 1)]; then both
+    layers' partial sums [KB_WARPS][H] and [KB_WARPS][O] (compact: [C1][H]
+    and [C2][O]) and the running stage inputs
+    [S + 1][I], or, where more, the reverse sweep's stage cotangents [S][I],
+    dy1 [H] and each warp's VJP terms, which take their place."""
+    return _block_layout_floats(spec, stages, backward,
+                                block_compact(spec, stages))
 
 
 def check_block_caps(spec, stages: int) -> None:

@@ -23,8 +23,8 @@ between the two. The plain versions are exported for tests and
 autograd), `fused_rk_step_bwd_reference` (the explicit adjoint), and the
 same pair for the multistep: they are shape-generic, so they are the
 plain versions of both flavors. `LAUNCHES` counts kernel launches, the
-medium flavor's under its own names (`..._mid`; each backward's two
-launches, the rows and the parameter sums, count as one).
+medium flavor's under its own names (`..._mid`; a backward counts one,
+its parameter sums' second launch with it).
 
 The reverse recursion of the backward (rk_fused.py:19-24):
     x_bar = g ;  kbar_i = dt * b_i * g

@@ -97,7 +97,7 @@ def test_multistep_kernels_match_plain(card, n_steps, K):
         torch.testing.assert_close(a, b, **GRAD)
 
 
-@pytest.mark.parametrize("index", [0, 3, 4, 6])
+@pytest.mark.parametrize("index", [0, 3, 4, 6, 14, 15])
 def test_medium_kernels_match_plain(card, index):
     """K2-m (K3-m for a case with steps) through the public ops at the
     main path's chains past kan_chain.cuh's caps: one launch each way,

@@ -148,10 +148,13 @@ def test_past_the_medium_caps_raises_naming_the_roadmap(widths, G, match):
 def test_block_shared_memory_at_the_reference_chains():
     """The medium flavor's shared memory (the header's kb_smem_floats,
     mirrored): the parameters (4.9k, 9.0k, 15.4k floats at Burgers,
-    Allen-Cahn and the packed ensemble) and the rows and workspace."""
-    want = {(41, 10, 41, 5): (4920, 5605, 6290),
-            (41, 10, 41, 10): (9020, 9960, 10645),
-            (16, 80, 16, 5): (15360, 16160, 16960)}
+    Allen-Cahn and the packed ensemble), staged at an odd row stride,
+    both layers' partial sums and the running stage inputs, and the
+    adjoint's rows (with every stage's terms' VJP factors), its reverse
+    sweep's rows over the partials."""
+    want = {(41, 10, 41, 5): (4920, 5902, 8483),
+            (41, 10, 41, 10): (9020, 10207, 14662),
+            (16, 80, 16, 5): (15360, 16832, 21568)}
     for (I, H, O, G), (params, fwd, bwd) in want.items():
         spec = ChainSpec(I, H, O, G)
         assert _cuda.param_floats(spec) == params

@@ -6,8 +6,9 @@
 Builds the hand-written CUDA kernels from `kanodes_tpu_torch/csrc/`,
 holds each against its plain PyTorch version on the card, drives the LV
 KAN-ODE trainer through `kanodes_tpu_torch.experiments.lv.run(...,
-device="cuda")` in four configurations (fused shooting, fused fixed,
-fused adaptive, pallas shooting), the packed ensemble of 8 LV members
+device="cuda")` in five configurations (fused shooting at segment_len 1
+and 4, bench.py's two phases; fused fixed, fused adaptive, pallas
+shooting), the packed ensemble of 8 LV members
 trained adaptively with one controller per member through
 `experiments.lv_members.run_members(..., device="cuda")` (fused through
 K8, and xla), the gray-box source-recovery trainer
@@ -638,29 +639,84 @@ def check_multistep(torch, rk, spec, label, n, x0, params, gys, failures,
     return {"case": label.strip(), **detail}
 
 
+# K2 cases at LV width beyond the K = 34 main-path shape (tsit5): one row,
+# phase B's 31 rows, many blocks (300); K2 also runs at the cap chains
+STEP_ROWS = (1, 31, 300)
+
+
+def check_step(torch, rk, spec, label, solver, x, params, gy, failures,
+               max_err):
+    """K2f against its plain version (elementwise, FWD_TOL, with the
+    float64 rule's numbers beside it) and K2b against the plain backward
+    and autograd (GRAD_TOL) on one input, step 0.1; each launched twice
+    must repeat bit for bit, and K2f must equal K3f at n = 1 and K2b
+    equal K3b at n = 1 (gys = gy[None]) bit for bit."""
+    k = rk._consts(spec, solver, 0.1)
+    y = rk._launch_step_fwd(k, x, params)
+    y_ref = rk.fused_rk_step_reference(spec, solver, 0.1, x, *params)
+    y64 = rk.fused_rk_step_reference(spec, solver, 0.1, x.double(),
+                                     *(p.double() for p in params))
+    e = assert_close(failures, f"K2f {label}", y, y_ref, FWD_TOL)
+    detail = f64_rule(failures, f"K2f {label}", y, y_ref, y64)
+    max_err["fused_rk_step_fwd"] = max(max_err["fused_rk_step_fwd"], e)
+    if not torch.equal(y, rk._launch_step_fwd(k, x, params)):
+        failures.append(f"K2f {label}: a second launch differs")
+    ys = rk._launch_multistep_fwd(k, 1, x, params)
+    detail["K2f_equals_K3f_n1"] = bool(torch.equal(y, ys[0]))
+    if not detail["K2f_equals_K3f_n1"]:
+        failures.append(f"K2f {label}: differs from K3f at n = 1 by "
+                        f"{float((y - ys[0]).abs().max()):.3e}")
+    g = rk._launch_step_bwd(k, x, params, gy)
+    g_ref = rk.fused_rk_step_bwd_reference(spec, solver, 0.1, x, *params,
+                                           gy)
+    xs = [t.clone().requires_grad_() for t in (x, *params)]
+    g_auto = torch.autograd.grad(
+        rk.fused_rk_step_reference(spec, solver, 0.1, *xs), xs, gy)
+    check_grads(failures, max_err, "fused_rk_step_bwd", f"K2b {label}", g,
+                g_ref, g_auto)
+    again = rk._launch_step_bwd(k, x, params, gy)
+    if not all(torch.equal(a, b) for a, b in zip(g, again)):
+        failures.append(f"K2b {label}: a second launch differs")
+    g3 = rk._launch_multistep_bwd(k, 1, x, ys, params, gy[None].contiguous())
+    differ = [name for name, a, b in zip(("dx", "dc1", "dw1", "dc2", "dw2"),
+                                         g, g3) if not torch.equal(a, b)]
+    detail["K2b_equals_K3b_n1"] = not differ
+    if differ:
+        failures.append(f"K2b {label}: differs from K3b at n = 1 in "
+                        f"{differ}")
+    return {"case": f"K2 {label}", **detail}
+
+
 def phase_kernels(torch, rk, spec, rng, max_err):
     """K2/K3 vs their plain versions on the card, values and gradients;
-    K3 at LV width and at the header's caps."""
+    K2 at LV width over 1 to 300 rows and at the header's caps, equal bit
+    for bit to K3 at one step; K3 at LV width and at the header's caps."""
     import numpy as np
-    failures, cases, k3f_detail = [], [], []
+    failures, cases, k2_detail, k3f_detail = [], [], [], []
     for solver in ("tsit5", "rk4"):
         x, params = lv_inputs(rng, torch, 34)
         gy = torch.tensor(rng.standard_normal((34, 2)), dtype=torch.float32,
                           device="cuda")
-        k = rk._consts(spec, solver, 0.1)
-        y = rk._launch_step_fwd(k, x, params)
-        y_ref = rk.fused_rk_step_reference(spec, solver, 0.1, x, *params)
-        e = assert_close(failures, f"K2f {solver}", y, y_ref, FWD_TOL)
-        max_err["fused_rk_step_fwd"] = max(max_err["fused_rk_step_fwd"], e)
-        g = rk._launch_step_bwd(k, x, params, gy)
-        g_ref = rk.fused_rk_step_bwd_reference(spec, solver, 0.1, x,
-                                               *params, gy)
-        xs = [t.clone().requires_grad_() for t in (x, *params)]
-        g_auto = torch.autograd.grad(
-            rk.fused_rk_step_reference(spec, solver, 0.1, *xs), xs, gy)
-        check_grads(failures, max_err, "fused_rk_step_bwd", f"K2b {solver}",
-                    g, g_ref, g_auto)
+        k2_detail.append(check_step(torch, rk, spec, f"K=34 {solver}",
+                                    solver, x, params, gy, failures,
+                                    max_err))
         cases.append(f"K2 K=34 {solver}")
+    step_rng = np.random.default_rng(13)
+    for K in STEP_ROWS:
+        x, params = lv_inputs(step_rng, torch, K)
+        gy = torch.tensor(step_rng.standard_normal((K, 2)),
+                          dtype=torch.float32, device="cuda")
+        k2_detail.append(check_step(torch, rk, spec, f"K={K} tsit5", "tsit5",
+                                    x, params, gy, failures, max_err))
+        cases.append(f"K2 K={K} tsit5")
+    for basis, norm in CAP_CHAINS:
+        cap_spec, x, params = cap_inputs(torch, basis, norm)
+        gy = torch.tensor(step_rng.standard_normal((CAP_K, 8)),
+                          dtype=torch.float32, device="cuda")
+        label = f"cap [8,32,8] G=16 {basis}/{norm} K={CAP_K} tsit5"
+        k2_detail.append(check_step(torch, rk, cap_spec, label, "tsit5", x,
+                                    params, gy, failures, max_err))
+        cases.append(f"K2 {label}")
     for n, K in MULTISTEP_CASES:
         x0, params = lv_inputs(rng, torch, K)
         gys = torch.tensor(rng.standard_normal((n, K, 2)) / n,
@@ -682,7 +738,7 @@ def phase_kernels(torch, rk, spec, rng, max_err):
     torch.cuda.synchronize()
     finish_phase({"phase": "kernel_vs_plain", "kernels": "K2, K3",
                   "cases": cases, "fwd_tol": FWD_TOL, "grad_tol": GRAD_TOL,
-                  "multistep_fwd": k3f_detail}, failures)
+                  "step": k2_detail, "multistep_fwd": k3f_detail}, failures)
 
 
 class MidCase(NamedTuple):
@@ -1528,8 +1584,13 @@ def expected_launches(cfg, n_train, n_save):
 
 
 def main_path_configs(lv):
+    """bench.py's two phases (fused shooting, segment_len 1 then 4: L K2f
+    and L K2b an iteration), fused fixed, fused adaptive and pallas
+    shooting, cut in iterations."""
     return (lv.LVConfig(impl="fused", solve_mode="shooting", segment_len=1,
                         lr=1.5e-2, iters=256, eval_every=128),
+            lv.LVConfig(impl="fused", solve_mode="shooting", segment_len=4,
+                        lr=1e-3, iters=128, eval_every=64),
             lv.LVConfig(impl="fused", solve_mode="fixed", iters=128,
                         eval_every=64),
             lv.LVConfig(impl="fused", solve_mode="adaptive", lr=5e-3,
@@ -1539,6 +1600,8 @@ def main_path_configs(lv):
 
 
 def run_name(cfg):
+    if cfg.solve_mode == "shooting" and cfg.segment_len != 1:
+        return f"{cfg.impl}/{cfg.solve_mode} L={cfg.segment_len}"
     return f"{cfg.impl}/{cfg.solve_mode}"
 
 
@@ -2221,7 +2284,8 @@ def cuda_ms(torch, fn, reps):
 def phase_timings(torch, lv, rk, kp, ra, spec, rng, card, trained,
                   StepController):
     """Each kernel against its plain version at the LV training shapes:
-    K2 at K=34 rows (shooting, L=1), K3 at n=34 steps K=1 (fixed-mode
+    K2 at K=34 rows (shooting, L=1) and K=31 (L=4; with the profiler's
+    device µs of both), K3 at n=34 steps K=1 (fixed-mode
     loss), K1 at K=34 (pallas shooting) and K=1, K4 at the train grid
     (T=35, K=1, LV defaults) on the parameters the adaptive main-path
     run ended with (`trained`: u0, ts, params). Then every main-path run
@@ -2256,6 +2320,17 @@ def phase_timings(torch, lv, rk, kp, ra, spec, rng, card, trained,
             lambda: rk._multistep_bwd_plain(k, 34, x0, ys34, params, grid,
                                             gys34),
             kb.bound(*kb.rk_multistep_bwd(dims, 1, 34, n_st))),
+    }
+    x31, gy31 = x[:31].contiguous(), gy[:31].contiguous()
+    step31 = {
+        "fused_rk_step_fwd": (
+            lambda: rk._launch_step_fwd(k, x31, params),
+            lambda: rk._step_fwd_plain(k, x31, params, grid),
+            kb.bound(*kb.rk_step_fwd(dims, 31, n_st))),
+        "fused_rk_step_bwd": (
+            lambda: rk._launch_step_bwd(k, x31, params, gy31),
+            lambda: rk._step_bwd_plain(k, x31, params, grid, gy31),
+            kb.bound(*kb.rk_step_bwd(dims, 31, n_st))),
     }
     chain = {}
     for K in (34, 1):
@@ -2297,6 +2372,11 @@ def phase_timings(torch, lv, rk, kp, ra, spec, rng, card, trained,
     with torch.no_grad():
         times = {name: kernel_vs_plain_ms(torch, kern, plain, b)
                  for name, (kern, plain, b) in cases.items()}
+        step_k31 = {name: {**kernel_vs_plain_ms(torch, kern, plain, b),
+                           "device_us": device_us(torch, kern)}
+                    for name, (kern, plain, b) in step31.items()}
+        for name in step31:
+            times[name]["device_us"] = device_us(torch, cases[name][0])
         chain_k1 = {name: {"ms": cuda_ms(torch, kern, 50),
                            "plain_ms": cuda_ms(torch, plain, 5),
                            "bound_ms": b[0]}
@@ -2313,11 +2393,13 @@ def phase_timings(torch, lv, rk, kp, ra, spec, rng, card, trained,
                              "it_per_s": c.iters / seconds}
     emit({"phase": "timings", "shapes": {
               "fused_rk_step": "K=34 I=2 H=10 G=5 tsit5",
+              "fused_rk_step_K31": "K=31 I=2 H=10 G=5 tsit5",
               "fused_rk_multistep": "n=34 K=1 I=2 H=10 G=5 tsit5",
               "kan_chain_apply": "K=34 I=2 H=10 O=2 G=5 rbf/tanh",
               "fused_adaptive_odeint": "T=35 K=1 tsit5 rtol=1e-6 atol=1e-8 "
                                        "max_steps=256, trained params"},
-          "kernels": times, "kan_chain_apply_K1": chain_k1,
+          "kernels": times, "fused_rk_step_K31": step_k31,
+          "kan_chain_apply_K1": chain_k1,
           "adaptive_steps": adaptive_steps, "multistep_fwd_n140": eval140,
           "main_path_warm": warm, "card": card})
     return times

@@ -1,6 +1,7 @@
-// Per-row device math of the 2-layer KDense chain and of one explicit RK
-// step over it, shared by every kernel of csrc/ (rk_fused.cu,
-// kan_chain_apply.cu, rk_adaptive.cu, rk_adaptive_members.cu).
+// Per-row device math of the 2-layer KDense chain, shared by every kernel
+// of csrc/ (rk_fused.cu, kan_chain_apply.cu, rk_adaptive.cu,
+// rk_adaptive_members.cu); K1 (kan_chain_apply.cu) runs its one-thread
+// chain forward and VJP.
 //
 // Computes what `_layer_fwd` / `_layer_bwd` (kanodes_tpu/ops/
 // kdense_pallas.py:173-206) and `_chain_f` / `_chain_vjp_collect`
@@ -207,78 +208,6 @@ __device__ inline void kc_chain_vjp(const float* x, const float* y1,
                   rec + L.swx);
   for (int h = 0; h < d.H; ++h) rec[L.dy1 + h] = dy1[h];
   for (int o = 0; o < d.O; ++o) rec[L.gk + o] = gk[o];
-}
-
-// One explicit RK step for one row: y = x + sum_i (dt b_i) k_i, stages in
-// increasing order, each stage input accumulated over increasing j, as
-// `_step_fwd_kernel` (kanodes_tpu/ops/rk_fused.py:144-164) does.
-__device__ inline void kc_rk_step_row(const float* x, float* y,
-                                      const StepTab& T, const ChainDims& d,
-                                      const ChainParams& p) {
-  float ks[KC_MAX_STAGES][KC_MAX_I];
-  float xi[KC_MAX_I];
-  float y1[KC_MAX_H];
-  for (int s = 0; s < T.stages; ++s) {
-    if (!T.needed[s]) continue;
-    for (int q = 0; q < d.I; ++q) xi[q] = x[q];
-    for (int j = 0; j < s; ++j) {
-      const float a = T.a[s][j];
-      if (a == 0.0f || !T.needed[j]) continue;
-      for (int q = 0; q < d.I; ++q) xi[q] = xi[q] + a * ks[j][q];
-    }
-    kc_chain_fwd(xi, d, p, y1, ks[s]);
-  }
-  for (int q = 0; q < d.I; ++q) {
-    float acc = x[q];
-    for (int s = 0; s < T.stages; ++s)
-      if (T.b[s] != 0.0f) acc = acc + T.b[s] * ks[s][q];
-    y[q] = acc;
-  }
-}
-
-// Discrete adjoint of one RK step for one row (the recursion of
-// `_step_bwd_kernel`, kanodes_tpu/ops/rk_fused.py:167-223): rebuilds the
-// stages from the step input x, then for i = s-1..0 runs the chain VJP
-// with kbar_i, adds its dx into the state cotangent and passes
-// (dt a_ij) dx_i to the earlier stages. Writes dx and one record per
-// needed stage (slot = rank among the needed stages) at rec.
-__device__ inline void kc_rk_step_adjoint_row(const float* x, const float* gy,
-                                              float* dx, const StepTab& T,
-                                              const ChainDims& d,
-                                              const ChainParams& p,
-                                              const RecLayout& L,
-                                              float* rec) {
-  float xs[KC_MAX_STAGES][KC_MAX_I];
-  float ks[KC_MAX_STAGES][KC_MAX_I];
-  float y1s[KC_MAX_STAGES][KC_MAX_H];
-  float kbar[KC_MAX_STAGES][KC_MAX_I];
-  int slot[KC_MAX_STAGES];
-  int n_slots = 0;
-  for (int s = 0; s < T.stages; ++s) {
-    if (!T.needed[s]) continue;
-    slot[s] = n_slots++;
-    for (int q = 0; q < d.I; ++q) xs[s][q] = x[q];
-    for (int j = 0; j < s; ++j) {
-      const float a = T.a[s][j];
-      if (a == 0.0f || !T.needed[j]) continue;
-      for (int q = 0; q < d.I; ++q) xs[s][q] = xs[s][q] + a * ks[j][q];
-    }
-    kc_chain_fwd(xs[s], d, p, y1s[s], ks[s]);
-    for (int q = 0; q < d.I; ++q) kbar[s][q] = T.b[s] * gy[q];
-  }
-  for (int q = 0; q < d.I; ++q) dx[q] = gy[q];
-  float dxi[KC_MAX_I];
-  for (int s = T.stages - 1; s >= 0; --s) {
-    if (!T.needed[s]) continue;
-    kc_chain_vjp(xs[s], y1s[s], kbar[s], d, p, L, dxi,
-                 rec + slot[s] * L.width);
-    for (int q = 0; q < d.I; ++q) dx[q] = dx[q] + dxi[q];
-    for (int j = 0; j < s; ++j) {
-      const float a = T.a[s][j];
-      if (a == 0.0f || !T.needed[j]) continue;
-      for (int q = 0; q < d.I; ++q) kbar[j][q] = kbar[j][q] + a * dxi[q];
-    }
-  }
 }
 
 __host__ __device__ inline int kc_param_floats(const ChainDims& d) {

@@ -1,9 +1,10 @@
 // The discrete adjoint of explicit RK steps over the 2-layer KDense chain
 // with a warp on each row of the batch: the LV adjoint sweeps K3b
-// (rk_fused.cu) and K4b (rk_adaptive.cu). The same math as kc_chain_fwd /
-// kc_chain_vjp / kc_rk_step_adjoint_row (kan_chain.cuh), which the
-// one-thread kernels (K1, K2, K3f) keep. At the end of the file, the chain
-// forward of K4f (rk_adaptive.cu) on a warp, bit for bit kc_chain_fwd's.
+// (rk_fused.cu) and K4b (rk_adaptive.cu), and at one step the LV step
+// adjoint K2b (rk_fused.cu). The same math as kc_chain_fwd / kc_chain_vjp
+// (kan_chain.cuh), which the one-thread kernel K1 keeps. At the end of the
+// file, the chain forward of K4f (rk_adaptive.cu), which K3f and K2f also
+// run, on a warp, bit for bit kc_chain_fwd's.
 //
 // Why: one thread per row ran each chain evaluation as a dependent chain
 // of ~3 * 10^4 cycles, its run-time-indexed per-row arrays on the stack,
@@ -272,10 +273,11 @@ __device__ inline void kw_rk_step_stages(const float* x, int stages,
   }
 }
 
-// Phase B of a fixed-step RK step for one row (kc_rk_step_adjoint_row's
-// recursion): kbar_i = dt b_i gy, then for i = s-1..0 the chain VJP with
-// kbar_i from the step's factors, its dx added into the state cotangent
-// and (dt a_ij) dx_i passed to the earlier stages. gy and the returned dx
+// Phase B of a fixed-step RK step for one row (the recursion of
+// `_step_bwd_kernel`, kanodes_tpu/ops/rk_fused.py): kbar_i = dt b_i gy,
+// then for i = s-1..0 the chain VJP with kbar_i from the step's factors,
+// its dx added into the state cotangent and (dt a_ij) dx_i passed to the
+// earlier stages. gy and the returned dx
 // are lane q's component (lanes < I).
 __device__ inline float kw_rk_step_reverse(float gy, int stages, int slots,
                                            const ChainDims& d,

@@ -3,7 +3,7 @@
 // (kanodes_tpu_torch/ops/_cuda.py builds this file with nvcc).
 //
 // Replaces the Pallas kernels of kanodes_tpu/ops/rk_fused.py:
-//   kc_rk_step_fwd      <- _step_fwd_kernel       (fused_rk_step)
+//   kc_rk_multistep_fwd <- _step_fwd_kernel       (fused_rk_step; n = 1)
 //   kc_rk_step_bwd      <- _step_bwd_kernel       (_frs_bwd)
 //   kc_rk_multistep_fwd <- _multistep_fwd_kernel  (fused_rk_multistep)
 //   kc_rk_multistep_bwd <- _multistep_bwd_kernel  (_frm_bwd)
@@ -18,9 +18,14 @@
 //   * one launch per RK step (K2) or per whole trajectory (K3), and one
 //     more for the backward, as on the TPU, so the host makes 2 launches
 //     per training iteration instead of one per op;
-//   * K2f and K2b: one thread per batch row runs all stages with its
-//     state in registers/local memory, parameters and grid constants
-//     staged once in shared memory;
+//   * K2f: K3f's kernel launched at one step, its ys[0] the step's y;
+//   * K2b: K3b's two phases at one step, a warp a row and the rows over
+//     as many blocks as they need (`step_bwd_plan` in ops/_cuda.py): the
+//     row's warp rebuilds the stages with each stage's Jacobian, then runs
+//     the reverse recursion with no block barrier between; the parameter
+//     sums are a second launch. One thread a row took ~3 * 10^4 cycles a
+//     chain evaluation on a dependent chain through its stack (PERF.md,
+//     the K2f/K2b trace);
 //   * K3f: a warp a row, up to KF_MAX_WARPS rows a block and as many
 //     blocks as the rows need (`multistep_fwd_plan` in ops/_cuda.py); the
 //     row's n steps run in its warp with no block barrier, each chain
@@ -30,8 +35,7 @@
 //     shared memory. One thread a row took ~34k cycles an evaluation, 71%
 //     of it layer 2, in an 800-byte stack frame (PERF.md, the K3f/K8f
 //     trace). Its products and sums round as a -fmad=false build's do;
-//     the stage inputs and the step's sum are explicit fmaf, as this
-//     file's default contraction made of the one-thread loops;
+//     the stage inputs and the step's sum are explicit fmaf;
 //   * K3b: every warp of the block rebuilds steps from the stored step
 //     inputs, several at a time, with each stage's Jacobian, then a warp
 //     a row runs the reverse recursion, where a stage's VJP is a few
@@ -42,11 +46,12 @@
 //   * the backwards recompute each step's stages from the stored step
 //     inputs, run the reverse-RK recursion per row, store the per
 //     (step, row, stage) operands of the parameter cotangents in a
-//     scratch buffer the wrapper allocates, then every thread of the
-//     block sums the cotangents of the parameters it owns in record
-//     order: a fixed order, no float atomics, so results repeat bit for
-//     bit. The TPU kernel's `_bwd_window` GEMM batching is a TPU latency
-//     trick and is not ported; only the gradients must match.
+//     scratch buffer the wrapper allocates, then one thread a parameter
+//     sums its cotangent in record order (K3b in its block, K2b in its
+//     second launch from shared memory, the same fused multiply-adds): a
+//     fixed order, no float atomics, so results repeat bit for bit. The
+//     TPU kernel's `_bwd_window` GEMM batching is a TPU latency trick and
+//     is not ported; only the gradients must match.
 //   * chains past those kernels' caps (I, O <= 8, H <= 32: the Burgers and
 //     1-D Allen-Cahn surrogates, the packed LV ensemble) take the medium
 //     flavor, a block a row (kan_chain_block.cuh): kb_rk_step_fwd (K2f-m),
@@ -58,35 +63,6 @@
 #include "kan_chain_block.cuh"
 
 namespace {
-
-constexpr int kFwdThreads = 128;
-constexpr int kBwdThreads = 256;
-
-__global__ void __launch_bounds__(kFwdThreads)
-rk_step_fwd_kernel(const float* x, const float* c1, const float* w1,
-                   const float* c2, const float* w2, float* y, int K,
-                   ChainDims d, StepTab T) {
-  extern __shared__ float smem[];
-  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, smem);
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < K) kc_rk_step_row(x + r * d.I, y + r * d.I, T, d, p);
-}
-
-__global__ void __launch_bounds__(kBwdThreads)
-rk_step_bwd_kernel(const float* x, const float* gy, const float* c1,
-                   const float* w1, const float* c2, const float* w2,
-                   float* dx, float* dc1, float* dw1, float* dc2, float* dw2,
-                   float* scratch, int K, int n_slots, ChainDims d,
-                   StepTab T) {
-  extern __shared__ float smem[];
-  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, smem);
-  const RecLayout L = kc_rec_layout(d.I, d.H, d.O, d.G);
-  for (int r = threadIdx.x; r < K; r += blockDim.x)
-    kc_rk_step_adjoint_row(x + r * d.I, gy + r * d.I, dx + r * d.I, T, d, p,
-                           L, scratch + (size_t)r * n_slots * L.width);
-  __syncthreads();
-  kc_reduce_param_grads(scratch, K * n_slots, d, L, dc1, dw1, dc2, dw2);
-}
 
 // Floats of K3f's dynamic shared memory: the parameters and, for each
 // warp, its row's stage input [I], stage values [S][I] and kf_chain_fwd's
@@ -223,6 +199,141 @@ rk_multistep_bwd_kernel(const float* x0, const float* ys, const float* gys,
                         dw2);
 }
 
+// K2b: the adjoint of one RK step, a warp a row (row blockIdx.x * warps +
+// warp): K3b's phases at n = 1 in the row's own warp, so no block barrier
+// follows the set-up; the row's records at scratch + r * n_slots * width,
+// where K3b puts step 0's. Its parameter sums are the second launch.
+__global__ void __launch_bounds__(KW_LANES * KW_MAX_WARPS)
+rk_step_adjoint_kernel(const float* x, const float* gy, const float* c1,
+                       const float* w1, const float* c2, const float* w2,
+                       float* dx, float* scratch, int K, int n_slots,
+                       ChainDims d, StepTab T) {
+  extern __shared__ float smem[];
+  __shared__ WarpConsts c;
+  const int warp = threadIdx.x / KW_LANES, lane = threadIdx.x % KW_LANES;
+  const int warps = blockDim.x / KW_LANES;
+  WarpRow* rows = reinterpret_cast<WarpRow*>(smem + kc_param_floats(d));
+  WarpRow& w = rows[warp];
+  float* fac = reinterpret_cast<float*>(rows + warps)
+               + (size_t)warp * n_slots * kw_factor_layout(d).width;
+  kw_fill_consts(c, d, T.stages, T.a, T.b, T.needed);
+  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, smem);
+  kw_fill_terms(c, d, w, lane);
+  __syncthreads();
+  const int r = blockIdx.x * warps + warp;
+  if (r >= K) return;
+  const RecLayout L = kc_rec_layout(d.I, d.H, d.O, d.G);
+  float* rec = scratch + (size_t)r * n_slots * L.width;
+  kw_rk_step_stages(x + (size_t)r * d.I, T.stages, d, c, p, L, w, lane, fac,
+                    rec);
+  float xbar = 0.0f;                // K3b folds gys[0] into a zero
+  if (lane < d.I) xbar = xbar + gy[(size_t)r * d.I + lane];
+  xbar = kw_rk_step_reverse(xbar, T.stages, n_slots, d, c, L, w, lane, fac,
+                            rec);
+  if (lane < d.I) dx[(size_t)r * d.I + lane] = xbar;
+}
+
+// Issue the copies of m floats from src to dst (shared memory, 16-byte
+// aligned): 16 bytes a copy while src is 16-byte aligned, the tail (or
+// all, if src is not) 4 bytes a copy; they land at cp.async.wait_all.
+__device__ inline void rk_copy_async(float* dst, const float* src, int m) {
+  const int m4 = (reinterpret_cast<size_t>(src) & 15) == 0 ? m / 4 : 0;
+  for (int k = threadIdx.x; k < m4; k += blockDim.x) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst + 4 * k);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src + 4 * k)
+                 : "memory");
+  }
+  for (int k = 4 * m4 + threadIdx.x; k < m; k += blockDim.x)
+    kb_cp_async4(dst + k, src + k);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// The operands of parameter p's cotangent (kc_rec_layout): the two record
+// fields whose products it sums, at a_off and b_off, and its output
+// (nullptr past the parameters), as kb_param_sums decodes them.
+__device__ inline float* rk_param_operands(int p, const ChainDims& d,
+                                           const RecLayout& L, float* dc1,
+                                           float* dw1, float* dc2,
+                                           float* dw2, int& a_off,
+                                           int& b_off) {
+  const int I = d.I, H = d.H, O = d.O, G = d.G;
+  const int n_c1 = I * G * H, n_w1 = I * H, n_c2 = H * G * O, n_w2 = H * O;
+  if (p >= n_c1 + n_w1 + n_c2 + n_w2) return nullptr;
+  if (p < n_c1) {                       // dc1[ig, h] = b1[ig] dy1[h]
+    a_off = L.b1 + p / H;
+    b_off = L.dy1 + p % H;
+    return dc1 + p;
+  }
+  if (p < n_c1 + n_w1) {                // dw1[i, h] = swx[i] dy1[h]
+    const int q = p - n_c1;
+    a_off = L.swx + q / H;
+    b_off = L.dy1 + q % H;
+    return dw1 + q;
+  }
+  if (p < n_c1 + n_w1 + n_c2) {         // dc2[hg, o] = b2[hg] gk[o]
+    const int q = p - n_c1 - n_w1;
+    a_off = L.b2 + q / O;
+    b_off = L.gk + q % O;
+    return dc2 + q;
+  }
+  const int q = p - n_c1 - n_w1 - n_c2; // dw2[h, o] = swy1[h] gk[o]
+  a_off = L.swy1 + q / O;
+  b_off = L.gk + q % O;
+  return dw2 + q;
+}
+
+// K2b's second launch: the parameter cotangents from n_rec records, a
+// thread a parameter, in record order with kb_param_sums' fused
+// multiply-adds (K3b's bits at one step). The block first copies `chunk`
+// records at a time (a multiple of 4) into shared memory, so that each
+// thread's chain of n_rec multiply-adds reads shared memory: from L2,
+// across the launch boundary, the chain took 33k cycles at K = 34
+// (PERF.md, the K2f/K2b trace).
+__global__ void __launch_bounds__(KB_THREADS)
+rk_param_sums_kernel(const float* scratch, int n_rec, int chunk, ChainDims d,
+                     float* dc1, float* dw1, float* dc2, float* dw2) {
+  extern __shared__ float srec[];
+  const RecLayout L = kc_rec_layout(d.I, d.H, d.O, d.G);
+  int a_off = 0, b_off = 0;
+  float* out = rk_param_operands(blockIdx.x * blockDim.x + threadIdx.x, d,
+                                 L, dc1, dw1, dc2, dw2, a_off, b_off);
+  float acc = 0.0f;
+  for (int r0 = 0; r0 < n_rec; r0 += chunk) {
+    const int n = n_rec - r0 < chunk ? n_rec - r0 : chunk;
+    rk_copy_async(srec, scratch + (size_t)r0 * L.width, n * L.width);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (out != nullptr) {
+      const float* ra = srec + a_off;
+      const float* rb = srec + b_off;
+#pragma unroll 8
+      for (int r = 0; r < n; ++r)
+        acc = fmaf(ra[r * L.width], rb[r * L.width], acc);
+    }
+    __syncthreads();              // the chunk is read before the next lands
+  }
+  if (out != nullptr) *out = acc;
+}
+
+// Launch K2b's parameter sums over n_rec records: chunks of as many
+// records as KB_MAX_SMEM holds, a multiple of 4, at most n_rec rounded up.
+cudaError_t rk_launch_param_sums(const float* scratch, int n_rec,
+                                 const ChainDims& d, float* dc1, float* dw1,
+                                 float* dc2, float* dw2, cudaStream_t st) {
+  const int width = kc_rec_layout(d.I, d.H, d.O, d.G).width;
+  const int fit = KB_MAX_SMEM / (int)(4 * sizeof(float) * width) * 4;
+  const int need = (n_rec + 3) / 4 * 4;
+  const int chunk = need < fit ? need : fit;
+  const size_t smem = (size_t)chunk * width * sizeof(float);
+  cudaError_t err = kc_smem_opt_in(rk_param_sums_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int n = kc_param_floats(d);
+  rk_param_sums_kernel<<<(n + KB_THREADS - 1) / KB_THREADS, KB_THREADS, smem,
+                         st>>>(scratch, n_rec, chunk, d, dc1, dw1, dc2, dw2);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // The medium flavor: a block a row (kan_chain_block.cuh)
 // ---------------------------------------------------------------------------
@@ -348,8 +459,8 @@ kb_multistep_bwd_kernel(const float* x0, const float* ys, const float* gys,
     dx0[(size_t)r * I + q] = a.dx[q];
 }
 
-// The second launch of K2b-m and K3b-m: the parameter
-// cotangents from the n_rec records, a thread a parameter.
+// The second launch of K2b-m and K3b-m: the parameter cotangents from the
+// n_rec records, a thread a parameter.
 __global__ void __launch_bounds__(KB_THREADS)
 kb_param_sums_kernel(const float* scratch, int n_rec, ChainDims d,
                      float* dc1, float* dw1, float* dc2, float* dw2) {
@@ -402,32 +513,6 @@ const char* kc_error_string(int err) {
 // Each launcher takes device pointers, the host-side ChainDims/StepTab
 // structs and the CUDA stream, and returns cudaGetLastError() (0 = ok).
 
-int kc_rk_step_fwd(const float* x, const float* c1, const float* w1,
-                   const float* c2, const float* w2, float* y, int K,
-                   const ChainDims* d, const StepTab* T, void* stream) {
-  const size_t smem = kc_param_floats(*d) * sizeof(float);
-  cudaError_t err = kc_smem_opt_in(rk_step_fwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (K + kFwdThreads - 1) / kFwdThreads;
-  rk_step_fwd_kernel<<<blocks, kFwdThreads, smem, (cudaStream_t)stream>>>(
-      x, c1, w1, c2, w2, y, K, *d, *T);
-  return (int)cudaGetLastError();
-}
-
-int kc_rk_step_bwd(const float* x, const float* gy, const float* c1,
-                   const float* w1, const float* c2, const float* w2,
-                   float* dx, float* dc1, float* dw1, float* dc2, float* dw2,
-                   float* scratch, int K, int n_slots, const ChainDims* d,
-                   const StepTab* T, void* stream) {
-  const size_t smem = kc_param_floats(*d) * sizeof(float);
-  cudaError_t err = kc_smem_opt_in(rk_step_bwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  rk_step_bwd_kernel<<<1, kBwdThreads, smem, (cudaStream_t)stream>>>(
-      x, gy, c1, w1, c2, w2, dx, dc1, dw1, dc2, dw2, scratch, K, n_slots, *d,
-      *T);
-  return (int)cudaGetLastError();
-}
-
 int kc_rk_multistep_fwd(const float* x0, const float* c1, const float* w1,
                         const float* c2, const float* w2, float* ys, int K,
                         int n_steps, int warps, const ChainDims* d,
@@ -442,6 +527,29 @@ int kc_rk_multistep_fwd(const float* x0, const float* c1, const float* w1,
                             (cudaStream_t)stream>>>(x0, c1, w1, c2, w2, ys, K,
                                                     n_steps, *d, *T);
   return (int)cudaGetLastError();
+}
+
+// K2b over K rows, `warps` rows a block (the wrapper's step_bwd_plan),
+// then the parameter sums over the K * n_slots records in scratch.
+int kc_rk_step_bwd(const float* x, const float* gy, const float* c1,
+                   const float* w1, const float* c2, const float* w2,
+                   float* dx, float* dc1, float* dw1, float* dc2, float* dw2,
+                   float* scratch, int K, int n_slots, int warps,
+                   const ChainDims* d, const StepTab* T, void* stream) {
+  if (warps < 1 || warps > KW_MAX_WARPS || K < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      kw_smem_floats(*d, warps, warps, 1, n_slots) * sizeof(float);
+  cudaError_t err = kc_smem_opt_in(rk_step_adjoint_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  rk_step_adjoint_kernel<<<(K + warps - 1) / warps, warps * KW_LANES, smem,
+                           st>>>(x, gy, c1, w1, c2, w2, dx, scratch, K,
+                                 n_slots, *d, *T);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)rk_launch_param_sums(scratch, K * n_slots, *d, dc1, dw1, dc2,
+                                   dw2, st);
 }
 
 // K3f's dynamic shared memory for `warps` warps (the wrapper's

@@ -14,11 +14,14 @@ helpers and inputs (CUDA-event ms, `cuda_ms`, and the profiler's device
     Allen-Cahn 1-D [1, 41] and the [32, 32] fields of 2-D Fisher-KPP and
     Allen-Cahn; K7b at the shooting groups (Schrödinger K = 7, 2-D
     Allen-Cahn K = 4, n = 40); K10 at K = 1, n = 40 and 20 (both);
-  * lv: K3b at n = 34, K = 1 and K4b at T = 35, K = 1 (LV defaults, the
-    trainer's seeded init; `LV_ADJOINT_INPUTS`); K4f at T = 35, K = 1
-    on the same init, and a sha256 of K4f's ys, records (the accepted
-    steps') and stats on every `chip_smoke.ADAPTIVE_CASES` input, at K =
-    33 and 256 rows and on the two cap chains (`ADAPTIVE_INPUTS`);
+  * lv: K2f and K2b at K = 34 and 31 rows (chip_smoke's `lv_inputs`,
+    tsit5: the shooting phases' shapes, segment_len 1 and 4;
+    `lv_step_launches`); K3b at n = 34, K = 1 and K4b at T = 35, K = 1
+    (LV defaults, the trainer's seeded init; `LV_ADJOINT_INPUTS`); K4f
+    at T = 35, K = 1 on the same init, and a sha256 of K4f's ys, records
+    (the accepted steps') and stats on every `chip_smoke.ADAPTIVE_CASES`
+    input, at K = 33 and 256 rows and on the two cap chains
+    (`ADAPTIVE_INPUTS`);
     K3f at n = 34 and 140, K = 1 on that init, and the largest
     |difference| of K3f's ys between the two trees there, over K = 17 and
     300 rows and on the cap chains (`k3f_outputs`);
@@ -29,7 +32,9 @@ helpers and inputs (CUDA-event ms, `cuda_ms`, and the profiler's device
     kan_chain.cuh's caps (K2 at K = 34, tsit5 and rk4; K3 at n = 34, K =
     1 and on the two cap chains) and of the loss history of 64 LV fused
     shooting iterations (`small_flavor_hashes`), to show that a tree's
-    chains within the caps keep their parent's bits;
+    chains within the caps keep their parent's bits (K2 follows K3's
+    rounding since it runs K3's routines a warp a row, so its hashes and
+    the shooting history differ from a one-thread K2's; K3's stay);
   * mid: K2f-m, K2b-m, K3f-m and K3b-m (the medium flavor, a block a
     row) at chip_smoke's `phase_mid_timings` shapes (`mid_launches`):
     Burgers [41,10,41] G=5 K2 at K = 1 and 4, 1-D Allen-Cahn G=10 at K =
@@ -39,10 +44,10 @@ Then, in the same turns (host times swing on a shared host), the group's
 profiles: `profile_source --ndim=2` for Fisher-KPP and Allen-Cahn and
 `profile_surrogate --solve_mode=shooting` for Schrödinger and 2-D
 Allen-Cahn (gray_wide); `profile_lv --impl=fused` in fixed and adaptive
-mode (lv); `lv_members --profile=1`, the ensemble's iteration
-(members); `profile_surrogate --runs=narrow` (its five lines) and the
-packed seed sweep's fixed phase, 300 iterations after 50 of warm-up, in
-ms an iteration (mid). Prints one JSON line per run (and writes them to
+mode and in shooting mode at segment_len 1 and 4 (lv); `lv_members
+--profile=1`, the ensemble's iteration (members); `profile_surrogate
+--runs=narrow` (its five lines) and the packed seed sweep's fixed
+phase, 300 iterations after 50 of warm-up, in ms an iteration (mid). Prints one JSON line per run (and writes them to
 FILE), then the card's name and power limit. Needs a CUDA device.
 """
 
@@ -58,6 +63,21 @@ import sys
 # card: launch closures and K4f's stats. Uses only what every checkout
 # since the port began has.
 LV_ADJOINT_INPUTS = r'''
+def lv_step_launches(torch, np, cs, K):
+    """K2f and K2b launch closures at K rows of chip_smoke's lv_inputs
+    (seed 0), tsit5, dt 0.1."""
+    from kanodes_tpu_torch.models.kdense import KANChain
+    from kanodes_tpu_torch.ops import kdense_pallas as kp
+    from kanodes_tpu_torch.ops import rk_fused as rk
+    spec = kp.chain_spec_of(KANChain.mlp_like([2, 10, 2], grid_len=5))
+    x, params = cs.lv_inputs(np.random.default_rng(0), torch, K)
+    gy = torch.tensor(np.random.default_rng(1).standard_normal((K, 2)),
+                      dtype=torch.float32, device="cuda")
+    k = rk._consts(spec, "tsit5", 0.1)
+    return (lambda: rk._launch_step_fwd(k, x, params),
+            lambda: rk._launch_step_bwd(k, x, params, gy))
+
+
 def lv_adjoint_launches(torch, np, cs):
     from kanodes_tpu_torch.experiments import lv
     from kanodes_tpu_torch.ode.integrate import StepController
@@ -346,6 +366,11 @@ set_exact_f32()
 out = {}
 torch.set_grad_enabled(False)
 if "lv" in groups:
+    for K in (34, 31):
+        for name, f in zip(("K2f", "K2b"), lv_step_launches(torch, np, cs,
+                                                            K)):
+            out[f"{name} K={K}"] = {"ms": cs.cuda_ms(torch, f, 20),
+                                    "us": cs.device_us(torch, f, reps=10)}
     k3b, k4b, stats = lv_adjoint_launches(torch, np, cs)
     out["K3b n=34 K=1"] = {"ms": cs.cuda_ms(torch, k3b, 20),
                            "us": cs.device_us(torch, k3b, reps=10)}
@@ -432,7 +457,11 @@ PROFILES = {
                                "--solve_mode=shooting"))),
     "lv": (
         ("profile_lv", ("--impl=fused", "--solve_mode=fixed")),
-        ("profile_lv", ("--impl=fused", "--solve_mode=adaptive"))),
+        ("profile_lv", ("--impl=fused", "--solve_mode=adaptive")),
+        ("profile_lv", ("--impl=fused", "--solve_mode=shooting",
+                        "--segment_len=1")),
+        ("profile_lv", ("--impl=fused", "--solve_mode=shooting",
+                        "--segment_len=4"))),
     "members": (("lv_members", ("--profile=1",)),),
     "small": (),
     "mid": (("profile_surrogate", ("--runs=narrow",)),

@@ -1,8 +1,9 @@
-"""Where K5b, K7b, K3b, K4b, K4f, K8b, K3f, K8f, K2f-m and K2b-m spend a
-launch, phase by phase, on the card.
+"""Where K5b, K7b, K3b, K4b, K4f, K8b, K3f, K8f, K2f-m, K2b-m, K2f and K2b
+spend a launch, phase by phase, on the card.
 
     python -m kanodes_tpu_torch.experiments.trace_phases \\
-        [--kernels=K5b/K7b,K3b/K4b,K4f/K8b,K3f/K8f,K2f-m/K2b-m] ROOT [...]
+        [--kernels=K5b/K7b,K3b/K4b,K4f/K8b,K3f/K8f,K2f-m/K2b-m,K2f/K2b] \\
+        ROOT [...]
 
 For each ROOT (a checkout of this repository), copies its
 `kanodes_tpu_torch/` into a temporary directory, inserts `clock64()`
@@ -32,7 +33,12 @@ asked for (all by default):
     medium flavor's RK step and its adjoint at chip_smoke's MID_CASES
     Burgers K = 1 and 4, 1-D Allen-Cahn K = 1 and the packed K = 34, its
     per-evaluation phases summed over the step's stages; the
-    parameter-sum launch as thread 0's own cycles.
+    parameter-sum launch as thread 0's own cycles;
+  * K2f/K2b (`csrc/rk_fused.cu` and the step routines of
+    `csrc/kan_chain.cuh` / `kan_chain_warp.cuh`): the LV RK step and its
+    adjoint at K = 34 and 31 rows of chip_smoke's `lv_inputs`, tsit5 (the
+    shooting phases' shapes), each stage's evaluation and VJP apart; the
+    sums launch of the warp design as thread 0's own cycles.
 Thread 0 of block 0 adds the cycles between stamps into its phase's
 counter (so a phase inside a loop is thread 0's share of it, and a
 barrier's phase is its wait); one JSON line per kernel and case gives the
@@ -51,7 +57,9 @@ one-block K8b of the first port and the warp-a-row K4f and three-phase
 K8b that replaced them; the one-thread K3f and one-block K8f and the
 warp-a-row K3f and warp-split K8f that replaced them; the four-phase
 K2f-m / K2b-m of the first medium flavor and the two-barrier design that
-replaced them. A checkout whose kernels match neither design of a family
+replaced them; the one-thread K2f / K2b and the warp-a-row K2f (K3f's
+kernel at one step) and K2b (K3b's phases at one step) that replaced
+them. A checkout whose kernels match neither design of a family
 raises. The instrumented copy is thrown away; nothing of ROOT
 changes. Needs nvcc and a CUDA device.
 """
@@ -426,8 +434,8 @@ LV_ADJOINTS = {
              "w.kb[j][lane]);\n    }\n    __syncwarp();\n    KC_TR(3);\n"),
         ],
         "rk_fused.cu": [
-            ('#include "kan_chain_warp.cuh"\n',
-             kc_head("g_k3tr", "kan_chain_warp.cuh")),
+            ('#include "kan_chain_block.cuh"\n',
+             kc_head("g_k3tr", "kan_chain_block.cuh")),
             ("  extern __shared__ float smem[];\n  __shared__ WarpConsts c;\n",
              "  extern __shared__ float smem[];\n  __shared__ WarpConsts c;\n"
              "  KC_TR_START();\n"),
@@ -886,9 +894,9 @@ LV_FIXED_MEMBERS_FWD["warp-a-row K3f and warp-split K8f"] = ({
     "kan_chain_warp.cuh": ADAPTIVE_FWD_MEMBERS_BWD[
         "warp-a-row K4f and three-phase K8b"][0]["kan_chain_warp.cuh"],
     "rk_fused.cu": [
-        ('#include "kan_chain_warp.cuh"\n',
+        ('#include "kan_chain_block.cuh"\n',
          "#define KF_TRACE\n" + stamp_head("g_k3ftr", "F3")
-         + "#define F4(i) F3(i)\n" + '#include "kan_chain_warp.cuh"\n'),
+         + "#define F4(i) F3(i)\n" + '#include "kan_chain_block.cuh"\n'),
         ("  __shared__ unsigned char s_l2h[KC_MAX_H * KC_MAX_G];\n"
          "  kw_fill_consts(wc, d, T.stages, T.a, T.b, T.needed);\n",
          "  __shared__ unsigned char s_l2h[KC_MAX_H * KC_MAX_G];\n"
@@ -1124,16 +1132,158 @@ MID_STEP["two-barrier K2f-m and K2b-m"] = ({
     ]},
     {"K2f-m": TWO_BARRIER_K2FM, "K2b-m": TWO_BARRIER_K2BM})
 
+# K2f / K2b, the LV RK step and its adjoint (csrc/rk_fused.cu): stamps of
+# the tag K2T, put into the step routines of the headers under K2_TRACE,
+# which only the instrumented rk_fused.cu defines. A phase "stage s" holds
+# stage s's share of thread 0's row (stage inputs apart).
+K2_HEAD = "#define K2_TRACE\n" + stamp_head("g_k2tr", "K2T")
+K2_MACRO = ("\n#ifdef K2_TRACE\n#define K2S(i) K2T(i)\n#else\n"
+            "#define K2S(i) do { } while (0)\n#endif\n")
+K2_STAGES = [f"stage {s + 1}" for s in range(7)]
+ONE_THREAD_K2F = (["parameter staging", "stage inputs"]
+                  + [f"evaluation, {s}" for s in K2_STAGES]
+                  + ["step sum and store"])
+ONE_THREAD_K2B = (["parameter staging", "rebuild: stage inputs and seeds"]
+                  + [f"rebuild: evaluation, {s}" for s in K2_STAGES[:6]]
+                  + [f"reverse: VJP and kbar, {s}" for s in K2_STAGES[:6]]
+                  + ["barrier (the block's other rows)",
+                     "parameter sums (in the launch)"])
+STEP = {
+    "one-thread K2f and K2b": ({
+        "kan_chain.cuh": [
+            ("#include <mutex>\n", "#include <mutex>\n" + K2_MACRO),
+            ("    kc_chain_fwd(xi, d, p, y1, ks[s]);\n  }\n",
+             "    K2S(1);\n    kc_chain_fwd(xi, d, p, y1, ks[s]);\n"
+             "    K2S(2 + s);\n  }\n"),
+            ("    y[q] = acc;\n  }\n}\n", "    y[q] = acc;\n  }\n  K2S(9);\n}\n"),
+            ("    kc_chain_fwd(xs[s], d, p, y1s[s], ks[s]);\n",
+             "    K2S(1);\n    kc_chain_fwd(xs[s], d, p, y1s[s], ks[s]);\n"
+             "    K2S(2 + s);\n"),
+            ("      for (int q = 0; q < d.I; ++q) kbar[j][q] = kbar[j][q] + "
+             "a * dxi[q];\n    }\n  }\n}\n",
+             "      for (int q = 0; q < d.I; ++q) kbar[j][q] = kbar[j][q] + "
+             "a * dxi[q];\n    }\n    K2S(8 + s);\n  }\n}\n"),
+        ],
+        "rk_fused.cu": [
+            ('#include "kan_chain_block.cuh"\n',
+             K2_HEAD + '#include "kan_chain_block.cuh"\n'),
+            ("  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, smem);\n"
+             "  const int r = blockIdx.x * blockDim.x + threadIdx.x;\n"
+             "  if (r < K) kc_rk_step_row(x + r * d.I, y + r * d.I, T, d, p);\n"
+             "}\n",
+             "  K2T_START();\n"
+             "  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, smem);\n"
+             "  K2T(0);\n"
+             "  const int r = blockIdx.x * blockDim.x + threadIdx.x;\n"
+             "  if (r < K) kc_rk_step_row(x + r * d.I, y + r * d.I, T, d, p);\n"
+             "  K2T_WRITE();\n}\n"),
+            ("  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, smem);\n"
+             "  const RecLayout L = kc_rec_layout(d.I, d.H, d.O, d.G);\n"
+             "  for (int r = threadIdx.x; r < K; r += blockDim.x)\n",
+             "  K2T_START();\n"
+             "  const ChainParams p = kc_stage_params(c1, w1, c2, w2, d, smem);\n"
+             "  K2T(0);\n"
+             "  const RecLayout L = kc_rec_layout(d.I, d.H, d.O, d.G);\n"
+             "  for (int r = threadIdx.x; r < K; r += blockDim.x)\n"),
+            ("  __syncthreads();\n  kc_reduce_param_grads(scratch, K * n_slots, "
+             "d, L, dc1, dw1, dc2, dw2);\n}\n",
+             "  __syncthreads();\n  K2T(14);\n"
+             "  kc_reduce_param_grads(scratch, K * n_slots, "
+             "d, L, dc1, dw1, dc2, dw2);\n  K2T(15);\n  K2T_WRITE();\n}\n"),
+            ('extern "C" {\n', kc_read("k2tr_read", "g_k2tr")),
+        ]},
+        {"K2f": ONE_THREAD_K2F, "K2b": ONE_THREAD_K2B}),
+}
+
+WARP_K2F = (["parameters, constants and register slices", "stage inputs"]
+            + [f"evaluation (kf_chain_fwd), {s}" for s in K2_STAGES]
+            + ["step sum and store"])
+WARP_K2B = (["set-up: parameters, constants, term table, barrier",
+             "rebuild: stage inputs"]
+            + [f"rebuild: evaluation with Jacobian, {s}"
+               for s in K2_STAGES[:6]]
+            + [f"reverse: VJP and kbar, {s}" for s in K2_STAGES[:6]]
+            + ["seeds and dx store",
+               "parameter sums (second launch, thread 0)"])
+# K2f is K3f's kernel at one step; K2b's sums launch keeps thread 0's
+# own cycles in g_k2sum
+K2_SUM_READ = ("\nvoid k2sum_read(unsigned long long* out) {\n"
+               "  cudaDeviceSynchronize();\n"
+               "  cudaMemcpyFromSymbol(out, g_k2sum, sizeof(g_k2sum));\n}\n")
+STEP["warp-a-row K2f (K3f at n = 1) and K2b (K3b's phases at n = 1)"] = ({
+    "kan_chain_warp.cuh": [
+        ('#pragma once\n\n#include "kan_chain.cuh"\n',
+         '#pragma once\n\n#include "kan_chain.cuh"\n'
+         + K2_MACRO.replace("K2S", "K2W")),
+        ("      w.xs[s][lane] = v;\n    }\n    __syncwarp();\n",
+         "      w.xs[s][lane] = v;\n    }\n    __syncwarp();\n    K2W(1);\n"),
+        ("    __syncwarp();\n    ++slot;\n",
+         "    __syncwarp();\n    K2W(2 + slot);\n    ++slot;\n"),
+        ("    if (!c.needed[s]) continue;\n    --slot;\n",
+         "    if (!c.needed[s]) continue;\n    --slot;\n"
+         "    K2W(slot + 1 < slots ? 9 + slot : 14);\n"),
+    ],
+    "rk_fused.cu": [
+        ('#include "kan_chain_block.cuh"\n',
+         K2_HEAD + "__device__ unsigned long long g_k2sum[16];\n"
+         + '#include "kan_chain_block.cuh"\n'),
+        ("  kw_fill_consts(wc, d, T.stages, T.a, T.b, T.needed);\n",
+         "  K2T_START();\n"
+         "  kw_fill_consts(wc, d, T.stages, T.a, T.b, T.needed);\n"),
+        ("  kf_load_regs(rg, p, d, lane);\n  __syncthreads();\n",
+         "  kf_load_regs(rg, p, d, lane);\n  __syncthreads();\n  K2T(0);\n"),
+        ("        xs[lane] = v;\n      }\n      __syncwarp();\n",
+         "        xs[lane] = v;\n      }\n      __syncwarp();\n"
+         "      K2T(1);\n"),
+        ("      kf_chain_fwd(xs, ks + i * I, d, wc, s_l2h, p, rg, cw, lane);\n"
+         "      __syncwarp();\n    }\n",
+         "      kf_chain_fwd(xs, ks + i * I, d, wc, s_l2h, p, rg, cw, lane);\n"
+         "      __syncwarp();\n      K2T(2 + i);\n    }\n"),
+        ("      ys[((size_t)s * K + r) * I + lane] = y;\n      x = y;\n    }\n",
+         "      ys[((size_t)s * K + r) * I + lane] = y;\n      x = y;\n    }\n"
+         "    K2T(9);\n"),
+        ("}\n\n// K3b: the rows in groups",
+         "  K2T_WRITE();\n}\n\n// K3b: the rows in groups"),
+        ("                       float* dx, float* scratch, int K, int n_slots,"
+         "\n                       ChainDims d, StepTab T) {\n",
+         "                       float* dx, float* scratch, int K, int n_slots,"
+         "\n                       ChainDims d, StepTab T) {\n  K2T_START();\n"),
+        ("  kw_fill_terms(c, d, w, lane);\n  __syncthreads();\n"
+         "  const int r = blockIdx.x * warps + warp;\n",
+         "  kw_fill_terms(c, d, w, lane);\n  __syncthreads();\n  K2T(0);\n"
+         "  const int r = blockIdx.x * warps + warp;\n"),
+        ("  xbar = kw_rk_step_reverse(xbar, T.stages, n_slots, d, c, L, w, "
+         "lane, fac,\n                            rec);\n",
+         "  xbar = kw_rk_step_reverse(xbar, T.stages, n_slots, d, c, L, w, "
+         "lane, fac,\n                            rec);\n  K2T(8);\n"),
+        ("  if (lane < d.I) dx[(size_t)r * d.I + lane] = xbar;\n}\n",
+         "  if (lane < d.I) dx[(size_t)r * d.I + lane] = xbar;\n  K2T(14);\n"
+         "  K2T_WRITE();\n}\n"),
+        ("  extern __shared__ float srec[];\n",
+         "  extern __shared__ float srec[];\n"
+         "  const long long t0_ = clock64();\n"),
+        ("  if (out != nullptr) *out = acc;\n}\n",
+         "  if (out != nullptr) *out = acc;\n"
+         "  if (threadIdx.x == 0 && blockIdx.x == 0) "
+         "g_k2sum[0] = clock64() - t0_;\n}\n"),
+        ('extern "C" {\n', kc_read("k2tr_read", "g_k2tr") + K2_SUM_READ),
+    ]},
+    {"K2f": WARP_K2F, "K2b": WARP_K2B})
+
 FAMILIES = {"K5b/K7b": GRAY_WIDE, "K3b/K4b": LV_ADJOINTS,
             "K4f/K8b": ADAPTIVE_FWD_MEMBERS_BWD,
-            "K3f/K8f": LV_FIXED_MEMBERS_FWD, "K2f-m/K2b-m": MID_STEP}
+            "K3f/K8f": LV_FIXED_MEMBERS_FWD, "K2f-m/K2b-m": MID_STEP,
+            "K2f/K2b": STEP}
 # family -> the kernels (parts of their names) whose ptxas usage is shown
 PTXAS_OF = {"K5b/K7b": ("gb_bwd_kernel", "wd_bwd_kernel"),
             "K3b/K4b": ("rk_multistep_bwd_kernel", "adaptive_bwd_kernel"),
             "K4f/K8b": ("adaptive_fwd_kernel", "members_bwd"),
             "K3f/K8f": ("rk_multistep_fwd_kernel", "members_fwd_kernel"),
             "K2f-m/K2b-m": ("kb_step_fwd_kernel", "kb_step_bwd_kernel",
-                            "kb_param_sums_kernel")}
+                            "kb_param_sums_kernel"),
+            "K2f/K2b": ("rk_step_fwd_kernel", "rk_step_bwd_kernel",
+                        "rk_multistep_fwd_kernel", "rk_step_adjoint_kernel",
+                        "rk_param_sums_kernel")}
 
 RUN = r"""
 import ctypes, json, sys
@@ -1221,6 +1371,27 @@ if "K2f-m" in names:
             rk._launch_step_bwd(k, x, params, gy)
         emit("K2b-m", label, read(lib.kbtr_read)[:len(names["K2b-m"]) - 1]
              + read(lib.kbsum_read)[:1])
+if "K2f" in names:
+    from kanodes_tpu_torch.models.kdense import KANChain
+    from kanodes_tpu_torch.ops import rk_fused as rk
+    spec = kp.chain_spec_of(KANChain.mlp_like([2, 10, 2], grid_len=5))
+    k = rk._consts(spec, "tsit5", 0.1)
+    # the design that sums in a second launch names that phase last
+    two = names["K2b"][-1].startswith("parameter sums (second launch")
+    for K in (34, 31):
+        x, params = cs.lv_inputs(np.random.default_rng(0), torch, K)
+        gy = torch.tensor(np.random.default_rng(1).standard_normal((K, 2)),
+                          dtype=torch.float32, device="cuda")
+        case = f"K={K} tsit5 [2,10,2] G=5, chip_smoke.lv_inputs"
+        for _ in range(3):
+            rk._launch_step_fwd(k, x, params)
+        emit("K2f", case, read(lib.k2tr_read))
+        for _ in range(3):
+            rk._launch_step_bwd(k, x, params, gy)
+        cyc = read(lib.k2tr_read)
+        if two:
+            cyc = cyc[:15] + read(lib.k2sum_read)[:1]
+        emit("K2b", case, cyc)
 if "K8b" in names:
     k8b, n_it = members_bwd_launch(torch, np, cs)
     for _ in range(3):

@@ -136,11 +136,9 @@ class WideTab(ctypes.Structure):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, c1, w1, c2, w2, y, K, dims, tab, stream
-    "kc_rk_step_fwd": [_P] * 6 + [_I] + [_P] * 3,
     # x, gy, c1, w1, c2, w2, dx, dc1, dw1, dc2, dw2, scratch, K, n_slots,
-    # dims, tab, stream
-    "kc_rk_step_bwd": [_P] * 12 + [_I] * 2 + [_P] * 3,
+    # warps, dims, tab, stream
+    "kc_rk_step_bwd": [_P] * 12 + [_I] * 3 + [_P] * 3,
     # x0, c1, w1, c2, w2, ys, K, n_steps, warps, dims, tab, stream
     "kc_rk_multistep_fwd": [_P] * 6 + [_I] * 3 + [_P] * 3,
     # dims, stages, warps
@@ -614,6 +612,43 @@ def warp_adjoint_plan(spec, K: int, slots: int, n_steps: int) -> AdjointPlan:
                        4 * (fixed + chunk * per_step))
 
 
+def _rows_over_blocks(K: int, cap: int) -> tuple[int, int]:
+    """(warps a block, blocks) for K rows a warp each: as few blocks as
+    `cap` warps a block allow, then as few warps a block as carry the
+    rows over them."""
+    blocks = -(-K // min(K, cap))
+    return -(-K // blocks), blocks
+
+
+class StepBwdPlan(NamedTuple):
+    """How K2b lays its blocks over K rows."""
+    warps: int          # warps of a block, a warp a row
+    blocks: int
+    threads: int        # of a block
+    smem_bytes: int     # dynamic shared memory of a block
+
+
+def step_bwd_plan(spec, K: int, slots: int) -> StepBwdPlan:
+    """The launch plan of K2b (csrc/rk_fused.cu) over K rows of one step
+    of `slots` chain evaluations: K3b's phases at n = 1, a warp a row,
+    each warp with its WarpRow and its row's factors beside the
+    parameters; as few blocks as MAX_KW_WARPS warps a block allow, fewer
+    warps a block where their layouts do not fit MAX_KW_SMEM, then as few
+    warps a block as carry the rows over those blocks (K = 34: 5 blocks
+    of 7 warps). The library's `kw_smem_bytes(d, warps, warps, 1, slots)`
+    computes the same bytes."""
+    per_warp = WARP_ROW_FLOATS + slots * factor_floats(spec)
+    fixed = param_floats(spec)
+    fit = (MAX_KW_SMEM // 4 - fixed) // per_warp
+    if fit < 1 or K < 1:
+        raise ValueError(f"K2b: no warp of {slots} chain evaluations fits "
+                         f"{MAX_KW_SMEM} bytes of shared memory, or K={K} "
+                         f"< 1")
+    warps, blocks = _rows_over_blocks(K, min(MAX_KW_WARPS, fit))
+    return StepBwdPlan(warps, blocks, 32 * warps,
+                       4 * (fixed + warps * per_warp))
+
+
 class AdaptiveFwdPlan(NamedTuple):
     """How K4f lays one block over K rows."""
     warps: int          # warps of the block, a warp a row
@@ -665,8 +700,7 @@ def multistep_fwd_plan(spec, K: int, stages: int) -> MultistepFwdPlan:
         raise ValueError(f"K3f: no warp of [{I}, {H}, {O}] G={G} fits "
                          f"{MAX_KW_SMEM} bytes of shared memory, or K={K} "
                          f"< 1")
-    blocks = -(-K // min(K, MAX_KF_WARPS, fit))
-    warps = -(-K // blocks)
+    warps, blocks = _rows_over_blocks(K, min(MAX_KF_WARPS, fit))
     return MultistepFwdPlan(warps, blocks, 32 * warps,
                             4 * (fixed + warps * per_warp))
 

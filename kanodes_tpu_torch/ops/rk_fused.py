@@ -9,7 +9,8 @@ and its discrete adjoint as one more. `fused_rk_multistep` runs
 cotangent for every stored state. The kernels are hand-written CUDA
 (`csrc/rk_fused.cu`). Two flavors (`_cuda.fused_rk_flavor`): chains
 within kan_chain.cuh's caps (I, O <= 8, H <= 32, G <= 16; the LV model)
-take K2f/K2b (a thread a row) and K3f/K3b (a warp a row); wider chains
+take K2f/K2b and K3f/K3b, a warp a row (K2f is K3f's kernel at one step,
+K2b K3b's phases at one step over many blocks); wider chains
 (the Burgers and 1-D Allen-Cahn surrogates [41, 10, 41], the packed LV
 ensemble [16, 80, 16]) take the medium flavor K2f-m, K2b-m, K3f-m and
 K3b-m, a block a row (`csrc/kan_chain_block.cuh`), up to
@@ -288,10 +289,17 @@ def _launch_step_fwd(k: _Consts, x, params):
     y = torch.empty_like(x)
     dims, tab = k.structs()
     lib = _cuda.library()
-    launch = lib.kc_rk_step_fwd if k.flavor == "small" else lib.kb_rk_step_fwd
     with torch.cuda.device(x.device):
-        err = launch(_ptr(x), *map(_ptr, params), _ptr(y), K,
-                     ctypes.byref(dims), ctypes.byref(tab), _stream())
+        if k.flavor == "small":
+            # K2f is K3f at one step: y is its ys[0]
+            plan = _cuda.multistep_fwd_plan(k.spec, K, k.stages)
+            err = lib.kc_rk_multistep_fwd(
+                _ptr(x), *map(_ptr, params), _ptr(y), K, 1, plan.warps,
+                ctypes.byref(dims), ctypes.byref(tab), _stream())
+        else:
+            err = lib.kb_rk_step_fwd(
+                _ptr(x), *map(_ptr, params), _ptr(y), K,
+                ctypes.byref(dims), ctypes.byref(tab), _stream())
     _cuda.check(err, _count(k, "fused_rk_step_fwd"))
     return y
 
@@ -309,11 +317,16 @@ def _launch_step_bwd(k: _Consts, x, params, gy):
     scratch = _scratch(k, K * k.n_slots, x)
     dims, tab = k.structs()
     lib = _cuda.library()
-    launch = lib.kc_rk_step_bwd if k.flavor == "small" else lib.kb_rk_step_bwd
+    args = (_ptr(x), _ptr(gy), *map(_ptr, params), _ptr(dx),
+            *map(_ptr, grads), _ptr(scratch), K, k.n_slots)
     with torch.cuda.device(x.device):
-        err = launch(_ptr(x), _ptr(gy), *map(_ptr, params), _ptr(dx),
-                     *map(_ptr, grads), _ptr(scratch), K, k.n_slots,
-                     ctypes.byref(dims), ctypes.byref(tab), _stream())
+        if k.flavor == "small":
+            plan = _cuda.step_bwd_plan(k.spec, K, k.n_slots)
+            err = lib.kc_rk_step_bwd(*args, plan.warps, ctypes.byref(dims),
+                                     ctypes.byref(tab), _stream())
+        else:
+            err = lib.kb_rk_step_bwd(*args, ctypes.byref(dims),
+                                     ctypes.byref(tab), _stream())
     _cuda.check(err, _count(k, "fused_rk_step_bwd"))
     return (dx, *grads)
 

@@ -153,6 +153,65 @@ def test_backward_repeats_bit_for_bit(card):
         assert torch.equal(u, v)
 
 
+def step_case(card, case):
+    """(spec, solver, x, params, gy) of a K2 case: LV width at K rows
+    (tsit5, or rk4 at K = 34), or a cap chain (chip_smoke.cap_inputs)."""
+    if isinstance(case, tuple):
+        spec, x, params = chip_smoke.cap_inputs(torch, *case, device=card)
+        solver = "tsit5"
+    else:
+        K, solver = (34, "rk4") if case == "34 rk4" else (case, "tsit5")
+        spec, x, params, _ = inputs(card, K, seed=11)
+    gy = torch.tensor(np.random.default_rng(12).standard_normal(
+        tuple(x.shape)), dtype=torch.float32, device=card)
+    return spec, solver, x, params, gy
+
+
+STEP_CASES = [1, 31, 34, "34 rk4", 300, *chip_smoke.CAP_CHAINS]
+
+
+@pytest.mark.parametrize("case", STEP_CASES, ids=str)
+def test_k2_matches_plain_and_k3_at_one_step(card, case):
+    """K2f and K2b (a warp a row) against their plain versions, and bit
+    for bit against K3f / K3b at n = 1 (gys = gy[None]); both repeat bit
+    for bit."""
+    spec, solver, x, params, gy = step_case(card, case)
+    k = rk._consts(spec, solver, 0.1)
+    y = rk._launch_step_fwd(k, x, params)
+    torch.testing.assert_close(
+        y, rk.fused_rk_step_reference(spec, solver, 0.1, x, *params), **FWD)
+    ys = rk._launch_multistep_fwd(k, 1, x, params)
+    assert torch.equal(y, ys[0])
+    assert torch.equal(y, rk._launch_step_fwd(k, x, params))
+    g = rk._launch_step_bwd(k, x, params, gy)
+    want = rk.fused_rk_step_bwd_reference(spec, solver, 0.1, x, *params, gy)
+    for a, b in zip(g, want):
+        torch.testing.assert_close(a, b, **GRAD)
+    g3 = rk._launch_multistep_bwd(k, 1, x, ys, params, gy[None].contiguous())
+    again = rk._launch_step_bwd(k, x, params, gy)
+    for a, b, c in zip(g, g3, again):
+        assert torch.equal(a, b)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("K", [1, 31, 34, 300])
+@pytest.mark.parametrize("widths,grid_len,slots", [((2, 10, 2), 5, 6),
+                                                   ((2, 10, 2), 5, 4),
+                                                   ((8, 32, 8), 16, 7)])
+def test_k2_plan_bytes_match_the_library(card, K, widths, grid_len, slots):
+    """K2b's plan (step_bwd_plan) takes what the library's kw_smem_bytes
+    gives for `warps` rows of one step; K2f's is K3f's."""
+    spec = chain_spec_of(KANChain.mlp_like(list(widths), grid_len=grid_len))
+    dims = ctypes.byref(_cuda.chain_dims(spec))
+    lib = _cuda.library()
+    plan = _cuda.step_bwd_plan(spec, K, slots)
+    assert lib.kw_smem_bytes(dims, plan.warps, plan.warps, 1, slots) == \
+        plan.smem_bytes
+    fwd = _cuda.multistep_fwd_plan(spec, K, slots)
+    assert lib.kc_multistep_fwd_smem_bytes(dims, slots, fwd.warps) == \
+        fwd.smem_bytes
+
+
 def adjoint_sweep(card, kernel, spec, x0, params, seed):
     """One LV adjoint sweep's launch on the card, tsit5: K3b over 12 steps
     of dt 0.1, or K4b on the records of a save-clipped K4f solve (the 0.1

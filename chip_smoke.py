@@ -100,13 +100,15 @@ MEMBERS_KERNELS = {
     "fused_adaptive_members_odeint_bwd": (
         "kanodes_tpu/ops/rk_adaptive_fused.py:701", _K8),
 }
-# K2/K3 past kan_chain.cuh's caps: the medium flavor, a block a row
-# (csrc/kan_chain_block.cuh, launched from rk_fused.cu)
+# K2/K3 past kan_chain.cuh's caps, the medium flavor launched from
+# rk_fused.cu: K2-m a block a row (csrc/kan_chain_block.cuh), K3-m's
+# evaluation and three-phase adjoint (csrc/kan_chain_multistep.cuh)
+_KM = "kanodes_tpu_torch/csrc/kan_chain_multistep.cuh"
 MID_KERNELS = {
     "fused_rk_step_fwd_mid": ("kanodes_tpu/ops/rk_fused.py:144", _RK),
     "fused_rk_step_bwd_mid": ("kanodes_tpu/ops/rk_fused.py:167", _RK),
-    "fused_rk_multistep_fwd_mid": ("kanodes_tpu/ops/rk_fused.py:311", _RK),
-    "fused_rk_multistep_bwd_mid": ("kanodes_tpu/ops/rk_fused.py:346", _RK),
+    "fused_rk_multistep_fwd_mid": ("kanodes_tpu/ops/rk_fused.py:311", _KM),
+    "fused_rk_multistep_bwd_mid": ("kanodes_tpu/ops/rk_fused.py:346", _KM),
 }
 KERNELS = {**LV_KERNELS, **SOURCE_KERNELS, **KDENSE_KERNELS, **WIDE_KERNELS,
            **MEMBERS_KERNELS, **MID_KERNELS}
@@ -760,10 +762,11 @@ class MidCase(NamedTuple):
 # surrogates' chains) at their main path's rows: K = 1 (the trajectory
 # loss), 4 (the shooting group of four segments); the packed 8-member LV
 # chain [16,80,16] G=5 iqf (tanh) at 34 and 31 rows (shooting, L = 1 and
-# 4) and its fixed-mode K3 (n = 34, K = 1); Burgers' whole trajectory in
+# 4) and its fixed-mode K3 (n = 34, K = 1; and K = 3, so that K3b-m's
+# recursion runs several rows a warp each); Burgers' whole trajectory in
 # one K3 launch (n = 180); every basis and normalizer at Burgers' widths;
 # a chain whose adjoint takes the compact shared-memory layout
-# (`_cuda.block_compact`), K2 and K3
+# (`_cuda.block_compact`), K2 and K3; last, the packed K3 at K = 3
 _BUR_M, _PACK, _COMPACT = (41, 10, 41), (16, 80, 16), (100, 40, 100)
 MID_CASES = (
     MidCase("burgers K2 K=1", _BUR_M, 5, "rbf", "softsign", 0.1, 1, 0, 5e-3),
@@ -785,6 +788,17 @@ MID_CASES = (
     MidCase("compact K2 K=2", _COMPACT, 5, "iqf", "tanh", 0.05, 2, 0, 2e-3),
     MidCase("compact K3 n=8 K=2", _COMPACT, 5, "rbf", "softsign", 0.05, 2, 8,
             2e-3),
+    MidCase("packed K3 n=34 K=3", _PACK, 5, "iqf", "tanh", 0.05, 3, 34, 0.1),
+    # K3-m's other code paths: J dense past 32 columns (phase B a block a
+    # row), more state components than a phase-B block's threads, and
+    # more outputs than a K3f-m block's threads (two rounds, parameters
+    # from global memory)
+    MidCase("block-dense K3 n=6 K=2", (40, 80, 40), 5, "iqf", "tanh", 0.05,
+            2, 6, 0.05),
+    MidCase("wide K3 n=4 K=2", (300, 2, 300), 2, "rbf", "softsign", 0.1, 2,
+            4, 0.01),
+    MidCase("two-round K3 n=3 K=1", (600, 2, 600), 2, "rbf", "tanh", 0.1, 1,
+            3, 0.01),
 )
 
 
@@ -880,7 +894,29 @@ def check_block_mirrors(kp, failures):
                     4 * _cuda.block_smem_floats(spec, 7, bool(backward)):
                 failures.append(f"kb_smem_bytes != block_smem_floats at "
                                 f"[{I},{H},{O}] G={G} backward={backward}")
+        check_k3m_mirrors(lib, spec, dims, failures)
     return sorted(checked)
+
+
+def check_k3m_mirrors(lib, spec, dims, failures):
+    """K3-m's plans (`_cuda.multistep_fwd_mid_plan`,
+    `multistep_bwd_mid_plan`) against the library's (`k3m_fwd_plan`,
+    `k3m_bwd_plan`) for one chain, tsit5 (7 stages, 6 needed), at the rows
+    and steps of chip_smoke's K3-m cases and past one phase-B block."""
+    import ctypes
+    from kanodes_tpu_torch.ops import _cuda
+    got = (ctypes.c_int * 11)()
+    lib.k3m_fwd_plan(dims, 7, got)
+    p = _cuda.multistep_fwd_mid_plan(spec, 7)
+    if list(got) != [*p.l1, *p.l2, p.smem_bytes]:
+        failures.append(f"k3m_fwd_plan {list(got)} != {p} at {spec}")
+    for K, n in ((1, 34), (3, 34), (1, 180), (2, 20), (2, 8), (17, 3)):
+        got = (ctypes.c_longlong * 14)()
+        lib.k3m_bwd_plan(dims, K, 7, n, 6, got)
+        b = _cuda.multistep_bwd_mid_plan(spec, K, 7, n, 6)
+        if list(got) != [int(v) for v in b]:
+            failures.append(f"k3m_bwd_plan {list(got)} != {b} at {spec} "
+                            f"K={K} n={n}")
 
 
 def phase_chain_kernels(torch, kp, KANChain, rng, max_err):
@@ -2055,15 +2091,21 @@ def phase_packed_phases(torch, lv, lvm, pk, modules, card):
     Exact launches: a shooting loss L K2f-m and L K2b-m (34 and 31 rows),
     a fixed loss one K3f-m and one K3b-m (n = 34, K = 1), each phase's
     eval one K3f-m (n = 140). In every phase each member's loss is finite
-    and its joint best below its first. At the final parameters the fused
-    shooting (L = 4) and fixed losses and gradients on the card equal the
-    same objectives' plain versions on the CPU by the float64 rule: a
-    trained ensemble's loss is a small residual, whose f32 rounding its
-    gradient magnifies, so each is held to the plain version run in
-    float64 (the kernel's error at most twice plain f32's, plus 1e-6 of
-    the largest entry). Returns the launches."""
+    and its joint best below its first. At the final parameters each
+    launch of the fused shooting (L = 4) and fixed objectives is held to
+    the plain version run in float64 (`packed_parity.launch_parity`): the
+    forward's predictions, and the backward's gradient from the kernel
+    forward's states and the loss's cotangents (the kernel's error at
+    most twice plain f32's, plus FWD_ATOL or 1e-6 of the largest entry).
+    The whole objective's loss and gradient errors against float64 are
+    reported beside them: a trained ensemble's loss is a small residual,
+    whose f32 rounding its gradient magnifies, so that there two f32
+    forwards whose roundings differ (the plain version's own included)
+    land at a third to four times each other's error (`packed_parity`'s
+    sweep). Returns the launches."""
     import dataclasses
     from types import SimpleNamespace
+    from kanodes_tpu_torch.experiments import packed_parity
     from kanodes_tpu_torch.interop import chain_params_to_numpy
     phases = [(m, L, lr, n) for (m, L, lr, _), n in
               zip(lvm.PACKED_PHASES, PACKED_PHASE_ITERS)]
@@ -2105,29 +2147,25 @@ def phase_packed_phases(torch, lv, lvm, pk, modules, card):
     base = lv.LVConfig(impl="fused", basis="iqf")
     for mode, L in (("shooting", 4), ("fixed", 1)):
         cfg = dataclasses.replace(base, solve_mode=mode, segment_len=L)
+        launches, fails = packed_parity.launch_parity(cfg, members)
+        failures += [f"packed {mode} {f}" for f in fails]
         lk, gk = packed_loss_and_grads(torch, lv, lvm, pk, cfg, members,
                                        "cuda")
         lp, gp = packed_loss_and_grads(torch, lv, lvm, pk, cfg, members,
                                        "cpu")
         l64, g64 = packed_loss_and_grads(torch, lv, lvm, pk, cfg, members,
                                          "cpu", f64=True)
-        errs = []
-        for what, a, b, c in zip(["loss", "dC1", "dW1", "dC2", "dW2"],
-                                 [lk, *gk], [lp, *gp], [l64, *g64]):
-            err_k = float((a.double() - c).abs().max())
-            err_p = float((b.double() - c).abs().max())
-            slack = 1e-6 * float(c.abs().max())
-            if err_k > 2 * err_p + slack:
-                failures.append(f"packed {mode} {what}: error vs float64 "
-                                f"{err_k:.3e} > 2 x plain f32's "
-                                f"{err_p:.3e} + {slack:.3e}")
-            errs.append({"what": what, "kernel_err_vs_f64": err_k,
-                         "plain_f32_err_vs_f64": err_p,
-                         "max_abs_kernel_vs_plain": float(
-                             (a - b).abs().max())})
+        whole = [{"what": what,
+                  "kernel_err_vs_f64": float((a.double() - c).abs().max()),
+                  "plain_f32_err_vs_f64": float((b.double() - c).abs().max()),
+                  "max_abs_kernel_vs_plain": float((a - b).abs().max())}
+                 for what, a, b, c in zip(["loss", "dC1", "dW1", "dC2",
+                                           "dW2"], [lk, *gk], [lp, *gp],
+                                          [l64, *g64])]
         parity[f"{mode} L={L}"] = {"kernel_loss": lk.tolist(),
                                    "plain_loss": lp.tolist(),
-                                   "f64_rule": errs}
+                                   "launch_f64_rule": launches,
+                                   "whole_objective_vs_f64": whole}
     for name in MID_KERNELS:
         assert counts[name] > 0, f"{name} never launched on the main path"
     finish_phase({"phase": "packed_phases", "members": 8,
@@ -2200,11 +2238,29 @@ def phase_mid_timings(torch, rk, kp, card):
                 t = kernel_vs_plain_ms(torch, kern, plain, bound, reps=reps,
                                        plain_reps=2)
                 t["device_us"] = device_us(torch, kern, reps=10)
+                if name == "fused_rk_multistep_bwd_mid":
+                    t["device_us_phases"] = k3bm_phases_us(torch, kern)
                 timed[label][name] = t
     emit({"phase": "timings", "path": "K2-m, K3-m (narrow surrogates, "
           "packed ensemble)", "solver": "tsit5", "cases": timed,
           "card": card})
     return {**timed["burgers K2 K=1"], **timed["packed K3 n=34 K=1"]}
+
+
+# K3b-m's launches by the phase each runs (a part of the kernel's name)
+K3BM_PHASES = (("A: rebuild with stage Jacobians", "k3m_rebuild_kernel"),
+               ("B: recursion", "k3m_sweep_"),
+               ("C1: dy1 of the records", "k3m_dy1_kernel"),
+               ("C2: parameter sums", "rk_param_sums_kernel"))
+
+
+def k3bm_phases_us(torch, fn, reps=10):
+    """Device µs per call of K3b-m's launch fn() by phase (K3BM_PHASES),
+    from the profiler's kernel names."""
+    from kanodes_tpu_torch.experiments.profile_lv import device_us_by_kernel
+    by = device_us_by_kernel(torch, fn, reps)
+    return {phase: sum(us for k, us in by.items() if part in k)
+            for phase, part in K3BM_PHASES}
 
 
 def phase_members_timings(torch, lvm, ra, trained, card):
@@ -2422,20 +2478,8 @@ def device_us(torch, fn, reps=20):
     """Device microseconds per call of fn(): the kernels' own time under
     torch.profiler (as experiments/profile_lv.py counts it), without the
     host time that CUDA events around a call from Python include."""
-    from kanodes_tpu_torch.experiments.profile_lv import _device_us, _is_kernel
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    host_keys = {e.key for e in events
-                 if e.device_type != torch.autograd.DeviceType.CUDA}
-    return sum(_device_us(e) for e in events
-               if _is_kernel(e, host_keys)) / reps
+    from kanodes_tpu_torch.experiments.profile_lv import device_us_by_kernel
+    return sum(device_us_by_kernel(torch, fn, reps).values())
 
 
 def phase_source_timings(torch, gb, kp, card):

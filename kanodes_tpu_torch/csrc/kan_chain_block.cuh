@@ -1,13 +1,13 @@
-// K2 and K3 at medium widths: one explicit RK step over the 2-layer
-// KDense chain, n such steps, and their discrete adjoints, with ONE BLOCK
-// ON EACH ROW of the batch, for chains past the one-thread / one-warp
-// caps of kan_chain.cuh (I, O <= 8, H <= 32): the Burgers and 1-D
-// Allen-Cahn surrogates [41, 10, 41] (grid 5 and 10) and the packed
-// 8-member LV ensemble [16, 80, 16] (grid 5). rk_fused.cu launches them.
+// K2 at medium widths: one explicit RK step over the 2-layer KDense
+// chain and its discrete adjoint, with ONE BLOCK ON EACH ROW of the batch,
+// for chains past the one-thread / one-warp caps of kan_chain.cuh (I, O
+// <= 8, H <= 32): the Burgers and 1-D Allen-Cahn surrogates [41, 10, 41]
+// (grid 5 and 10) and the packed 8-member LV ensemble [16, 80, 16] (grid
+// 5). rk_fused.cu launches them. K3 at these widths (n steps, and their
+// adjoint) runs kan_chain_multistep.cuh, which includes this file.
 //
-// Computes what `_step_fwd_kernel`, `_step_bwd_kernel`,
-// `_multistep_fwd_kernel` and `_multistep_bwd_kernel`
-// (kanodes_tpu/ops/rk_fused.py:144,167,311,346) compute, with the chain of
+// Computes what `_step_fwd_kernel` and `_step_bwd_kernel`
+// (kanodes_tpu/ops/rk_fused.py:144,167) compute, with the chain of
 // `_chain_f` / `_chain_vjp` / `_chain_param_gemms` (:70-127).
 //
 // What bounds it on this card: latency. A row is a chain of s dependent

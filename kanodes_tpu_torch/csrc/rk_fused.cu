@@ -54,13 +54,17 @@
 //     is not ported; only the gradients must match.
 //   * chains past those kernels' caps (I, O <= 8, H <= 32: the Burgers and
 //     1-D Allen-Cahn surrogates, the packed LV ensemble) take the medium
-//     flavor, a block a row (kan_chain_block.cuh): kb_rk_step_fwd (K2f-m),
-//     kb_rk_step_bwd (K2b-m), kb_rk_multistep_fwd (K3f-m) and
-//     kb_rk_multistep_bwd (K3b-m). K2b-m and K3b-m are two launches
-//     each, the rows' reverse recursion and the parameter sums.
+//     flavor: kb_rk_step_fwd (K2f-m) and kb_rk_step_bwd (K2b-m, two
+//     launches: the rows' adjoint and the parameter sums), a block a row
+//     (kan_chain_block.cuh); kb_rk_multistep_fwd (K3f-m, KM_THREADS threads
+//     a row) and kb_rk_multistep_bwd (K3b-m: a block a step rebuilds it
+//     with its stage Jacobians, a warp or a block a row runs the
+//     recursion, then the records' dy1 and the parameter sums:
+//     kan_chain_multistep.cuh).
 // Launches go on the caller's stream; nothing here allocates or syncs.
 
 #include "kan_chain_block.cuh"
+#include "kan_chain_multistep.cuh"
 
 namespace {
 
@@ -373,28 +377,47 @@ kb_step_fwd_kernel(const float* x, const float* c1, const float* w1,
         kb_step_out<kCompact>(acc, k, I, T.stages, last, c, q);
 }
 
-// K3f-m: n_steps RK steps of row blockIdx.x, every post-step state stored
-// at ys [n_steps, K, I]. kCompact: as K2f-m's.
-template <bool kCompact>
-__global__ void __launch_bounds__(KB_THREADS)
-kb_multistep_fwd_kernel(const float* x0, const float* c1, const float* w1,
-                        const float* c2, const float* w2, float* ys, int K,
-                        int n_steps, ChainDims d, StepTab T, KbPlan plan) {
-  KB_SETUP(0);
-  float* acc = k.rows;                            // [S + 1][I]
-  for (int q = threadIdx.x; q < I; q += KB_THREADS)
-    kb_acc_set(acc, T.stages, I, q, x0[(size_t)r * I + q]);
-  kb_stage_wait();
+// K3f-m: n_steps RK steps of row blockIdx.x by KM_THREADS threads (the
+// evaluation of kan_chain_multistep.cuh), every post-step state stored at
+// ys [n_steps, K, I].
+__global__ void __launch_bounds__(KM_THREADS, 1)
+k3m_fwd_kernel(const float* x0, const float* c1, const float* w1,
+               const float* c2, const float* w2, float* ys, int K,
+               int n_steps, ChainDims d, StepTab T, KmPlan plan) {
+  extern __shared__ __align__(16) float km_smem[];
+  __shared__ KmConsts k;
+  km_fill_consts(k, d, T);
+  const KmRows rw = km_rows(km_smem, plan, d);
+  KmRegs rg;
+  km_load_regs(rg, c1, w1, c2, w2, d, plan);
+  km_zero_pads(rw, d, plan);
+  const KmFeat ft = km_feat_of(threadIdx.x, d.G);
+  const KmLane l1 = km_lane(rw.f1, plan.l1, d.H);
+  const KmLane l2 = km_lane(rw.f2, plan.l2, d.O);
+  const int r = blockIdx.x, S = T.stages;
+  km_step_start(rw, x0 + (size_t)r * d.I, d, S);
+  __syncthreads();
+  int prev = -1, par = 0;
   for (int s = 0; s < n_steps; ++s) {
-    const int last = kb_rk_stages<kCompact>(k, ln, acc, nullptr, T.stages,
-                                            d, c, lane);
-    for (int q = threadIdx.x; q < I; q += KB_THREADS) {
-      const float y = kb_step_out<kCompact>(acc, k, I, T.stages, last, c, q);
-      ys[((size_t)s * K + r) * I + q] = y;
-      kb_acc_set(acc, T.stages, I, q, y);
+    // the previous step's result, stored as its inputs' features are taken
+    float* y_prev = s > 0 ? ys + ((size_t)(s - 1) * K + r) * d.I : nullptr;
+    for (int i = k.first; i >= 0; i = k.next[i]) {
+      km_input_features<false>(rw, par, prev, i, ft, d, k, S, y_prev,
+                               nullptr);
+      if (prev >= 0) par ^= 1;
+      __syncthreads();
+      km_eval_l1(rw, rg, l1, c1, w1, d, plan);
+      __syncthreads();
+      km_features<false>(rw.y1, d.H, ft, d, k, rw.f2, nullptr, nullptr,
+                         nullptr, 0, 0);
+      __syncthreads();
+      km_eval_l2(rw, rg, l2, c2, w2, d, plan);
+      __syncthreads();
+      prev = i;
     }
-    __syncthreads();
   }
+  km_step_out(rw, par, prev, d, k, S,
+              ys + ((size_t)(n_steps - 1) * K + r) * d.I);
 }
 
 // K2b-m, its first launch: the step adjoint of row blockIdx.x; dx, and
@@ -426,41 +449,340 @@ kb_step_bwd_kernel(const float* x, const float* gy, const float* c1,
     dx[(size_t)r * I + q] = a.dx[q];
 }
 
-// K3b-m, its first launch: the reverse sweep of row blockIdx.x over the
-// stored states, the cotangent gys[s] of every stored state folded in;
-// the records of step s at scratch + (s * K + r) * n_slots * width.
-// kCompact: as K2b-m's.
-template <bool kCompact>
-__global__ void __launch_bounds__(KB_THREADS)
-kb_multistep_bwd_kernel(const float* x0, const float* ys, const float* gys,
-                        const float* c1, const float* w1, const float* c2,
-                        const float* w2, float* dx0, float* scratch, int K,
-                        int n_steps, int n_slots, ChainDims d, StepTab T,
-                        KbPlan plan) {
-  KB_SETUP(kb_adj_lead(d, T.stages, kCompact));
-  const RecLayout L = kc_rec_layout(d.I, d.H, d.O, d.G);
-  const BlockAdjRows a = kb_adj_rows(k, d, T.stages, kCompact);
-  for (int q = threadIdx.x; q < I; q += KB_THREADS) a.dx[q] = 0.0f;
-  kb_stage_wait();
-  for (int s = n_steps - 1; s >= 0; --s) {
-    // input state of step s: ys[s-1] (x0 for the first step)
-    const float* x_in = s == 0 ? x0 + (size_t)r * I
-                               : ys + ((size_t)(s - 1) * K + r) * I;
-    for (int q = threadIdx.x; q < I; q += KB_THREADS) {
-      kb_acc_set(a.acc, T.stages, I, q, x_in[q]);
-      a.gy[q] = a.dx[q] + gys[((size_t)s * K + r) * I + q];
-    }
+// K3b-m phase A: block s K + r rebuilds step s of row r from its input
+// (ys[s-1], x0 for s = 0) with K3f-m's evaluation and stores, per needed
+// stage (slot), the record's forward operands and the Jacobian block
+// (KmBwdPlan) of record (s K + r) n_slots + slot.
+__global__ void __launch_bounds__(KM_THREADS, 1)
+k3m_rebuild_kernel(const float* x0, const float* ys, const float* c1,
+                   const float* w1, const float* c2, const float* w2,
+                   float* recs, float* jac, int K, int n_slots, ChainDims d,
+                   StepTab T, KmPlan plan, KmBwdPlan bp) {
+  extern __shared__ __align__(16) float km_smem[];
+  __shared__ KmConsts k;
+  km_fill_consts(k, d, T);
+  const int I = d.I, H = d.H, S = T.stages;
+  const KmRows rw = km_rows(km_smem, plan, d);
+  KmKeep kp;
+  kp.D1 = rw.acc + 2 * (S + 1) * I;
+  kp.n1 = kp.D1 + plan.l1.Tp;
+  kp.D2 = kp.n1 + I;
+  kp.n2 = kp.D2 + plan.l2.Tp;
+  float* a1 = kp.n2 + H;                      // [H][I | 1]
+  float* a2 = a1 + H * km_odd(I);             // [O][H | 1]
+  kp.L = kc_rec_layout(I, H, d.O, d.G);
+  const int s = blockIdx.x / K, r = blockIdx.x - s * K;
+  const size_t e0 = ((size_t)s * K + r) * n_slots;
+  float* rec = recs + e0 * bp.width;
+  float* jb = jac + e0 * bp.jw;
+  KmRegs rg;
+  km_load_regs(rg, c1, w1, c2, w2, d, plan);
+  km_zero_pads(rw, d, plan);
+  const KmFeat ft = km_feat_of(threadIdx.x, d.G);
+  const KmLane l1 = km_lane(rw.f1, plan.l1, H);
+  const KmLane l2 = km_lane(rw.f2, plan.l2, d.O);
+  const float* x_in = s == 0 ? x0 + (size_t)r * I
+                             : ys + ((size_t)(s - 1) * K + r) * I;
+  km_step_start(rw, x_in, d, S);
+  __syncthreads();
+  int slot = 0, prev = -1, par = 0;
+  for (int i = k.first; i >= 0; prev = i, i = k.next[i], ++slot) {
+    kp.rec = rec + (size_t)slot * bp.width;
+    km_input_features<true>(rw, par, prev, i, ft, d, k, S, nullptr, &kp);
+    if (prev >= 0) par ^= 1;
     __syncthreads();
-    kb_rk_step_adjoint<kCompact>(
-        k, ln, a, T.stages, n_slots, d, c, L,
-        scratch + ((size_t)s * K + r) * n_slots * L.width, warp, lane);
+    km_eval_l1(rw, rg, l1, c1, w1, d, plan);
+    __syncthreads();
+    km_features<true>(rw.y1, H, ft, d, k, rw.f2, &kp, kp.D2, kp.n2, kp.L.b2,
+                      kp.L.swy1);
+    __syncthreads();
+    km_stage_factors(kp, c1, w1, c2, w2, d, a1, a2);
+    __syncthreads();
+    km_stage_jacobian(a1, a2, d, bp.dense, jb + (size_t)slot * bp.jw);
+    if (k.next[i] < 0) break;         // the step's sum is not needed here
+    km_eval_l2(rw, rg, l2, c2, w2, d, plan);
+    __syncthreads();
   }
-  for (int q = threadIdx.x; q < I; q += KB_THREADS)
-    dx0[(size_t)r * I + q] = a.dx[q];
 }
 
-// The second launch of K2b-m and K3b-m: the parameter cotangents from the
-// n_rec records, a thread a parameter.
+// K3b-m phase B, a warp a row (dense J, I <= 32): row blockIdx.x * warps +
+// warp, component q in lane q, the stage cotangents in registers; from the
+// last step, lambda = dx + gys[s], kbar_i = (dt b_i) lambda, then per
+// needed stage from the last: gk = kbar_i into its record, dx_q = sum_o
+// J[o][q] kbar_o (kbar through shared memory, lane q's row of J^T and the
+// vector read a quad at a time, four partial sums over o mod 4), lambda +=
+// dx, kbar_j += (dt a_ij) dx for j < i. The next step's J^T rows are
+// copied into the warp's other buffer meanwhile.
+__global__ void __launch_bounds__(KW_LANES * KM_SWEEP_MAX_WARPS, 1)
+k3m_sweep_warp_kernel(const float* gys, float* dx0, float* recs,
+                      const float* jac, int K, int n_steps, int n_slots,
+                      ChainDims d, StepTab T, KmBwdPlan bp) {
+  extern __shared__ __align__(16) float km_jsm[];
+  __shared__ KmConsts k;
+  __shared__ __align__(16) float skb[KM_SWEEP_MAX_WARPS][2][KW_LANES];
+  km_fill_consts(k, d, T);
+  const int warp = threadIdx.x / KW_LANES, lane = threadIdx.x % KW_LANES;
+  const int I = d.I, O = d.O, rs = km_jt_stride(O), nq = (O + 3) / 4;
+  const int blk = I * rs, step = n_slots * blk;
+  float* buf = km_jsm + (size_t)warp * 2 * step;
+  // the rows' padding reads as zero
+  for (int e = lane; e < 2 * step; e += KW_LANES) buf[e] = 0.0f;
+  __syncthreads();
+  const int r = blockIdx.x * (blockDim.x / KW_LANES) + warp;
+  if (r >= K) return;
+  const int gk_off = kc_rec_layout(I, d.H, O, d.G).gk;
+  const bool mine = lane < I;
+  // the tableau in registers (compile-time indices only)
+  float cb[KC_MAX_STAGES], ca[KC_MAX_STAGES][KC_MAX_STAGES - 1];
+  bool need[KC_MAX_STAGES];
+#pragma unroll
+  for (int i = 0; i < KC_MAX_STAGES; ++i) {
+    cb[i] = k.b[i];
+    need[i] = k.needed[i] != 0;
+#pragma unroll
+    for (int j = 0; j < KC_MAX_STAGES - 1; ++j)
+      ca[i][j] = j < i ? k.a[i][j] : 0.0f;
+  }
+  const size_t row_jac = (size_t)n_slots * bp.jw;
+  const float* jrow = jac + (size_t)r * row_jac;
+  km_fetch_rows(buf + ((n_steps - 1) & 1) * step,
+                jrow + (size_t)(n_steps - 1) * K * row_jac, n_slots, I, O,
+                bp.jw, rs, lane);
+  km_cp_commit();
+  float gnext = mine ? gys[((size_t)(n_steps - 1) * K + r) * I + lane] : 0.0f;
+  float lam = 0.0f;
+  int par = 0;
+  for (int s = n_steps - 1; s >= 0; --s) {
+    if (s > 0)
+      km_fetch_rows(buf + ((s - 1) & 1) * step,
+                    jrow + (size_t)(s - 1) * K * row_jac, n_slots, I, O,
+                    bp.jw, rs, lane);
+    km_cp_commit();
+    const float g = gnext;
+    if (s > 0 && mine) gnext = gys[((size_t)(s - 1) * K + r) * I + lane];
+    lam = lam + g;
+    float kb[KC_MAX_STAGES];
+#pragma unroll
+    for (int i = 0; i < KC_MAX_STAGES; ++i) kb[i] = cb[i] * lam;
+    km_cp_wait<1>();
+    __syncwarp();
+    const float* Jb = buf + (s & 1) * step;
+    float* gk = recs + ((size_t)s * K + r) * n_slots * bp.width + gk_off;
+    int slot = n_slots;
+#pragma unroll
+    for (int i = KC_MAX_STAGES - 1; i >= 0; --i) {
+      if (!need[i]) continue;
+      --slot;
+      if (mine) gk[(size_t)slot * bp.width + lane] = kb[i];
+      float* kv = skb[warp][par];
+      par ^= 1;
+      kv[lane] = kb[i];                // zero past I
+      __syncwarp();
+      const float4* jt = reinterpret_cast<const float4*>(
+          Jb + slot * blk + (mine ? lane : 0) * rs);
+      const float4* k4 = reinterpret_cast<const float4*>(kv);
+      float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f, p3 = 0.0f;
+      for (int m = 0; m < nq; ++m) {
+        const float4 a = jt[m], b = k4[m];
+        p0 = fmaf(a.x, b.x, p0);
+        p1 = fmaf(a.y, b.y, p1);
+        p2 = fmaf(a.z, b.z, p2);
+        p3 = fmaf(a.w, b.w, p3);
+      }
+      const float dx =
+          mine ? __fadd_rn(__fadd_rn(p0, p1), __fadd_rn(p2, p3)) : 0.0f;
+      lam = lam + dx;
+#pragma unroll
+      for (int j = 0; j < KC_MAX_STAGES - 1; ++j)
+        if (j < i && ca[i][j] != 0.0f) kb[j] = fmaf(ca[i][j], dx, kb[j]);
+    }
+    __syncwarp();                  // before a copy refills this buffer
+  }
+  km_cp_wait<0>();
+  if (mine) dx0[(size_t)r * I + lane] = lam;
+}
+
+// Phase B a block a row: the components past the block's threads (I >
+// KM_SWEEP_THREADS), their lambda and kbar in shared memory. Out of line:
+// inlined into the kernel's unrolled stage loop they slowed the common
+// case, one component a thread.
+__device__ __noinline__ void km_extra_seed(float* xl, float* xk, int nx,
+                                           const float* g, const float* b,
+                                           int tid, int nt) {
+  for (int e = tid; e < nx; e += nt) {
+    const float l = xl[e] + g[e];
+    xl[e] = l;
+    for (int i = 0; i < KC_MAX_STAGES; ++i) xk[i * nx + e] = b[i] * l;
+  }
+}
+
+__device__ __noinline__ void km_extra_store(const float* xki, float* kv,
+                                            float* gk, int nx, int tid,
+                                            int nt) {
+  for (int e = tid; e < nx; e += nt) {
+    const float v = xki[e];
+    kv[e] = v;
+    gk[e] = v;
+  }
+}
+
+__device__ __noinline__ void km_extra_update(const float* A, int as, int aq,
+                                             const float* tv, int n,
+                                             float* xl, float* xk, int nx,
+                                             const float* ai, int i, int tid,
+                                             int nt) {
+  for (int e = tid; e < nx; e += nt) {
+    const float dx = km_dot4(A + (size_t)e * aq, as, tv, n);
+    xl[e] = xl[e] + dx;
+    for (int j = 0; j < i; ++j)
+      if (ai[j] != 0.0f) xk[j * nx + e] = fmaf(ai[j], dx, xk[j * nx + e]);
+  }
+}
+
+// K3b-m phase B, a block a row (row blockIdx.x; the factors, or I > 32):
+// the same recursion, the thread of component q = tid keeping lambda_q and
+// the stage cotangents kbar_.q in registers and storing the current
+// stage's into kv (two buffers, by stage parity, so that one barrier a
+// stage suffices with J dense); a component past the block's threads (I >
+// KM_SWEEP_THREADS, q = tid + j nt) keeps them in shared memory instead,
+// with the same arithmetic. Dense: dx_q = sum_o J[o][q] kbar_o; factors:
+// t_h = sum_o A2^T[h][o] kbar_o in a group of lanes an h (an xor-shuffle
+// tree; t is the record's dy1), a barrier, then dx_q = sum_h A1[h][q] t_h.
+// The next step's blocks are copied into shared memory meanwhile where two
+// steps fit (bp.staged), else read from global memory.
+__global__ void __launch_bounds__(KM_SWEEP_THREADS, 1)
+k3m_sweep_block_kernel(const float* gys, float* dx0, float* recs,
+                       const float* jac, int K, int n_steps, int n_slots,
+                       ChainDims d, StepTab T, KmBwdPlan bp) {
+  extern __shared__ __align__(16) float km_jsm[];
+  __shared__ KmConsts k;
+  km_fill_consts(k, d, T);
+  __syncthreads();
+  const int I = d.I, H = d.H, O = d.O, r = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int span = bp.span, step = n_slots * span;
+  const RecLayout L = kc_rec_layout(I, H, O, d.G);
+  float* buf = km_jsm;
+  float* kv = km_jsm + (bp.staged ? 2 * step : 0);      // [2][I]
+  float* tb = kv + 2 * I;                               // [H]
+  // the components past the threads: lambda [nx], kbar [KC_MAX_STAGES][nx]
+  const int nx = I > nt ? I - nt : 0;
+  float* xl = tb + H;
+  float* xk = xl + nx;
+  float cb[KC_MAX_STAGES], ca[KC_MAX_STAGES][KC_MAX_STAGES - 1];
+  bool need[KC_MAX_STAGES];
+#pragma unroll
+  for (int i = 0; i < KC_MAX_STAGES; ++i) {
+    cb[i] = k.b[i];
+    need[i] = k.needed[i] != 0;
+#pragma unroll
+    for (int j = 0; j < KC_MAX_STAGES - 1; ++j)
+      ca[i][j] = j < i ? k.a[i][j] : 0.0f;
+  }
+  int lg = 5;                                           // t: lp lanes an h
+  while (lg > 0 && (H << lg) > nt) --lg;
+  const int lp = 1 << lg, c = tid & (lp - 1), h0 = tid >> lg;
+  const size_t row_jac = (size_t)n_slots * bp.jw;
+  const float* jrow = jac + (size_t)r * row_jac;
+  const bool mine = tid < I;
+  float lam = 0.0f, kb[KC_MAX_STAGES];
+  for (int e = tid; e < nx; e += nt) xl[e] = 0.0f;
+  if (bp.staged)
+    km_fetch(buf + ((n_steps - 1) & 1) * step,
+             jrow + (size_t)(n_steps - 1) * K * row_jac, n_slots, span, bp.jw,
+             tid, nt);
+  km_cp_commit();
+  int par = 0;
+  for (int s = n_steps - 1; s >= 0; --s) {
+    if (bp.staged && s > 0)
+      km_fetch(buf + ((s - 1) & 1) * step,
+               jrow + (size_t)(s - 1) * K * row_jac, n_slots, span, bp.jw, tid,
+               nt);
+    km_cp_commit();
+    const float* gs = gys + ((size_t)s * K + r) * I;
+    if (mine) lam = lam + gs[tid];
+#pragma unroll
+    for (int i = 0; i < KC_MAX_STAGES; ++i) kb[i] = cb[i] * lam;
+    if (nx) km_extra_seed(xl, xk, nx, gs + nt, k.b, tid, nt);
+    km_cp_wait<1>();
+    const float* base = bp.staged
+                            ? buf + (s & 1) * step
+                            : jrow + (size_t)s * K * row_jac;
+    const int stride = bp.staged ? span : bp.jw;
+    float* rs = recs + ((size_t)s * K + r) * n_slots * bp.width;
+    int slot = n_slots;
+#pragma unroll
+    for (int i = KC_MAX_STAGES - 1; i >= 0; --i) {
+      if (!need[i]) continue;
+      --slot;
+      float* kvp = kv + par * I;
+      par ^= 1;
+      float* rec = rs + (size_t)slot * bp.width;
+      if (mine) {
+        kvp[tid] = kb[i];
+        rec[L.gk + tid] = kb[i];
+      }
+      if (nx) km_extra_store(xk + i * nx, kvp + nt, rec + L.gk + nt, nx, tid,
+                             nt);
+      __syncthreads();
+      const float* F = base + (size_t)slot * stride;
+      const float* A = F;                    // dense: J^T [I][O]
+      const float* tv = kvp;                 // its cotangent, [O]
+      int n = O, as = 1, aq = O;             // A's strides over o and q
+      if (!bp.dense) {
+        float t = 0.0f;
+        if (h0 < H)
+          for (int o = c; o < O; o += lp)
+            t = fmaf(F[(size_t)h0 * O + o], kvp[o], t);
+        for (int off = lp >> 1; off > 0; off >>= 1)
+          t = __fadd_rn(t, __shfl_xor_sync(0xffffffffu, t, off));
+        if (h0 < H && c == 0) {
+          tb[h0] = t;
+          rec[L.dy1 + h0] = t;
+        }
+        __syncthreads();
+        A = F + (size_t)H * O;               // A1 [H][I]
+        tv = tb;
+        n = H;
+        as = I;
+        aq = 1;
+      }
+      if (mine) {
+        const float dx = km_dot4(A + (size_t)tid * aq, as, tv, n);
+        lam = lam + dx;
+#pragma unroll
+        for (int j = 0; j < KC_MAX_STAGES - 1; ++j)
+          if (j < i && ca[i][j] != 0.0f) kb[j] = fmaf(ca[i][j], dx, kb[j]);
+      }
+      if (nx) km_extra_update(A + (size_t)nt * aq, as, aq, tv, n, xl, xk, nx,
+                              k.a[i], i, tid, nt);
+    }
+    __syncthreads();               // before a copy refills this step's buffer
+  }
+  km_cp_wait<0>();
+  if (mine) dx0[(size_t)r * I + tid] = lam;
+  for (int e = tid; e < nx; e += nt) dx0[(size_t)r * I + nt + e] = xl[e];
+}
+
+// K3b-m phase C1 (dense J): dy1_h = sum_o A2[o][h] gk_o of every record,
+// a thread a (record, h), into the record.
+__global__ void __launch_bounds__(KM_C_THREADS)
+k3m_dy1_kernel(float* recs, const float* jac, long long n_rec, ChainDims d,
+               KmBwdPlan bp) {
+  const long long e = (long long)blockIdx.x * KM_C_THREADS + threadIdx.x;
+  if (e >= n_rec * d.H) return;
+  const long long rc = e / d.H;
+  const int h = (int)(e - rc * d.H);
+  const RecLayout L = kc_rec_layout(d.I, d.H, d.O, d.G);
+  const float* a2t = jac + rc * bp.jw + bp.a2_off + (size_t)h * d.O;
+  float* rec = recs + rc * bp.width;
+  float s = 0.0f;
+  for (int o = 0; o < d.O; ++o) s = fmaf(a2t[o], rec[L.gk + o], s);
+  rec[L.dy1 + h] = s;
+}
+
+// The second launch of K2b-m: the parameter cotangents from the n_rec
+// records, a thread a parameter.
 __global__ void __launch_bounds__(KB_THREADS)
 kb_param_sums_kernel(const float* scratch, int n_rec, ChainDims d,
                      float* dc1, float* dw1, float* dc2, float* dw2) {
@@ -489,6 +811,18 @@ cudaError_t kb_prepare(Kernel kernel, const ChainDims& d, int stages,
       || *smem > KB_MAX_SMEM)
     return cudaErrorInvalidValue;
   return kc_smem_opt_in(kernel, *smem);
+}
+
+// Opt a K3-m kernel in to `smem` bytes of dynamic shared memory; refuse a
+// chain past the medium flavor's caps (the wrapper checks them first).
+template <typename Kernel>
+cudaError_t km_prepare(Kernel kernel, const ChainDims& d, int stages,
+                       size_t smem) {
+  if (d.I < 1 || d.I > KB_MAX_I || d.O != d.I || d.H < 1 || d.H > KB_MAX_H
+      || d.G < 2 || d.G > KC_MAX_G || stages < 1 || stages > KC_MAX_STAGES
+      || smem > KB_MAX_SMEM)
+    return cudaErrorInvalidValue;
+  return kc_smem_opt_in(kernel, smem);
 }
 
 }  // namespace
@@ -657,44 +991,98 @@ int kb_rk_step_bwd(const float* x, const float* gy, const float* c1,
                                    dw2, st);
 }
 
+// K3f-m's plan (the wrapper's `multistep_fwd_mid_plan` computes the same):
+// out[0..4] = layer 1's lg, groups, rounds, mq, Tp, out[5..9] layer 2's,
+// out[10] the dynamic shared memory in bytes.
+void k3m_fwd_plan(const ChainDims* d, int stages, int* out) {
+  const KmPlan p = km_plan_of(*d);
+  const KmSplit sp[2] = {p.l1, p.l2};
+  for (int i = 0; i < 2; ++i) {
+    out[5 * i] = sp[i].lg;
+    out[5 * i + 1] = sp[i].groups;
+    out[5 * i + 2] = sp[i].rounds;
+    out[5 * i + 3] = sp[i].mq;
+    out[5 * i + 4] = sp[i].Tp;
+  }
+  out[10] = (int)(km_fwd_floats(*d, p, stages) * sizeof(float));
+}
+
+// K3b-m's plan (the wrapper's `multistep_bwd_mid_plan` computes the same):
+// out[0..13] = dense, width, jw, span, a2_off, rec_floats, scratch_floats,
+// rebuild_smem, warp_rows, sweep_blocks, sweep_threads, sweep_smem, staged,
+// dy1_blocks.
+void k3m_bwd_plan(const ChainDims* d, int K, int stages, int n_steps,
+                  int slots, long long* out) {
+  const KmBwdPlan b = km_bwd_plan_of(*d, K, stages, n_steps, slots);
+  const long long v[14] = {b.dense,      b.width,          b.jw,
+                           b.span,       b.a2_off,         b.rec_floats,
+                           b.scratch_floats, b.rebuild_smem, b.warp_rows,
+                           b.sweep_blocks, b.sweep_threads, b.sweep_smem,
+                           b.staged,     b.dy1_blocks};
+  for (int i = 0; i < 14; ++i) out[i] = v[i];
+}
+
 int kb_rk_multistep_fwd(const float* x0, const float* c1, const float* w1,
                         const float* c2, const float* w2, float* ys, int K,
                         int n_steps, const ChainDims* d, const StepTab* T,
                         void* stream) {
-  const KbPlan plan = kb_plan_for(*d, T->stages);
-  const auto kernel = plan.compact ? kb_multistep_fwd_kernel<true>
-                                   : kb_multistep_fwd_kernel<false>;
-  size_t smem;
-  cudaError_t err = kb_prepare(kernel, *d, T->stages, false, &smem);
+  const KmPlan plan = km_plan_of(*d);
+  const size_t smem = km_fwd_floats(*d, plan, T->stages) * sizeof(float);
+  cudaError_t err = km_prepare(k3m_fwd_kernel, *d, T->stages, smem);
   if (err != cudaSuccess) return (int)err;
   if (K < 1 || n_steps < 1) return (int)cudaErrorInvalidValue;
-  kernel<<<K, KB_THREADS, smem, (cudaStream_t)stream>>>(x0, c1, w1, c2, w2, ys,
-                                                        K, n_steps, *d, *T,
-                                                        plan);
+  k3m_fwd_kernel<<<K, KM_THREADS, smem, (cudaStream_t)stream>>>(
+      x0, c1, w1, c2, w2, ys, K, n_steps, *d, *T, plan);
   return (int)cudaGetLastError();
 }
 
+// K3b-m: phase A (a block a step and row), phase B (a warp or a block a
+// row), phase C1 (dense J: dy1 of every record) and the parameter sums;
+// scratch: KmBwdPlan's scratch_floats, the records then their Jacobian
+// blocks.
 int kb_rk_multistep_bwd(const float* x0, const float* ys, const float* gys,
                         const float* c1, const float* w1, const float* c2,
                         const float* w2, float* dx0, float* dc1, float* dw1,
                         float* dc2, float* dw2, float* scratch, int K,
                         int n_steps, int n_slots, const ChainDims* d,
                         const StepTab* T, void* stream) {
-  const KbPlan plan = kb_plan_for(*d, T->stages);
-  const auto kernel = plan.compact ? kb_multistep_bwd_kernel<true>
-                                   : kb_multistep_bwd_kernel<false>;
-  size_t smem;
-  cudaError_t err = kb_prepare(kernel, *d, T->stages, true, &smem);
+  if (K < 1 || n_steps < 1 || n_slots < 1) return (int)cudaErrorInvalidValue;
+  const KmPlan plan = km_plan_of(*d);
+  const KmBwdPlan bp = km_bwd_plan_of(*d, K, T->stages, n_steps, n_slots);
+  cudaError_t err =
+      km_prepare(k3m_rebuild_kernel, *d, T->stages, bp.rebuild_smem);
   if (err != cudaSuccess) return (int)err;
-  if (K < 1 || n_steps < 1) return (int)cudaErrorInvalidValue;
+  err = bp.warp_rows
+            ? km_prepare(k3m_sweep_warp_kernel, *d, T->stages, bp.sweep_smem)
+            : km_prepare(k3m_sweep_block_kernel, *d, T->stages,
+                         bp.sweep_smem);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  kernel<<<K, KB_THREADS, smem, st>>>(x0, ys, gys, c1, w1, c2, w2, dx0,
-                                      scratch, K, n_steps, n_slots, *d, *T,
-                                      plan);
+  float* recs = scratch;
+  float* jac = scratch + bp.rec_floats;
+  k3m_rebuild_kernel<<<n_steps * K, KM_THREADS, bp.rebuild_smem, st>>>(
+      x0, ys, c1, w1, c2, w2, recs, jac, K, n_slots, *d, *T, plan, bp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)kb_launch_param_sums(scratch, n_steps * K * n_slots, *d, dc1,
-                                   dw1, dc2, dw2, st);
+  if (bp.warp_rows)
+    k3m_sweep_warp_kernel<<<bp.sweep_blocks, bp.sweep_threads, bp.sweep_smem,
+                            st>>>(gys, dx0, recs, jac, K, n_steps, n_slots,
+                                  *d, *T, bp);
+  else
+    k3m_sweep_block_kernel<<<bp.sweep_blocks, bp.sweep_threads, bp.sweep_smem,
+                             st>>>(gys, dx0, recs, jac, K, n_steps, n_slots,
+                                   *d, *T, bp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long n_rec = (long long)n_steps * K * n_slots;
+  if (bp.dy1_blocks) {
+    k3m_dy1_kernel<<<bp.dy1_blocks, KM_C_THREADS, 0, st>>>(recs, jac, n_rec,
+                                                           *d, bp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)rk_launch_param_sums(recs, (int)n_rec, *d, dc1, dw1, dc2, dw2,
+                                   st);
 }
 
 }  // extern "C"

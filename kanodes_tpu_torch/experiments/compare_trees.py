@@ -2,7 +2,8 @@
 repository on one card, in turns.
 
     python -m kanodes_tpu_torch.experiments.compare_trees PARENT CHANGE \\
-        [--out=FILE] [--groups=gray_wide,lv,members,small,mid]
+        [--out=FILE] [--groups=gray_wide,lv,members,small,mid,k3m]
+        [--turns=N]
 
 PARENT and CHANGE are the roots of two checkouts (for example a `git
 archive` of the parent commit unpacked in a directory .gitignore lists).
@@ -35,11 +36,16 @@ helpers and inputs (CUDA-event ms, `cuda_ms`, and the profiler's device
     chains within the caps keep their parent's bits (K2 follows K3's
     rounding since it runs K3's routines a warp a row, so its hashes and
     the shooting history differ from a one-thread K2's; K3's stay);
-  * mid: K2f-m, K2b-m, K3f-m and K3b-m (the medium flavor, a block a
-    row) at chip_smoke's `phase_mid_timings` shapes (`mid_launches`):
-    Burgers [41,10,41] G=5 K2 at K = 1 and 4, 1-D Allen-Cahn G=10 at K =
-    1, the packed 8-member LV chain [16,80,16] at K = 34; K3 at the packed
-    n = 34 and 140, K = 1, and Burgers n = 180.
+  * mid: K2f-m, K2b-m, K3f-m and K3b-m (the medium flavor) at
+    chip_smoke's `phase_mid_timings` shapes (`mid_launches`): Burgers
+    [41,10,41] G=5 K2 at K = 1 and 4, 1-D Allen-Cahn G=10 at K = 1, the
+    packed 8-member LV chain [16,80,16] at K = 34; K3 at the packed n =
+    34 and 140, K = 1, and Burgers n = 180, K3b-m's device µs also by
+    kernel (its phases); a sha256 of K2-m's and K3-m's outputs on every
+    MID_CASES input of the tree's chip_smoke (`mid_hashes`), to show that
+    K2-m keeps its parent's bits;
+  * k3m: the mid group's K3f-m and K3b-m timings alone.
+--turns=N repeats the four turns N times.
 Then, in the same turns (host times swing on a shared host), the group's
 profiles: `profile_source --ndim=2` for Fisher-KPP and Allen-Cahn and
 `profile_surrogate --solve_mode=shooting` for Schrödinger and 2-D
@@ -53,10 +59,13 @@ FILE), then the card's name and power limit. Needs a CUDA device.
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import subprocess
 import sys
+
+from kanodes_tpu_torch.experiments import profile_lv
 
 # K3b at n = 34, K = 1 (chip_smoke's LV inputs) and K4b at T = 35, K = 1
 # (LV defaults, the trainer's seeded init), both tsit5 [2,10,2] G=5 on the
@@ -335,6 +344,40 @@ def mid_launches(torch, np, cs):
     return out
 
 
+def mid_hashes(torch, np, cs):
+    """sha256 of K2f-m's y and K2b-m's gradients on every K2 case of the
+    tree's chip_smoke.MID_CASES, and of K3f-m's ys and K3b-m's gradients
+    on every K3 case (phase_mid_kernels' inputs), by case label."""
+    import hashlib
+    from kanodes_tpu_torch.ops import kdense_pallas as kp
+    from kanodes_tpu_torch.ops import rk_fused as rk
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+    out = {}
+    for i, case in enumerate(cs.MID_CASES):
+        spec, x, params = cs.mid_case_inputs(torch, kp, case, 40 + i)
+        k = rk._consts(spec, "tsit5", case.dt)
+        rng = np.random.default_rng(60 + i)
+        if case.n:
+            ys = rk._launch_multistep_fwd(k, case.n, x, params)
+            gys = torch.tensor(rng.standard_normal(tuple(ys.shape))
+                               / (case.n * case.K), dtype=torch.float32,
+                               device="cuda")
+            out["K3-m " + case.label] = digest(
+                ys, *rk._launch_multistep_bwd(k, case.n, x, ys, params, gys))
+        else:
+            gy = torch.tensor(rng.standard_normal(tuple(x.shape)),
+                              dtype=torch.float32, device="cuda")
+            out["K2-m " + case.label] = digest(
+                rk._launch_step_fwd(k, x, params),
+                *rk._launch_step_bwd(k, x, params, gy))
+    return out
+
+
 def members_bwd_launch(torch, np, cs):
     from kanodes_tpu_torch.ode.integrate import StepController
     from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
@@ -350,6 +393,10 @@ def members_bwd_launch(torch, np, cs):
             rec[6].tolist())
 '''
 
+# the profiler's device µs by kernel, as this checkout counts them, for
+# both trees' processes
+PROFILER = "\n" + inspect.getsource(profile_lv.device_us_by_kernel)
+
 KERNELS = r'''
 import json, sys
 import numpy as np
@@ -360,7 +407,7 @@ from kanodes_tpu_torch.ops import graybox_fused as gb
 from kanodes_tpu_torch.ops import kdense_pallas as kp
 from kanodes_tpu_torch.ops import rk_fused_wide as tw
 from kanodes_tpu_torch.utils.precision import set_exact_f32
-''' + LV_ADJOINT_INPUTS + ADAPTIVE_INPUTS + r'''
+''' + LV_ADJOINT_INPUTS + ADAPTIVE_INPUTS + PROFILER + r'''
 groups = sys.argv[1].split(",")
 set_exact_f32()
 out = {}
@@ -402,6 +449,15 @@ if "mid" in groups:
         reps = 5 if "n=1" in label and "K3" in label else 20
         out[label] = {"ms": cs.cuda_ms(torch, f, reps),
                       "us": cs.device_us(torch, f, reps=10)}
+        if label.startswith("K3b-m"):
+            out[label]["us_by_kernel"] = device_us_by_kernel(torch, f,
+                                                              short=True)
+    out["mid sha256"] = mid_hashes(torch, np, cs)
+if "k3m" in groups:
+    for label, f in mid_launches(torch, np, cs).items():
+        if label.startswith("K3"):
+            out[label] = {"ms": cs.cuda_ms(torch, f, 5),
+                          "us": cs.device_us(torch, f, reps=10)}
 if "gray_wide" in groups:
     for i in (0, 1, 6, 7):
         case = cs.GRAYBOX_CASES[i]
@@ -466,6 +522,7 @@ PROFILES = {
     "small": (),
     "mid": (("profile_surrogate", ("--runs=narrow",)),
             ("-c", (PACKED_FIXED,))),
+    "k3m": (),
 }
 
 
@@ -483,18 +540,20 @@ def run(root: str, argv: list[str]):
 
 
 def main(argv: list[str]) -> int:
-    out_file, groups = None, list(PROFILES)
+    out_file, groups, n_turns = None, list(PROFILES), 1
     roots = []
     for a in argv:
         if a.startswith("--out="):
             out_file = a.split("=", 1)[1]
+        elif a.startswith("--turns="):
+            n_turns = int(a.split("=", 1)[1])
         elif a.startswith("--groups="):
             groups = a.split("=", 1)[1].split(",")
         else:
             roots.append(os.path.abspath(a))
     if len(roots) != 2 or not set(groups) <= set(PROFILES):
         raise SystemExit(f"usage: compare_trees PARENT CHANGE [--out=FILE] "
-                         f"[--groups={','.join(PROFILES)}]")
+                         f"[--groups={','.join(PROFILES)}] [--turns=N]")
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("compare_trees: needs a CUDA device")
@@ -505,7 +564,7 @@ def main(argv: list[str]) -> int:
         lines.append(obj)
         print(json.dumps(obj), flush=True)
 
-    turns = (roots[0], roots[1], roots[1], roots[0])
+    turns = (roots[0], roots[1], roots[1], roots[0]) * n_turns
     ys = {}
     for root in turns:
         kernels = run(root, ["-c", KERNELS, ",".join(groups)])

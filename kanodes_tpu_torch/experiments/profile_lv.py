@@ -47,6 +47,35 @@ def _is_kernel(event, host_keys) -> bool:
             and event.key not in host_keys)
 
 
+def device_us_by_kernel(torch, fn, reps: int = 10,
+                        short: bool = False) -> dict[str, float]:
+    """Device µs per call of fn() under torch.profiler, by kernel name;
+    with `short`, the name up to its first parenthesis or template
+    argument, without the anonymous namespace. It imports its helpers
+    itself: compare_trees runs its source in other checkouts."""
+    from kanodes_tpu_torch.experiments.profile_lv import _device_us, _is_kernel
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    host = {e.key for e in events
+            if e.device_type != torch.autograd.DeviceType.CUDA}
+    out: dict[str, float] = {}
+    for e in events:
+        if _is_kernel(e, host):
+            name = e.key
+            if short:
+                name = name.replace("(anonymous namespace)::", "")
+                name = name.split("(")[0].split("<")[0].split()[-1]
+            out[name] = out.get(name, 0.0) + _device_us(e) / reps
+    return out
+
+
 def profile(cfg: lv.LVConfig, iters: int = 20, warmup: int = 5,
             top: int = 8) -> dict:
     device = require_device("cuda")

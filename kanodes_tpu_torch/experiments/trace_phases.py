@@ -1,9 +1,9 @@
-"""Where K5b, K7b, K3b, K4b, K4f, K8b, K3f, K8f, K2f-m, K2b-m, K2f and K2b
-spend a launch, phase by phase, on the card.
+"""Where K5b, K7b, K3b, K4b, K4f, K8b, K3f, K8f, K2f-m, K2b-m, K2f, K2b,
+K3f-m and K3b-m spend a launch, phase by phase, on the card.
 
     python -m kanodes_tpu_torch.experiments.trace_phases \\
-        [--kernels=K5b/K7b,K3b/K4b,K4f/K8b,K3f/K8f,K2f-m/K2b-m,K2f/K2b] \\
-        ROOT [...]
+        [--kernels=K5b/K7b,K3b/K4b,K4f/K8b,K3f/K8f,K2f-m/K2b-m,K2f/K2b,\\
+K3f-m/K3b-m] ROOT [...]
 
 For each ROOT (a checkout of this repository), copies its
 `kanodes_tpu_torch/` into a temporary directory, inserts `clock64()`
@@ -38,7 +38,15 @@ asked for (all by default):
     `csrc/kan_chain.cuh` / `kan_chain_warp.cuh`): the LV RK step and its
     adjoint at K = 34 and 31 rows of chip_smoke's `lv_inputs`, tsit5 (the
     shooting phases' shapes), each stage's evaluation and VJP apart; the
-    sums launch of the warp design as thread 0's own cycles.
+    sums launch of the warp design as thread 0's own cycles;
+  * K3f-m/K3b-m (`csrc/rk_fused.cu` with `csrc/kan_chain_block.cuh` or
+    `csrc/kan_chain_multistep.cuh`): the medium flavor's multistep and
+    its adjoint at chip_smoke's MID_CASES packed n = 34, K = 1 and
+    Burgers n = 180, K = 1, the forward's passes summed over its
+    evaluations; K3b-m's phases A and B (thread 0 of block 0 of each)
+    and phase C1 as thread 0's own cycles (run this family alone on the
+    block-a-row design: it adds a stamp to kb_eval, which K2-m's family
+    counts in its layer 1).
 Thread 0 of block 0 adds the cycles between stamps into its phase's
 counter (so a phase inside a loop is thread 0's share of it, and a
 barrier's phase is its wait); one JSON line per kernel and case gives the
@@ -59,7 +67,8 @@ warp-a-row K3f and warp-split K8f that replaced them; the four-phase
 K2f-m / K2b-m of the first medium flavor and the two-barrier design that
 replaced them; the one-thread K2f / K2b and the warp-a-row K2f (K3f's
 kernel at one step) and K2b (K3b's phases at one step) that replaced
-them. A checkout whose kernels match neither design of a family
+them; the block-a-row K3f-m / K3b-m on K2-m's routines and the shorter
+K3f-m evaluation with the three-phase K3b-m that replaced them. A checkout whose kernels match neither design of a family
 raises. The instrumented copy is thrown away; nothing of ROOT
 changes. Needs nvcc and a CUDA device.
 """
@@ -1270,10 +1279,212 @@ STEP["warp-a-row K2f (K3f at n = 1) and K2b (K3b's phases at n = 1)"] = ({
     ]},
     {"K2f": WARP_K2F, "K2b": WARP_K2B})
 
+# K3f-m / K3b-m (rk_fused.cu). The block-a-row design runs K2-m's
+# routines of kan_chain_block.cuh, so it takes the two-barrier K2-m's
+# stamps there (tag KB) and one more after kb_eval's stage-input pass
+# (phase 13; with the K2f-m/K2b-m family asked too, K2-m's "layer 1" then
+# leaves that pass out). Phase names "unused ..." are dropped.
+UNUSED = [f"unused {i}" for i in range(16)]
+BLOCK_K3FM = (["set-up: constants, copies issued, walks, state",
+               "staging wait (cp.async, barrier)",
+               "layer 1: terms and partials", "barrier after layer 1",
+               "layer 2: hidden values, terms, partials",
+               "barrier after layer 2", "step sum, store and barrier"]
+              + UNUSED[7:13] + ["stage-input pass (running sums)"])
+BLOCK_K3BM = (["set-up: constants, copies issued, walks",
+               "staging wait (cp.async, barrier)",
+               "rebuild: layer 1", "rebuild: barrier after layer 1",
+               "rebuild: layer 2", "rebuild: barrier after layer 2",
+               "seeds", "reverse: layer-2 VJP and gk record",
+               "reverse: barrier after layer 2",
+               "reverse: layer-1 VJP, dx and kbar",
+               "reverse: barrier after layer 1",
+               "step loads and barrier", "dx0 store",
+               "rebuild: stage-input pass",
+               "parameter sums (second launch, thread 0)"])
+MID_MULTISTEP = {
+    "block-a-row K3f-m and K3b-m (K2-m's routines)": ({
+        "kan_chain_block.cuh": MID_STEP["two-barrier K2f-m and K2b-m"][0][
+            "kan_chain_block.cuh"] + [
+            ("  float* fac = keep && !kCompact\n",
+             "  KB(13);\n  float* fac = keep && !kCompact\n")],
+        "rk_fused.cu": [
+            ("                        int n_steps, ChainDims d, StepTab T, "
+             "KbPlan plan) {\n  KB_SETUP(0);\n",
+             "                        int n_steps, ChainDims d, StepTab T, "
+             "KbPlan plan) {\n  KB_START();\n  KB_SETUP(0);\n"),
+            ("    kb_acc_set(acc, T.stages, I, q, x0[(size_t)r * I + q]);\n"
+             "  kb_stage_wait();\n",
+             "    kb_acc_set(acc, T.stages, I, q, x0[(size_t)r * I + q]);\n"
+             "  KB(0);\n  kb_stage_wait();\n  KB(1);\n"),
+            ("      kb_acc_set(acc, T.stages, I, q, y);\n    }\n"
+             "    __syncthreads();\n  }\n}\n",
+             "      kb_acc_set(acc, T.stages, I, q, y);\n    }\n"
+             "    __syncthreads();\n    KB(6);\n  }\n  KB_WRITE();\n}\n"),
+            ("                        int n_steps, int n_slots, ChainDims d, "
+             "StepTab T,\n                        KbPlan plan) {\n",
+             "                        int n_steps, int n_slots, ChainDims d, "
+             "StepTab T,\n                        KbPlan plan) {\n"
+             "  KB_START();\n"),
+            ("  for (int q = threadIdx.x; q < I; q += KB_THREADS) a.dx[q] = "
+             "0.0f;\n  kb_stage_wait();\n",
+             "  for (int q = threadIdx.x; q < I; q += KB_THREADS) a.dx[q] = "
+             "0.0f;\n  KB(0);\n  kb_stage_wait();\n  KB(1);\n"),
+            ("      a.gy[q] = a.dx[q] + gys[((size_t)s * K + r) * I + q];\n"
+             "    }\n    __syncthreads();\n",
+             "      a.gy[q] = a.dx[q] + gys[((size_t)s * K + r) * I + q];\n"
+             "    }\n    __syncthreads();\n    KB(11);\n"),
+            ("    dx0[(size_t)r * I + q] = a.dx[q];\n}\n",
+             "    dx0[(size_t)r * I + q] = a.dx[q];\n  KB(12);\n  KB_WRITE();\n"
+             "}\n"),
+            KB_SUMS,
+            ('extern "C" {\n', KB_READ),
+        ]},
+        {"K3f-m": BLOCK_K3FM, "K3b-m": BLOCK_K3BM}),
+}
+
+# The shorter K3f-m evaluation and the three-phase K3b-m
+# (kan_chain_multistep.cuh, launched from rk_fused.cu): stamps of the tag
+# KMT into g_k3mtr, K3f-m and phase A in 0-9, phase B in 10-13, phase C1
+# as thread 0's own cycles in 14 (the parameter sums are K2b's kernel,
+# timed by the profiler); k3mtr_read zeroes them after reading.
+KMT_HEAD = """
+__device__ unsigned long long g_k3mtr[16];
+__shared__ unsigned long long s_KMT[16];
+__shared__ long long s_KMTt;
+#define KMT_START() do { if (threadIdx.x == 0 && blockIdx.x == 0) { \\
+  for (int i_ = 0; i_ < 16; ++i_) s_KMT[i_] = 0; s_KMTt = clock64(); } \\
+  } while (0)
+#define KMT(i) do { if (threadIdx.x == 0 && blockIdx.x == 0) { \\
+  long long n_ = clock64(); s_KMT[i] += n_ - s_KMTt; s_KMTt = n_; } \\
+  } while (0)
+#define KMT_WRITE(lo, hi) do { if (threadIdx.x == 0 && blockIdx.x == 0) \\
+  for (int i_ = (lo); i_ < (hi); ++i_) g_k3mtr[i_] = s_KMT[i_]; } while (0)
+"""
+KMT_READ = ('extern "C" {\n\nvoid k3mtr_read(unsigned long long* out) {\n'
+            "  cudaDeviceSynchronize();\n"
+            "  cudaMemcpyFromSymbol(out, g_k3mtr, sizeof(g_k3mtr));\n"
+            "  static const unsigned long long zero[16] = {0};\n"
+            "  cudaMemcpyToSymbol(g_k3mtr, zero, sizeof(zero));\n}\n")
+SHORT_K3FM = ["set-up: constants, parameter registers, pads",
+              "step start and barrier",
+              "stage inputs, running sums, their features, barrier",
+              "layer 1: dot products, group reductions, barrier",
+              "hidden values' features and barrier",
+              "layer 2: dot products, group reductions, barrier"]
+THREE_PHASE_K3BM = (["A: " + n for n in SHORT_K3FM]
+                    + ["A: stage factors A1, A2 and barrier",
+                       "A: Jacobian block stores"] + UNUSED[8:10]
+                    + ["B: set-up and first copies",
+                       "B: step top: copies, seeds, wait",
+                       "B: stage VJPs and kbar updates", "B: dx0 store",
+                       "C1: dy1 of the records (thread 0's own cycles)"])
+MID_MULTISTEP["three-phase K3b-m and the shorter K3f-m evaluation"] = ({
+    "kan_chain_multistep.cuh": [
+        ('#include "kan_chain_block.cuh"\n',
+         '#include "kan_chain_block.cuh"\n' + KMT_HEAD),
+    ],
+    "rk_fused.cu": [
+        ("               int n_steps, ChainDims d, StepTab T, KmPlan plan) {\n",
+         "               int n_steps, ChainDims d, StepTab T, KmPlan plan) {\n"
+         "  KMT_START();\n"),
+        ("  km_step_start(rw, x0 + (size_t)r * d.I, d, S);\n"
+         "  __syncthreads();\n",
+         "  KMT(0);\n  km_step_start(rw, x0 + (size_t)r * d.I, d, S);\n"
+         "  __syncthreads();\n  KMT(1);\n"),
+        ("                               nullptr);\n"
+         "      if (prev >= 0) par ^= 1;\n      __syncthreads();\n",
+         "                               nullptr);\n"
+         "      if (prev >= 0) par ^= 1;\n      __syncthreads();\n"
+         "      KMT(2);\n"),
+        ("      km_eval_l1(rw, rg, l1, c1, w1, d, plan);\n"
+         "      __syncthreads();\n",
+         "      km_eval_l1(rw, rg, l1, c1, w1, d, plan);\n"
+         "      __syncthreads();\n      KMT(3);\n"),
+        ("      km_features<false>(rw.y1, d.H, ft, d, k, rw.f2, nullptr, "
+         "nullptr,\n                         nullptr, 0, 0);\n"
+         "      __syncthreads();\n",
+         "      km_features<false>(rw.y1, d.H, ft, d, k, rw.f2, nullptr, "
+         "nullptr,\n                         nullptr, 0, 0);\n"
+         "      __syncthreads();\n      KMT(4);\n"),
+        ("      km_eval_l2(rw, rg, l2, c2, w2, d, plan);\n"
+         "      __syncthreads();\n      prev = i;\n",
+         "      km_eval_l2(rw, rg, l2, c2, w2, d, plan);\n"
+         "      __syncthreads();\n      KMT(5);\n      prev = i;\n"),
+        ("              ys + ((size_t)(n_steps - 1) * K + r) * d.I);\n}\n",
+         "              ys + ((size_t)(n_steps - 1) * K + r) * d.I);\n"
+         "  KMT_WRITE(0, 8);\n}\n"),
+        ("                   StepTab T, KmPlan plan, KmBwdPlan bp) {\n",
+         "                   StepTab T, KmPlan plan, KmBwdPlan bp) {\n"
+         "  KMT_START();\n"),
+        ("  km_step_start(rw, x_in, d, S);\n  __syncthreads();\n",
+         "  KMT(0);\n  km_step_start(rw, x_in, d, S);\n"
+         "  __syncthreads();\n  KMT(1);\n"),
+        ("    km_input_features<true>(rw, par, prev, i, ft, d, k, S, nullptr, "
+         "&kp);\n    if (prev >= 0) par ^= 1;\n    __syncthreads();\n",
+         "    km_input_features<true>(rw, par, prev, i, ft, d, k, S, nullptr, "
+         "&kp);\n    if (prev >= 0) par ^= 1;\n    __syncthreads();\n"
+         "    KMT(2);\n"),
+        ("    km_eval_l1(rw, rg, l1, c1, w1, d, plan);\n    __syncthreads();\n",
+         "    km_eval_l1(rw, rg, l1, c1, w1, d, plan);\n    __syncthreads();\n"
+         "    KMT(3);\n"),
+        ("                      kp.L.swy1);\n    __syncthreads();\n",
+         "                      kp.L.swy1);\n    __syncthreads();\n    KMT(4);\n"),
+        ("    km_stage_factors(kp, c1, w1, c2, w2, d, a1, a2);\n"
+         "    __syncthreads();\n",
+         "    km_stage_factors(kp, c1, w1, c2, w2, d, a1, a2);\n"
+         "    __syncthreads();\n    KMT(6);\n"),
+        ("jb + (size_t)slot * bp.jw);\n",
+         "jb + (size_t)slot * bp.jw);\n    KMT(7);\n"),
+        ("    km_eval_l2(rw, rg, l2, c2, w2, d, plan);\n"
+         "    __syncthreads();\n  }\n}\n",
+         "    km_eval_l2(rw, rg, l2, c2, w2, d, plan);\n"
+         "    __syncthreads();\n    KMT(5);\n  }\n  KMT_WRITE(0, 8);\n}\n"),
+        ("                      ChainDims d, StepTab T, KmBwdPlan bp) {\n",
+         "                      ChainDims d, StepTab T, KmBwdPlan bp) {\n"
+         "  KMT_START();\n"),
+        ("  float lam = 0.0f;\n  int par = 0;\n",
+         "  float lam = 0.0f;\n  KMT(10);\n  int par = 0;\n"),
+        ("    km_cp_wait<1>();\n    __syncwarp();\n",
+         "    km_cp_wait<1>();\n    __syncwarp();\n    KMT(11);\n"),
+        ("    __syncwarp();                  // before a copy refills this "
+         "buffer\n",
+         "    KMT(12);\n    __syncwarp();                  // before a copy "
+         "refills this buffer\n"),
+        ("  if (mine) dx0[(size_t)r * I + lane] = lam;\n}\n",
+         "  if (mine) dx0[(size_t)r * I + lane] = lam;\n  KMT(13);\n"
+         "  KMT_WRITE(10, 14);\n}\n"),
+        ("                       ChainDims d, StepTab T, KmBwdPlan bp) {\n",
+         "                       ChainDims d, StepTab T, KmBwdPlan bp) {\n"
+         "  KMT_START();\n"),
+        ("  km_cp_commit();\n  int par = 0;\n",
+         "  km_cp_commit();\n  KMT(10);\n  int par = 0;\n"),
+        ("    km_cp_wait<1>();\n    const float* base",
+         "    km_cp_wait<1>();\n    KMT(11);\n    const float* base"),
+        ("    __syncthreads();               // before a copy refills this "
+         "step's buffer\n",
+         "    KMT(12);\n    __syncthreads();               // before a copy "
+         "refills this step's buffer\n"),
+        ("  for (int e = tid; e < nx; e += nt) dx0[(size_t)r * I + nt + e] = "
+         "xl[e];\n}\n",
+         "  for (int e = tid; e < nx; e += nt) dx0[(size_t)r * I + nt + e] = "
+         "xl[e];\n  KMT(13);\n  KMT_WRITE(10, 14);\n}\n"),
+        ("  const long long e = (long long)blockIdx.x * KM_C_THREADS + "
+         "threadIdx.x;\n",
+         "  const long long t0_ = clock64();\n"
+         "  const long long e = (long long)blockIdx.x * KM_C_THREADS + "
+         "threadIdx.x;\n"),
+        ("  rec[L.dy1 + h] = s;\n}\n",
+         "  rec[L.dy1 + h] = s;\n  if (threadIdx.x == 0 && blockIdx.x == 0) "
+         "g_k3mtr[14] = clock64() - t0_;\n}\n"),
+        ('extern "C" {\n', KMT_READ),
+    ]},
+    {"K3f-m": SHORT_K3FM, "K3b-m": THREE_PHASE_K3BM})
+
 FAMILIES = {"K5b/K7b": GRAY_WIDE, "K3b/K4b": LV_ADJOINTS,
             "K4f/K8b": ADAPTIVE_FWD_MEMBERS_BWD,
             "K3f/K8f": LV_FIXED_MEMBERS_FWD, "K2f-m/K2b-m": MID_STEP,
-            "K2f/K2b": STEP}
+            "K3f-m/K3b-m": MID_MULTISTEP, "K2f/K2b": STEP}
 # family -> the kernels (parts of their names) whose ptxas usage is shown
 PTXAS_OF = {"K5b/K7b": ("gb_bwd_kernel", "wd_bwd_kernel"),
             "K3b/K4b": ("rk_multistep_bwd_kernel", "adaptive_bwd_kernel"),
@@ -1283,7 +1494,10 @@ PTXAS_OF = {"K5b/K7b": ("gb_bwd_kernel", "wd_bwd_kernel"),
                             "kb_param_sums_kernel"),
             "K2f/K2b": ("rk_step_fwd_kernel", "rk_step_bwd_kernel",
                         "rk_multistep_fwd_kernel", "rk_step_adjoint_kernel",
-                        "rk_param_sums_kernel")}
+                        "rk_param_sums_kernel"),
+            "K3f-m/K3b-m": ("kb_multistep_fwd_kernel",
+                            "kb_multistep_bwd_kernel", "kb_param_sums_kernel",
+                            "k3m_", "rk_param_sums_kernel")}
 
 RUN = r"""
 import ctypes, json, sys
@@ -1307,7 +1521,8 @@ def read(fn):
 def emit(kernel, case, cyc):
     cyc = cyc[:len(names[kernel])]
     print(json.dumps({"kernel": kernel, "case": case,
-                      "cycles": dict(zip(names[kernel], cyc)),
+                      "cycles": {n: c for n, c in zip(names[kernel], cyc)
+                                 if not n.startswith("unused")},
                       "total": sum(cyc)}), flush=True)
 
 if "K5b" in names:
@@ -1371,6 +1586,28 @@ if "K2f-m" in names:
             rk._launch_step_bwd(k, x, params, gy)
         emit("K2b-m", label, read(lib.kbtr_read)[:len(names["K2b-m"]) - 1]
              + read(lib.kbsum_read)[:1])
+if "K3f-m" in names:
+    from kanodes_tpu_torch.ops import rk_fused as rk
+    by_label = {c.label: c for c in cs.MID_CASES}
+    # the block-a-row design counts in K2-m's KB stamps, the three-phase
+    # one in its own (k3mtr_read: K3f-m, or K3b-m's phases A and B)
+    three = hasattr(lib, "k3mtr_read")
+    for label in ("packed K3 n=34 K=1", "burgers K3 n=180 K=1"):
+        case = by_label[label]
+        spec, x, params = cs.mid_case_inputs(torch, kp, case, 90)
+        k = rk._consts(spec, "tsit5", case.dt)
+        for _ in range(3):
+            ys = rk._launch_multistep_fwd(k, case.n, x, params)
+        emit("K3f-m", label, read(lib.k3mtr_read if three else lib.kbtr_read))
+        gys = torch.tensor(np.random.default_rng(1).standard_normal(
+            tuple(ys.shape)) / case.n, dtype=torch.float32, device="cuda")
+        for _ in range(3):
+            rk._launch_multistep_bwd(k, case.n, x, ys, params, gys)
+        if three:
+            cyc = read(lib.k3mtr_read)
+        else:
+            cyc = read(lib.kbtr_read)[:14] + read(lib.kbsum_read)[:1]
+        emit("K3b-m", label, cyc)
 if "K2f" in names:
     from kanodes_tpu_torch.models.kdense import KANChain
     from kanodes_tpu_torch.ops import rk_fused as rk

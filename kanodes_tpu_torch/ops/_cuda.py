@@ -38,7 +38,8 @@ SOURCES = {"rk_fused.cu": (), "kan_chain_apply.cu": (),
            "rk_adaptive.cu": ("-fmad=false",), "kdense_single.cu": (),
            "graybox.cu": (), "rk_fused_wide.cu": (),
            "rk_adaptive_members.cu": ("-fmad=false",)}
-HEADERS = ("kan_chain.cuh", "kan_chain_warp.cuh", "kan_chain_block.cuh")
+HEADERS = ("kan_chain.cuh", "kan_chain_warp.cuh", "kan_chain_block.cuh",
+           "kan_chain_multistep.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -60,6 +61,12 @@ MAX_KF_WARPS = 16
 MAX_KB_I, MAX_KB_H, MAX_KB_SMEM, KB_THREADS = 1024, 256, 232448 - 4096, 256
 # its KB_WARPS and KB_NR (rows of a forward tile)
 KB_WARPS, KB_NR = KB_THREADS // 32, 16
+# K3-m (kan_chain_multistep.cuh): KM_THREADS of K3f-m and K3b-m's phase A,
+# KM_QREG quads of a layer's parameters in registers, KM_SWEEP_THREADS of a
+# phase-B block a row, KM_SWEEP_MAX_WARPS of a phase-B block a warp a row,
+# KM_C_THREADS of a phase-C1 block
+KM_THREADS, KM_QREG, KM_SWEEP_THREADS = 512, 6, 256
+KM_SWEEP_MAX_WARPS, KM_C_THREADS = 8, 256
 # K9 (kdense_single.cu): in_dims <= KD_MAX_I, out_dims <= KC_MAX_H
 MAX_SINGLE_I = 32
 # K5 (graybox.cu): GB_MAX_NODES, GB_MAX_N, GB_MAX_G, GB_MAX_STAGES
@@ -157,6 +164,10 @@ _SIGNATURES = {
     "kb_smem_bytes": [_P] + [_I] * 2,
     # dims, out [12]
     "kb_plan": [_P, _P],
+    # dims, stages, out [11]
+    "k3m_fwd_plan": [_P, _I, _P],
+    # dims, K, stages, n_steps, slots, out [14] (long long)
+    "k3m_bwd_plan": [_P] + [_I] * 4 + [_P],
     # x0, ys, gys, c1, w1, c2, w2, dx0, dc1, dw1, dc2, dw2, scratch, K,
     # n_steps, n_slots, warps, chunk, dims, tab, stream
     "kc_rk_multistep_bwd": [_P] * 13 + [_I] * 5 + [_P] * 3,
@@ -526,6 +537,114 @@ def check_block_caps(spec, stages: int) -> None:
                 f"K2/K3 medium caps: the {'backward' if backward else 'forward'}"
                 f" of [{I}, {H}, {O}] G={G} needs {need} bytes of shared "
                 f"memory > {MAX_KB_SMEM} {where}")
+
+
+class MidLayerSplit(NamedTuple):
+    """One layer's split in K3f-m's evaluation (`KmSplit`): N outputs in
+    groups of 2**lg lanes, `groups` of them over KM_THREADS threads,
+    `rounds` outputs a group at most; a lane takes mq quads of terms (4
+    terms a quad), the terms padded with zeros to Tp = 4 * 2**lg * mq."""
+    lg: int
+    groups: int
+    rounds: int
+    mq: int
+    Tp: int
+
+
+def mid_layer_split(N: int, T: int) -> MidLayerSplit:
+    """`km_split_of`: as many lanes an output (a power of two, at most 32)
+    as KM_THREADS threads hold for the layer's N outputs."""
+    lg = 5
+    while lg > 0 and (N << lg) > KM_THREADS:
+        lg -= 1
+    groups = KM_THREADS >> lg
+    mq = _cdiv(T, 4 << lg)
+    return MidLayerSplit(lg, groups, _cdiv(N, groups), mq, (4 << lg) * mq)
+
+
+class MultistepFwdMidPlan(NamedTuple):
+    """K3f-m's launch (csrc/kan_chain_multistep.cuh): a block of KM_THREADS
+    threads a row."""
+    threads: int
+    l1: MidLayerSplit     # H outputs over I (G + 1) terms
+    l2: MidLayerSplit     # O outputs over H (G + 1) terms
+    smem_bytes: int       # features [Tp1] + [Tp2], y1 [H], k [I] and two
+                          # copies of the running stage inputs [S + 1][I]
+
+
+def multistep_fwd_mid_plan(spec, stages: int) -> MultistepFwdMidPlan:
+    """K3f-m's plan (the library's `k3m_fwd_plan` computes the same)."""
+    I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
+    l1 = mid_layer_split(H, I * (G + 1))
+    l2 = mid_layer_split(O, H * (G + 1))
+    return MultistepFwdMidPlan(KM_THREADS, l1, l2,
+                               4 * (l1.Tp + l2.Tp + H + I
+                                    + 2 * (stages + 1) * I))
+
+
+def jt_stride(O: int) -> int:
+    """`km_jt_stride`: the row stride of J^T [I][O] in K3b-m's phase B a
+    warp a row, O rounded up to a quad and an odd number of quads."""
+    q = _cdiv(O, 4)
+    return 4 * (q + 1 if q % 2 == 0 else q)
+
+
+class MultistepBwdMidPlan(NamedTuple):
+    """K3b-m's launches and scratch (`KmBwdPlan`)."""
+    dense: bool           # stage Jacobian J^T [I][O]; else A1 [H][I], A2
+    width: int            # floats of a record (`kc_rec_layout`)
+    jw: int               # floats of a record's Jacobian block (4 | jw)
+    span: int             # floats of it phase B reads a stage
+    a2_off: int           # where A2^T [H][O] starts in the block
+    rec_floats: int       # the records [n_rec][width], rounded up to 4
+    scratch_floats: int   # records, then the Jacobian blocks [n_rec][jw]
+    rebuild_smem: int     # phase A's dynamic shared memory, bytes
+    warp_rows: int        # phase B a warp a row: rows a block (0: a block)
+    sweep_blocks: int
+    sweep_threads: int
+    sweep_smem: int       # phase B's dynamic shared memory, bytes
+    staged: bool          # phase B copies two steps' blocks ahead
+    dy1_blocks: int       # phase C1's blocks (0: phase B writes dy1)
+
+
+def multistep_bwd_mid_plan(spec, K: int, stages: int, n_steps: int,
+                           slots: int) -> MultistepBwdMidPlan:
+    """K3b-m's plan over K rows of n_steps steps of `slots` chain
+    evaluations (the library's `k3m_bwd_plan` computes the same). The
+    stage Jacobian is kept as J = dk/dx where I O <= H (I + O), else as
+    its factors; phase A: a block of KM_THREADS a (step, row), K3f-m's
+    shared memory, one stage's derivative factors and A1 [H][I | 1], A2
+    [O][H | 1]; phase B: a warp a row where J is dense and I <= 32 (up to
+    KM_SWEEP_MAX_WARPS rows a block, each with two steps of Jacobians in
+    shared memory), else a block of KM_SWEEP_THREADS a row (two steps'
+    blocks staged where they fit MAX_KB_SMEM beside its rows); phase C1:
+    with J dense, a thread a (record, hidden unit)."""
+    I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
+    dense = I * O <= H * (I + O)
+    width = rec_width(spec)
+    jw = -(-((O * I + H * O) if dense else (H * O + H * I)) // 4) * 4
+    span = O * I if dense else H * O + H * I
+    n_rec = n_steps * K * slots
+    rec_floats = -(-(n_rec * width) // 4) * 4
+    fwd = multistep_fwd_mid_plan(spec, stages)
+    rebuild = (fwd.smem_bytes // 4 + fwd.l1.Tp + I + fwd.l2.Tp + H
+               + H * (I | 1) + O * (H | 1))
+    cap = MAX_KB_SMEM // 4
+    if dense and I <= 32:
+        per = 2 * slots * I * jt_stride(O)
+        fit = min(cap // per, KM_SWEEP_MAX_WARPS, K)
+        blocks = _cdiv(K, fit)
+        rows = _cdiv(K, blocks)
+        warp_rows, threads, smem, staged = rows, 32 * rows, 4 * rows * per, True
+    else:
+        blocks, warp_rows, threads = K, 0, KM_SWEEP_THREADS
+        own = 2 * I + H + (MAX_STAGES + 1) * max(I - KM_SWEEP_THREADS, 0)
+        staged = 2 * slots * span + own <= cap
+        smem = 4 * (own + (2 * slots * span if staged else 0))
+    return MultistepBwdMidPlan(
+        dense, width, jw, span, O * I if dense else 0, rec_floats,
+        rec_floats + n_rec * jw, 4 * rebuild, warp_rows, blocks, threads,
+        smem, staged, _cdiv(n_rec * H, KM_C_THREADS) if dense else 0)
 
 
 @functools.lru_cache(maxsize=64)

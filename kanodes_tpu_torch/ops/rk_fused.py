@@ -12,9 +12,12 @@ within kan_chain.cuh's caps (I, O <= 8, H <= 32, G <= 16; the LV model)
 take K2f/K2b and K3f/K3b, a warp a row (K2f is K3f's kernel at one step,
 K2b K3b's phases at one step over many blocks); wider chains
 (the Burgers and 1-D Allen-Cahn surrogates [41, 10, 41], the packed LV
-ensemble [16, 80, 16]) take the medium flavor K2f-m, K2b-m, K3f-m and
-K3b-m, a block a row (`csrc/kan_chain_block.cuh`), up to
-`_cuda.check_block_caps`; past those a launch raises ValueError.
+ensemble [16, 80, 16]) take the medium flavor up to
+`_cuda.check_block_caps`: K2f-m and K2b-m a block a row
+(`csrc/kan_chain_block.cuh`), K3f-m a block of 512 threads a row and
+K3b-m in three phases (`csrc/kan_chain_multistep.cuh`; its scratch sized
+by `_cuda.multistep_bwd_mid_plan`); past those a launch raises
+ValueError.
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor runs
 the plain PyTorch version of the same math (`_step_fwd_plain`,
@@ -25,7 +28,7 @@ autograd), `fused_rk_step_bwd_reference` (the explicit adjoint), and the
 same pair for the multistep: they are shape-generic, so they are the
 plain versions of both flavors. `LAUNCHES` counts kernel launches, the
 medium flavor's under its own names (`..._mid`; a backward counts one,
-its parameter sums' second launch with it).
+its later launches, the parameter sums among them, with it).
 
 The reverse recursion of the backward (rk_fused.py:19-24):
     x_bar = g ;  kbar_i = dt * b_i * g
@@ -360,7 +363,14 @@ def _launch_multistep_bwd(k: _Consts, n_steps: int, x0, ys, params, gys):
                          f"{tuple(gys.shape)} != {(n_steps, K)}+[I]")
     dx0 = torch.empty_like(x0)
     grads = [torch.empty_like(p) for p in params]
-    scratch = _scratch(k, n_steps * K * k.n_slots, x0)
+    if k.flavor == "small":
+        scratch = _scratch(k, n_steps * K * k.n_slots, x0)
+    else:
+        # the records, then each one's stage Jacobian block (one allocation)
+        plan = _cuda.multistep_bwd_mid_plan(k.spec, K, k.stages, n_steps,
+                                            k.n_slots)
+        scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                              device=x0.device)
     dims, tab = k.structs()
     lib = _cuda.library()
     with torch.cuda.device(x0.device):

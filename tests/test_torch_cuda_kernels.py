@@ -131,6 +131,41 @@ def test_medium_kernels_match_plain(card, index):
         torch.testing.assert_close(a, b, **GRAD)
 
 
+@pytest.mark.parametrize("index", [i for i, c in enumerate(
+    chip_smoke.MID_CASES) if c.n])
+def test_k3m_matches_plain_on_the_mid_cases(card, index):
+    """K3f-m by the float64 rule, K3b-m against the plain backward and
+    autograd (GRAD), each launched twice bit for bit, one count a call."""
+    case = chip_smoke.MID_CASES[index]
+    spec, x, params = chip_smoke.mid_case_inputs(torch, kp, case, 40 + index)
+    rng = np.random.default_rng(60 + index)
+    gys = torch.tensor(rng.standard_normal((case.n, case.K, spec.in_dims))
+                       / (case.n * case.K), dtype=torch.float32, device=card)
+    failures, max_err = [], {k: 0.0 for k in chip_smoke.KERNELS}
+    rk.reset_launch_counts()
+    chip_smoke.check_multistep(torch, rk, spec, case.label, case.n, x,
+                               params, gys, failures, max_err, dt=case.dt)
+    torch.cuda.synchronize()
+    assert not failures, failures
+    assert rk.LAUNCHES["fused_rk_multistep_fwd_mid"] == 2
+    assert rk.LAUNCHES["fused_rk_multistep_bwd_mid"] == 2
+
+
+@pytest.mark.parametrize("widths,G", [((16, 80, 16), 5), ((41, 10, 41), 5),
+                                      ((41, 10, 41), 10), ((100, 40, 100), 5),
+                                      ((40, 80, 40), 5), ((300, 2, 300), 2),
+                                      ((600, 2, 600), 2)])
+def test_k3m_plans_match_the_library(card, widths, G):
+    """`multistep_fwd_mid_plan` / `multistep_bwd_mid_plan` against the
+    library's `k3m_fwd_plan` / `k3m_bwd_plan`."""
+    spec = kp.ChainSpec(*widths, G)
+    failures = []
+    chip_smoke.check_k3m_mirrors(_cuda.library(), spec,
+                                 ctypes.byref(_cuda.chain_dims(spec)),
+                                 failures)
+    assert not failures, failures
+
+
 @pytest.mark.parametrize("widths,G", [((41, 10, 41), 5), ((41, 10, 41), 10),
                                       ((16, 80, 16), 5), ((9, 4, 9), 5)])
 def test_medium_shared_memory_matches_the_library(card, widths, G):

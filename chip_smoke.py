@@ -11,7 +11,8 @@ and 4, bench.py's two phases; fused fixed, fused adaptive, pallas
 shooting), the packed ensemble of 8 LV members
 trained adaptively with one controller per member through
 `experiments.lv_members.run_members(..., device="cuda")` (fused through
-K8, and xla), the gray-box source-recovery trainer
+K8, xla, and pallas through K1's medium flavor, a block a row; pallas
+also in fixed mode), the gray-box source-recovery trainer
 through `experiments.pde_source.run(..., device="cuda")` in five (1-D
 Fisher-KPP fused and plain, 1-D Allen-Cahn, 2-D Fisher-KPP and 2-D
 Allen-Cahn fused), the
@@ -110,8 +111,14 @@ MID_KERNELS = {
     "fused_rk_multistep_fwd_mid": ("kanodes_tpu/ops/rk_fused.py:311", _KM),
     "fused_rk_multistep_bwd_mid": ("kanodes_tpu/ops/rk_fused.py:346", _KM),
 }
+# K1 past kan_chain.cuh's caps, a block a row (the packed ensemble through
+# impl="pallas")
+K1_MID_KERNELS = {
+    "kan_chain_apply_fwd_mid": ("kanodes_tpu/ops/kdense_pallas.py:213", _K1),
+    "kan_chain_apply_bwd_mid": ("kanodes_tpu/ops/kdense_pallas.py:223", _K1),
+}
 KERNELS = {**LV_KERNELS, **SOURCE_KERNELS, **KDENSE_KERNELS, **WIDE_KERNELS,
-           **MEMBERS_KERNELS, **MID_KERNELS}
+           **MEMBERS_KERNELS, **MID_KERNELS, **K1_MID_KERNELS}
 
 
 def emit(obj) -> None:
@@ -919,38 +926,97 @@ def check_k3m_mirrors(lib, spec, dims, failures):
                             f"K={K} n={n}")
 
 
+# K1 past kan_chain.cuh's caps (a block a row): the packed 8-member LV
+# chain at K = 1 (impl="pallas" adaptive and fixed) and 34 (shooting),
+# Burgers' width, a chain with O != I, and two that take the compact
+# layout (`_cuda.chain_apply_plan`), one of them with O != I
+CHAIN_MID_CASES = (
+    MidCase("packed K=1", _PACK, 5, "iqf", "tanh", 0.05, 1, 0, 0.0),
+    MidCase("packed K=34", _PACK, 5, "iqf", "tanh", 0.05, 34, 0, 0.0),
+    MidCase("burgers K=4", _BUR_M, 5, "rbf", "softsign", 0.1, 4, 0, 0.0),
+    MidCase("[3,40,2] K=7", (3, 40, 2), 5, "rbf", "softsign", 0.1, 7, 0,
+            0.0),
+    MidCase("compact [64,48,64] G=8 K=2", (64, 48, 64), 8, "iqf", "tanh",
+            0.05, 2, 0, 0.0),
+    MidCase("compact [100,48,2] G=10 K=1", (100, 48, 2), 10, "rbf",
+            "softsign", 0.05, 1, 0, 0.0),
+)
+
+
+def check_chain_apply(torch, kp, spec, label, x, params, gy, max_err):
+    """K1f/K1b on one input against the plain versions (the backward also
+    against autograd through the plain forward), in the flavor the chain
+    takes; both launched again repeat bit for bit, and at K = 1 in the
+    small flavor the cotangents written in the launch equal the sums
+    launch's bit for bit; the wrapper's launch plan equals the library's.
+    One line."""
+    import ctypes
+    from kanodes_tpu_torch.ops import _cuda
+    failures = []
+    mid = "_mid" if _cuda.chain_apply_flavor(spec) == "medium" else ""
+    y, y1 = kp._launch_fwd(spec, x, params)
+    y_ref, y1_ref = kp.kan_chain_apply_reference(spec, x, *params)
+    e = assert_close(failures, "K1f y", y, y_ref, FWD_TOL)
+    e = max(e, assert_close(failures, "K1f y1", y1, y1_ref, FWD_TOL))
+    key = "kan_chain_apply_fwd" + mid
+    max_err[key] = max(max_err[key], e)
+    g = kp._launch_bwd(spec, x, y1, params, gy)
+    g_ref = kp.kan_chain_apply_bwd_reference(spec, x, y1_ref, *params, gy)
+    xs = [t.clone().requires_grad_() for t in (x, *params)]
+    g_auto = torch.autograd.grad(
+        kp.kan_chain_apply_reference(spec, *xs)[0], xs, gy)
+    check_grads(failures, max_err, "kan_chain_apply_bwd" + mid, "K1b", g,
+                g_ref, g_auto)
+    again = kp._launch_fwd(spec, x, params)
+    if not (torch.equal(y, again[0]) and torch.equal(y1, again[1])):
+        failures.append("K1f: a second launch differs")
+    if not all(torch.equal(a, b) for a, b in
+               zip(g, kp._launch_bwd(spec, x, y1, params, gy))):
+        failures.append("K1b: a second launch differs")
+    if x.shape[0] == 1 and not mid and not all(
+            torch.equal(a, b) for a, b in zip(
+                g, kp._launch_bwd(spec, x, y1, params, gy, direct=False))):
+        failures.append("K1b at K = 1: the sums launch differs from the "
+                        "cotangents written in the launch")
+    got = (ctypes.c_int * 10)()
+    _cuda.library().k1_plan(ctypes.byref(_cuda.chain_dims(spec)),
+                            x.shape[0], got)
+    plan = _cuda.chain_apply_plan(spec, x.shape[0])
+    if list(got) != [int(v) for v in plan]:
+        failures.append(f"k1_plan {list(got)} != chain_apply_plan {plan}")
+    torch.cuda.synchronize()
+    finish_phase({"phase": "kernel_vs_plain", "kernel": "K1" + mid,
+                  "case": label, "plan": plan._asdict(),
+                  "fwd_max_abs_err": e, "fwd_tol": FWD_TOL,
+                  "grad_tol": GRAD_TOL}, failures)
+
+
 def phase_chain_kernels(torch, kp, KANChain, rng, max_err):
-    """K1 vs its plain version on the card at K=34 (shooting) and K=1
-    (fixed, adaptive), LV width, rbf/tanh and iqf/softsign: one line per
-    case."""
+    """K1 vs its plain version on the card: a warp a row at K=34
+    (shooting) and K=1 (fixed, adaptive), LV width, rbf/tanh and
+    iqf/softsign, and at the header's caps; a block a row at
+    CHAIN_MID_CASES. One line per case (`check_chain_apply`)."""
+    import numpy as np
     for basis, norm in (("rbf", "tanh"), ("iqf", "softsign")):
         spec = kp.chain_spec_of(KANChain.mlp_like(
             [2, 10, 2], grid_len=5, basis=basis, normalizer=norm))
         for K in (34, 1):
-            failures = []
             x, params = lv_inputs(rng, torch, K)
             gy = torch.tensor(rng.standard_normal((K, 2)),
                               dtype=torch.float32, device="cuda")
-            y, y1 = kp._launch_fwd(spec, x, params)
-            y_ref, y1_ref = kp.kan_chain_apply_reference(spec, x, *params)
-            e = assert_close(failures, "K1f y", y, y_ref, FWD_TOL)
-            e = max(e, assert_close(failures, "K1f y1", y1, y1_ref,
-                                    FWD_TOL))
-            max_err["kan_chain_apply_fwd"] = max(
-                max_err["kan_chain_apply_fwd"], e)
-            g = kp._launch_bwd(spec, x, y1, params, gy)
-            g_ref = kp.kan_chain_apply_bwd_reference(spec, x, y1_ref,
-                                                     *params, gy)
-            xs = [t.clone().requires_grad_() for t in (x, *params)]
-            g_auto = torch.autograd.grad(
-                kp.kan_chain_apply_reference(spec, *xs)[0], xs, gy)
-            check_grads(failures, max_err, "kan_chain_apply_bwd", "K1b", g,
-                        g_ref, g_auto)
-            torch.cuda.synchronize()
-            finish_phase({"phase": "kernel_vs_plain", "kernel": "K1",
-                          "case": f"K={K} {basis}/{norm}", "fwd_max_abs_err":
-                          e, "fwd_tol": FWD_TOL, "grad_tol": GRAD_TOL},
-                         failures)
+            check_chain_apply(torch, kp, spec, f"K={K} {basis}/{norm}", x,
+                              params, gy, max_err)
+        spec, x, params = cap_inputs(torch, basis, norm)
+        gy = torch.tensor(rng.standard_normal(tuple(x.shape)),
+                          dtype=torch.float32, device="cuda")
+        check_chain_apply(torch, kp, spec, f"caps K={CAP_K} {basis}/{norm}",
+                          x, params, gy, max_err)
+    for i, case in enumerate(CHAIN_MID_CASES):
+        spec, x, params = mid_case_inputs(torch, kp, case, 120 + i)
+        gy = torch.tensor(np.random.default_rng(140 + i).standard_normal(
+            (case.K, spec.out_dims)), dtype=torch.float32, device="cuda")
+        check_chain_apply(torch, kp, spec, case.label, x, params, gy,
+                          max_err)
 
 
 def check_adaptive(torch, ra, spec, label, solver, rtol, atol, ms, ctrl,
@@ -1951,7 +2017,12 @@ def phase_trained_members(torch, ra, StepController, trained, max_err):
     """K8 vs its plain versions on the parameters the fused members run
     ended with, at the shapes the main path gives it: the train grid (T =
     35, max_steps 70; K8f and K8b, as `members_case_check` holds them)
-    and the eval grid (T = 141, max_steps 282; K8f)."""
+    and the eval grid (T = 141, max_steps 282; K8f). Then K1's medium
+    flavor on those parameters (`check_chain_apply`): at u0 (K = 1, the
+    adaptive and fixed pallas routes' rows) and at the 34 train states
+    after it (the shooting rows)."""
+    import numpy as np
+    from kanodes_tpu_torch.ops import kdense_pallas as kp
     from kanodes_tpu_torch.ops.kdense_pallas import chain_spec_of, fused_params
     cfg, data, model = trained["cfg"], trained["data"], trained["model"]
     spec = chain_spec_of(model)
@@ -1967,26 +2038,111 @@ def phase_trained_members(torch, ra, StepController, trained, max_err):
                                      data["ts"][:T].contiguous()),
                            backward=name == "train grid",
                            phase="trained_members")
+    X = data["X"]
+    for index, (label, x) in enumerate((("trained members, u0", X[:1]),
+                                        ("trained members, train states",
+                                         X[1:data["n_train"]]))):
+        gy = torch.tensor(np.random.default_rng(160 + index).standard_normal(
+            tuple(x.shape)), dtype=torch.float32, device="cuda")
+        check_chain_apply(torch, kp, spec, label, x.contiguous(), params, gy,
+                          max_err)
+
+
+def members_k1_steps(torch, lv, kp, cfg, model, data):
+    """The loop iterations of `odeint_members` on the packed train grid at
+    the model's parameters (the largest member's n_iter: the loop runs
+    until every member is done), and the K1 launches one loss and its
+    backward make there, through `make_ode_fns` (impl="pallas"), counted
+    under the medium flavor's keys."""
+    from kanodes_tpu_torch.ode.integrate import odeint_members
+    from kanodes_tpu_torch.models.packed import member_mean
+    n_train = data["n_train"]
+    with torch.no_grad():
+        _, st = odeint_members(
+            kp.kan_chain_rhs(model), data["X"][0], data["ts"][:n_train],
+            model, n_members=8, solver="tsit5", rtol=cfg.rtol,
+            atol=cfg.atol, max_steps=max(cfg.max_steps, 2 * n_train),
+            return_stats=True)
+    loss_fn, _, _ = lv.make_ode_fns(cfg, model, data,
+                                    reduce_fn=member_mean(8), n_members=8)
+    kp.reset_launch_counts()
+    model.zero_grad()
+    loss_fn(model).sum().backward()
+    torch.cuda.synchronize()
+    return int(st.n_iter.max()), {k: v for k, v in kp.LAUNCHES.items() if v}
+
+
+def expected_members_launches(cfg, data, lvm):
+    """Kernel launches one `run_members(cfg, 8)` implies, where they do not
+    depend on the data: impl fused one K8f and one K8b an iteration and a
+    K8f an eval; pallas fixed mode, through odeint_fixed's rk_step on
+    kan_chain_rhs, 7 K1f (every stage) and 6 K1b (the stages the step
+    depends on) a step, both at the medium flavor; xla nothing. For
+    pallas adaptive: None (its launches follow the controllers' step
+    counts, `check_members_adaptive_k1`)."""
+    iters, n_evals = train_blocks(cfg, lvm.TrainConfig.max_iters_per_call)
+    want = {k: 0 for k in KERNELS}
+    if cfg.impl == "fused":
+        want["fused_adaptive_members_odeint_fwd"] = iters + n_evals
+        want["fused_adaptive_members_odeint_bwd"] = iters
+    elif cfg.impl == "pallas":
+        if cfg.solve_mode == "adaptive":
+            return None
+        steps, eval_steps = data["n_train"] - 1, data["ts"].shape[0] - 1
+        want["kan_chain_apply_fwd_mid"] = 7 * (iters * steps
+                                               + n_evals * eval_steps)
+        want["kan_chain_apply_bwd_mid"] = 6 * iters * steps
+    return want
+
+
+def check_members_adaptive_k1(cfg, data, lvm, counts):
+    """The K1 launches of an adaptive pallas `run_members(cfg, 8)`, against
+    odeint_members' schedule: a solve is 3 K1f (the initial dt's two
+    evaluations, f(y0)) and 6 a loop iteration (tsit5, FSAL), its
+    backward 6 K1b a loop iteration (the last iteration's FSAL stage feeds
+    nothing); a loop iteration a save interval at least (save clipping)
+    and max_steps at most. Returns (train, eval) loop iterations."""
+    iters, n_evals = train_blocks(cfg, lvm.TrainConfig.max_iters_per_call)
+    fwd, bwd = counts["kan_chain_apply_fwd_mid"], \
+        counts["kan_chain_apply_bwd_mid"]
+    loops = fwd - 3 * (iters + n_evals)
+    assert loops % 6 == 0 and bwd % 6 == 0, (fwd, bwd)
+    train, evals = bwd // 6, loops // 6 - bwd // 6
+    n_train, n_save = data["n_train"], data["ts"].shape[0]
+    assert iters * (n_train - 1) <= train <= iters * cfg.max_steps, train
+    assert n_evals * (n_save - 1) <= evals <= \
+        n_evals * max(cfg.max_steps, 2 * n_save), evals
+    assert all(v == 0 for k, v in counts.items()
+               if k not in K1_MID_KERNELS), counts
+    return train, evals
 
 
 def phase_members_main_path(torch, lv, lvm, pk, modules, card):
     """The packed ensemble (8 LV members, [16, 80, 16]) on the card through
     `lv_members.run_members(..., device="cuda")`: impl fused for 200
     iterations (one K8f and one K8b each, one K8f an eval, exactly), impl
-    xla for 5 (no kernel). Every member's loss finite, and its last loss
-    and its loss at the joint best below its first; at the fused run's
-    final parameters the fused loss and eval vectors equal the xla
-    route's within 3e-5 relative (the JAX script's gate,
+    xla for 5 (no kernel), impl pallas adaptive for 16 (K1 at its medium
+    flavor, a block a row, on odeint_members: launches held to the
+    controllers' schedule, and exactly to odeint_members' own step count
+    for one more loss at the final parameters) and pallas fixed for 6 (K1
+    exactly as the schedule implies). Every member's loss finite, and its
+    last loss and its loss at the joint best below its first; at the fused
+    run's final parameters the fused loss and eval vectors equal the xla
+    and the pallas routes' within 3e-5 relative (the JAX script's gate,
     scripts/lv_adaptive_members_fused.py:105-106) and the loss's
     gradients within GRAD_TOL. Returns the launches and the fused run's
     output."""
     import dataclasses
+    from kanodes_tpu_torch.ops import kdense_pallas as kp
     launches = {k: 0 for k in KERNELS}
     fused = None
-    for cfg in (dataclasses.replace(lvm.DEFAULT_CFG, iters=200,
-                                    eval_every=100),
-                dataclasses.replace(lvm.DEFAULT_CFG, impl="xla", iters=5,
-                                    eval_every=5)):
+    base = lvm.DEFAULT_CFG
+    for cfg in (dataclasses.replace(base, iters=200, eval_every=100),
+                dataclasses.replace(base, impl="xla", iters=5, eval_every=5),
+                dataclasses.replace(base, impl="pallas", iters=16,
+                                    eval_every=8),
+                dataclasses.replace(base, impl="pallas", solve_mode="fixed",
+                                    iters=6, eval_every=6)):
         torch.cuda.synchronize()
         reset_counts(modules)
         t0 = time.perf_counter()
@@ -1994,14 +2150,20 @@ def phase_members_main_path(torch, lv, lvm, pk, modules, card):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = read_counts(modules)
-        # run_members trains with TrainConfig's default chunk
-        iters, n_evals = train_blocks(
-            cfg, lvm.TrainConfig.max_iters_per_call)
-        want = {k: 0 for k in KERNELS}
-        if cfg.impl == "fused":
-            want["fused_adaptive_members_odeint_fwd"] = iters + n_evals
-            want["fused_adaptive_members_odeint_bwd"] = iters
-        assert counts == want, f"launches {counts} != expected {want}"
+        want = expected_members_launches(cfg, out["data"], lvm)
+        line = {}
+        if want is None:
+            train, evals = check_members_adaptive_k1(cfg, out["data"], lvm,
+                                                     counts)
+            n_it, one = members_k1_steps(torch, lv, kp, cfg, out["model"],
+                                         out["data"])
+            assert one == {"kan_chain_apply_fwd_mid": 3 + 6 * n_it,
+                           "kan_chain_apply_bwd_mid": 6 * n_it}, (n_it, one)
+            line.update(loop_iterations={"train": train, "eval": evals},
+                        final_params_loop_iterations=n_it,
+                        final_params_loss_launches=one)
+        else:
+            assert counts == want, f"launches {counts} != expected {want}"
         for name in KERNELS:
             launches[name] += counts[name]
         tensors = [out["loss_history"], out["eval_history"], out["best_loss"],
@@ -2017,20 +2179,23 @@ def phase_members_main_path(torch, lv, lvm, pk, modules, card):
             assert bool((vec < first).all()), \
                 f"member losses {what} {vec.tolist()} !< first " \
                 f"{first.tolist()}"
-        line = {"phase": "members_main_path", "run": f"{cfg.impl}/adaptive",
-                "members": 8, "widths": [16, 80, 16], "iters": cfg.iters,
-                "first_loss": first.tolist(), "best_loss": best.tolist(),
-                "last_loss": losses[-1].tolist(),
-                "last_eval": evals[-1].tolist(),
-                "launches": {k: v for k, v in counts.items() if v},
-                "seconds": seconds, "it_per_s": cfg.iters / seconds,
-                "member_it_per_s": 8 * cfg.iters / seconds, "card": card}
+        line.update({"phase": "members_main_path",
+                     "run": f"{cfg.impl}/{cfg.solve_mode}", "members": 8,
+                     "widths": [16, 80, 16], "iters": cfg.iters,
+                     "first_loss": first.tolist(),
+                     "best_loss": best.tolist(),
+                     "last_loss": losses[-1].tolist(),
+                     "last_eval": evals[-1].tolist(),
+                     "launches": {k: v for k, v in counts.items() if v},
+                     "seconds": seconds, "it_per_s": cfg.iters / seconds,
+                     "member_it_per_s": 8 * cfg.iters / seconds,
+                     "card": card})
         failures = []
         if cfg.impl == "fused":
             fused = out
             model, data = out["model"], out["data"]
             grads = {}
-            for impl in ("fused", "xla"):
+            for impl in ("fused", "xla", "pallas"):
                 loss_fn, eval_fn, _ = lv.make_ode_fns(
                     dataclasses.replace(cfg, impl=impl), model, data,
                     reduce_fn=pk.member_mean(8), n_members=8)
@@ -2041,21 +2206,25 @@ def phase_members_main_path(torch, lv, lvm, pk, modules, card):
                     ev = eval_fn(model)
                 grads[impl] = (vec.detach(), ev, [p.grad.clone() for p in
                                                   model.parameters()])
-            (lf, ef, gf), (lx, ex, gx) = grads["fused"], grads["xla"]
-            rel = {}
-            for what, a, b in (("loss", lf, lx), ("eval", ef, ex)):
-                rel[what] = float(((a - b).abs() / b.abs()).max())
-                if rel[what] >= 3e-5:
-                    failures.append(f"fused vs xla {what} vector: max "
-                                    f"relative {rel[what]:.3e} >= 3e-5")
-            for a, b in zip(gf, gx):
-                assert_close(failures, "fused vs xla gradient", a, b,
-                             GRAD_TOL)
-            line.update(fused_loss=lf.tolist(), xla_loss=lx.tolist(),
-                        max_rel_loss=rel["loss"], fused_eval=ef.tolist(),
-                        xla_eval=ex.tolist(), max_rel_eval=rel["eval"])
+            lf, ef, gf = grads["fused"]
+            for impl in ("xla", "pallas"):
+                lx, ex, gx = grads[impl]
+                rel = {}
+                for what, a, b in (("loss", lf, lx), ("eval", ef, ex)):
+                    rel[what] = float(((a - b).abs() / b.abs()).max())
+                    if rel[what] >= 3e-5:
+                        failures.append(f"fused vs {impl} {what} vector: max "
+                                        f"relative {rel[what]:.3e} >= 3e-5")
+                for a, b in zip(gf, gx):
+                    assert_close(failures, f"fused vs {impl} gradient", a, b,
+                                 GRAD_TOL)
+                line.update({f"{impl}_loss": lx.tolist(),
+                             f"{impl}_eval": ex.tolist(),
+                             f"max_rel_loss_vs_{impl}": rel["loss"],
+                             f"max_rel_eval_vs_{impl}": rel["eval"]})
+            line.update(fused_loss=lf.tolist(), fused_eval=ef.tolist())
         finish_phase(line, failures)
-    for name in MEMBERS_KERNELS:
+    for name in (*MEMBERS_KERNELS, *K1_MID_KERNELS):
         assert launches[name] > 0, f"{name} never launched on the main path"
     return launches, fused
 
@@ -2342,7 +2511,9 @@ def phase_timings(torch, lv, rk, kp, ra, spec, rng, card, trained,
     """Each kernel against its plain version at the LV training shapes:
     K2 at K=34 rows (shooting, L=1) and K=31 (L=4; with the profiler's
     device µs of both), K3 at n=34 steps K=1 (fixed-mode
-    loss), K1 at K=34 (pallas shooting) and K=1, K4 at the train grid
+    loss), K1 at K=34 (pallas shooting) and K=1, K1's medium flavor at
+    the packed ensemble [16, 80, 16] K=1 (pallas adaptive and fixed) and
+    K=34 (shooting), K4 at the train grid
     (T=35, K=1, LV defaults) on the parameters the adaptive main-path
     run ended with (`trained`: u0, ts, params). Then every main-path run
     again, warm, for its it/s. Each time stands beside the least time the
@@ -2407,6 +2578,30 @@ def phase_timings(torch, lv, rk, kp, ra, spec, rng, card, trained,
                 kb.bound(*kb.chain_apply_bwd(dims, K))),
         }
     cases.update(chain[34])
+    # K1's medium flavor at the packed ensemble [16, 80, 16] (impl="pallas"):
+    # K = 1 (adaptive and fixed) in the kernels line, K = 34 (shooting)
+    pcase = {c.label: c for c in MID_CASES}["packed K2 K=34"]
+    pspec, px, pparams = mid_case_inputs(torch, kp, pcase, 90)
+    pdims = (pspec.in_dims, pspec.hidden, pspec.out_dims, pspec.grid_len)
+    chain_mid = {}
+    for K in (1, 34):
+        xk = px[:K].contiguous()
+        _, y1 = kp._launch_fwd(pspec, xk, pparams)
+        gk = torch.randn((K, pspec.out_dims), device="cuda")
+        chain_mid[K] = {
+            "kan_chain_apply_fwd_mid": (
+                lambda xk=xk: kp._launch_fwd(pspec, xk, pparams),
+                lambda xk=xk: kp.kan_chain_apply_reference(pspec, xk,
+                                                           *pparams),
+                kb.bound(*kb.chain_apply_fwd(pdims, K))),
+            "kan_chain_apply_bwd_mid": (
+                lambda xk=xk, y1=y1, gk=gk: kp._launch_bwd(pspec, xk, y1,
+                                                           pparams, gk),
+                lambda xk=xk, y1=y1, gk=gk: kp.kan_chain_apply_bwd_reference(
+                    pspec, xk, y1, *pparams, gk),
+                kb.bound(*kb.chain_apply_bwd(pdims, K))),
+        }
+    cases.update(chain_mid[1])
     # K4 on the trained model, so the step count is the trained model's
     u0, ts, fp = trained
     cfg = lv.LVConfig()
@@ -2431,12 +2626,16 @@ def phase_timings(torch, lv, rk, kp, ra, spec, rng, card, trained,
         step_k31 = {name: {**kernel_vs_plain_ms(torch, kern, plain, b),
                            "device_us": device_us(torch, kern)}
                     for name, (kern, plain, b) in step31.items()}
-        for name in step31:
+        for name in (*step31, *chain[34], *chain_mid[1]):
             times[name]["device_us"] = device_us(torch, cases[name][0])
         chain_k1 = {name: {"ms": cuda_ms(torch, kern, 50),
                            "plain_ms": cuda_ms(torch, plain, 5),
-                           "bound_ms": b[0]}
+                           "bound_ms": b[0],
+                           "device_us": device_us(torch, kern)}
                     for name, (kern, plain, b) in chain[1].items()}
+        chain_mid34 = {name: {**kernel_vs_plain_ms(torch, kern, plain, b),
+                              "device_us": device_us(torch, kern)}
+                       for name, (kern, plain, b) in chain_mid[34].items()}
         eval140 = {
             "ms": cuda_ms(torch, lambda: rk._launch_multistep_fwd(
                 k, 140, x0, params), 20),
@@ -2452,10 +2651,13 @@ def phase_timings(torch, lv, rk, kp, ra, spec, rng, card, trained,
               "fused_rk_step_K31": "K=31 I=2 H=10 G=5 tsit5",
               "fused_rk_multistep": "n=34 K=1 I=2 H=10 G=5 tsit5",
               "kan_chain_apply": "K=34 I=2 H=10 O=2 G=5 rbf/tanh",
+              "kan_chain_apply_mid": "K=1 [16,80,16] G=5 iqf/tanh (packed "
+                                     "8 LV members, MID_CASES' inputs)",
               "fused_adaptive_odeint": "T=35 K=1 tsit5 rtol=1e-6 atol=1e-8 "
                                        "max_steps=256, trained params"},
           "kernels": times, "fused_rk_step_K31": step_k31,
           "kan_chain_apply_K1": chain_k1,
+          "kan_chain_apply_mid_K34": chain_mid34,
           "adaptive_steps": adaptive_steps, "multistep_fwd_n140": eval140,
           "main_path_warm": warm, "card": card})
     return times

@@ -1,7 +1,7 @@
 // Per-row device math of the 2-layer KDense chain, shared by every kernel
 // of csrc/ (rk_fused.cu, kan_chain_apply.cu, rk_adaptive.cu,
-// rk_adaptive_members.cu); K1 (kan_chain_apply.cu) runs its one-thread
-// chain forward and VJP.
+// rk_adaptive_members.cu, kdense_single.cu: K9 runs the one-thread layer
+// forward and VJP below).
 //
 // Computes what `_layer_fwd` / `_layer_bwd` (kanodes_tpu/ops/
 // kdense_pallas.py:173-206) and `_chain_f` / `_chain_vjp_collect`
@@ -185,29 +185,6 @@ __device__ inline void kc_layer_bwd_dx(const float* x, int n_in, int n_out,
     dx[i] = acc * kc_dnorm(x[i], d.normalizer) + gw * kc_dswish(x[i]);
     sw_out[i] = kc_swish(x[i]);
   }
-}
-
-// Chain forward: k = layer2(layer1(x)); y1 = layer1(x) is kept.
-__device__ inline void kc_chain_fwd(const float* x, const ChainDims& d,
-                                    const ChainParams& p, float* y1,
-                                    float* k) {
-  kc_layer_fwd(x, d.I, d.H, p.c1, p.w1, d, y1);
-  kc_layer_fwd(y1, d.H, d.O, p.c2, p.w2, d, k);
-}
-
-// Chain VJP at x (y1 = layer1(x)) for the cotangent gk; writes dx and one
-// record of parameter-cotangent operands.
-__device__ inline void kc_chain_vjp(const float* x, const float* y1,
-                                    const float* gk, const ChainDims& d,
-                                    const ChainParams& p, const RecLayout& L,
-                                    float* dx, float* rec) {
-  float dy1[KC_MAX_H];
-  kc_layer_bwd_dx(y1, d.H, d.O, p.c2, p.w2, d, gk, dy1, rec + L.b2,
-                  rec + L.swy1);
-  kc_layer_bwd_dx(x, d.I, d.H, p.c1, p.w1, d, dy1, dx, rec + L.b1,
-                  rec + L.swx);
-  for (int h = 0; h < d.H; ++h) rec[L.dy1 + h] = dy1[h];
-  for (int o = 0; o < d.O; ++o) rec[L.gk + o] = gk[o];
 }
 
 __host__ __device__ inline int kc_param_floats(const ChainDims& d) {

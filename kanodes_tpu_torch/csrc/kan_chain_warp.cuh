@@ -1,10 +1,10 @@
 // The discrete adjoint of explicit RK steps over the 2-layer KDense chain
 // with a warp on each row of the batch: the LV adjoint sweeps K3b
 // (rk_fused.cu) and K4b (rk_adaptive.cu), and at one step the LV step
-// adjoint K2b (rk_fused.cu). The same math as kc_chain_fwd / kc_chain_vjp
-// (kan_chain.cuh), which the one-thread kernel K1 keeps. At the end of the
-// file, the chain forward of K4f (rk_adaptive.cu), which K3f and K2f also
-// run, on a warp, bit for bit kc_chain_fwd's.
+// adjoint K2b (rk_fused.cu). The same math as the one-thread layer
+// routines kc_layer_fwd / kc_layer_bwd_dx (kan_chain.cuh) on both layers.
+// At the end of the file, the chain forward of K4f (rk_adaptive.cu), which
+// K3f, K2f and K1f also run, on a warp, bit for bit the one-thread chain's.
 //
 // Why: one thread per row ran each chain evaluation as a dependent chain
 // of ~3 * 10^4 cycles, its run-time-indexed per-row arrays on the stack,
@@ -309,8 +309,8 @@ __device__ inline float kw_rk_step_reverse(float gy, int stages, int slots,
 }
 
 // ---------------------------------------------------------------------------
-// The chain FORWARD of one row by one warp, bit for bit what kc_chain_fwd
-// gives in one thread of a file built with -fmad=false: K4f
+// The chain FORWARD of one row by one warp, bit for bit what kc_layer_fwd
+// on both layers gives in one thread of a file built with -fmad=false: K4f
 // (rk_adaptive.cu) runs it, and K3f can take it. Every product and sum is
 // an explicit __fmul_rn / __fadd_rn (and the elementwise functions below
 // spell theirs out the same way), so it rounds alike whatever the -fmad
@@ -408,12 +408,16 @@ __host__ __device__ inline int kf_chain_ws_floats(const ChainDims& d) {
 // term table (kw_fill_consts, then the terms), l2h the layer-2 term table
 // (kf_fill_l2), ws the warp's workspace of kf_chain_ws_floats(d) floats.
 // The caller syncs the warp before kout is read and before x or ws is
-// written again.
+// written again. kY1 (K1f, kan_chain_apply.cu): lane h < H also writes the
+// hidden output y1_h (layer 1's sum, before normalizing) to y1[h]; the
+// other callers keep the default, whose code is the same as without it.
+template <bool kY1 = false>
 __device__ inline void kf_chain_fwd(const float* x, float* kout,
                                     const ChainDims& d, const WarpConsts& c,
                                     const unsigned char* l2h,
                                     const ChainParams& p, const KfRegs& rg,
-                                    float* ws, int lane) {
+                                    float* ws, int lane,
+                                    float* y1 = nullptr) {
   const int I = d.I, H = d.H, O = d.O, G = d.G, IG = I * G, HG = H * G;
   float* b1 = ws;                  // [IG + I]
   float* yn = b1 + IG + I;         // [H]
@@ -439,6 +443,7 @@ __device__ inline void kf_chain_fwd(const float* x, float* kout,
     for (int i = 0; i < KC_MAX_I; ++i)
       if (i < I) aw = __fadd_rn(aw, __fmul_rn(b1[IG + i], rg.w1[i]));
     const float y = __fadd_rn(ac, aw);
+    if constexpr (kY1) y1[lane] = y;
     yn[lane] = kf_norm(y, d.normalizer);
     const float sw = kf_swish(y);
     float* out = p2 + (HG + lane) * O;

@@ -827,6 +827,14 @@ cudaError_t km_prepare(Kernel kernel, const ChainDims& d, int stages,
 
 }  // namespace
 
+// K2b's parameter sums for K1b's launches (kan_chain_apply.cu): the records'
+// sums in record order by rk_param_sums_kernel, on st.
+cudaError_t kc_launch_param_sums(const float* scratch, int n_rec,
+                                 const ChainDims& d, float* dc1, float* dw1,
+                                 float* dc2, float* dw2, cudaStream_t st) {
+  return rk_launch_param_sums(scratch, n_rec, d, dc1, dw1, dc2, dw2, st);
+}
+
 extern "C" {
 
 // The compile-time caps, for the wrapper to check its own copy against:

@@ -2,7 +2,7 @@
 repository on one card, in turns.
 
     python -m kanodes_tpu_torch.experiments.compare_trees PARENT CHANGE \\
-        [--out=FILE] [--groups=gray_wide,lv,members,small,mid,k3m]
+        [--out=FILE] [--groups=gray_wide,lv,members,small,mid,k3m,k1]
         [--turns=N]
 
 PARENT and CHANGE are the roots of two checkouts (for example a `git
@@ -44,7 +44,13 @@ helpers and inputs (CUDA-event ms, `cuda_ms`, and the profiler's device
     kernel (its phases); a sha256 of K2-m's and K3-m's outputs on every
     MID_CASES input of the tree's chip_smoke (`mid_hashes`), to show that
     K2-m keeps its parent's bits;
-  * k3m: the mid group's K3f-m and K3b-m timings alone.
+  * k3m: the mid group's K3f-m and K3b-m timings alone;
+  * k1: K1f and K1b (`kan_chain_apply`, forward and explicit backward) at
+    LV width [2,10,2] G=5 over K = 34 and 1 rows of chip_smoke's
+    `lv_inputs` (pallas shooting; fixed and adaptive), and at the packed
+    8-member chain [16,80,16] over K = 1 and 34 rows of MID_CASES' inputs
+    (a tree whose K1 refuses the chain reports that), each also by kernel;
+    and the lv group's sha256 of K4f's outputs (`k1_launches`).
 --turns=N repeats the four turns N times.
 Then, in the same turns (host times swing on a shared host), the group's
 profiles: `profile_source --ndim=2` for Fisher-KPP and Allen-Cahn and
@@ -53,8 +59,10 @@ Allen-Cahn (gray_wide); `profile_lv --impl=fused` in fixed and adaptive
 mode and in shooting mode at segment_len 1 and 4 (lv); `lv_members
 --profile=1`, the ensemble's iteration (members); `profile_surrogate
 --runs=narrow` (its five lines) and the packed seed sweep's fixed
-phase, 300 iterations after 50 of warm-up, in ms an iteration (mid). Prints one JSON line per run (and writes them to
-FILE), then the card's name and power limit. Needs a CUDA device.
+phase, 300 iterations after 50 of warm-up, in ms an iteration (mid);
+`profile_lv --impl=pallas --solve_mode=shooting` (k1). Prints one JSON
+line per run (and writes them to FILE), then the card's name and power
+limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -378,6 +386,49 @@ def mid_hashes(torch, np, cs):
     return out
 
 
+def k1_launches(torch, np, cs):
+    """label -> a K1 launch (or the ValueError text where the tree's K1
+    refuses the chain) at LV width K = 34 and 1 and at the packed
+    ensemble K = 1 and 34; at LV width and K = 1 also K1b with its
+    cotangents written in the launch and with the sums launch, where the
+    tree has both."""
+    import inspect
+    from kanodes_tpu_torch.models.kdense import KANChain
+    from kanodes_tpu_torch.ops import kdense_pallas as kp
+    lv_spec = kp.chain_spec_of(KANChain.mlp_like([2, 10, 2], grid_len=5))
+    case = {c.label: c for c in cs.MID_CASES}["packed K2 K=34"]
+    pspec, px, pparams = cs.mid_case_inputs(torch, kp, case, 90)
+    cases = []
+    for K in (34, 1):
+        x, params = cs.lv_inputs(np.random.default_rng(0), torch, K)
+        cases.append((f"LV [2,10,2] K={K}", lv_spec, x, params))
+    for K in (1, 34):
+        cases.append((f"packed [16,80,16] K={K}", pspec,
+                      px[:K].contiguous(), pparams))
+    out = {}
+    for label, spec, x, params in cases:
+        gy = torch.tensor(np.random.default_rng(1).standard_normal(
+            (x.shape[0], spec.out_dims)), dtype=torch.float32, device="cuda")
+        try:
+            _, y1 = kp._launch_fwd(spec, x, params)
+        except ValueError as err:
+            out["K1f " + label] = out["K1b " + label] = str(err)
+            continue
+        out["K1f " + label] = (lambda s=spec, x=x, p=params:
+                               kp._launch_fwd(s, x, p))
+        out["K1b " + label] = (lambda s=spec, x=x, y1=y1, p=params, g=gy:
+                               kp._launch_bwd(s, x, y1, p, g))
+        if x.shape[0] == 1 and "direct" in inspect.signature(
+                kp._launch_bwd).parameters and \
+                kp._cuda.chain_apply_flavor(spec) == "small":
+            # a tree that can route K = 1's cotangents either way: both
+            for direct in (True, False):
+                out[f"K1b {label}, direct={direct}"] = (
+                    lambda s=spec, x=x, y1=y1, p=params, g=gy, dr=direct:
+                    kp._launch_bwd(s, x, y1, p, g, direct=dr))
+    return out
+
+
 def members_bwd_launch(torch, np, cs):
     from kanodes_tpu_torch.ode.integrate import StepController
     from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
@@ -458,6 +509,16 @@ if "k3m" in groups:
         if label.startswith("K3"):
             out[label] = {"ms": cs.cuda_ms(torch, f, 5),
                           "us": cs.device_us(torch, f, reps=10)}
+if "k1" in groups:
+    for label, f in k1_launches(torch, np, cs).items():
+        if isinstance(f, str):
+            out[label] = {"refused": f}
+            continue
+        out[label] = {"ms": cs.cuda_ms(torch, f, 20),
+                      "us": cs.device_us(torch, f, reps=10),
+                      "us_by_kernel": device_us_by_kernel(torch, f,
+                                                          short=True)}
+    out["K4f sha256"] = k4f_hashes(torch, np, cs)
 if "gray_wide" in groups:
     for i in (0, 1, 6, 7):
         case = cs.GRAYBOX_CASES[i]
@@ -523,6 +584,7 @@ PROFILES = {
     "mid": (("profile_surrogate", ("--runs=narrow",)),
             ("-c", (PACKED_FIXED,))),
     "k3m": (),
+    "k1": (("profile_lv", ("--impl=pallas", "--solve_mode=shooting")),),
 }
 
 

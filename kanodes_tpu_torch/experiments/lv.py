@@ -185,10 +185,10 @@ def make_ode_fns(cfg: LVConfig, model: KANChain, data, *, reduce_fn=None,
     then gives every member its own controller: impl="fused" runs the
     whole solve as one K8 launch (and one for the backward,
     `ops/rk_adaptive_fused.fused_adaptive_members_odeint`), "xla" and
-    "pallas" run `ode/integrate.odeint_members` on the chain or on K1
-    (whose caps, I <= 8 and H <= 32, refuse four or more LV members).
-    Fused fixed and shooting modes run K3 and K2, whose medium flavor (a
-    block a row) takes the packed chain, [16, 80, 16] at 8 members.
+    "pallas" run `ode/integrate.odeint_members` on the chain or on K1.
+    Fused fixed and shooting modes run K3 and K2, and "pallas" K1, whose
+    medium flavors (a block a row) take the packed chain, [16, 80, 16] at
+    8 members, up to H <= 256.
     Without `n_members`, adaptive mode with a `reduce_fn` raises: one
     shared controller would couple the members through dt."""
     if reduce_fn is not None and cfg.sparse_on:
@@ -208,11 +208,11 @@ def make_ode_fns(cfg: LVConfig, model: KANChain, data, *, reduce_fn=None,
     members = adaptive and n_members is not None
     use_fused = cfg.impl == "fused"
     if n_members is not None and cfg.impl == "pallas":
-        # a packed run through K1 meets its caps on the card (ROADMAP.md
-        # 2a.1); refuse it here on every device
-        from kanodes_tpu_torch.ops._cuda import check_chain_caps
+        # K1 takes a packed chain in its medium flavor (a block a row);
+        # past its caps refuse here on every device
+        from kanodes_tpu_torch.ops._cuda import chain_apply_flavor
         from kanodes_tpu_torch.ops.kdense_pallas import chain_spec_of
-        check_chain_caps(chain_spec_of(model))
+        chain_apply_flavor(chain_spec_of(model))
     if use_fused and not adaptive:
         # K2/K3 take packed chains in their medium flavor; past its caps
         # refuse here on every device

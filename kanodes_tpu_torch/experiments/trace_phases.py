@@ -1,9 +1,9 @@
 """Where K5b, K7b, K3b, K4b, K4f, K8b, K3f, K8f, K2f-m, K2b-m, K2f, K2b,
-K3f-m and K3b-m spend a launch, phase by phase, on the card.
+K3f-m, K3b-m, K1f and K1b spend a launch, phase by phase, on the card.
 
     python -m kanodes_tpu_torch.experiments.trace_phases \\
         [--kernels=K5b/K7b,K3b/K4b,K4f/K8b,K3f/K8f,K2f-m/K2b-m,K2f/K2b,\\
-K3f-m/K3b-m] ROOT [...]
+K3f-m/K3b-m,K1f/K1b] ROOT [...]
 
 For each ROOT (a checkout of this repository), copies its
 `kanodes_tpu_torch/` into a temporary directory, inserts `clock64()`
@@ -46,7 +46,12 @@ asked for (all by default):
     evaluations; K3b-m's phases A and B (thread 0 of block 0 of each)
     and phase C1 as thread 0's own cycles (run this family alone on the
     block-a-row design: it adds a stamp to kb_eval, which K2-m's family
-    counts in its layer 1).
+    counts in its layer 1);
+  * K1f/K1b (`csrc/kan_chain_apply.cu`): the standalone chain and its VJP
+    at K = 34 and 1 rows of chip_smoke's `lv_inputs` ([2,10,2] G=5) and,
+    in a tree with K1's medium flavor, at the packed [16,80,16] over K =
+    1 and 34 rows of MID_CASES' inputs (K1f-m/K1b-m); the sums launch of
+    K1b at K > 1 is not stamped.
 Thread 0 of block 0 adds the cycles between stamps into its phase's
 counter (so a phase inside a loop is thread 0's share of it, and a
 barrier's phase is its wait); one JSON line per kernel and case gives the
@@ -68,9 +73,11 @@ K2f-m / K2b-m of the first medium flavor and the two-barrier design that
 replaced them; the one-thread K2f / K2b and the warp-a-row K2f (K3f's
 kernel at one step) and K2b (K3b's phases at one step) that replaced
 them; the block-a-row K3f-m / K3b-m on K2-m's routines and the shorter
-K3f-m evaluation with the three-phase K3b-m that replaced them. A checkout whose kernels match neither design of a family
-raises. The instrumented copy is thrown away; nothing of ROOT
-changes. Needs nvcc and a CUDA device.
+K3f-m evaluation with the three-phase K3b-m that replaced them; the
+one-thread K1f and one-block K1b and the warp-a-row K1f/K1b with the
+block-a-row K1f-m/K1b-m that replaced them. A checkout whose kernels
+match neither design of a family raises. The instrumented copy is thrown
+away; nothing of ROOT changes. Needs nvcc and a CUDA device.
 """
 
 from __future__ import annotations
@@ -1481,10 +1488,176 @@ MID_MULTISTEP["three-phase K3b-m and the shorter K3f-m evaluation"] = ({
     ]},
     {"K3f-m": SHORT_K3FM, "K3b-m": THREE_PHASE_K3BM})
 
+# K1f / K1b, the standalone chain and its VJP (csrc/kan_chain_apply.cu):
+# stamps of the tag K1T in that file only. The one-thread design's chain
+# routines are spelled out at the call, so that its layers count apart.
+K1_HEAD = '#include "kan_chain.cuh"\n' + stamp_head("g_k1tr", "K1T")
+ONE_THREAD_K1F = ["parameter staging", "layer 1 (kc_layer_fwd)",
+                  "layer 2 (kc_layer_fwd)", "y1 and y stores"]
+ONE_THREAD_K1B = ["parameter staging", "layer-2 VJP (kc_layer_bwd_dx)",
+                  "layer-1 VJP (kc_layer_bwd_dx)", "record stores (dy1, gk)",
+                  "barrier (the block's other rows)",
+                  "parameter sums (in the launch)"]
+CHAIN_APPLY = {
+    "one-thread K1f and one-block K1b": ({
+        "kan_chain_apply.cu": [
+            ('#include "kan_chain.cuh"\n', K1_HEAD),
+            ("                       int K, ChainDims d) {\n",
+             "                       int K, ChainDims d) {\n  K1T_START();\n"),
+            ("  const int r = blockIdx.x * blockDim.x + threadIdx.x;\n"
+             "  if (r >= K) return;\n  float h[KC_MAX_H], out[KC_MAX_I];\n"
+             "  kc_chain_fwd(x + (size_t)r * d.I, d, p, h, out);\n",
+             "  K1T(0);\n"
+             "  const int r = blockIdx.x * blockDim.x + threadIdx.x;\n"
+             "  if (r >= K) return;\n  float h[KC_MAX_H], out[KC_MAX_I];\n"
+             "  kc_layer_fwd(x + (size_t)r * d.I, d.I, d.H, p.c1, p.w1, d, "
+             "h);\n  K1T(1);\n"
+             "  kc_layer_fwd(h, d.H, d.O, p.c2, p.w2, d, out);\n  K1T(2);\n"),
+            ("  for (int o = 0; o < d.O; ++o) y[(size_t)r * d.O + o] = "
+             "out[o];\n}\n",
+             "  for (int o = 0; o < d.O; ++o) y[(size_t)r * d.O + o] = "
+             "out[o];\n  K1T(3);\n  K1T_WRITE();\n}\n"),
+            ("                       ChainDims d) {\n",
+             "                       ChainDims d) {\n  K1T_START();\n"),
+            ("  for (int r = threadIdx.x; r < K; r += blockDim.x)\n"
+             "    kc_chain_vjp(x + (size_t)r * d.I, y1 + (size_t)r * d.H,\n"
+             "                 gy + (size_t)r * d.O, d, p, L, dx + (size_t)r "
+             "* d.I,\n                 scratch + (size_t)r * L.width);\n"
+             "  __syncthreads();\n"
+             "  kc_reduce_param_grads(scratch, K, d, L, dc1, dw1, dc2, dw2);\n"
+             "}\n",
+             "  K1T(0);\n"
+             "  for (int r = threadIdx.x; r < K; r += blockDim.x) {\n"
+             "    float dy1_[KC_MAX_H];\n"
+             "    float* rec_ = scratch + (size_t)r * L.width;\n"
+             "    kc_layer_bwd_dx(y1 + (size_t)r * d.H, d.H, d.O, p.c2, p.w2, "
+             "d,\n                    gy + (size_t)r * d.O, dy1_, rec_ + L.b2,"
+             " rec_ + L.swy1);\n    K1T(1);\n"
+             "    kc_layer_bwd_dx(x + (size_t)r * d.I, d.I, d.H, p.c1, p.w1, "
+             "d, dy1_,\n                    dx + (size_t)r * d.I, rec_ + "
+             "L.b1, rec_ + L.swx);\n    K1T(2);\n"
+             "    for (int h = 0; h < d.H; ++h) rec_[L.dy1 + h] = dy1_[h];\n"
+             "    for (int o = 0; o < d.O; ++o) rec_[L.gk + o] = "
+             "gy[(size_t)r * d.O + o];\n    K1T(3);\n  }\n"
+             "  __syncthreads();\n  K1T(4);\n"
+             "  kc_reduce_param_grads(scratch, K, d, L, dc1, dw1, dc2, dw2);\n"
+             "  K1T(5);\n  K1T_WRITE();\n}\n"),
+            ('extern "C" {\n', kc_read("k1tr_read", "g_k1tr")),
+        ]},
+        {"K1f": ONE_THREAD_K1F, "K1b": ONE_THREAD_K1B}),
+}
+WARP_K1F = ["set-up: x, copies issued, grid, layer-2 table",
+            "staging wait (cp.async, barrier)",
+            "term table, register slices, barrier",
+            "evaluation (kf_chain_fwd) and the y1, y stores"]
+WARP_K1B = ["set-up: row loads, copies issued, grid",
+            "staging wait (cp.async, barrier)", "term table, barrier",
+            "layer-1 terms of x (values, slopes)",
+            "layer 2 in lane h: terms of y1 and dy1",
+            "layer-1 VJP terms", "dx (lane i)",
+            "barrier before the cotangents (K = 1)",
+            "cotangents in the launch (K = 1)"]
+BLOCK_K1FM = ["set-up: grid, copies issued, walks, x",
+              "staging wait (cp.async, barrier)",
+              "layer 1: terms and partials", "barrier after layer 1",
+              "y1 and layer 2: hidden values, terms, partials",
+              "barrier after layer 2", "y stores"]
+BLOCK_K1BM = ["set-up: grid, copies issued, walks, row loads",
+              "staging wait (cp.async, barrier)",
+              "terms of both layers (values, slopes)",
+              "barrier after the terms", "layer-2 VJP (dy1)",
+              "barrier after layer 2", "layer-1 VJP (dx)"]
+# (the sums launch at K > 1, K2b's rk_param_sums_kernel, is not stamped:
+# compare_trees times it by kernel)
+CHAIN_APPLY["warp-a-row K1f/K1b and block-a-row K1f-m/K1b-m"] = ({
+    "kan_chain_apply.cu": [
+        ('#include "kan_chain_block.cuh"\n',
+         '#include "kan_chain_block.cuh"\n' + stamp_head("g_k1tr", "K1T")),
+        ("                       int K, int rows, ChainDims d) {\n",
+         "                       int K, int rows, ChainDims d) {\n"
+         "  K1T_START();\n"),
+        ("  kf_fill_l2(s_l2h, d);\n  kb_stage_wait();\n",
+         "  kf_fill_l2(s_l2h, d);\n  K1T(0);\n  kb_stage_wait();\n"
+         "  K1T(1);\n"),
+        ("  kf_load_regs(rg, p, d, lane);\n  __syncthreads();\n",
+         "  kf_load_regs(rg, p, d, lane);\n  __syncthreads();\n  K1T(2);\n"),
+        ("                     lane, y1 + (size_t)r * d.H);\n}\n",
+         "                     lane, y1 + (size_t)r * d.H);\n  K1T(3);\n"
+         "  K1T_WRITE();\n}\n"),
+        ("                       int rows, int direct, ChainDims d) {\n",
+         "                       int rows, int direct, ChainDims d) {\n"
+         "  K1T_START();\n"),
+        ("  k1_fill_grid(wc, d);\n  kb_stage_wait();\n"
+         "  for (int l = threadIdx.x; l < IG + I; l += blockDim.x) {\n"
+         "    wc.term_x[l] = l < IG ? l / G : l - IG;\n",
+         "  k1_fill_grid(wc, d);\n  K1T(0);\n  kb_stage_wait();\n  K1T(1);\n"
+         "  for (int l = threadIdx.x; l < IG + I; l += blockDim.x) {\n"
+         "    wc.term_x[l] = l < IG ? l / G : l - IG;\n"),
+        ("  __syncthreads();\n  if (mine) {\n",
+         "  __syncthreads();\n  K1T(2);\n  if (mine) {\n"),
+        ("    // layer 2 in lane h: its terms of y1_h, then the VJP\n",
+         "    K1T(3);\n    // layer 2 in lane h: its terms of y1_h, then the "
+         "VJP\n"),
+        ("    if (lane < O) rec[L.gk + lane] = g[lane];\n    __syncwarp();\n",
+         "    if (lane < O) rec[L.gk + lane] = g[lane];\n    __syncwarp();\n"
+         "    K1T(4);\n"),
+        ("      tw[l] = l < IG ? m * t1[l] : m;\n    }\n    __syncwarp();\n",
+         "      tw[l] = l < IG ? m * t1[l] : m;\n    }\n    __syncwarp();\n"
+         "    K1T(5);\n"),
+        ("          acc * t1[IG + lane] + tw[IG + lane] * ws[W.dsx + lane];\n"
+         "    }\n  }\n  if (!direct) return;\n  __syncthreads();\n"
+         "  kc_reduce_param_grads(s_rec, 1, d, L, dc1, dw1, dc2, dw2);\n}\n",
+         "          acc * t1[IG + lane] + tw[IG + lane] * ws[W.dsx + lane];\n"
+         "    }\n    K1T(6);\n  }\n  if (!direct) {\n    K1T_WRITE();\n"
+         "    return;\n  }\n  __syncthreads();\n  K1T(7);\n"
+         "  kc_reduce_param_grads(s_rec, 1, d, L, dc1, dw1, dc2, dw2);\n"
+         "  K1T(8);\n  K1T_WRITE();\n}\n"),
+        ("                           float* y1, ChainDims d, KbPlan plan) {\n",
+         "                           float* y1, ChainDims d, KbPlan plan) {\n"
+         "  K1T_START();\n"),
+        ("    xs[q] = x[(size_t)r * I + q];\n  kb_stage_wait();\n"
+         "  kb_layer_fwd(",
+         "    xs[q] = x[(size_t)r * I + q];\n  K1T(0);\n  kb_stage_wait();\n"
+         "  K1T(1);\n  kb_layer_fwd("),
+        ("               k.part1, lane);\n  __syncthreads();\n",
+         "               k.part1, lane);\n  K1T(2);\n  __syncthreads();\n"
+         "  K1T(3);\n"),
+        ("               k.part2, lane);\n  __syncthreads();\n",
+         "               k.part2, lane);\n  K1T(4);\n  __syncthreads();\n"
+         "  K1T(5);\n"),
+        ("    y[(size_t)r * O + o] = kb_part_sum<kCompact>(k.part2, plan.f2.C, "
+         "O, o);\n}\n",
+         "    y[(size_t)r * O + o] = kb_part_sum<kCompact>(k.part2, plan.f2.C, "
+         "O, o);\n  K1T(6);\n  K1T_WRITE();\n}\n"),
+        ("                           float* scratch, ChainDims d, KbPlan plan) "
+         "{\n",
+         "                           float* scratch, ChainDims d, KbPlan plan) "
+         "{\n  K1T_START();\n"),
+        ("    rec[L.gk + o] = v;\n  }\n  kb_stage_wait();\n",
+         "    rec[L.gk + o] = v;\n  }\n  K1T(0);\n  kb_stage_wait();\n"
+         "  K1T(1);\n"),
+        ("      fac[t] = fc;\n    }\n  }\n  __syncthreads();\n",
+         "      fac[t] = fc;\n    }\n  }\n  K1T(2);\n  __syncthreads();\n"
+         "  K1T(3);\n"),
+        ("                         warp, lane);\n  __syncthreads();\n"
+         "  kb_layer_vjp<kCompact>(k.P1",
+         "                         warp, lane);\n  K1T(4);\n"
+         "  __syncthreads();\n  K1T(5);\n  kb_layer_vjp<kCompact>(k.P1"),
+        ("                         [&](int q, float v) { dx[(size_t)r * I + q]"
+         " = v; },\n                         warp, lane);\n}\n",
+         "                         [&](int q, float v) { dx[(size_t)r * I + q]"
+         " = v; },\n                         warp, lane);\n  K1T(6);\n"
+         "  K1T_WRITE();\n}\n"),
+        ('extern "C" {\n', kc_read("k1tr_read", "g_k1tr")),
+    ]},
+    {"K1f": WARP_K1F, "K1b": WARP_K1B, "K1f-m": BLOCK_K1FM,
+     "K1b-m": BLOCK_K1BM})
+
 FAMILIES = {"K5b/K7b": GRAY_WIDE, "K3b/K4b": LV_ADJOINTS,
             "K4f/K8b": ADAPTIVE_FWD_MEMBERS_BWD,
             "K3f/K8f": LV_FIXED_MEMBERS_FWD, "K2f-m/K2b-m": MID_STEP,
-            "K3f-m/K3b-m": MID_MULTISTEP, "K2f/K2b": STEP}
+            "K3f-m/K3b-m": MID_MULTISTEP, "K1f/K1b": CHAIN_APPLY,
+            "K2f/K2b": STEP}
 # family -> the kernels (parts of their names) whose ptxas usage is shown
 PTXAS_OF = {"K5b/K7b": ("gb_bwd_kernel", "wd_bwd_kernel"),
             "K3b/K4b": ("rk_multistep_bwd_kernel", "adaptive_bwd_kernel"),
@@ -1497,7 +1670,8 @@ PTXAS_OF = {"K5b/K7b": ("gb_bwd_kernel", "wd_bwd_kernel"),
                         "rk_param_sums_kernel"),
             "K3f-m/K3b-m": ("kb_multistep_fwd_kernel",
                             "kb_multistep_bwd_kernel", "kb_param_sums_kernel",
-                            "k3m_", "rk_param_sums_kernel")}
+                            "k3m_", "rk_param_sums_kernel"),
+            "K1f/K1b": ("chain_apply_", "rk_param_sums_kernel")}
 
 RUN = r"""
 import ctypes, json, sys
@@ -1629,6 +1803,32 @@ if "K2f" in names:
         if two:
             cyc = cyc[:15] + read(lib.k2sum_read)[:1]
         emit("K2b", case, cyc)
+if "K1f" in names:
+    from kanodes_tpu_torch.models.kdense import KANChain
+    spec = kp.chain_spec_of(KANChain.mlp_like([2, 10, 2], grid_len=5))
+    cases = []
+    for K in (34, 1):
+        x, params = cs.lv_inputs(np.random.default_rng(0), torch, K)
+        cases.append((f"K={K} [2,10,2] G=5 rbf/tanh, chip_smoke.lv_inputs",
+                      spec, x, params))
+    if "K1f-m" in names:                     # a tree with K1's medium
+        case = {c.label: c for c in cs.MID_CASES}["packed K2 K=34"]
+        pspec, x, params = cs.mid_case_inputs(torch, kp, case, 90)
+        for K in (1, 34):
+            cases.append((f"K={K} packed [16,80,16] G=5 iqf/tanh, "
+                          f"chip_smoke.mid_case_inputs", pspec,
+                          x[:K].contiguous(), params))
+    for label, sp, x, params in cases:
+        mid = "-m" if "K1f-m" in names and \
+            _cuda.chain_apply_flavor(sp) == "medium" else ""
+        gy = torch.tensor(np.random.default_rng(1).standard_normal(
+            (x.shape[0], sp.out_dims)), dtype=torch.float32, device="cuda")
+        for _ in range(3):
+            y, y1 = kp._launch_fwd(sp, x, params)
+        emit("K1f" + mid, label, read(lib.k1tr_read))
+        for _ in range(3):
+            kp._launch_bwd(sp, x, y1, params, gy)
+        emit("K1b" + mid, label, read(lib.k1tr_read))
 if "K8b" in names:
     k8b, n_it = members_bwd_launch(torch, np, cs)
     for _ in range(3):

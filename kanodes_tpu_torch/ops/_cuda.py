@@ -67,6 +67,9 @@ KB_WARPS, KB_NR = KB_THREADS // 32, 16
 # KM_C_THREADS of a phase-C1 block
 KM_THREADS, KM_QREG, KM_SWEEP_THREADS = 512, 6, 256
 KM_SWEEP_MAX_WARPS, KM_C_THREADS = 8, 256
+# K1 (kan_chain_apply.cu): K1_STAGE_WARPS, a small-flavor block's warps at
+# least
+K1_STAGE_WARPS = 8
 # K9 (kdense_single.cu): in_dims <= KD_MAX_I, out_dims <= KC_MAX_H
 MAX_SINGLE_I = 32
 # K5 (graybox.cu): GB_MAX_NODES, GB_MAX_N, GB_MAX_G, GB_MAX_STAGES
@@ -175,9 +178,11 @@ _SIGNATURES = {
     "kw_smem_bytes": [_P] + [_I] * 4,
     # x, c1, w1, c2, w2, y, y1, K, dims, stream
     "kc_chain_apply_fwd": [_P] * 7 + [_I] + [_P] * 2,
-    # x, y1, gy, c1, w1, c2, w2, dx, dc1, dw1, dc2, dw2, scratch, K, dims,
-    # stream
-    "kc_chain_apply_bwd": [_P] * 13 + [_I] + [_P] * 2,
+    # x, y1, gy, c1, w1, c2, w2, dx, dc1, dw1, dc2, dw2, scratch, K, direct,
+    # dims, stream
+    "kc_chain_apply_bwd": [_P] * 13 + [_I] * 2 + [_P] * 2,
+    # dims, K, out [9]
+    "k1_plan": [_P, _I, _P],
     # x0, ts, T, c1, w1, c2, w2, ys, rx, rk1, rdt, rsx, stats, K,
     # max_steps, warps, dims, tab, ctrl, stream
     "kc_adaptive_fwd": [_P] * 2 + [_I] + [_P] * 10 + [_I] * 3 + [_P] * 4,
@@ -645,6 +650,98 @@ def multistep_bwd_mid_plan(spec, K: int, stages: int, n_steps: int,
         dense, width, jw, span, O * I if dense else 0, rec_floats,
         rec_floats + n_rec * jw, 4 * rebuild, warp_rows, blocks, threads,
         smem, staged, _cdiv(n_rec * H, KM_C_THREADS) if dense else 0)
+
+
+class ChainApplyPlan(NamedTuple):
+    """K1's launches over K rows (csrc/kan_chain_apply.cu `K1Plan`)."""
+    medium: bool        # a block a row (else a warp a row)
+    compact: bool       # medium: the compact layout
+    fwd_rows: int       # small K1f: rows a block, a warp each
+    fwd_warps: int      # small K1f: warps a block (K1_STAGE_WARPS at least)
+    fwd_blocks: int
+    bwd_rows: int       # small K1b: rows a block, a warp each
+    bwd_warps: int      # small K1b: warps a block (MAX_KW_WARPS)
+    bwd_blocks: int
+    fwd_smem: int       # dynamic shared memory, bytes
+    bwd_smem: int
+
+
+def _small_chain(spec) -> bool:
+    I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
+    return (1 <= I <= MAX_I and 1 <= O <= MAX_I and 1 <= H <= MAX_H
+            and 2 <= G <= MAX_G)
+
+
+def _chain_apply_mid_floats(spec, backward: bool, compact: bool) -> int:
+    """`k1m_smem_floats`: the staged parameters (`kb_param_smem`); the
+    forward's partials and x [I]; the backward's x, y1, gy, dy1, but
+    compact the terms' slopes [(I + H)(G + 1)], and the warps' VJP
+    terms."""
+    I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
+    p = block_plan(spec)
+    s1, s2 = (H, O) if compact else (H | 1, O | 1)
+    params = I * (G + 1) * s1 + H * (G + 1) * s2
+    if not backward:
+        rows1, rows2 = (p.f1.C, p.f2.C) if compact else (KB_WARPS, KB_WARPS)
+        return params + rows1 * H + rows2 * O + I
+    vjp_terms = max(_cdiv(I, KB_WARPS), _cdiv(H, KB_WARPS)) * (G + 1)
+    return (params + I + 2 * H + O + (0 if compact else (I + H) * (G + 1))
+            + KB_WARPS * vjp_terms)
+
+
+def chain_apply_plan(spec, K: int) -> ChainApplyPlan:
+    """K1's plan over K rows (the library's `k1_plan` computes the same).
+    Small (`chain_apply_flavor`): K1f a warp a row, as few blocks as
+    MAX_KF_WARPS rows a block (or as many as fit MAX_KW_SMEM beside the
+    parameters) allow, then as few rows a block as carry them, in blocks
+    of K1_STAGE_WARPS warps at least (all copy the parameters); K1b
+    likewise up to MAX_KW_WARPS rows, in blocks of MAX_KW_WARPS warps (at
+    K = 1 all write the cotangents). Shared memory: the parameters, (K1b)
+    one record, and the rows' workspaces. Medium: a block of KB_THREADS a
+    row, the compact layout where the backward's padded one does not fit
+    MAX_KB_SMEM."""
+    I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
+    if _small_chain(spec):
+        cap, params, width = MAX_KW_SMEM // 4, param_floats(spec), \
+            rec_width(spec)
+        fwd = I + I * G + I + H + (H * G + H) * O
+        bwd = 2 * I + 2 * H + O + 2 * (I * G + I)
+        fr, fb = _rows_over_blocks(K, min(MAX_KF_WARPS, (cap - params) // fwd))
+        fit = (cap - params - width) // bwd
+        br, bb = _rows_over_blocks(K, min(MAX_KW_WARPS, fit))
+        return ChainApplyPlan(False, False, fr, max(fr, K1_STAGE_WARPS), fb,
+                              br, MAX_KW_WARPS, bb, 4 * (params + fr * fwd),
+                              4 * (params + width + br * bwd))
+    compact = 4 * _chain_apply_mid_floats(spec, True, False) > MAX_KB_SMEM
+    return ChainApplyPlan(True, compact, 0, 0, K, 0, 0, K,
+                          4 * _chain_apply_mid_floats(spec, False, compact),
+                          4 * _chain_apply_mid_floats(spec, True, compact))
+
+
+@functools.lru_cache(maxsize=64)
+def chain_apply_flavor(spec) -> str:
+    """Which K1 kernels take a chain [I -> H -> O]: "small" (a warp a row,
+    within kan_chain.cuh's caps I, O <= 8, H <= 32, G <= 16) or "medium"
+    (a block a row: I, O <= MAX_KB_I, H <= MAX_KB_H, 2 <= G <= MAX_G, both
+    launches' shared memory within MAX_KB_SMEM); raises ValueError past
+    both."""
+    if _small_chain(spec):
+        return "small"
+    I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
+    where = "(ROADMAP.md 2a: K1 past the medium caps is not ported)"
+    if not (1 <= I <= MAX_KB_I and 1 <= O <= MAX_KB_I and 1 <= H <= MAX_KB_H
+            and 2 <= G <= MAX_G):
+        raise ValueError(f"K1 kernel caps: I, O <= {MAX_KB_I}, H <= "
+                         f"{MAX_KB_H}, 2 <= G <= {MAX_G}; got I={I}, O={O}, "
+                         f"H={H}, G={G} {where}")
+    plan = chain_apply_plan(spec, 1)
+    for what, need in (("forward", plan.fwd_smem),
+                       ("backward", plan.bwd_smem)):
+        if need > MAX_KB_SMEM:
+            raise ValueError(f"K1 kernel caps: the {what} of [{I}, {H}, {O}]"
+                             f" G={G} needs {need} bytes of shared memory > "
+                             f"{MAX_KB_SMEM} {where}")
+    return "medium"
 
 
 @functools.lru_cache(maxsize=64)

@@ -14,9 +14,13 @@ the plain versions of every kernel of `csrc/` are made of these, and
 only because Mosaic cannot reshape, and are not ported.
 
 `kan_chain_apply` is the chain x[K, I] -> [K, O] as one kernel launch
-(K1f, `csrc/kan_chain_apply.cu`) with its VJP as one more (K1b). A CUDA
-tensor launches the kernel or raises; a CPU tensor runs the plain
-version (`kan_chain_apply_reference`, `kan_chain_apply_bwd_reference`).
+(K1f, `csrc/kan_chain_apply.cu`) with its VJP as one more (K1b; its
+parameter sums a second launch counted with it, but at K = 1 in the
+small flavor), in the flavor
+`_cuda.chain_apply_flavor` picks: a warp a row within kan_chain.cuh's
+caps, a block a row past them (counted under `..._mid`). A CUDA tensor
+launches the kernel or raises; a CPU tensor runs the plain version
+(`kan_chain_apply_reference`, `kan_chain_apply_bwd_reference`).
 `kan_chain_rhs` makes it the right-hand side of an ODE (`impl="pallas"`).
 
 `kdense_single_apply` is one KDense layer x[K, I] -> [K, O] as one
@@ -42,6 +46,7 @@ Tensor = torch.Tensor
 # kernel launches since the last reset_launch_counts(); each wrapper adds
 # one where it launches its kernel, and nowhere else
 LAUNCHES = {"kan_chain_apply_fwd": 0, "kan_chain_apply_bwd": 0,
+            "kan_chain_apply_fwd_mid": 0, "kan_chain_apply_bwd_mid": 0,
             "kdense_single_apply_fwd": 0, "kdense_single_apply_bwd": 0}
 
 
@@ -193,13 +198,13 @@ def kan_chain_apply_bwd_reference(spec: ChainSpec, x, y1, c1, w1, c2, w2,
 
 def check_chain_launch(spec: ChainSpec, x, params, n_leading: int = 0,
                        caps: bool = True) -> int:
-    """Validate a launch of a chain kernel: kan_chain.cuh's caps (unless
-    the caller has checked its own: `caps=False`), x [..., K, I] with
-    `n_leading` leading axes, the four parameter shapes, float32,
-    contiguous. Returns K."""
+    """Validate a launch of a chain kernel: K1's caps, those of either of
+    its flavors (`_cuda.chain_apply_flavor`; unless the caller has checked
+    its own: `caps=False`), x [..., K, I] with `n_leading` leading axes,
+    the four parameter shapes, float32, contiguous. Returns K."""
     I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
     if caps:
-        _cuda.check_chain_caps(spec)
+        _cuda.chain_apply_flavor(spec)
     if x.dim() != n_leading + 2 or x.shape[-1] != I or x.shape[-2] < 1:
         raise ValueError(f"state shape {tuple(x.shape)} does not end in "
                          f"[K, {I}]")
@@ -209,6 +214,13 @@ def check_chain_launch(spec: ChainSpec, x, params, n_leading: int = 0,
             raise ValueError(f"{name}: shape {tuple(p.shape)} != {shape}")
     _cuda.check_tensors(x, *params)
     return x.shape[-2]
+
+
+def _count(spec: ChainSpec, name: str) -> None:
+    """Count a K1 launch under its flavor's key (`..._mid`: a block a
+    row)."""
+    medium = _cuda.chain_apply_flavor(spec) == "medium"
+    LAUNCHES[name + "_mid" if medium else name] += 1
 
 
 def _launch_fwd(spec: ChainSpec, x, params):
@@ -221,30 +233,39 @@ def _launch_fwd(spec: ChainSpec, x, params):
                                      _cuda.ptr(y), _cuda.ptr(y1), K,
                                      ctypes.byref(_cuda.chain_dims(spec)),
                                      _cuda.stream())
-    LAUNCHES["kan_chain_apply_fwd"] += 1
+    _count(spec, "kan_chain_apply_fwd")
     _cuda.check(err, "kan_chain_apply_fwd")
     return y, y1
 
 
-def _launch_bwd(spec: ChainSpec, x, y1, params, gy):
+def _launch_bwd(spec: ChainSpec, x, y1, params, gy, direct=None):
+    """K1b: in the small flavor at K = 1 (`direct`, the default there) the
+    cotangents are the one record's outer products, written in the same
+    launch; else the K records go to a scratch and the parameter sums are
+    a second launch, counted with the first."""
     K = check_chain_launch(spec, x, params)
     if tuple(y1.shape) != (K, spec.hidden) or \
             tuple(gy.shape) != (K, spec.out_dims):
         raise ValueError(f"y1/gy shapes {tuple(y1.shape)}, "
                          f"{tuple(gy.shape)} != [{K}, H], [{K}, O]")
     _cuda.check_tensors(y1, gy)
+    small = _cuda.chain_apply_flavor(spec) == "small"
+    direct = K == 1 and small if direct is None else direct
+    if direct and not (K == 1 and small):
+        raise ValueError(f"cotangents in the launch need K = 1 and the "
+                         f"small flavor, got K={K}")
     dx = torch.empty_like(x)
     grads = [torch.empty_like(p) for p in params]
-    scratch = torch.empty(K * _cuda.rec_width(spec), dtype=torch.float32,
-                          device=x.device)
+    scratch = None if direct else torch.empty(
+        K * _cuda.rec_width(spec), dtype=torch.float32, device=x.device)
     lib = _cuda.library()
     with torch.cuda.device(x.device):
         err = lib.kc_chain_apply_bwd(
             _cuda.ptr(x), _cuda.ptr(y1), _cuda.ptr(gy),
             *map(_cuda.ptr, params), _cuda.ptr(dx), *map(_cuda.ptr, grads),
-            _cuda.ptr(scratch), K, ctypes.byref(_cuda.chain_dims(spec)),
-            _cuda.stream())
-    LAUNCHES["kan_chain_apply_bwd"] += 1
+            None if scratch is None else _cuda.ptr(scratch), K, int(direct),
+            ctypes.byref(_cuda.chain_dims(spec)), _cuda.stream())
+    _count(spec, "kan_chain_apply_bwd")
     _cuda.check(err, "kan_chain_apply_bwd")
     return (dx, *grads)
 

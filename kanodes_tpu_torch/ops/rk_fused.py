@@ -278,7 +278,8 @@ def check_rhs_launch(spec: ChainSpec, x, params, n_leading: int) -> int:
     """Validate a launch of a kernel on kan_chain.cuh's one-thread /
     one-warp chain (K4): an I -> I chain within its caps; returns K."""
     _check_rhs(spec)
-    return check_chain_launch(spec, x, params, n_leading)
+    _cuda.check_chain_caps(spec)
+    return check_chain_launch(spec, x, params, n_leading, caps=False)
 
 
 def _count(k: _Consts, name: str) -> str:

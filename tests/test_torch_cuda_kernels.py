@@ -178,6 +178,120 @@ def test_medium_shared_memory_matches_the_library(card, widths, G):
                 4 * _cuda.block_smem_floats(spec, stages, backward)
 
 
+@pytest.mark.parametrize("index", range(len(chip_smoke.CHAIN_MID_CASES)))
+def test_chain_apply_medium_kernels_match_plain(card, index):
+    """K1 a block a row (chip_smoke.CHAIN_MID_CASES: the packed ensemble,
+    Burgers' width, O != I, the compact layout) through autograd: one
+    launch each way under the `_mid` keys, the plain versions' values,
+    and a second backward bit for bit; no cotangents in the launch."""
+    case = chip_smoke.CHAIN_MID_CASES[index]
+    spec, x, params = chip_smoke.mid_case_inputs(torch, kp, case, 120 + index,
+                                                 device=card)
+    assert _cuda.chain_apply_flavor(spec) == "medium"
+    gy = torch.tensor(np.random.default_rng(index).standard_normal(
+        (case.K, spec.out_dims)), dtype=torch.float32, device=card)
+    kp.reset_launch_counts()
+    leaves = [t.clone().requires_grad_() for t in (x, *params)]
+    y = kp.kan_chain_apply(spec, *leaves)
+    got = torch.autograd.grad(y, leaves, gy)
+    assert {k: v for k, v in kp.LAUNCHES.items() if v} == {
+        "kan_chain_apply_fwd_mid": 1, "kan_chain_apply_bwd_mid": 1}
+    y_ref, y1_ref = kp.kan_chain_apply_reference(spec, x, *params)
+    torch.testing.assert_close(y, y_ref, **FWD)
+    want = kp.kan_chain_apply_bwd_reference(spec, x, y1_ref, *params, gy)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **GRAD)
+    _, y1 = kp._launch_fwd(spec, x, params)
+    again = kp._launch_bwd(spec, x, y1, params, gy)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="small flavor"):
+        kp._launch_bwd(spec, x[:1].contiguous(), y1[:1].contiguous(), params,
+                       gy[:1].contiguous(), direct=True)
+
+
+@pytest.mark.parametrize("K", [1, 34])
+def test_chain_apply_small_repeats_bit_for_bit(card, K):
+    """K1 a warp a row: both kernels launched again give the same bits; at
+    K = 1 the cotangents written in the launch equal the sums launch's."""
+    spec, x, params, rng = inputs(card, K, seed=4)
+    gy = torch.tensor(rng.standard_normal((K, 2)), dtype=torch.float32,
+                      device=card)
+    y, y1 = kp._launch_fwd(spec, x, params)
+    y2, y12 = kp._launch_fwd(spec, x, params)
+    assert torch.equal(y, y2) and torch.equal(y1, y12)
+    g = kp._launch_bwd(spec, x, y1, params, gy)
+    others = [kp._launch_bwd(spec, x, y1, params, gy)]
+    if K == 1:
+        others.append(kp._launch_bwd(spec, x, y1, params, gy, direct=False))
+    for other in others:
+        for a, b in zip(g, other):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("K", [1, 2, 17, 34, 300])
+@pytest.mark.parametrize("dims", [(2, 10, 2, 5), (8, 32, 8, 16), (3, 4, 2, 4),
+                                  (16, 80, 16, 5), (41, 10, 41, 10),
+                                  (64, 48, 64, 8), (100, 48, 2, 10)])
+def test_chain_apply_plans_match_the_library(card, dims, K):
+    I, H, O, G = dims
+    spec = kp.ChainSpec(I, H, O, G)
+    got = (ctypes.c_int * 10)()
+    _cuda.library().k1_plan(ctypes.byref(_cuda.chain_dims(spec)), K, got)
+    assert list(got) == [int(v) for v in _cuda.chain_apply_plan(spec, K)]
+
+
+# sha256s of the small flavor's K2/K3 outputs and of K4f's on chip_smoke's
+# inputs (compare_trees' `small_flavor_hashes` and `k4f_hashes`), read on
+# an NVIDIA H100 before K1f came to share kf_chain_fwd with K2f/K3f/K4f
+SMALL_FLAVOR_SHA256 = {
+    "K2 tsit5 K=34": "4e65669ebd97f90c", "K2 rk4 K=34": "134f8014c3908ad9",
+    "K3 LV n=34": "ddb9394239b12235",
+    "K3 cap rbf/tanh n=12": "8a4587b035e9efe8",
+    "K3 cap iqf/softsign n=12": "6ee7aeec866ff429",
+    "LV fused shooting, 64 iterations": "c57e9b562550f2bb"}
+K4F_SHA256 = {
+    "tsit5 K=1 rtol=1e-06 atol=1e-08 max_steps=256 I dt0=None saves=grid "
+    "inputs=lv": "1986b63d69971b66",
+    "tsit5 K=1 rtol=0.001 atol=1e-06 max_steps=256 I dt0=None saves=grid "
+    "inputs=uniform(seed 101, +-0.3)": "8566c5d766bac5f2",
+    "bs3 K=1 rtol=0.001 atol=1e-06 max_steps=256 I dt0=None saves=grid "
+    "inputs=uniform(seed 102, +-0.3)": "d4c9167463e67222",
+    "tsit5 K=3 rtol=0.001 atol=1e-06 max_steps=256 I dt0=None saves=grid "
+    "inputs=uniform(seed 103, +-0.3)": "b6c8e621acfcdf88",
+    "tsit5 K=1 rtol=1e-06 atol=1e-08 max_steps=8 I dt0=None saves=grid "
+    "inputs=lv": "de45f64f889ce59f",
+    "tsit5 K=1 rtol=0.0001 atol=1e-06 max_steps=128 PI dt0=1.0 saves=ends "
+    "inputs=uniform(seed 304, +-0.5)": "ae3d1e0ce7ea6edd",
+    "tsit5 K=1 rtol=0.001 atol=1e-06 max_steps=128 I dt0=1.0 saves=ends "
+    "inputs=uniform(seed 304, +-0.3)": "ce404ea8907651d1",
+    "dopri5 K=1 rtol=0.0001 atol=1e-06 max_steps=128 I dt0=1.0 saves=ends "
+    "inputs=uniform(seed 302, +-0.5)": "40fb74e6692fa33e",
+    "bs3 K=1 rtol=0.001 atol=1e-06 max_steps=128 I dt0=1.0 saves=ends "
+    "inputs=uniform(seed 303, +-0.5)": "3c685aa88dfc579f",
+    "dopri5 K=3 rtol=0.0001 atol=1e-06 max_steps=128 PI dt0=0.5 saves=ends "
+    "inputs=uniform(seed 205, +-0.5)": "8206ee577fe308fe",
+    "bs3 K=3 rtol=0.001 atol=1e-06 max_steps=128 PI dt0=0.5 saves=ends "
+    "inputs=uniform(seed 205, +-0.5)": "21808ff89e17a7c2",
+    "K=33 rows, tsit5 rtol=0.001": "c047535f03e2999b",
+    "K=256 rows, tsit5 rtol=0.001": "8e949d07339f6923",
+    "cap [8,32,8] G=16 rbf/tanh": "394b58130fca5236",
+    "cap [8,32,8] G=16 iqf/softsign": "18621b011b82a341"}
+
+
+def test_warp_forward_kernels_keep_their_bits(card):
+    """K2f/K3f (and K2b/K3b after them) and K4f, which share kf_chain_fwd
+    with K1f, give the bits recorded above on the same inputs."""
+    from kanodes_tpu_torch.experiments import compare_trees
+    code = compare_trees.LV_ADJOINT_INPUTS + compare_trees.ADAPTIVE_INPUTS
+    ns = {}
+    exec(code, ns)  # noqa: S102 (compare_trees' own helpers)
+    assert ns["small_flavor_hashes"](torch, np, chip_smoke) == \
+        SMALL_FLAVOR_SHA256
+    assert {k: v["sha256"] for k, v in ns["k4f_hashes"](
+        torch, np, chip_smoke).items()} == K4F_SHA256
+
+
 def test_backward_repeats_bit_for_bit(card):
     spec, x, params, rng = inputs(card, 34, seed=2)
     gy = torch.ones_like(x)

@@ -142,6 +142,7 @@ def test_launch_checks():
     with pytest.raises(TypeError, match="float32"):
         tkp.check_chain_launch(spec, torch.ones(5, 3, dtype=torch.float64),
                                params)
-    wide = tkp.chain_spec_of(KANChain.mlp_like([2, 10, 9], grid_len=5))
+    # past the medium flavor's caps (H <= 256), which take [2, 10, 9]
+    wide = tkp.chain_spec_of(KANChain.mlp_like([2, 300, 2], grid_len=5))
     with pytest.raises(ValueError, match="caps"):
         tkp.check_chain_launch(wide, torch.ones(5, 2), params)

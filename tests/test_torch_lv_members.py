@@ -25,6 +25,7 @@ from kanodes_tpu.train import loop as jloop
 from kanodes_tpu_torch.experiments import lv as T
 from kanodes_tpu_torch.experiments import lv_members
 from kanodes_tpu_torch.models import packed as pk
+from kanodes_tpu_torch.ops import kdense_pallas as tkp
 from kanodes_tpu_torch.train import loop as tloop
 
 torch.set_num_threads(1)
@@ -35,35 +36,35 @@ GRAD = dict(rtol=2e-3, atol=5e-5)
 ADAPTIVE = dict(solve_mode="adaptive", max_steps=64, rtol=1e-3, atol=1e-6)
 
 
-def jax_inits(jcfg):
+def jax_inits(jcfg, n=S):
     jm = J.make_model(jcfg)
     return jm, [[{k: 0.3 * np.asarray(v) for k, v in p.items()}
-                 for p in jm.init(jax.random.PRNGKey(s))] for s in range(S)]
+                 for p in jm.init(jax.random.PRNGKey(s))] for s in range(n)]
 
 
-def jax_fns(jcfg, jm, members):
+def jax_fns(jcfg, jm, members, n=S):
     """JAX's packed (loss, eval) on the masked params, and the params."""
     data = J.make_data(jcfg)
-    pdata = {"ts": data["ts"], "X": jpk.tile_state(data["X"], S),
+    pdata = {"ts": data["ts"], "X": jpk.tile_state(data["X"], n),
              "n_train": data["n_train"]}
-    mask = jpk.block_mask(jm, S)
-    loss, ev, _ = J.make_ode_fns(jcfg, jpk.pack_chain(jm, S), pdata,
-                                 reduce_fn=jpk.member_mean(S), n_members=S)
+    mask = jpk.block_mask(jm, n)
+    loss, ev, _ = J.make_ode_fns(jcfg, jpk.pack_chain(jm, n), pdata,
+                                 reduce_fn=jpk.member_mean(n), n_members=n)
     return (lambda p: loss(jpk.apply_mask(mask, p)),
             lambda p: ev(jpk.apply_mask(mask, p)),
             jpk.pack_params(jm, members))
 
 
-def jax_loss_and_grads(jcfg, jm, members):
-    loss, _, params = jax_fns(jcfg, jm, members)
+def jax_loss_and_grads(jcfg, jm, members, n=S):
+    loss, _, params = jax_fns(jcfg, jm, members, n)
     vec = loss(params)
     grads = jax.grad(lambda p: jnp.sum(loss(p)))(params)
     return np.asarray(vec), [np.asarray(g[k]) for g in grads
                              for k in ("C", "W")]
 
 
-def port_loss_and_grads(cfg, members):
-    built = lv_members.build(cfg, S, "cpu", member_params=members)
+def port_loss_and_grads(cfg, members, n=S):
+    built = lv_members.build(cfg, n, "cpu", member_params=members)
     model, (loss_fn, eval_fn, _) = built["model"], built["fns"]
     vec = loss_fn(model)
     vec.sum().backward()
@@ -101,6 +102,25 @@ def test_fixed_and_shooting_member_losses_match_jax(mode):
     jm, members = jax_inits(jcfg)
     vec_j, g_j = jax_loss_and_grads(jcfg, jm, members)
     vec_t, g_t, _ = port_loss_and_grads(T.LVConfig(solve_mode=mode), members)
+    np.testing.assert_allclose(vec_t, vec_j, **LOSS)
+    for a, b in zip(g_t, g_j):
+        np.testing.assert_allclose(a, b, **GRAD)
+
+
+@pytest.mark.parametrize("mode", ["fixed", "shooting"])
+def test_four_members_through_k1_match_jax(mode):
+    """S = 4 packed members ([8, 40, 8], past K1's small caps: its medium
+    flavor on the card) through impl="pallas" (K1's plain version here,
+    odeint_fixed on kan_chain_rhs) give JAX's XLA loss vector and
+    gradients."""
+    jcfg = J.LVConfig(solve_mode=mode, impl="xla")
+    jm, members = jax_inits(jcfg, 4)
+    vec_j, g_j = jax_loss_and_grads(jcfg, jm, members, 4)
+    vec_t, g_t, built = port_loss_and_grads(
+        T.LVConfig(solve_mode=mode, impl="pallas"), members, 4)
+    assert vec_t.shape == (4,)
+    assert [tuple(p.shape) for p in tkp.fused_params(built["model"])] == \
+        [(40, 40), (8, 40), (200, 8), (40, 8)]
     np.testing.assert_allclose(vec_t, vec_j, **LOSS)
     for a, b in zip(g_t, g_j):
         np.testing.assert_allclose(a, b, **GRAD)
@@ -184,22 +204,22 @@ def test_make_ode_fns_checks():
     with pytest.raises(ValueError, match="n_members"):
         T.make_ode_fns(T.LVConfig(solve_mode="adaptive"), model, data,
                        reduce_fn=reduce)
-    # four LV members are wider than K1 takes (I <= 8, H <= 32); K2/K3
-    # take them in their medium flavor, up to H <= 256: 30 members are past
+    # four LV members are wider than the small flavors take (I <= 8, H <=
+    # 32); K1, K2 and K3 take them in their medium flavors, up to H <= 256:
+    # 30 members are past
     wide = lv_members.build(T.LVConfig(solve_mode="fixed"), 4, "cpu")
-    with pytest.raises(ValueError, match="H <= 32"):
-        T.make_ode_fns(T.LVConfig(solve_mode="adaptive", impl="pallas"),
-                       wide["model"], wide["data"],
-                       reduce_fn=pk.member_mean(4), n_members=4)
-    for mode in ("shooting", "fixed"):
-        T.make_ode_fns(T.LVConfig(solve_mode=mode, impl="fused"),
-                       wide["model"], wide["data"],
-                       reduce_fn=pk.member_mean(4), n_members=4)
+    for mode in ("shooting", "fixed", "adaptive"):
+        for impl in ("fused", "pallas"):
+            T.make_ode_fns(T.LVConfig(solve_mode=mode, impl=impl),
+                           wide["model"], wide["data"],
+                           reduce_fn=pk.member_mean(4), n_members=4)
     past = lv_members.build(T.LVConfig(solve_mode="fixed"), 30, "cpu")
-    with pytest.raises(ValueError, match="H <= 256"):
-        T.make_ode_fns(T.LVConfig(solve_mode="shooting", impl="fused"),
-                       past["model"], past["data"],
-                       reduce_fn=pk.member_mean(30), n_members=30)
+    for mode, impl in (("shooting", "fused"), ("adaptive", "pallas"),
+                       ("fixed", "pallas")):
+        with pytest.raises(ValueError, match="H <= 256"):
+            T.make_ode_fns(T.LVConfig(solve_mode=mode, impl=impl),
+                           past["model"], past["data"],
+                           reduce_fn=pk.member_mean(30), n_members=30)
 
 
 def test_run_members_on_cpu_and_its_entry_point(capsys):

@@ -39,6 +39,7 @@ file, it exits non-zero before printing a result. Imports no JAX.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -458,7 +459,15 @@ class SingleCase(NamedTuple):
 
 
 # the gray-box source layer over the 1-D field and the 2-D one, an LV
-# layer, and a layer with O != I over several forward blocks
+# layer, and a layer with O != I over several forward blocks; then both
+# layers of each reference surrogate chain (softsign, rbf) at K = 1 and at
+# its saved trajectory's rows: Burgers and 1-D Allen-Cahn [41,10,41] grid
+# 5 and 10 (101 rows), Schrödinger [402,10,402] (158), 2-D Allen-Cahn
+# [1024,10,1024] (101). New cases go at the end: the card tests pick by
+# index
+SURROGATE_LAYERS = (("Burgers", 41, 5, 101), ("1-D Allen-Cahn", 41, 10, 101),
+                    ("Schrödinger", 402, 10, 158),
+                    ("2-D Allen-Cahn", 1024, 10, 101))
 SINGLE_CASES = (
     SingleCase("the 1->1 softsign source layer, K=26", 1, 1, 10, "softsign",
                26, lo=0.0),
@@ -467,7 +476,14 @@ SINGLE_CASES = (
                seed=2),
     SingleCase("the 1->1 source layer, K=1024", 1, 1, 10, "softsign", 1024,
                lo=-1.0, seed=3),
-)
+) + tuple(
+    SingleCase(f"{name} [{a}->{b}] grid {G}, K={K}", a, b, G, "softsign", K,
+               seed=4 + 4 * n + 2 * k + j)
+    for n, (name, width, G, rows) in enumerate(SURROGATE_LAYERS)
+    for j, (a, b) in enumerate(((width, 10), (10, width)))
+    for k, K in enumerate((1, rows)))
+# the cases K9 had before its redesign, held elementwise as then
+STRICT_SINGLE = 4
 
 
 def single_case_inputs(torch, kp, case, device="cuda"):
@@ -1180,6 +1196,32 @@ def graybox_rule(torch, failures, label, got, plain, ref64, tol):
                  "rule": "elementwise" if elementwise else "float64"}
 
 
+def k9_rule(torch, failures, label, got, plain, ref64, tol, strict=False):
+    """One K9 output (or one output of a chain through it) against its
+    plain f32 version. Elementwise within `tol`, unless the plain version
+    itself misses the float64 result by more than half of `tol`
+    somewhere: there the sums are conditioned beyond float32 (a long
+    reduction, or a few large terms that nearly cancel: dx of [10->402]
+    over 158 rows), two f32 orders of them differ by up to the sum of
+    their errors, and the float64 rule decides alone. The float64 rule
+    holds always: the error against float64 at most twice the plain
+    version's, plus atol. `strict`: elementwise whatever the conditioning
+    (the shapes K9 was held to elementwise before its redesign)."""
+    err = float((got - plain).abs().max())
+    err_k = float((got.double() - ref64).abs().max())
+    err_p = float((plain.double() - ref64).abs().max())
+    half = {k: v / 2 for k, v in tol.items()}
+    elementwise = strict or within(torch, plain.double(), ref64, half)
+    if elementwise:
+        assert_close(failures, label, got, plain, tol)
+    if err_k > 2 * err_p + tol["atol"]:
+        failures.append(f"{label}: error vs float64 {err_k:.3e} > 2 x plain "
+                        f"f32's {err_p:.3e} + atol")
+    return err, {"max_abs_err": err, "kernel_err_vs_f64": err_k,
+                 "plain_f32_err_vs_f64": err_p,
+                 "rule": "elementwise" if elementwise else "float64"}
+
+
 def graybox_references(torch, gb, case, inputs):
     """The plain f32 forward and backward of a GrayboxCase and its float64
     result (forward and autograd cotangents)."""
@@ -1226,28 +1268,146 @@ def phase_graybox_kernels(torch, gb, max_err):
                       "outputs": details}, failures)
 
 
-def phase_kdense_single(torch, kp, max_err):
-    """K9 vs its plain version on the card, SINGLE_CASES: one line per
-    case, the forward and (dx, dc, dw)."""
-    for case in SINGLE_CASES:
-        failures = []
-        spec, x, c, w, gy = single_case_inputs(torch, kp, case)
-        y = kp._launch_single_fwd(spec, x, c, w)
-        y_ref = kp.kdense_single_apply_reference(spec, x, c, w)
-        e = assert_close(failures, "K9f", y, y_ref, FWD_TOL)
+def single_case_check(torch, kp, case, failures, max_err=None):
+    """K9f and K9b on one SingleCase against the plain versions (the
+    backward also against autograd through the plain forward), each output
+    by `k9_rule` (elementwise on SINGLE_CASES[:STRICT_SINGLE] whatever the
+    conditioning, as before K9's redesign). K9b launched twice must repeat
+    bit for bit. Returns the case's line."""
+    strict = case in SINGLE_CASES[:STRICT_SINGLE]
+    spec, x, c, w, gy = single_case_inputs(torch, kp, case)
+    y = kp._launch_single_fwd(spec, x, c, w)
+    y_ref = kp.kdense_single_apply_reference(spec, x, c, w)
+    xs = [t.double().requires_grad_() for t in (x, c, w)]
+    y64 = kp.kdense_single_apply_reference(spec, *xs)
+    e, fwd = k9_rule(torch, failures, "K9f", y, y_ref, y64.detach(), FWD_TOL,
+                     strict)
+    g = kp._launch_single_bwd(spec, x, c, w, gy)
+    if not all(torch.equal(a, b) for a, b in
+               zip(g, kp._launch_single_bwd(spec, x, c, w, gy))):
+        failures.append("K9b: two launches differ")
+    g_ref = kp.kdense_single_apply_bwd_reference(spec, x, c, w, gy)
+    g64 = torch.autograd.grad(y64, xs, gy.double())
+    xs = [t.clone().requires_grad_() for t in (x, c, w)]
+    g_auto = torch.autograd.grad(
+        kp.kdense_single_apply_reference(spec, *xs), xs, gy)
+    grads = {}
+    for name, a, b, auto, ref in zip(("dx", "dc", "dw"), g, g_ref, g_auto,
+                                     g64):
+        eg, grads[name] = k9_rule(torch, failures, f"K9b {name}", a, b, ref,
+                                  GRAD_TOL, strict)
+        k9_rule(torch, failures, f"K9b {name} vs autograd", a, auto, ref,
+                GRAD_TOL, strict)
+        if max_err is not None:
+            max_err["kdense_single_apply_bwd"] = max(
+                max_err["kdense_single_apply_bwd"], eg)
+    if max_err is not None:
         max_err["kdense_single_apply_fwd"] = max(
             max_err["kdense_single_apply_fwd"], e)
-        g = kp._launch_single_bwd(spec, x, c, w, gy)
-        g_ref = kp.kdense_single_apply_bwd_reference(spec, x, c, w, gy)
-        xs = [t.clone().requires_grad_() for t in (x, c, w)]
-        g_auto = torch.autograd.grad(
-            kp.kdense_single_apply_reference(spec, *xs), xs, gy)
-        check_grads(failures, max_err, "kdense_single_apply_bwd", "K9b", g,
-                    g_ref, g_auto, names=("dx", "dc", "dw"))
+    plan = kp._single_plan(spec, case.K, c, w)
+    lib = kp._cuda.library()
+    for role in (plan.fwd, plan.dx, plan.db):     # the C side's layout
+        if lib.kd_smem_bytes(ctypes.byref(role)) != \
+                4 * kp._cuda.k9_smem_floats(role):
+            failures.append(f"K9 smem of {role.astuple()}: library "
+                            f"{lib.kd_smem_bytes(ctypes.byref(role))} != "
+                            f"_cuda.k9_smem_floats x 4")
+    return {"phase": "kdense_single", "kernel": "K9", "case": case.label,
+            "fwd": fwd, "grads": grads, "fwd_tol": FWD_TOL,
+            "grad_tol": GRAD_TOL,
+            "plan": {"fwd": plan.fwd.astuple(), "cluster": plan.fwd_cluster,
+                     "dx": plan.dx.astuple(), "db": plan.db.astuple(),
+                     "bwd_cluster": plan.bwd_cluster}}
+
+
+def phase_kdense_single(torch, kp, max_err):
+    """K9 vs its plain version on the card, SINGLE_CASES: one line per
+    case, the forward and (dx, dc, dw) by `single_case_check`; then every
+    kernel instance by `k9_instance_check`."""
+    for case in SINGLE_CASES:
+        failures = []
+        line = single_case_check(torch, kp, case, failures, max_err)
         torch.cuda.synchronize()
-        finish_phase({"phase": "kdense_single", "kernel": "K9",
-                      "case": case.label, "fwd_max_abs_err": e,
-                      "fwd_tol": FWD_TOL, "grad_tol": GRAD_TOL}, failures)
+        finish_phase(line, failures)
+    failures = []
+    tiles = {f"{mr}x{mo}": k9_instance_check(torch, kp, (mr, mo), failures)
+             for mr, mo in kp._cuda.K9_TILES}
+    torch.cuda.synchronize()
+    finish_phase({"phase": "k9_instances", "kernel": "K9",
+                  "case": K9_INSTANCE_CASE.label, "fwd_tol": FWD_TOL,
+                  "grad_tol": GRAD_TOL, "tiles": tiles}, failures)
+
+
+# K9's kernel instances apart from the plans SINGLE_CASES get: a shape
+# with ragged tiles whose rows (O = 12 floats, 48 bytes) may go as bulk
+# copies, launched with roles of each register tile
+K9_INSTANCE_CASE = SingleCase("[7->12] tanh, grid 5, K=37", 7, 12, 5, "tanh",
+                              37, seed=40)
+
+
+def k9_instance_roles(_cuda, tile):
+    """Roles of one register tile at K9_INSTANCE_CASE, each the cheapest by
+    `_cuda.k9_cost` among those of 256 threads at most with the bulk
+    copies off, with them on, and with k split over a cluster: {"fwd":
+    [(role, cluster)], "bwd": [(dx role, dB role, cluster)]}, each role's
+    `blocks` set for its cluster."""
+    import copy
+    c = K9_INSTANCE_CASE
+    vec = _cuda._k9_vec(c.O, True)
+
+    def pick(role):
+        cands = list(_cuda.k9_candidates(role, c.K, c.I, c.O, c.G, vec,
+                                         _cuda.K9_THREADS, tile))
+        def cost(r):
+            return _cuda.k9_cost(role, r, c.G, _cuda.k9_threads(r))
+        # min() raises where a tile has no such role
+        return [min((r for r in cands if want(r)), key=cost)
+                for want in (lambda r: not r.bulk, lambda r: r.bulk,
+                             lambda r: r.SK > 1)]
+
+    fwd = [(_cuda._k9_blocks(copy.copy(r), r.SK), r.SK) for r in pick("fwd")]
+    bwd = []
+    for rx, rb in zip(pick("dx"), pick("db")):
+        cl = max(rx.SK, rb.SK)
+        bwd.append((_cuda._k9_blocks(copy.copy(rx), cl),
+                    _cuda._k9_blocks(copy.copy(rb), cl), cl))
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def k9_instance_check(torch, kp, tile, failures):
+    """K9f's and K9b's kernels of one register tile, launched directly
+    with `k9_instance_roles`' roles (no launch counted), each output
+    against the plain version elementwise (FWD_TOL / GRAD_TOL). Returns
+    the roles launched."""
+    _cuda = kp._cuda
+    c = K9_INSTANCE_CASE
+    spec, x, cp, w, gy = single_case_inputs(torch, kp, c)
+    spec = kp._single_spec(spec)
+    dims = ctypes.byref(_cuda.chain_dims(spec))
+    lib, ptr = _cuda.library(), _cuda.ptr
+    roles = k9_instance_roles(_cuda, tile)
+    label = f"K9 {tile[0]}x{tile[1]}"
+    y_ref = kp.kdense_single_apply_reference(spec, x, cp, w)
+    g_ref = kp.kdense_single_apply_bwd_reference(spec, x, cp, w, gy)
+    done = {"fwd": [], "bwd": []}
+    for r, cl in roles["fwd"]:
+        y = torch.full_like(y_ref, float("nan"))
+        _cuda.check(lib.kd_single_fwd(ptr(x), ptr(cp), ptr(w), ptr(y), c.K,
+                                      dims, ctypes.byref(r), cl,
+                                      _cuda.stream()), f"{label}f")
+        assert_close(failures, f"{label}f {r.astuple()}", y, y_ref, FWD_TOL)
+        done["fwd"].append(r.astuple())
+    for rx, rb, cl in roles["bwd"]:
+        g = [torch.full_like(t, float("nan")) for t in (x, cp, w)]
+        _cuda.check(lib.kd_single_bwd(
+            ptr(x), ptr(gy), ptr(cp), ptr(w), *map(ptr, g), c.K, dims,
+            ctypes.byref(rx), ctypes.byref(rb), cl, _cuda.stream()),
+            f"{label}b")
+        for name, a, b in zip(("dx", "dc", "dw"), g, g_ref):
+            assert_close(failures, f"{label}b {name} {rx.astuple()} "
+                         f"{rb.astuple()}", a, b, GRAD_TOL)
+        done["bwd"].append((rx.astuple(), rb.astuple()))
+    return done
 
 
 WIDE_NAMES = ("dx0", "dc1p", "dw1p", "dc2p", "dw2p")
@@ -1872,11 +2032,59 @@ def phase_source_main_path(torch, ps, modules, card):
     return launches
 
 
-def phase_kdense_pallas(torch, modules, KDense, card):
+# the reference surrogate chains through KANChain.apply(impl="pallas"):
+# problem of experiments/pde_surrogate.py -> its chain's label
+PALLAS_CHAINS = (("burgers", "Burgers [41,10,41] grid 5"),
+                 ("allen_cahn", "1-D Allen-Cahn [41,10,41] grid 10"),
+                 ("schrodinger", "Schrödinger [402,10,402] grid 10"),
+                 ("allen_cahn_2d", "2-D Allen-Cahn [1024,10,1024] grid 10"))
+
+
+def kdense_pallas_check(torch, modules, model, x, gy, want, label, failures,
+                        strict=False):
+    """`model.apply(x, impl="pallas")` and its VJP on the card with the
+    counts set to 0 just before and read just after (exactly `want`),
+    against `impl="xla"` by `k9_rule` (FWD_TOL / GRAD_TOL; the xla path in
+    float64 as the reference; `strict`: elementwise whatever the
+    conditioning). Returns (counts, detail)."""
+    import copy
+    leaves = [x.clone().requires_grad_(), *model.parameters()]
+    torch.cuda.synchronize()
+    reset_counts(modules)
+    y = model.apply(leaves[0], impl="pallas")
+    got = torch.autograd.grad(y, leaves, gy)
+    torch.cuda.synchronize()
+    counts = read_counts(modules)
+    expect = {k: 0 for k in KERNELS}
+    expect.update(want)
+    assert counts == expect, f"{label}: launches {counts} != {expect}"
+    y_x = model.apply(leaves[0], impl="xla")
+    want_g = torch.autograd.grad(y_x, leaves, gy)
+    m64 = copy.deepcopy(model).double()
+    leaves64 = [x.double().requires_grad_(), *m64.parameters()]
+    y64 = m64.apply(leaves64[0], impl="xla")
+    g64 = torch.autograd.grad(y64, leaves64, gy.double())
+    detail = {}
+    _, detail["y"] = k9_rule(torch, failures, f"{label} y vs xla",
+                             y.detach(), y_x.detach(), y64.detach(), FWD_TOL,
+                             strict)
+    names = ["dx"] + [n for n, _ in model.named_parameters()]
+    for name, a, b, ref in zip(names, got, want_g, g64):
+        _, detail[name] = k9_rule(torch, failures, f"{label} {name} vs xla",
+                                  a, b, ref, GRAD_TOL, strict)
+    return counts, detail
+
+
+def phase_kdense_pallas(torch, sg, modules, KANChain, KDense, card):
     """`KDense.apply(impl="pallas")` on the card: the gray-box source layer
     and an LV layer, each one K9f and one K9b launch for a forward and a
-    backward, against `impl="xla"`."""
+    backward; then `KANChain.apply(impl="pallas")` on each reference
+    surrogate chain at full width (glorot init from the trainer's seed) on
+    its problem's first saved state (K = 1) and on its whole saved
+    trajectory (`pde_surrogate.make_data`: 101 or 158 rows), two K9f and
+    two K9b launches a forward and backward. All against `impl="xla"`."""
     launches = {k: 0 for k in KERNELS}
+    k9 = dict(kdense_single_apply_fwd=1, kdense_single_apply_bwd=1)
     for I, O, G, norm, shape in ((1, 1, 10, "softsign", (26, 1)),
                                  (2, 10, 5, "tanh", (2, 17, 2))):
         failures = []
@@ -1885,29 +2093,38 @@ def phase_kdense_pallas(torch, modules, KDense, card):
         gen = torch.Generator(device="cuda").manual_seed(O)
         x = torch.rand(shape, generator=gen, device="cuda") * 2.0 - 0.5
         gy = torch.randn((*shape[:-1], O), generator=gen, device="cuda")
-        leaves = [x.clone().requires_grad_(), layer.C, layer.W]
-        torch.cuda.synchronize()
-        reset_counts(modules)
-        y = layer.apply(leaves[0], impl="pallas")
-        got = torch.autograd.grad(y, leaves, gy)
-        torch.cuda.synchronize()
-        counts = read_counts(modules)
-        want = {k: 0 for k in KERNELS}
-        want.update(kdense_single_apply_fwd=1, kdense_single_apply_bwd=1)
-        assert counts == want, f"launches {counts} != {want}"
+        counts, detail = kdense_pallas_check(
+            torch, modules, layer, x, gy, k9, f"K9 [{I}->{O}]", failures,
+            strict=True)
         for name in KERNELS:
             launches[name] += counts[name]
-        y_x = layer.apply(leaves[0], impl="xla")
-        want_g = torch.autograd.grad(y_x, leaves, gy)
-        assert_close(failures, "K9 y vs xla", y.detach(), y_x.detach(),
-                     FWD_TOL)
-        for name, a, b in zip(("dx", "dC", "dW"), got, want_g):
-            assert_close(failures, f"K9 {name} vs xla", a, b, GRAD_TOL)
         finish_phase({"phase": "kdense_pallas",
                       "layer": f"[{I}->{O}] grid {G} {norm}",
                       "x_shape": list(shape),
                       "launches": {k: v for k, v in counts.items() if v},
-                      "card": card}, failures)
+                      "vs_xla": detail, "card": card}, failures)
+    k9 = {k: 2 * v for k, v in k9.items()}
+    for problem, label in PALLAS_CHAINS:
+        cfg = sg.SurrogateConfig(problem=problem)
+        data = sg.make_data(cfg)
+        model = sg.make_model(cfg, data, "cuda")
+        model.init(torch.Generator().manual_seed(cfg.seed))
+        X = torch.tensor(data.X, dtype=torch.float32, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(len(label))
+        for K in (1, X.shape[0]):
+            failures = []
+            gy = torch.randn((K, X.shape[1]), generator=gen, device="cuda")
+            t0 = time.perf_counter()
+            counts, detail = kdense_pallas_check(
+                torch, modules, model, X[:K].contiguous(), gy, k9,
+                f"{label} K={K}", failures)
+            for name in KERNELS:
+                launches[name] += counts[name]
+            finish_phase({"phase": "kdense_pallas", "chain": label,
+                          "problem": problem, "K": K,
+                          "launches": {k: v for k, v in counts.items() if v},
+                          "seconds": time.perf_counter() - t0,
+                          "vs_xla": detail, "card": card}, failures)
     return launches
 
 
@@ -2684,13 +2901,11 @@ def device_us(torch, fn, reps=20):
     return sum(device_us_by_kernel(torch, fn, reps).values())
 
 
-def phase_source_timings(torch, gb, kp, card):
-    """K5 and K9 against their plain versions at the shapes of the source
-    path: K5 (tsit5, grid 10) at Fisher-KPP 1-D [1, 26] (the kernels
-    line), Allen-Cahn 1-D [1, 41] and the 2-D fields [32, 32] of
-    Fisher-KPP and Allen-Cahn; K9 at the
-    1->1 source layer over K=26 (the kernels line) and an LV layer [2->10]
-    over K=34. CUDA-event ms, the profiler's device µs per launch, and
+def phase_source_timings(torch, gb, card):
+    """K5 against its plain version at the shapes of the source path
+    (tsit5, grid 10): Fisher-KPP 1-D [1, 26] (the kernels line),
+    Allen-Cahn 1-D [1, 41] and the 2-D fields [32, 32] of Fisher-KPP and
+    Allen-Cahn. CUDA-event ms, the profiler's device µs per launch, and
     the bound from `kanodes_tpu_torch/utils/kernel_bounds.py`."""
     from kanodes_tpu_torch.utils import kernel_bounds as kb
     cases = {}
@@ -2715,22 +2930,6 @@ def phase_source_timings(torch, gb, kp, card):
                     gb.fused_graybox_rk_step_bwd_reference(*step, u, lap, c,
                                                            w, gy, kron),
                 kb.bound(*kb.graybox_step_bwd(*shape)))}
-    for case in (SINGLE_CASES[0], SINGLE_CASES[1]):
-        spec, x, c, w, gy = single_case_inputs(torch, kp, case)
-        dims = (case.I, case.O, case.G, case.K)
-        cases[case.label] = {
-            "kdense_single_apply_fwd": (
-                lambda spec=spec, x=x, c=c, w=w:
-                    kp._launch_single_fwd(spec, x, c, w),
-                lambda spec=spec, x=x, c=c, w=w:
-                    kp.kdense_single_apply_reference(spec, x, c, w),
-                kb.bound(*kb.single_fwd(*dims))),
-            "kdense_single_apply_bwd": (
-                lambda spec=spec, x=x, c=c, w=w, gy=gy:
-                    kp._launch_single_bwd(spec, x, c, w, gy),
-                lambda spec=spec, x=x, c=c, w=w, gy=gy:
-                    kp.kdense_single_apply_bwd_reference(spec, x, c, w, gy),
-                kb.bound(*kb.single_bwd(*dims)))}
     timed = {}
     with torch.no_grad():
         for label, kernels in cases.items():
@@ -2739,9 +2938,43 @@ def phase_source_timings(torch, gb, kp, card):
                 t = kernel_vs_plain_ms(torch, kern, plain, bound)
                 t["device_us"] = device_us(torch, kern)
                 timed[label][name] = t
-    emit({"phase": "timings", "path": "source and KDense", "cases": timed,
+    emit({"phase": "timings", "path": "source", "cases": timed,
           "card": card})
-    return {**timed[GRAYBOX_CASES[0].label], **timed[SINGLE_CASES[0].label]}
+    return timed[GRAYBOX_CASES[0].label]
+
+
+def phase_kdense_timings(torch, kp, card):
+    """K9f and K9b against their plain versions at every SINGLE_CASES
+    shape (the old layers and both layers of each reference surrogate
+    chain at K = 1 and its trajectory's rows): CUDA-event ms (plain,
+    kernel, kernel, plain), the profiler's device µs per launch and the
+    bound from `kanodes_tpu_torch/utils/kernel_bounds.py`; one line a
+    case. Returns the first case's, the kernel table's numbers."""
+    from kanodes_tpu_torch.utils import kernel_bounds as kb
+    timed = {}
+    with torch.no_grad():
+        for case in SINGLE_CASES:
+            spec, x, c, w, gy = single_case_inputs(torch, kp, case)
+            dims = (case.I, case.O, case.G, case.K)
+            runs = {
+                "kdense_single_apply_fwd": (
+                    lambda: kp._launch_single_fwd(spec, x, c, w),
+                    lambda: kp.kdense_single_apply_reference(spec, x, c, w),
+                    kb.bound(*kb.single_fwd(*dims))),
+                "kdense_single_apply_bwd": (
+                    lambda: kp._launch_single_bwd(spec, x, c, w, gy),
+                    lambda: kp.kdense_single_apply_bwd_reference(spec, x, c,
+                                                                 w, gy),
+                    kb.bound(*kb.single_bwd(*dims)))}
+            timed[case.label] = {}
+            for name, (kern, plain, bound) in runs.items():
+                t = kernel_vs_plain_ms(torch, kern, plain, bound)
+                t["device_us"] = device_us(torch, kern)
+                timed[case.label][name] = t
+            emit({"phase": "timings", "path": "KDense", "kernel": "K9",
+                  "case": case.label, "times": timed[case.label],
+                  "card": card})
+    return timed[SINGLE_CASES[0].label]
 
 
 def main() -> int:
@@ -2806,7 +3039,8 @@ def main() -> int:
     for counts in (phase_surrogate_main_path(torch, sg, tw, modules, card),
                    phase_packed_phases(torch, lv, lvm, pk, modules, card),
                    phase_source_main_path(torch, ps, modules, card),
-                   phase_kdense_pallas(torch, modules, KDense, card),
+                   phase_kdense_pallas(torch, sg, modules, KANChain, KDense,
+                                       card),
                    members_launches):
         for name in KERNELS:
             launches[name] += counts[name]
@@ -2816,7 +3050,8 @@ def main() -> int:
     phase_trained_members(torch, ra, StepController, members_out, max_err)
     times = phase_timings(torch, lv, rk, kp, ra, spec, rng, card, trained,
                           StepController)
-    times.update(phase_source_timings(torch, gb, kp, card))
+    times.update(phase_source_timings(torch, gb, card))
+    times.update(phase_kdense_timings(torch, kp, card))
     times.update(phase_wide_timings(torch, tw, kp, card))
     times.update(phase_members_timings(torch, lvm, ra, members_out, card))
     times.update(phase_mid_timings(torch, rk, kp, card))

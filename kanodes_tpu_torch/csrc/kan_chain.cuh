@@ -1,7 +1,7 @@
 // Per-row device math of the 2-layer KDense chain, shared by every kernel
 // of csrc/ (rk_fused.cu, kan_chain_apply.cu, rk_adaptive.cu,
-// rk_adaptive_members.cu, kdense_single.cu: K9 runs the one-thread layer
-// forward and VJP below).
+// rk_adaptive_members.cu, kdense_single.cu: its caps, ChainDims, and the
+// elementwise functions below).
 //
 // Computes what `_layer_fwd` / `_layer_bwd` (kanodes_tpu/ops/
 // kdense_pallas.py:173-206) and `_chain_f` / `_chain_vjp_collect`
@@ -134,57 +134,6 @@ __device__ __forceinline__ float kc_swish(float x) {
 __device__ __forceinline__ float kc_dswish(float x) {
   float s = kc_sigmoid(x);
   return s * (1.0f + x * (1.0f - s));
-}
-
-// One layer forward for one row:
-//   y[o] = sum_{i,g} B(u_ig) c[(i*G+g), o] + sum_i swish(x_i) w[i, o],
-//   u_ig = (norm(x_i) - grid_g) / h.
-__device__ inline void kc_layer_fwd(const float* x, int n_in, int n_out,
-                                    const float* c, const float* w,
-                                    const ChainDims& d, float* y) {
-  float acc_c[KC_MAX_H];
-  float acc_w[KC_MAX_H];
-  for (int o = 0; o < n_out; ++o) {
-    acc_c[o] = 0.0f;
-    acc_w[o] = 0.0f;
-  }
-  for (int i = 0; i < n_in; ++i) {
-    const float xn = kc_norm(x[i], d.normalizer);
-    for (int g = 0; g < d.G; ++g) {
-      const float B = kc_basis((xn - d.grid[g]) * d.inv_h, d.basis);
-      const float* row = c + (i * d.G + g) * n_out;
-      for (int o = 0; o < n_out; ++o) acc_c[o] += B * row[o];
-    }
-    const float sw = kc_swish(x[i]);
-    for (int o = 0; o < n_out; ++o) acc_w[o] += sw * w[i * n_out + o];
-  }
-  for (int o = 0; o < n_out; ++o) y[o] = acc_c[o] + acc_w[o];
-}
-
-// The dx path of one layer's backward for one row, storing the basis row
-// and swish(x) for the deferred parameter cotangents.
-__device__ inline void kc_layer_bwd_dx(const float* x, int n_in, int n_out,
-                                       const float* c, const float* w,
-                                       const ChainDims& d, const float* gy,
-                                       float* dx, float* b_out,
-                                       float* sw_out) {
-  for (int i = 0; i < n_in; ++i) {
-    const float xn = kc_norm(x[i], d.normalizer);
-    float acc = 0.0f;
-    for (int g = 0; g < d.G; ++g) {
-      const float u = (xn - d.grid[g]) * d.inv_h;
-      const float B = kc_basis(u, d.basis);
-      b_out[i * d.G + g] = B;
-      const float* row = c + (i * d.G + g) * n_out;
-      float m = 0.0f;
-      for (int o = 0; o < n_out; ++o) m += gy[o] * row[o];
-      acc += m * kc_basis_du(u, B, d.basis) * d.inv_h;
-    }
-    float gw = 0.0f;
-    for (int o = 0; o < n_out; ++o) gw += gy[o] * w[i * n_out + o];
-    dx[i] = acc * kc_dnorm(x[i], d.normalizer) + gw * kc_dswish(x[i]);
-    sw_out[i] = kc_swish(x[i]);
-  }
 }
 
 __host__ __device__ inline int kc_param_floats(const ChainDims& d) {

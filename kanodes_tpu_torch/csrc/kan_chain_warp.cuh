@@ -1,8 +1,9 @@
 // The discrete adjoint of explicit RK steps over the 2-layer KDense chain
 // with a warp on each row of the batch: the LV adjoint sweeps K3b
 // (rk_fused.cu) and K4b (rk_adaptive.cu), and at one step the LV step
-// adjoint K2b (rk_fused.cu). The same math as the one-thread layer
-// routines kc_layer_fwd / kc_layer_bwd_dx (kan_chain.cuh) on both layers.
+// adjoint K2b (rk_fused.cu). The same math as one thread a row running
+// each layer's forward (inputs i, then basis g, a sum per output) and its
+// VJP on both layers.
 // At the end of the file, the chain forward of K4f (rk_adaptive.cu), which
 // K3f, K2f and K1f also run, on a warp, bit for bit the one-thread chain's.
 //
@@ -309,8 +310,9 @@ __device__ inline float kw_rk_step_reverse(float gy, int stages, int slots,
 }
 
 // ---------------------------------------------------------------------------
-// The chain FORWARD of one row by one warp, bit for bit what kc_layer_fwd
-// on both layers gives in one thread of a file built with -fmad=false: K4f
+// The chain FORWARD of one row by one warp, bit for bit what one thread
+// gives that sums each layer's terms per output (inputs i, then basis g,
+// then the swish terms) in a file built with -fmad=false: K4f
 // (rk_adaptive.cu) runs it, and K3f can take it. Every product and sum is
 // an explicit __fmul_rn / __fadd_rn (and the elementwise functions below
 // spell theirs out the same way), so it rounds alike whatever the -fmad
@@ -346,7 +348,7 @@ __device__ __forceinline__ float kf_swish(float x) {
   return __fmul_rn(x, __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x))));
 }
 
-// (norm(x) - c) / h as kc_layer_fwd forms it
+// (norm(x) - c) / h as the one-thread layer forms it
 __device__ __forceinline__ float kf_u(float xn, float c, float inv_h) {
   return __fmul_rn(__fsub_rn(xn, c), inv_h);
 }

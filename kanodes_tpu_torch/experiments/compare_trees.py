@@ -2,7 +2,7 @@
 repository on one card, in turns.
 
     python -m kanodes_tpu_torch.experiments.compare_trees PARENT CHANGE \\
-        [--out=FILE] [--groups=gray_wide,lv,members,small,mid,k3m,k1]
+        [--out=FILE] [--groups=gray_wide,lv,members,small,mid,k3m,k1,k9]
         [--turns=N]
 
 PARENT and CHANGE are the roots of two checkouts (for example a `git
@@ -50,7 +50,12 @@ helpers and inputs (CUDA-event ms, `cuda_ms`, and the profiler's device
     `lv_inputs` (pallas shooting; fixed and adaptive), and at the packed
     8-member chain [16,80,16] over K = 1 and 34 rows of MID_CASES' inputs
     (a tree whose K1 refuses the chain reports that), each also by kernel;
-    and the lv group's sha256 of K4f's outputs (`k1_launches`).
+    and the lv group's sha256 of K4f's outputs (`k1_launches`);
+  * k9: K9f and K9b (`kdense_single_apply`'s two launches) at every
+    `chip_smoke.SINGLE_CASES` shape of CHANGE (the old layers and both
+    layers of each reference surrogate chain at K = 1 and its saved
+    trajectory's rows), on each tree's `single_case_inputs`; a tree whose
+    K9 refuses a shape reports the refusal (`k9_launches`).
 --turns=N repeats the four turns N times.
 Then, in the same turns (host times swing on a shared host), the group's
 profiles: `profile_source --ndim=2` for Fisher-KPP and Allen-Cahn and
@@ -429,6 +434,27 @@ def k1_launches(torch, np, cs):
     return out
 
 
+def k9_launches(torch, np, cs, cases):
+    """label -> (K9f, K9b) launch closures on each SingleCase of `cases`
+    (SingleCase fields as tuples), or the ValueError text where the tree's
+    K9 refuses the shape."""
+    from kanodes_tpu_torch.ops import kdense_pallas as kp
+    out = {}
+    for fields in cases:
+        case = cs.SingleCase(*fields)
+        spec, x, c, w, gy = cs.single_case_inputs(torch, kp, case)
+        try:
+            kp._launch_single_fwd(spec, x, c, w)
+        except ValueError as err:
+            out[case.label] = str(err)
+            continue
+        out[case.label] = (
+            lambda s=spec, x=x, c=c, w=w: kp._launch_single_fwd(s, x, c, w),
+            lambda s=spec, x=x, c=c, w=w, g=gy:
+                kp._launch_single_bwd(s, x, c, w, g))
+    return out
+
+
 def members_bwd_launch(torch, np, cs):
     from kanodes_tpu_torch.ode.integrate import StepController
     from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
@@ -460,6 +486,7 @@ from kanodes_tpu_torch.ops import rk_fused_wide as tw
 from kanodes_tpu_torch.utils.precision import set_exact_f32
 ''' + LV_ADJOINT_INPUTS + ADAPTIVE_INPUTS + PROFILER + r'''
 groups = sys.argv[1].split(",")
+K9_CASES = json.loads(sys.argv[2]) if len(sys.argv) > 2 else []
 set_exact_f32()
 out = {}
 torch.set_grad_enabled(False)
@@ -519,6 +546,14 @@ if "k1" in groups:
                       "us_by_kernel": device_us_by_kernel(torch, f,
                                                           short=True)}
     out["K4f sha256"] = k4f_hashes(torch, np, cs)
+if "k9" in groups:
+    for label, f in k9_launches(torch, np, cs, K9_CASES).items():
+        if isinstance(f, str):
+            out["K9 " + label] = {"refused": f}
+            continue
+        for name, g in zip(("K9f", "K9b"), f):
+            out[f"{name} {label}"] = {"ms": cs.cuda_ms(torch, g, 20),
+                                      "us": cs.device_us(torch, g, reps=10)}
 if "gray_wide" in groups:
     for i in (0, 1, 6, 7):
         case = cs.GRAYBOX_CASES[i]
@@ -585,7 +620,19 @@ PROFILES = {
             ("-c", (PACKED_FIXED,))),
     "k3m": (),
     "k1": (("profile_lv", ("--impl=pallas", "--solve_mode=shooting")),),
+    "k9": (),
 }
+
+
+def single_cases(root: str) -> str:
+    """CHANGE's chip_smoke.SINGLE_CASES as JSON (K9's shapes for both
+    trees)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "change_chip_smoke", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return json.dumps([list(c) for c in mod.SINGLE_CASES])
 
 
 def run(root: str, argv: list[str]):
@@ -627,9 +674,10 @@ def main(argv: list[str]) -> int:
         print(json.dumps(obj), flush=True)
 
     turns = (roots[0], roots[1], roots[1], roots[0]) * n_turns
+    k9_cases = single_cases(roots[1]) if "k9" in groups else "[]"
     ys = {}
     for root in turns:
-        kernels = run(root, ["-c", KERNELS, ",".join(groups)])
+        kernels = run(root, ["-c", KERNELS, ",".join(groups), k9_cases])
         ys.setdefault(names[root], kernels.pop("K3f ys", None))
         emit({"tree": names[root], "kernels": kernels})
     if ys.get("parent") and ys.get("change"):

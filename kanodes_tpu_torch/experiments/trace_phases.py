@@ -4,6 +4,10 @@ K3f-m, K3b-m, K1f and K1b spend a launch, phase by phase, on the card.
     python -m kanodes_tpu_torch.experiments.trace_phases \\
         [--kernels=K5b/K7b,K3b/K4b,K4f/K8b,K3f/K8f,K2f-m/K2b-m,K2f/K2b,\\
 K3f-m/K3b-m,K1f/K1b] ROOT [...]
+    python -m kanodes_tpu_torch.experiments.trace_phases \\
+        --report=NAME[,NAME] ROOT [...]      (no traced run: each ROOT's
+        build report for the kernels whose names hold a NAME, e.g. k9_,
+        and which kernels' SASS differs from the first ROOT's)
 
 For each ROOT (a checkout of this repository), copies its
 `kanodes_tpu_torch/` into a temporary directory, inserts `clock64()`
@@ -1931,24 +1935,29 @@ def build_report(root: str) -> tuple[dict, dict]:
 
 def main(argv: list[str]) -> int:
     families = tuple(FAMILIES)
-    roots = []
+    roots, report = [], None
     for a in argv:
         if a.startswith("--kernels="):
             families = tuple(a.split("=", 1)[1].split(","))
+        elif a.startswith("--report="):
+            report = tuple(a.split("=", 1)[1].split(","))
         else:
             roots.append(a)
     if not roots or not set(families) <= set(FAMILIES):
         raise SystemExit(f"usage: trace_phases "
-                         f"[--kernels={','.join(FAMILIES)}] ROOT [ROOT ...]")
+                         f"[--kernels={','.join(FAMILIES)} | "
+                         f"--report=NAME[,NAME]] ROOT [ROOT ...]")
+    if report is not None:    # no traced run: the builds' report only
+        families = ()
+    names = report or tuple(n for f in families for n in PTXAS_OF[f])
     reports = {}
     for root in roots:
-        for line in trace(root, families):
+        for line in trace(root, families) if families else ():
             print(json.dumps(line), flush=True)
         usage, digests = build_report(os.path.abspath(root))
         reports[root] = digests
         print(json.dumps({"root": os.path.abspath(root), "ptxas": {
-            k: v for k, v in usage.items()
-            if any(n in k for f in families for n in PTXAS_OF[f])}}),
+            k: v for k, v in usage.items() if any(n in k for n in names)}}),
             flush=True)
     if len(roots) > 1:
         # kernels whose SASS differs from the first root's (or is new)

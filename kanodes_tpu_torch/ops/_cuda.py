@@ -70,8 +70,12 @@ KM_SWEEP_MAX_WARPS, KM_C_THREADS = 8, 256
 # K1 (kan_chain_apply.cu): K1_STAGE_WARPS, a small-flavor block's warps at
 # least
 K1_STAGE_WARPS = 8
-# K9 (kdense_single.cu): in_dims <= KD_MAX_I, out_dims <= KC_MAX_H
-MAX_SINGLE_I = 32
+# K9 (kdense_single.cu): K9_THREADS a block, micro-tiles of at most
+# K9_MAX_MR x K9_MAX_MO, clusters of at most K9_MAX_CLUSTER blocks, and the
+# dynamic shared memory a launch may take, K9_MAX_SMEM (the default, no
+# opt-in); the plan's cost model counts the H100 SXM's N_SM multiprocessors
+K9_THREADS, K9_MAX_MR, K9_MAX_MO, K9_MAX_CLUSTER = 256, 4, 4, 8
+K9_MAX_SMEM, N_SM = 44 * 1024, 132
 # K5 (graybox.cu): GB_MAX_NODES, GB_MAX_N, GB_MAX_G, GB_MAX_STAGES
 MAX_GB_NODES, MAX_GB_N, MAX_GB_G, MAX_GB_STAGES = 2048, 64, 16, 7
 # K6/K7/K10 (rk_fused_wide.cu): WD_MAX_I, WD_MAX_H, WD_MAX_G, WD_MAX_STAGES
@@ -191,10 +195,12 @@ _SIGNATURES = {
     # x0, c1, w1, c2, w2, rx, rk1, rdt, rsx, stats, gys, T, dx0, dc1, dw1,
     # dc2, dw2, scratch, K, warps, chunk, dims, tab, stream
     "kc_adaptive_bwd": [_P] * 11 + [_I] + [_P] * 6 + [_I] * 3 + [_P] * 3,
-    # x, c, w, y, K, dims, stream
-    "kd_single_fwd": [_P] * 4 + [_I] + [_P] * 2,
-    # x, gy, c, w, dx, dc, dw, scratch, K, dims, stream
-    "kd_single_bwd": [_P] * 8 + [_I] + [_P] * 2,
+    # x, c, w, y, K, dims, role, cluster, stream
+    "kd_single_fwd": [_P] * 4 + [_I] + [_P] * 2 + [_I, _P],
+    # x, gy, c, w, dx, dc, dw, K, dims, dx role, dB role, cluster, stream
+    "kd_single_bwd": [_P] * 7 + [_I] + [_P] * 3 + [_I, _P],
+    # role: its dynamic shared memory in bytes
+    "kd_smem_bytes": [_P],
     # u, lap, c, w, y, tab, stream
     "gb_step_fwd": [_P] * 7,
     # u, lap, c, w, gy, du, dc, dw, tab, stream
@@ -229,7 +235,8 @@ _SIGNATURES = {
 _CAPS = {
     "kc_caps": (MAX_I, MAX_H, MAX_G, MAX_STAGES, MAX_ADAPT_ROWS),
     "kb_caps": (MAX_KB_I, MAX_KB_H, MAX_G, MAX_STAGES, MAX_KB_SMEM),
-    "kd_caps": (MAX_SINGLE_I, MAX_H, MAX_G),
+    "kd_caps": (K9_THREADS, K9_MAX_MR, K9_MAX_MO, K9_MAX_CLUSTER,
+                K9_MAX_SMEM, MAX_G),
     "gb_caps": (MAX_GB_NODES, MAX_GB_N, MAX_GB_G, MAX_GB_STAGES),
     "wd_caps": (MAX_WIDE_I, MAX_WIDE_H, MAX_WIDE_G, MAX_WIDE_STAGES),
     "mb_caps": (MAX_MB_I, MAX_G, MAX_STAGES, MAX_MB_SMEM),
@@ -1024,3 +1031,224 @@ def rec_width(spec) -> int:
     """Floats in one parameter-cotangent record (`kc_rec_layout`)."""
     I, H, O, G = spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len
     return I * G + I + H + H * G + H + O
+
+
+# ---------------------------------------------------------------------------
+# K9's plan (kdense_single.cu): three tiled products of one KDense layer
+# ---------------------------------------------------------------------------
+
+class K9Role(ctypes.Structure):
+    """Mirror of `struct K9Role` in kdense_single.cu: how one launch (or
+    one half of K9b's) computes out[M, N] = sum_k P[m, k] Q[k, n]. A tile
+    of TM x TN outputs is summed over its k range by SK blocks of one
+    cluster (KR k values each, rank order), each in chunks of KC staged in
+    shared memory (Q by cp.async, `vec` floats a copy), its K9_THREADS
+    threads as NK k lanes x NR row lanes x NO column lanes: thread (kq, mq,
+    nq) sums rows mq MR + [0, MR) and columns nq MO + [0, MO) over the
+    chunk's k = kq (mod NK). The chunks are k-major, [KC][TMp] and
+    [KC][TNp] (KCp = KC), but the dx product's k-minor, [TMp][KCp] and
+    [TNp][KCp] (KCp odd). `bulk`: K9f's or the dB product's Q of whole
+    rows (TNp = TN = N), its C or gy rows a bulk copy a chunk. `blocks`:
+    the role's blocks, m_tiles n_tiles SK up to a whole cluster."""
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "MR", "NR", "MO", "NO", "NK", "TM", "TN", "TMp", "TNp", "KC", "SK",
+        "KR", "m_tiles", "n_tiles", "blocks", "vec", "KCp", "bulk")]
+
+    def astuple(self) -> tuple:
+        return tuple(getattr(self, n) for n, _ in self._fields_)
+
+
+def k9_role_dims(role: str, K: int, I: int, O: int, G: int):
+    """(M, N, k extent, m unit, n unit, k unit) of a K9 product over K rows
+    of a layer [I -> O] of grid G, whose F = I (G + 1) features are each
+    input's G basis values then its swish (the rows of [C; W] in that
+    order): "fwd" y = A [C; W] (k: features, whole inputs a chunk); "dx"
+    M = gy [C; W]^T (n: features, whole inputs a tile); "db" [dC; dW] =
+    A^T gy (m: features, whole inputs a tile; k: rows)."""
+    F, G1 = I * (G + 1), G + 1
+    return {"fwd": (K, O, F, 1, 1, G1), "dx": (K, F, O, 1, G1, 1),
+            "db": (F, O, K, G1, 1, 1)}[role]
+
+
+def k9_smem_floats(r) -> int:
+    """A role's dynamic shared memory in floats (the library's
+    `kd_smem_bytes` / 4): Q's and P's chunks twice, 2 KCp TNp then 2 KCp
+    TMp, or the k lanes' partials [NK][TM][TN] in their place, then the
+    tile's sums [TM][TN], which the cluster's ranks read, then (8-byte
+    aligned) the two mbarriers of the bulk copies."""
+    chunks = _cdiv(2 * r.KCp * r.TNp, 4) * 4 + 2 * r.KCp * r.TMp
+    sums = max(chunks, r.NK * r.TM * r.TN) + r.TM * r.TN
+    return (sums + 1) // 2 * 2 + 4
+
+
+def _k9_sizes(n: int, unit: int, cap: int) -> list[int]:
+    """Tile extents to try along an axis of n in whole units, at most cap
+    (and at least one unit)."""
+    if unit == 1:
+        return sorted({min(n, t) for t in (1, 2, 4, 8, 16, 32, 64, 128)
+                       if t <= cap})
+    most = max(1, min(n // unit, cap // unit))
+    return sorted({unit * min(t, most) for t in (1, 2, 4, 8, 16, most)})
+
+
+def k9_candidates(role: str, K: int, I: int, O: int, G: int, vec: int,
+                  threads: int, tile: tuple[int, int] | None = None):
+    """Every role the kernels can run with at most `threads` a block: tile
+    extents in whole units, register tiles MR x MO of 1, 2 or 4 each way
+    (only `tile`, if given), as many k lanes as the threads allow (no more
+    than a rank's k values), a k split over 1, 2, 4 or 8 ranks, and chunks
+    as large as K9_MAX_SMEM holds. `blocks` is left 0 (`_k9_blocks` sets
+    it for the launch's cluster)."""
+    M, N, Kt, um, un, uk = k9_role_dims(role, K, I, O, G)
+    if role == "dx":
+        vec = 1
+    layouts = []
+    for TN in _k9_sizes(N, un, K9_MAX_MO * 32):
+        if TN % vec and TN != N:
+            continue               # every tile's columns start aligned
+        MO = 1 << (_cdiv(TN, 32) - 1).bit_length()
+        if tile is not None:
+            MO = tile[1]
+            if MO * 32 < TN:
+                continue
+        NO = _cdiv(TN, MO)
+        layouts.append((TN, MO, NO, NO * MO if role == "dx"
+                        else _cdiv(NO * MO, 4) * 4, 0))
+        if role != "dx" and TN == N and N % MO == 0 and N // MO <= 32:
+            layouts.append((TN, MO, N // MO, N, 1))    # whole rows, bulk
+    for TN, MO, NO, TNp, bulk in layouts:
+        for TM in _k9_sizes(M, um, K9_MAX_MR * K9_THREADS):
+            for MR in (1, 2, 4) if tile is None else tile[:1]:
+                NR = _cdiv(TM, MR)
+                if MR > TM or NR * NO > threads:
+                    continue
+                TMp, units, SK = NR * MR, Kt // uk, 1
+                while SK <= min(K9_MAX_CLUSTER, units):
+                    KR = _cdiv(units, SK) * uk
+                    NK = min(threads // (NR * NO), KR)
+                    room = K9_MAX_SMEM // 4 - TM * TN - 10
+                    KC = min(KR, room // (2 * (TNp + TMp) * uk) * uk)
+                    pitches = [(KC, KC, bulk)]
+                    if role == "dx":      # k-minor: an odd pitch, or rows
+                        KC = min(KR, (room - 4) // (2 * (TNp + TMp)) - 1)
+                        pitches = [(KC, KC | 1, 0)]
+                        if KC == Kt:      # whole rows of [C; W] and gy
+                            pitches.append((KC, KC, 1))
+                    for KC, KCp, bk in pitches:
+                        if KC >= uk and NK * TM * TN <= room:
+                            yield K9Role(MR, NR, MO, NO, NK, TM, TN, TMp,
+                                         TNp, KC, SK, KR, _cdiv(M, TM),
+                                         _cdiv(N, TN), 0, vec, KCp, bk)
+                    SK *= 2
+
+
+def k9_threads(r: K9Role) -> int:
+    """A role's threads a block (`k9_threads`): its lanes in whole warps."""
+    return 32 * _cdiv(r.NK * r.NR * r.NO, 32)
+
+
+def k9_cost(role: str, r: K9Role, G: int, threads: int) -> float:
+    """A rough count of cycles for a role launched in blocks of `threads`:
+    the instructions of its busiest warp (the register tile's loads and
+    multiply-adds, the features, the copies, the sums) at max(w, 4)
+    cycles each, w the warps a scheduler holds; a load's latency a chunk,
+    the cluster's exchange, a bulk copy's mbarrier and a block's set-up;
+    as many waves as the SMs' resident blocks need; or, if more, an SM's
+    cp.async copies at one cycle each or its Q bytes at 64 B a cycle; and
+    the launch's blocks to dispatch. The constants were fitted to the
+    device time of roles timed on an H100 (PERF.md, K9's redesign)."""
+    G1 = G + 1
+    tiles, chunks = r.m_tiles * r.n_tiles, _cdiv(r.KR, r.KC)
+    fma = chunks * _cdiv(r.KC, r.NK) * (4 + 2 * r.MR * r.MO)
+    if role == "fwd":            # basis features of TM rows, KC / G1 inputs
+        gen = _cdiv(r.TM * (r.KC // G1), threads) * (12 * G1 + 40)
+    elif role == "db":           # of KC rows, TM / G1 inputs
+        gen = _cdiv(r.KC * (r.TM // G1), threads) * (12 * G1 + 40)
+    else:                        # gy's chunk, copied as P
+        gen = 0
+    n_copies = 0 if r.bulk else (r.KC * _cdiv(r.TN, r.vec)
+                                 + (r.KC * r.TM if role == "dx" else 0))
+    copies = _cdiv(n_copies, threads) * 8
+    instr = fma + chunks * (gen + copies + 60) + 300 \
+        + _cdiv(r.TM * r.TN, threads) * (5 * r.NK + 6 * r.SK + 20)
+    smem = 4 * k9_smem_floats(r) + 1024
+    regs = 32 + 4 * r.MR * r.MO
+    resident = max(1, min(2048 // threads, (228 * 1024) // smem,
+                          65536 // (regs * threads)))
+    per_sm = _cdiv(tiles * r.SK, N_SM)
+    w = min(per_sm, resident) * (threads // 32) / 4
+    wave = instr * max(w, 4) + 3000 + 300 * (chunks - 1) \
+        + (1200 if r.SK > 1 else 0) + (800 if r.bulk else 0)
+    return max(_cdiv(per_sm, resident) * wave + 1000 * per_sm,
+               per_sm * chunks * n_copies,
+               per_sm * r.KR * r.TN * 4 / 64) + 4 * tiles * r.SK
+
+
+def _k9_best(role: str, K: int, I: int, O: int, G: int, vec: int,
+             threads: int, tile=None) -> tuple[float, K9Role | None]:
+    return min(((k9_cost(role, r, G, threads), r) for r in
+                k9_candidates(role, K, I, O, G, vec, threads, tile)),
+               key=lambda c: c[0], default=(float("inf"), None))
+
+
+# register tiles (MR, MO) the kernels are instantiated for
+K9_TILES = tuple((a, b) for a in (1, 2, 4) for b in (1, 2, 4))
+
+
+class SinglePlan(NamedTuple):
+    """K9's launches (`single_plan`): K9f one role in clusters of
+    fwd_cluster blocks, K9b its dx and dB roles in one kernel (one
+    register tile), in clusters of bwd_cluster; the dynamic shared memory
+    of each, bytes."""
+    fwd: K9Role
+    fwd_cluster: int
+    dx: K9Role
+    db: K9Role
+    bwd_cluster: int
+    fwd_smem: int
+    bwd_smem: int
+
+
+def _k9_vec(O: int, aligned: bool) -> int:
+    """Floats a cp.async of a Q row copies: 4, 2 or 1 (16-byte aligned
+    bases and O a multiple)."""
+    return next(v for v in (4, 2, 1) if O % v == 0 and (aligned or v == 1))
+
+
+def _k9_blocks(r: K9Role, cluster: int) -> K9Role:
+    r.blocks = _cdiv(r.m_tiles * r.n_tiles * r.SK, cluster) * cluster
+    return r
+
+
+# the block sizes a plan tries
+K9_BLOCK_SIZES = (64, 128, 256)
+
+
+@functools.lru_cache(maxsize=256)
+def single_plan(K: int, I: int, O: int, G: int, aligned: bool = True
+                ) -> SinglePlan:
+    """K9's plan over K rows of a layer [I -> O] of grid G (`aligned`: the
+    parameters' and gy's bases are 16-byte aligned, so a Q row may be
+    copied `_k9_vec` floats at a time): for each launch the block size and
+    roles of the least `k9_cost` (K9b's two halves share the block size,
+    their costs added). A plan with no fitted constant,
+    `experiments/k9_sweep.rule_plan`, took 1.40x this one's device time
+    summed over chip_smoke's K9 shapes on an H100 (PERF.md)."""
+    vec = _k9_vec(O, aligned)
+    _, fwd = min((_k9_best("fwd", K, I, O, G, vec, t) for t in
+                  K9_BLOCK_SIZES), key=lambda c: c[0])
+    costs = []
+    for t in K9_BLOCK_SIZES:
+        for tile in K9_TILES:
+            (cx, dx), (cb, db) = (_k9_best("dx", K, I, O, G, vec, t, tile),
+                                  _k9_best("db", K, I, O, G, vec, t, tile))
+            costs.append((cx + cb, dx, db))
+    _, dx, db = min(costs, key=lambda c: c[0])
+    cb = max(dx.SK, db.SK)
+    fwd, dx, db = (_k9_blocks(fwd, fwd.SK), _k9_blocks(dx, cb),
+                   _k9_blocks(db, cb))
+    if max(fwd.blocks, dx.blocks + db.blocks) >= 2 ** 22:
+        raise ValueError(f"kernel caps: a K9 launch's blocks under 2^22; "
+                         f"got K={K}, I={I}, O={O}, G={G}")
+    return SinglePlan(fwd, fwd.SK, dx, db, cb, 4 * k9_smem_floats(fwd),
+                      4 * max(k9_smem_floats(dx), k9_smem_floats(db)))

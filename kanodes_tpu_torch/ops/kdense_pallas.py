@@ -24,8 +24,9 @@ launches the kernel or raises; a CPU tensor runs the plain version
 `kan_chain_rhs` makes it the right-hand side of an ODE (`impl="pallas"`).
 
 `kdense_single_apply` is one KDense layer x[K, I] -> [K, O] as one
-launch (K9f, `csrc/kdense_single.cu`) with its VJP (dx, dc, dw) as one
-more (K9b); `kdense_pallas` is what `KDense.apply(impl="pallas")` calls.
+launch (K9f, `csrc/kdense_single.cu`: tiled products planned by
+`_cuda.single_plan`, at any width) with its VJP (dx, dc, dw) as one more
+(K9b); `kdense_pallas` is what `KDense.apply(impl="pallas")` calls.
 Like the JAX kernel it computes the rbf basis whatever `spec.basis` says
 (`kdense_pallas.py:346-350` never passes it on), and `kdense_pallas`
 takes rbf layers only. `LAUNCHES` counts kernel launches.
@@ -370,16 +371,19 @@ def kdense_single_apply_bwd_reference(spec: ChainSpec, x, c, w, gy):
 
 
 def check_single_launch(spec: ChainSpec, x, c, w) -> int:
-    """Validate a K9 launch: caps, x [K, I], c [I*G, O], w [I, O],
-    float32, contiguous. Returns K."""
+    """Validate a K9 launch: caps (2 <= G <= MAX_G, every array under 2^31
+    elements, the features I (G + 1) under 2^22), x [K, I], c [I*G, O],
+    w [I, O], float32, contiguous. Returns K."""
     I, O, G = spec.in_dims, spec.out_dims, spec.grid_len
-    if not (1 <= I <= _cuda.MAX_SINGLE_I and 1 <= O <= _cuda.MAX_H
-            and 2 <= G <= _cuda.MAX_G):
-        raise ValueError(f"kernel caps: in_dims <= {_cuda.MAX_SINGLE_I}, "
-                         f"out_dims <= {_cuda.MAX_H}, 2 <= G <= "
-                         f"{_cuda.MAX_G}; got I={I}, O={O}, G={G}")
+    if not 2 <= G <= _cuda.MAX_G:
+        raise ValueError(f"kernel caps: 2 <= G <= {_cuda.MAX_G}; got G={G}")
     if x.dim() != 2 or x.shape[1] != I or x.shape[0] < 1:
         raise ValueError(f"x: shape {tuple(x.shape)} is not [K, {I}]")
+    if max(x.shape[0] * max(I, O), I * (G + 1) * O) >= 2 ** 31 \
+            or I * (G + 1) >= 2 ** 22:
+        raise ValueError(f"kernel caps: every array under 2^31 elements, "
+                         f"I (G + 1) under 2^22; got K={x.shape[0]}, I={I}, "
+                         f"O={O}, G={G}")
     for name, p, shape in (("c", c, (I * G, O)), ("w", w, (I, O))):
         if tuple(p.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(p.shape)} != {shape}")
@@ -387,14 +391,23 @@ def check_single_launch(spec: ChainSpec, x, c, w) -> int:
     return x.shape[0]
 
 
+def _single_plan(spec: ChainSpec, K: int, *bases) -> _cuda.SinglePlan:
+    """K9's plan; its Q copies are vectorised where every base is 16-byte
+    aligned."""
+    return _cuda.single_plan(K, spec.in_dims, spec.out_dims, spec.grid_len,
+                             all(t.data_ptr() % 16 == 0 for t in bases))
+
+
 def _launch_single_fwd(spec: ChainSpec, x, c, w):
     K = check_single_launch(spec, x, c, w)
+    plan = _single_plan(spec, K, c, w)
     y = torch.empty((K, spec.out_dims), dtype=torch.float32, device=x.device)
     lib = _cuda.library()
     with torch.cuda.device(x.device):
         err = lib.kd_single_fwd(_cuda.ptr(x), _cuda.ptr(c), _cuda.ptr(w),
                                 _cuda.ptr(y), K,
                                 ctypes.byref(_cuda.chain_dims(spec)),
+                                ctypes.byref(plan.fwd), plan.fwd_cluster,
                                 _cuda.stream())
     LAUNCHES["kdense_single_apply_fwd"] += 1
     _cuda.check(err, "kdense_single_apply_fwd")
@@ -402,20 +415,22 @@ def _launch_single_fwd(spec: ChainSpec, x, c, w):
 
 
 def _launch_single_bwd(spec: ChainSpec, x, c, w, gy):
+    """K9b: dx's product and the parameter cotangents' as the two halves
+    of one kernel's blocks."""
     K = check_single_launch(spec, x, c, w)
     if tuple(gy.shape) != (K, spec.out_dims):
         raise ValueError(f"gy: shape {tuple(gy.shape)} != "
                          f"{(K, spec.out_dims)}")
     _cuda.check_tensors(gy)
+    plan = _single_plan(spec, K, gy)
     dx, dc, dw = (torch.empty_like(t) for t in (x, c, w))
-    width = spec.in_dims * (spec.grid_len + 1)     # basis row and swish(x)
-    scratch = torch.empty(K * width, dtype=torch.float32, device=x.device)
     lib = _cuda.library()
     with torch.cuda.device(x.device):
         err = lib.kd_single_bwd(
             _cuda.ptr(x), _cuda.ptr(gy), _cuda.ptr(c), _cuda.ptr(w),
-            _cuda.ptr(dx), _cuda.ptr(dc), _cuda.ptr(dw), _cuda.ptr(scratch),
-            K, ctypes.byref(_cuda.chain_dims(spec)), _cuda.stream())
+            _cuda.ptr(dx), _cuda.ptr(dc), _cuda.ptr(dw), K,
+            ctypes.byref(_cuda.chain_dims(spec)), ctypes.byref(plan.dx),
+            ctypes.byref(plan.db), plan.bwd_cluster, _cuda.stream())
     LAUNCHES["kdense_single_apply_bwd"] += 1
     _cuda.check(err, "kdense_single_apply_bwd")
     return dx, dc, dw

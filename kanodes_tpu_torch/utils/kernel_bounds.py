@@ -287,6 +287,20 @@ GRAYBOX_SHAPES = (("1-D Fisher-KPP, [1, 26]", 26, 26, False),
                   ("2-D, [32, 32] (kron)", 1024, 32, True))
 
 
+# K9's other shapes (I, O, G, K): the old ones past the table's row, then
+# both layers of each reference surrogate chain at K = 1 and at its saved
+# trajectory's rows (chip_smoke.SINGLE_CASES)
+SINGLE_SHAPES = (("layer [2->10], grid 5, K=34", 2, 10, 5, 34),
+                 ("layer [3->5], grid 7, K=300", 3, 5, 7, 300),
+                 ("the 1->1 layer, K=1024", 1, 1, 10, 1024)) + tuple(
+    (f"{name} [{a}->{b}] grid {G}, K={K}", a, b, G, K)
+    for name, width, G, rows in (("Burgers", 41, 5, 101),
+                                 ("1-D Allen-Cahn", 41, 10, 101),
+                                 ("Schrodinger", 402, 10, 158),
+                                 ("2-D Allen-Cahn", 1024, 10, 101))
+    for a, b in ((width, 10), (10, width)) for K in (1, rows))
+
+
 def table(n_adapt: int = 35, n_members: tuple[int, int] = (34, 140)
           ) -> list[dict]:
     """Every kernel of PERF.md's table at the shapes its row states.
@@ -374,8 +388,10 @@ def table(n_adapt: int = 35, n_members: tuple[int, int] = (34, 140)
                 for lbl, nn, nN, kr in GRAYBOX_SHAPES[1:]],
         "K8f": [(f"the eval grid, T=141, {ne} iterations",
                  *members_fwd(pk, 1, 141, 8, ne, s))],
-        "K9f": [("layer [2->10], grid 5, K=34", *single_fwd(2, 10, 5, 34))],
-        "K9b": [("layer [2->10], grid 5, K=34", *single_bwd(2, 10, 5, 34))],
+        "K9f": [(lbl, *single_fwd(I, O, G, K))
+                for lbl, I, O, G, K in SINGLE_SHAPES],
+        "K9b": [(lbl, *single_bwd(I, O, G, K))
+                for lbl, I, O, G, K in SINGLE_SHAPES],
         "K6f": [(f"{al}, K={ak}", *wide_step_fwd(ad, ak, s))],
         "K6b": [(f"{al}, K={ak}", *wide_step_bwd(ad, ak, s))],
         "K7f": [(f"20 steps, K=1, {wl}", *wide_multistep_fwd(wd, 1, 20, s)),

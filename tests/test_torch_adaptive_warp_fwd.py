@@ -2,13 +2,13 @@
 csrc/kan_chain_warp.cuh) keeps the bits of the one-thread forward it
 replaced. The design moves work between lanes without reordering any sum:
 lane l forms layer 1's basis term l, lane h sums layer 1 for hidden unit
-h in kc_layer_fwd's order and forms its swish products, lane m % 32 forms
+h in the one-thread order and forms its swish products, lane m % 32 forms
 layer 2's products for term m = h*G + g, lanes o and O + o add the basis
-and the swish products up in kc_layer_fwd's order and lane o adds the
+and the swish products up in the one-thread order and lane o adds the
 two. A float32 numpy emulation of that
 lane decomposition (its data layout, term tables and loops, every
-operation rounded to float32) is held to an emulation of kc_layer_fwd's
-one-thread loops bit for bit; the card's tests and
+operation rounded to float32) is held to an emulation of the one-thread
+loops bit for bit; the card's tests and
 `compare_trees --groups=lv` hold the kernel itself to the parent's bits.
 
 Also here: K4f's host plan (warps, rows a warp, shared memory) against an
@@ -43,7 +43,7 @@ def swish(x):
 
 
 def one_thread_layer(x, n_in, n_out, c, w, grid, inv_h, nk, bk):
-    """kc_layer_fwd (kan_chain.cuh): one thread, accumulators per output,
+    """The one-thread layer forward K4f replaced: accumulators per output,
     inputs i then grid points g, then the swish terms."""
     G = len(grid)
     acc_c = [F32(0)] * n_out

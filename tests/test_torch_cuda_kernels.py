@@ -526,7 +526,16 @@ def test_graybox_kernels_match_plain(card, index):
 
 @pytest.mark.parametrize("index", range(len(chip_smoke.SINGLE_CASES)))
 def test_kdense_single_kernels_match_plain(card, index):
+    """K9 through its autograd.Function on chip_smoke's cases (the source
+    and LV layers, and both layers of each reference surrogate chain at K
+    = 1 and its trajectory's rows): one launch each way, y and (dx, dc,
+    dw) against the plain versions by `chip_smoke.k9_rule` (elementwise on
+    the cases K9 ran before its redesign; elsewhere also, unless plain f32
+    itself misses float64 by more than the tolerance); then
+    `chip_smoke.single_case_check` on the wrappers' launches, and K9b bit
+    for bit on repeat."""
     case = chip_smoke.SINGLE_CASES[index]
+    strict = index < chip_smoke.STRICT_SINGLE
     spec, x, c, w, gy = chip_smoke.single_case_inputs(torch, kp, case)
     kp.reset_launch_counts()
     leaves = [t.clone().requires_grad_() for t in (x, c, w)]
@@ -534,11 +543,31 @@ def test_kdense_single_kernels_match_plain(card, index):
     got = torch.autograd.grad(y, leaves, gy)
     assert {k: v for k, v in kp.LAUNCHES.items() if v} == {
         "kdense_single_apply_fwd": 1, "kdense_single_apply_bwd": 1}
-    torch.testing.assert_close(
-        y, kp.kdense_single_apply_reference(spec, x, c, w), **FWD)
+    xs = [t.double().requires_grad_() for t in (x, c, w)]
+    y64 = kp.kdense_single_apply_reference(spec, *xs)
+    g64 = torch.autograd.grad(y64, xs, gy.double())
+    failures = []
+    chip_smoke.k9_rule(torch, failures, "y", y.detach(),
+                       kp.kdense_single_apply_reference(spec, x, c, w),
+                       y64.detach(), FWD, strict)
     want = kp.kdense_single_apply_bwd_reference(spec, x, c, w, gy)
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, **GRAD)
+    for name, a, b, ref in zip(("dx", "dc", "dw"), got, want, g64):
+        chip_smoke.k9_rule(torch, failures, name, a, b, ref, GRAD, strict)
+    chip_smoke.single_case_check(torch, kp, case, failures)
+    assert not failures, failures
+
+
+@pytest.mark.parametrize("tile", _cuda.K9_TILES,
+                         ids=[f"{mr}x{mo}" for mr, mo in _cuda.K9_TILES])
+def test_k9_every_kernel_instance_matches_plain(card, tile):
+    """K9f's and K9b's kernels of each register tile, including those no
+    SINGLE_CASES plan picks, with and without the bulk copies and with k
+    split over a cluster (`chip_smoke.k9_instance_check`): each output
+    elementwise against the plain version."""
+    failures = []
+    done = chip_smoke.k9_instance_check(torch, kp, tile, failures)
+    assert len(done["fwd"]) == len(done["bwd"]) == 3
+    assert not failures, failures
 
 
 @pytest.mark.parametrize("kron", [False, True])

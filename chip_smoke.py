@@ -23,8 +23,13 @@ Burgers and 1-D Allen-Cahn fused fixed and shooting on the narrow route,
 K2's medium flavor), the packed seed sweep of
 `scripts/lv_multiseed_packed.py` through
 `experiments.lv_members.run_packed_phases(..., device="cuda")` (K2/K3's
-medium flavor, its four phases cut in iterations) and
-`KDense.apply(impl="pallas")`, checks from the launch counters that each
+medium flavor, its four phases cut in iterations),
+`KDense.apply(impl="pallas")`, and the LV interpretability pipeline
+through `experiments.lv_symbolic.run_pipeline(..., device="cuda")`
+(sparse training, pruning, retraining the pruned chain through K2/K3,
+GP and SINDy laws; cut in iterations and generations, K2/K3 then held
+to plain at the pruned width and at hidden widths 1, 2, 3 and 5),
+checks from the launch counters that each
 run went through its kernels, holds the adaptive kernel to its plain
 version again on the parameters that run ended with (train and eval
 grids), and times each kernel against its plain version with CUDA
@@ -2564,6 +2569,162 @@ def phase_packed_phases(torch, lv, lvm, pk, modules, card):
     return counts
 
 
+# the lv-symbolic pipeline (experiments/lv_symbolic.run_pipeline) at the
+# LV model's full width [2, 10, 2], cut in iterations and GP generations
+SYMBOLIC_CUT = dict(sparse_iters=1500, retrain_iters=1000, sr_generations=60,
+                    sr_restarts=1)
+# the hidden widths pruning gives (the JAX package's run kept 3; a
+# threshold above every score keeps 1), K2/K3 held to plain there on
+# sparse-like parameters: most entries at most 1e-4, a few of size 0.3
+PRUNED_WIDTHS = (1, 2, 3, 5)
+
+
+def sparse_like_inputs(torch, rng, h, device="cuda"):
+    """[2, h, 2] G=5 chain params with 85% of the entries below 1e-4 in
+    size and the rest from U(-0.3, 0.3)."""
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+    params = []
+    for shape in ((10, h), (2, h), (5 * h, 2), (h, 2)):
+        a = rng.uniform(-1e-4, 1e-4, shape)
+        big = rng.random(shape) < 0.15
+        a[big] = rng.uniform(-0.3, 0.3, int(big.sum()))
+        params.append(t(a))
+    return params
+
+
+def law_error(expr, X, d):
+    """Relative RMS gap between a recovered law (an expression over x0,
+    x1) and the truth's component d, at the states X [N, 2]."""
+    import numpy as np
+    from kanodes_tpu_torch.experiments.lv import LV_PARAMS
+    from kanodes_tpu_torch.symbolic.fit import eval_symreg_expr
+    a, b, g, dl = LV_PARAMS
+    x, y = X[:, 0].astype(np.float64), X[:, 1].astype(np.float64)
+    truth = a * x - b * x * y if d == 0 else g * x * y - dl * y
+    got = eval_symreg_expr(expr, x0=x, x1=y)
+    return float(np.sqrt(np.mean((got - truth) ** 2) / np.mean(truth ** 2)))
+
+
+def phase_lv_symbolic_main_path(torch, rk, lvs, modules, card, max_err):
+    """The LV interpretability pipeline on the card through
+    `lv_symbolic.run_pipeline(device="cuda")` at [2, 10, 2], cut to
+    SYMBOLIC_CUT: sparse fused shooting (K2 at L = 1 and 4), pruning,
+    retraining the [2, k, 2] chain (K2 at L = 4, then fused fixed: K3),
+    the pruned losses (two K3f), the GP and SINDy laws and their
+    re-simulations. Exact launches phase by phase and in all. Then K2 and
+    K3 against their plain versions at the pipeline's final pruned
+    parameters and at [2, h, 2], h in PRUNED_WIDTHS, on sparse-like
+    parameters, at the path's shapes: K2 over the 31 rows of the L = 4
+    shooting and the 34 of L = 1 (`check_step`), K3 at the fixed loss's
+    n = 34 (`check_multistep`) and the eval's n = 140, K = 1
+    (K3f alone, by the float64 rule and bit for bit on repeat: the evals
+    run no backward, and K3b stays held at n = 34). Prints the kept
+    width, the losses, both
+    laws (raw GP strings; the card's host has no sympy), the SINDy
+    coefficients, both re-simulation MSEs and the seconds of each step.
+    Returns the launches."""
+    import numpy as np
+    from kanodes_tpu_torch.models.kdense import KANChain
+    from kanodes_tpu_torch.ops.kdense_pallas import (chain_spec_of,
+                                                     fused_params)
+    cfg = lvs.SymbolicPipelineConfig(**SYMBOLIC_CUT)
+    torch.cuda.synchronize()
+    reset_counts(modules)
+    t0 = time.perf_counter()
+    out = lvs.run_pipeline(cfg, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts(modules)
+    data = out["data"]
+    n_train, n_save = data["n_train"], len(data["ts_host"])
+    want = {k: 0 for k in KERNELS}
+    for ph in out["phases"]:
+        w = expected_launches(ph["cfg"], n_train, n_save)
+        assert ph["launches"] == {k: v for k, v in w.items() if v}, \
+            f"{ph['name']}: launches {ph['launches']} != expected {w}"
+        assert math.isfinite(ph["last_loss"]) and \
+            math.isfinite(ph["last_eval"]), f"non-finite loss in {ph}"
+        for k in KERNELS:
+            want[k] += w[k]
+    want["fused_rk_multistep_fwd"] += 2     # the pruned train and test loss
+    assert counts == want, f"lv-symbolic: launches {counts} != {want}"
+    model = out["model"]
+    width = int(out["kept_nodes"].size)
+    assert 1 <= width <= 10 and model.layers[0].out_dims == width
+    assert all(p.is_cuda for p in model.parameters()), "a result left the card"
+    for k in ("pruned_train_loss", "pruned_test_loss", "symbolic_resim_mse",
+              "sindy_resim_mse"):
+        assert math.isfinite(out[k]), f"{k} = {out[k]}"
+    assert len(out["edge_equations"]) == 4 * width
+    X = data["X"][:n_train].cpu().numpy()
+    gp = [f.expression for f in out["global_fits"]]
+    laws = {"gp": gp, "gp_rel_rms_vs_truth": [law_error(e, X, d)
+                                              for d, e in enumerate(gp)],
+            "sindy": out["sindy_equations"],
+            "sindy_rel_rms_vs_truth": [law_error(e, X, d) for d, e in
+                                       enumerate(out["sindy_equations"])],
+            "sindy_coeffs": [dict(zip(f.names, f.coeffs.tolist()))
+                             for f in out["sindy_fits"]]}
+    assert all(math.isfinite(v) for v in laws["gp_rel_rms_vs_truth"]
+               + laws["sindy_rel_rms_vs_truth"]), laws
+
+    failures, detail = [], []
+    spec = chain_spec_of(model)
+    params = [p.detach().contiguous() for p in fused_params(model)]
+    Xd = data["X"]
+    rng = np.random.default_rng(17)
+    cases = [("pruned final", spec, params)]
+    for h in PRUNED_WIDTHS:
+        cases.append((f"sparse-like [2,{h},2]",
+                      chain_spec_of(KANChain.mlp_like([2, h, 2], grid_len=5)),
+                      sparse_like_inputs(torch, rng, h)))
+    for label, sp, ps in cases:
+        for K, x in ((31, Xd[:n_train - 4]), (34, Xd[:n_train - 1])):
+            gy = torch.tensor(rng.standard_normal((K, 2)),
+                              dtype=torch.float32, device="cuda")
+            detail.append(check_step(torch, rk, sp, f"{label} K={K} tsit5",
+                                     "tsit5", x.contiguous(), ps, gy,
+                                     failures, max_err))
+        gys = torch.tensor(rng.standard_normal((34, 1, 2)) / 34,
+                           dtype=torch.float32, device="cuda")
+        detail.append(check_multistep(torch, rk, sp, f"{label} n=34 K=1", 34,
+                                      Xd[:1].contiguous(), ps, gys, failures,
+                                      max_err))
+        k = rk._consts(sp, "tsit5", 0.1)
+        x0 = Xd[:1].contiguous()
+        ys = rk._launch_multistep_fwd(k, 140, x0, ps)
+        if not torch.equal(ys, rk._launch_multistep_fwd(k, 140, x0, ps)):
+            failures.append(f"K3f {label} n=140: a second launch differs")
+        ys_ref = rk.fused_rk_multistep_reference(sp, "tsit5", 0.1, 140, x0,
+                                                 *ps)
+        ys64 = rk.fused_rk_multistep_reference(
+            sp, "tsit5", 0.1, 140, x0.double(), *(p.double() for p in ps))
+        d = f64_rule(failures, f"K3f {label} n=140", ys, ys_ref, ys64)
+        max_err["fused_rk_multistep_fwd"] = max(
+            max_err["fused_rk_multistep_fwd"], d["max_abs_err"])
+        detail.append({"case": f"{label} n=140 K=1", **d})
+    torch.cuda.synchronize()
+    finish_phase({
+        "phase": "lv_symbolic_main_path", "cut": SYMBOLIC_CUT,
+        "kept_width": width, "kept_nodes": out["kept_nodes"].tolist(),
+        "node_scores": out["node_scores"].tolist(),
+        "pruned_train_loss": out["pruned_train_loss"],
+        "pruned_test_loss": out["pruned_test_loss"], "laws": laws,
+        "symbolic_resim_mse": out["symbolic_resim_mse"],
+        "sindy_resim_mse": out["sindy_resim_mse"],
+        "phases": [{"name": ph["name"], "iters": ph["cfg"].iters,
+                    "seconds": ph["seconds"],
+                    "it_per_s": ph["cfg"].iters / ph["seconds"],
+                    "last_loss": ph["last_loss"],
+                    "last_eval": ph["last_eval"],
+                    "launches": ph["launches"]} for ph in out["phases"]],
+        "step_seconds": out["seconds"], "seconds": seconds,
+        "launches": {k: v for k, v in counts.items() if v},
+        "kernel_vs_plain": detail, "card": card}, failures)
+    return counts
+
+
 def phase_mid_timings(torch, rk, kp, card):
     """K2-m and K3-m against their plain versions at the main path's
     shapes: K2 at Burgers K = 1 (fixed mode, 180 an iteration each way)
@@ -2988,6 +3149,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from kanodes_tpu_torch.experiments import lv
     from kanodes_tpu_torch.experiments import lv_members as lvm
+    from kanodes_tpu_torch.experiments import lv_symbolic as lvs
     from kanodes_tpu_torch.experiments import pde_source as ps
     from kanodes_tpu_torch.experiments import pde_surrogate as sg
     from kanodes_tpu_torch.models import packed as pk
@@ -3041,6 +3203,8 @@ def main() -> int:
                    phase_source_main_path(torch, ps, modules, card),
                    phase_kdense_pallas(torch, sg, modules, KANChain, KDense,
                                        card),
+                   phase_lv_symbolic_main_path(torch, rk, lvs, modules, card,
+                                               max_err),
                    members_launches):
         for name in KERNELS:
             launches[name] += counts[name]

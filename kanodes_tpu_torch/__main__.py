@@ -3,8 +3,9 @@
 Each command forwards argv unchanged to its module's own CLI, as
 ``python -m kanodes_tpu`` does: ``python -m kanodes_tpu_torch lv
 --iters=2000`` is ``python -m kanodes_tpu_torch.experiments.lv
---iters=2000``, ``source`` runs ``experiments.pde_source`` and
-``surrogate`` runs ``experiments.pde_surrogate``. Only the commands of the
+--iters=2000``, ``lv-symbolic`` runs ``experiments.lv_symbolic``,
+``source`` runs ``experiments.pde_source`` and ``surrogate`` runs
+``experiments.pde_surrogate``. Only the commands of the
 ported slices exist.
 """
 
@@ -20,6 +21,13 @@ MODULE_COMMANDS: dict[str, tuple[str, str]] = {
            "--impl=xla|fused|pallas, --rtol/--atol/--max_steps/--adjoint "
            "for adaptive; KANODE_LV_* env + --key=value overrides, "
            "--device=cuda|cpu, default cuda)"),
+    "lv-symbolic": ("kanodes_tpu_torch.experiments.lv_symbolic",
+                    "LV sparse train -> prune -> retrain -> GP + SINDy "
+                    "laws (--sparse_iters, --retrain_iters, "
+                    "--sr_generations, ... overrides, --device=cuda|cpu, "
+                    "default cuda; --init=jax_seed0 starts from the JAX "
+                    "package's seed-0 init; the default --seed=0 init does "
+                    "not reproduce the recorded law)"),
     "source": ("kanodes_tpu_torch.experiments.pde_source",
                "hidden-physics source recovery (Fisher-KPP 2e4 + Allen-Cahn "
                "5e4 iters on the fused gray-box kernel, then GP recovery; "

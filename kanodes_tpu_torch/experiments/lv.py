@@ -22,8 +22,12 @@ controller, differentiated straight through the controller loop
 (`LV_driver_KANODE.jl:180-184`). `make_ode_fns(reduce_fn=, n_members=)`
 trains a packed ensemble (`models/packed.py`, driven by
 `experiments/lv_members.py`), one controller per member in adaptive
-mode. What lies outside this slice raises NotImplementedError naming
-its ROADMAP.md item.
+mode. `sparse_on` adds the L1/entropy regularizer
+(`sparsify/regularization.py`) to the loss in every mode and impl, and
+`run(prune_threshold=)` prunes weak hidden nodes before training
+(`sparsify/prune.py`; the pipeline is `experiments/lv_symbolic.py`).
+What lies outside this slice raises NotImplementedError naming its
+ROADMAP.md item.
 
 Run:  python -m kanodes_tpu_torch.experiments.lv [--key=value ...]
       [--device=cuda|cpu]   (default cuda; raises without a card)
@@ -41,6 +45,7 @@ from kanodes_tpu_torch.interop import chain_params_from_numpy
 from kanodes_tpu_torch.models.kdense import KANChain
 from kanodes_tpu_torch.ode.integrate import (StepController, odeint,
                                              odeint_fixed, odeint_members)
+from kanodes_tpu_torch.sparsify.regularization import l1_entropy_reg
 from kanodes_tpu_torch.train.loop import TrainConfig, train
 from kanodes_tpu_torch.utils.device import require_device
 from kanodes_tpu_torch.utils.host_rk import rk4_dense
@@ -110,9 +115,6 @@ def _check_slice(cfg: LVConfig) -> None:
             raise NotImplementedError(
                 f"LVConfig({field}={value!r}) is not ported yet "
                 f"(ROADMAP.md, {item})")
-    if cfg.sparse_on:
-        raise NotImplementedError("LVConfig(sparse_on=True) is not ported "
-                                  "yet (ROADMAP.md, M12 sparsify)")
     if cfg.model != "kan":
         raise ValueError(cfg.model)
     if cfg.impl not in ("xla", "fused", "pallas"):
@@ -326,8 +328,14 @@ def make_ode_fns(cfg: LVConfig, model: KANChain, data, *, reduce_fn=None,
 
     def loss_fn(m):
         if cfg.solve_mode == "shooting":
-            return shooting_loss(m)
-        return trajectory_loss(m)
+            loss = shooting_loss(m)
+        else:
+            loss = trajectory_loss(m)
+        if cfg.sparse_on:
+            # autograd adds the term's gradient to what the kernels' VJPs
+            # write into the same C / W leaves
+            loss = loss + l1_entropy_reg(m, cfg.act_reg, cfg.entropy_reg)
+        return loss
 
     def eval_fn(m):
         return _reduce((predict(m, grid_all) - X) ** 2)
@@ -344,15 +352,16 @@ def run(cfg: LVConfig | None = None, params=None, *, device="cuda",
 
     `params`: per-layer `{"C", "W"}` numpy arrays to start from (e.g. a
     JAX init, `interop.py`); default is `init_params` with `generator`.
+    `prune_threshold` prunes weak hidden nodes on the training states
+    before training (`sparsify/prune.py`; the reference's
+    `is_prune` flow, `LV_driver_KANODE.jl:146-170`): the returned
+    `model` and `cfg` carry the new width.
     """
     cfg = cfg or LVConfig()
     _check_slice(cfg)
     if checkpoint_dir is not None or restart:
         raise NotImplementedError("checkpoint_dir/restart are not ported "
                                   "yet (ROADMAP.md, M8 checkpointing)")
-    if prune_threshold is not None:
-        raise NotImplementedError("prune_threshold is not ported yet "
-                                  "(ROADMAP.md, M12 pruning)")
     set_exact_f32()
     data = make_data(cfg, device)
     model = make_model(cfg, device)
@@ -360,6 +369,13 @@ def run(cfg: LVConfig | None = None, params=None, *, device="cuda",
         init_params(cfg, model, generator)
     else:
         chain_params_from_numpy(model, params)
+    if prune_threshold is not None:
+        from kanodes_tpu_torch.sparsify.prune import prune
+        res = prune(model, data["X"][:data["n_train"]],
+                    threshold=prune_threshold)
+        model = res.chain
+        cfg = dataclasses.replace(cfg,
+                                  layer_width=model.layers[0].out_dims)
     loss_fn, eval_fn, predict = make_ode_fns(cfg, model, data)
     tc = TrainConfig(lr=cfg.lr, iters=cfg.iters, eval_every=cfg.eval_every,
                      max_iters_per_call=cfg.max_iters_per_call)

@@ -2,6 +2,10 @@
 `kanodes_tpu/symbolic/fit.py`).
 
 Rebuild of the reference's interpretability tail:
+  * `Symbolic_reg.jl:122-156` — per-edge `EquationSearch` over trained
+    KAN activation curves (`fit_edge_activations`; 8 searches for the
+    pruned LV network), composed back through the chain by
+    `compose_edge_equations`;
   * `Fisher-KPP_Source.jl:216-234` / `Allen-Cahn_Source.jl:210-236` —
     automated SR on the learned 1->1 source-term KAN
     (`fit_scalar_function`, `compact_fit`);
@@ -10,13 +14,15 @@ Rebuild of the reference's interpretability tail:
     `odeint`).
 
 Expressions come from the native GP engine (`symbolic/engine.py`) and
-are canonicalized with sympy where it is installed. The per-edge fits of
-a chain (`fit_edge_activations`, `compose_edge_equations`) wait for the
-sparsify port (ROADMAP.md, M12). Host code, numpy, except the
-re-simulation.
+are canonicalized with sympy where it is installed (elsewhere the raw GP
+string stands: compare laws numerically, not by their printed form).
+Host code, numpy, except the activation sampling and the re-simulation,
+which run on the caller's device.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -78,18 +84,73 @@ def simplify_expression(expr: str, precision: int = 4) -> str:
         return expr
 
 
-def fit_edge_activations(*args, **kw):
-    """SR on every edge activation of a trained chain: not ported yet
-    (ROADMAP.md, M12)."""
-    raise NotImplementedError("fit_edge_activations is not ported yet "
-                              "(ROADMAP.md, M12)")
+@dataclasses.dataclass
+class EdgeEquation:
+    layer: int
+    i: int
+    o: int
+    fit: SymbolicFit
+    pretty: str
 
 
-def compose_edge_equations(*args, **kw):
-    """Per-edge fits composed through the chain: not ported yet
-    (ROADMAP.md, M12)."""
-    raise NotImplementedError("compose_edge_equations is not ported yet "
-                              "(ROADMAP.md, M12)")
+def fit_edge_activations(chain, x, *, ops=("+", "-", "*", "/"),
+                         generations: int = 200, seed: int = 0,
+                         **kw) -> list[EdgeEquation]:
+    """Run SR on every edge activation of a trained chain (the
+    Symbolic_reg.jl workflow: one EquationSearch per activation). The
+    activations are sampled on the chain's device at x (a tensor there,
+    or an array) and fit on the host."""
+    from kanodes_tpu_torch.sparsify.activations import chain_activations
+
+    dev = next(chain.parameters()).device
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    ca = chain_activations(chain, x)
+    out = []
+    for l, act in enumerate(ca.acts):
+        xin = ca.inputs[l].cpu().numpy()
+        a = act.cpu().numpy()
+        N, I, O = a.shape
+        for i in range(I):
+            for o in range(O):
+                fit = fit_expression(xin[:, i], a[:, i, o], ops=ops,
+                                     generations=generations,
+                                     seed=seed + 131 * (l * I * O + i * O + o),
+                                     **kw)
+                out.append(EdgeEquation(l, i, o, fit,
+                                        simplify_expression(fit.expression)))
+    return out
+
+
+def compose_edge_equations(edge_eqs: list[EdgeEquation],
+                           widths: tuple[int, int, int]):
+    """Compose PER-EDGE symbolic fits through the 2-layer KAN structure —
+    the reference's `symb_comp_getter` ("Symbolic KAN-ODE" panel of
+    Fig 4(C), `Plotting_symbolic.jl:96-140,225`): hidden node j is the
+    sum of its input-edge expressions, outputs are sums of the
+    second-layer edge expressions evaluated at those hidden values.
+
+    Returns fn(pts [N, I]) -> [N, O] (NumPy).
+    """
+    I, W, O = widths
+    table = {(e.layer, e.i, e.o): compile(e.fit.expression, "<edge>",
+                                          "eval") for e in edge_eqs}
+
+    def _edge(l, i, o, x):
+        return eval_symreg_expr(table[(l, i, o)], x0=x)
+
+    def fn(pts: np.ndarray) -> np.ndarray:
+        pts = np.asarray(pts)
+        h = np.zeros((pts.shape[0], W))
+        for j in range(W):
+            for i in range(I):
+                h[:, j] += _edge(0, i, j, pts[:, i])
+        out = np.zeros((pts.shape[0], O))
+        for o in range(O):
+            for j in range(W):
+                out[:, o] += _edge(1, j, o, h[:, j])
+        return out
+
+    return fn
 
 
 def compact_fit(x: np.ndarray, y: np.ndarray, *,

@@ -270,8 +270,20 @@ def fit_sindy_trajectory(ts: np.ndarray, X: np.ndarray,
     return fit_sindy(X[2:-2], dX, **kw)
 
 
-def sindy_rhs(model, params, X: np.ndarray, **kw) -> list[SINDyFit]:
-    """Recover sparse laws from a trained RHS network by sampling it at
-    X: not ported yet (ROADMAP.md, M12)."""
-    raise NotImplementedError("sindy_rhs is not ported yet (ROADMAP.md, "
-                              "M12)")
+def sindy_rhs(model, X: np.ndarray, *, device="cuda",
+              **kw) -> list[SINDyFit]:
+    """Convenience: recover sparse laws from a trained RHS network by
+    sampling it at X (the SINDy analogue of the GP global fits in
+    `experiments/lv_symbolic.run_pipeline` step 3b). The chain is
+    sampled on `device` (float32, where the model's parameters must be;
+    default cuda, which raises without a card) and the laws are fit on
+    the host."""
+    import torch
+
+    from kanodes_tpu_torch.utils.device import require_device
+
+    dev = require_device(device)
+    with torch.no_grad():
+        Y = model.apply(torch.as_tensor(np.asarray(X), dtype=torch.float32,
+                                        device=dev)).cpu().numpy()
+    return fit_sindy(np.asarray(X), Y, **kw)

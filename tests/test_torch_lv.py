@@ -221,7 +221,7 @@ def test_profiler_needs_a_card():
     (dict(impl="fused_wide"), "fused_wide"),
     (dict(solve_mode="adaptive", impl="pallas", adjoint="interpolating"),
      "interpolating"),
-    (dict(sparse_on=True), "M12"),
+    (dict(solve_mode="adaptive", adjoint="interpolating"), "M7"),
     (dict(bwd_precision="bf16", impl="fused", iters=1), "bf16"),
 ])
 def test_outside_the_slice_raises_naming_roadmap(kw, item):
@@ -231,7 +231,7 @@ def test_outside_the_slice_raises_naming_roadmap(kw, item):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(checkpoint_dir="ckpt"), "M8"),
-    (dict(prune_threshold=0.1), "M12"),
+    (dict(restart=True), "M8"),
 ])
 def test_run_options_outside_the_slice_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):

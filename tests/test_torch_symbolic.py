@@ -115,11 +115,13 @@ def test_resimulate_symbolic_rhs_matches_jax():
 
 
 def test_entry_points_need_a_card_or_raise_naming_roadmap():
+    """Without a card the device entry points raise rather than fall back
+    to the CPU; none of the module's functions is a stub any more."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             fit.resimulate_symbolic_rhs(["x0"], [1.0], [0.0, 1.0], 1)
-    for fn, args in ((fit.fit_edge_activations, ()),
-                     (fit.compose_edge_equations, ()),
-                     (sindy.sindy_rhs, (None, None, np.zeros((2, 1))))):
-        with pytest.raises(NotImplementedError, match="M12"):
-            fn(*args)
+        with pytest.raises(RuntimeError, match="cuda"):
+            sindy.sindy_rhs(None, np.zeros((2, 1)))
+    import inspect
+    for mod in (fit, sindy):
+        assert "NotImplementedError" not in inspect.getsource(mod)

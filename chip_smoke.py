@@ -28,8 +28,13 @@ medium flavor, its four phases cut in iterations),
 through `experiments.lv_symbolic.run_pipeline(..., device="cuda")`
 (sparse training, pruning, retraining the pruned chain through K2/K3,
 GP and SINDy laws; cut in iterations and generations, K2/K3 then held
-to plain at the pruned width and at hidden widths 1, 2, 3 and 5),
-checks from the launch counters that each
+to plain at the pruned width and at hidden widths 1, 2, 3 and 5), and
+the LV baselines and records (K2/K3 held to plain at the
+parameter-efficiency sweep's new shapes, grid 3 and [2,40,2]; three
+sweep points through `experiments.sweep.train_point(..., device=
+"cuda")`, cut in iterations; `lv.run` with a checkpoint directory, a
+restart and a prune on restart; the L-BFGS polish of `train/polish.py`
+on the fused fixed loss), checks from the launch counters that each
 run went through its kernels, holds the adaptive kernel to its plain
 version again on the parameters that run ended with (train and eval
 grids), and times each kernel against its plain version with CUDA
@@ -45,6 +50,7 @@ file, it exits non-zero before printing a result. Imports no JAX.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -867,25 +873,8 @@ def phase_mid_kernels(torch, rk, kp, max_err):
         else:
             gy = torch.tensor(rng.standard_normal(tuple(x.shape)),
                               dtype=torch.float32, device="cuda")
-            y = rk._launch_step_fwd(k, x, params)
-            y_ref = rk.fused_rk_step_reference(spec, "tsit5", case.dt, x,
-                                               *params)
-            e = assert_close(failures, f"K2f-m {case.label}", y, y_ref,
-                             FWD_TOL)
-            max_err["fused_rk_step_fwd_mid"] = max(
-                max_err["fused_rk_step_fwd_mid"], e)
-            g = rk._launch_step_bwd(k, x, params, gy)
-            g_ref = rk.fused_rk_step_bwd_reference(spec, "tsit5", case.dt,
-                                                   x, *params, gy)
-            xs = [t.clone().requires_grad_() for t in (x, *params)]
-            g_auto = torch.autograd.grad(rk.fused_rk_step_reference(
-                spec, "tsit5", case.dt, *xs), xs, gy)
-            check_grads(failures, max_err, "fused_rk_step_bwd_mid",
-                        f"K2b-m {case.label}", g, g_ref, g_auto)
-            again = rk._launch_step_bwd(k, x, params, gy)
-            if not all(torch.equal(a, b) for a, b in zip(g, again)):
-                failures.append(f"K2b-m {case.label}: a second launch "
-                                f"differs")
+            check_step_mid(torch, rk, spec, case.label, x, params, gy,
+                           failures, max_err, dt=case.dt)
         cases.append(case.label)
     torch.cuda.synchronize()
     finish_phase({"phase": "kernel_vs_plain", "kernels": "K2-m, K3-m",
@@ -893,6 +882,32 @@ def phase_mid_kernels(torch, rk, kp, max_err):
                   "multistep_fwd": k3f_detail,
                   "plan_mirrors": check_block_mirrors(kp, failures)},
                  failures)
+
+
+def check_step_mid(torch, rk, spec, label, x, params, gy, failures,
+                   max_err, dt=0.1):
+    """K2f-m against its plain version (elementwise, FWD_TOL) and K2b-m
+    against the plain backward and autograd (GRAD_TOL) on one input,
+    tsit5 at step dt; K2b-m launched twice must repeat bit for bit."""
+    k = rk._consts(spec, "tsit5", dt)
+    assert k.flavor == "medium", (label, k.flavor)
+    y = rk._launch_step_fwd(k, x, params)
+    y_ref = rk.fused_rk_step_reference(spec, "tsit5", dt, x, *params)
+    e = assert_close(failures, f"K2f-m {label}", y, y_ref, FWD_TOL)
+    max_err["fused_rk_step_fwd_mid"] = max(
+        max_err["fused_rk_step_fwd_mid"], e)
+    g = rk._launch_step_bwd(k, x, params, gy)
+    g_ref = rk.fused_rk_step_bwd_reference(spec, "tsit5", dt, x, *params,
+                                           gy)
+    xs = [t.clone().requires_grad_() for t in (x, *params)]
+    g_auto = torch.autograd.grad(rk.fused_rk_step_reference(
+        spec, "tsit5", dt, *xs), xs, gy)
+    check_grads(failures, max_err, "fused_rk_step_bwd_mid",
+                f"K2b-m {label}", g, g_ref, g_auto)
+    again = rk._launch_step_bwd(k, x, params, gy)
+    if not all(torch.equal(a, b) for a, b in zip(g, again)):
+        failures.append(f"K2b-m {label}: a second launch differs")
+    return {"case": f"K2-m {label}", "max_abs_err": e}
 
 
 def check_block_mirrors(kp, failures):
@@ -2725,6 +2740,273 @@ def phase_lv_symbolic_main_path(torch, rk, lvs, modules, card, max_err):
     return counts
 
 
+# the parameter-efficiency sweep's new K2/K3 shapes: grid 3 in the small
+# flavor ([2,4,2], 64 parameters) and [2,40,2] in the medium one (H > 32)
+BASELINE_CHAINS = (("[2,4,2] G=3", (2, 4, 2), 3),
+                   ("[2,40,2] G=5", (2, 40, 2), 5))
+# the sweep points run through sweep.train_point (KAN 64, KAN 960, MLP 52)
+# and the budgets they are cut to (JAX's full one: 10k / 6k / 6k); the
+# MLP's plain fixed phases take ~170 ms an iteration on the card
+SWEEP_CUT = {"kan": dict(shooting_iters=200, seg4_iters=100, traj_iters=100),
+             "mlp": dict(shooting_iters=20, seg4_iters=5, traj_iters=5)}
+BASELINE_POLISH_ITERS = 20
+
+
+def chain_case_inputs(torch, kp, widths, G, seed, scale=0.3,
+                      device="cuda"):
+    """(spec, params) of an rbf/tanh chain, weights from U(-scale,
+    scale) with numpy seed `seed`."""
+    import numpy as np
+    I, H, O = widths
+    spec = kp.ChainSpec(I, H, O, G)
+    rng = np.random.default_rng(seed)
+    return spec, [torch.tensor(rng.uniform(-scale, scale, shp),
+                               dtype=torch.float32, device=device)
+                  for shp in ((I * G, H), (I, H), (H * G, O), (H, O))]
+
+
+def check_eval_fwd(torch, rk, spec, label, n, x0, params, failures,
+                   max_err):
+    """K3f (or K3f-m) alone at an eval's n steps by the float64 rule, and
+    bit for bit on repeat (an eval runs no backward)."""
+    k = rk._consts(spec, "tsit5", 0.1)
+    key = "fused_rk_multistep_fwd" + ("" if k.flavor == "small" else "_mid")
+    ys = rk._launch_multistep_fwd(k, n, x0, params)
+    if not torch.equal(ys, rk._launch_multistep_fwd(k, n, x0, params)):
+        failures.append(f"K3f {label}: a second launch differs")
+    ys_ref = rk.fused_rk_multistep_reference(spec, "tsit5", 0.1, n, x0,
+                                             *params)
+    ys64 = rk.fused_rk_multistep_reference(
+        spec, "tsit5", 0.1, n, x0.double(), *(p.double() for p in params))
+    d = f64_rule(failures, f"K3f {label}", ys, ys_ref, ys64)
+    max_err[key] = max(max_err[key], d["max_abs_err"])
+    return {"case": label, **d}
+
+
+def fused_launches(cfg, n_train, n_save, flavor):
+    """expected_launches under the chain's flavor's counter names."""
+    want = expected_launches(cfg, n_train, n_save)
+    if flavor == "small":
+        return want
+    out = {k: 0 for k in KERNELS}
+    for k, v in want.items():
+        if v:
+            out[k + "_mid"] += v
+    return out
+
+
+def phase_baselines_main_path(torch, rk, kp, lv, sw, pol, modules, card,
+                              max_err):
+    """The LV baselines and records slice on the card.
+
+    First K2/K3 against their plain versions at the sweep's new shapes
+    (BASELINE_CHAINS, on the LV data's states): K2 over the 34 and 31
+    rows of shooting L = 1 and 4, K3 at the fixed loss's n = 34 and
+    K3f at the eval's n = 140 (K = 1). Then, counts set to 0: three
+    sweep points through `sweep.train_point(device="cuda")` cut to
+    SWEEP_CUT (KAN 64 and 960 through K2/K3's small and medium flavors,
+    MLP 52 through no kernel), exact launches phase by phase; `lv.run`
+    fused shooting with a checkpoint directory (two chunks, two
+    checkpoints), a restart that extends the histories, and a prune on
+    restart at 1e9 (width 1); then BASELINE_POLISH_ITERS L-BFGS
+    iterations on the fused fixed loss from the restart's parameters,
+    whose K3f and K3b launches must each equal its value-and-gradient
+    evaluations, never worse than its start. Returns the launches."""
+    import tempfile
+
+    import numpy as np
+    from kanodes_tpu_torch.train.checkpoint import Checkpointer
+    failures, detail = [], []
+    data = lv.make_data(lv.LVConfig(), "cuda")
+    Xd, n_train, n_save = data["X"], data["n_train"], len(data["ts_host"])
+    rng = np.random.default_rng(18)
+    flavors = {}
+    for i, (label, widths, G) in enumerate(BASELINE_CHAINS):
+        spec, params = chain_case_inputs(torch, kp, widths, G, 180 + i)
+        flavor = rk._consts(spec, "tsit5", 0.1).flavor
+        flavors[label] = flavor
+        assert flavor == ("small" if widths[1] <= 32 else "medium"), flavor
+        for K, x in ((34, Xd[:n_train - 1]), (31, Xd[:n_train - 4])):
+            gy = torch.tensor(rng.standard_normal((K, 2)),
+                              dtype=torch.float32, device="cuda")
+            case = f"{label} K={K}"
+            if flavor == "small":
+                detail.append(check_step(torch, rk, spec, f"{case} tsit5",
+                                         "tsit5", x.contiguous(), params,
+                                         gy, failures, max_err))
+            else:
+                detail.append(check_step_mid(torch, rk, spec, case,
+                                             x.contiguous(), params, gy,
+                                             failures, max_err))
+        x0 = Xd[:1].contiguous()
+        gys = torch.tensor(rng.standard_normal((34, 1, 2)) / 34,
+                           dtype=torch.float32, device="cuda")
+        detail.append(check_multistep(torch, rk, spec, f"{label} n=34 K=1",
+                                      34, x0, params, gys, failures,
+                                      max_err))
+        detail.append(check_eval_fwd(torch, rk, spec, f"{label} n=140 K=1",
+                                     140, x0, params, failures, max_err))
+    torch.cuda.synchronize()
+    if failures:
+        finish_phase({"phase": "baselines_main_path",
+                      "kernel_vs_plain": detail, "card": card}, failures)
+
+    total = {k: 0 for k in KERNELS}
+    phases = []
+    real_run = sw.lv_mod.run
+
+    def counted_run(cfg, *args, **kw):
+        """lv.run with its launches read before and after."""
+        torch.cuda.synchronize()
+        before = read_counts(modules)
+        t0 = time.perf_counter()
+        out = real_run(cfg, *args, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: v - before[k] for k, v in read_counts(modules).items()}
+        phases.append((cfg, out, got, secs))
+        return out
+
+    # the sweep points: every lv.run of train_point counted on its own
+    points = []
+    torch.cuda.synchronize()
+    reset_counts(modules)
+    sw.lv_mod.run = counted_run
+    try:
+        for point in (sw.KAN_SWEEP[0], sw.KAN_SWEEP[-1], sw.MLP_SWEEP[0]):
+            start = len(phases)
+            t0 = time.perf_counter()
+            res = sw.train_point(point, device="cuda",
+                                 **SWEEP_CUT[point.model])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            model = lv.make_model(sw.base_config(point), "cpu")
+            flavor = "none"
+            if point.model == "kan":
+                flavor = rk._consts(kp.chain_spec_of(model), "tsit5",
+                                    0.1).flavor
+            rows = []
+            for cfg, out, got, psecs in phases[start:]:
+                want = ({k: 0 for k in KERNELS} if point.model == "mlp"
+                        else fused_launches(cfg, n_train, n_save, flavor))
+                losses = out["loss_history"].cpu()
+                assert got == want, (f"sweep {res['n_params']} "
+                                     f"{run_name(cfg)}: launches {got} != "
+                                     f"{want}")
+                assert bool(torch.isfinite(losses).all()), "non-finite loss"
+                rows.append({"run": run_name(cfg), "iters": cfg.iters,
+                             "lr": cfg.lr, "first_loss": float(losses[0]),
+                             "last_loss": float(losses[-1]),
+                             "seconds": psecs, "it_per_s": cfg.iters / psecs,
+                             "launches": {k: v for k, v in got.items()
+                                          if v}})
+            assert len(rows) == 3, rows
+            assert res["n_params"] == model.num_params()
+            assert math.isfinite(res["train_loss"]) and \
+                math.isfinite(res["test_loss"])
+            # the last phase is fixed mode: its loss is the train loss
+            assert res["train_loss"] < rows[-1]["first_loss"], (
+                res["train_loss"], rows)
+            assert all(p.is_cuda for p in res["params"].values())
+            points.append({"model": res["model"], "n_params": res["n_params"],
+                           "flavor": flavor, "train_loss": res["train_loss"],
+                           "test_loss": res["test_loss"],
+                           "reference_loss": sw.reference_loss(res),
+                           "seconds": secs, "phases": rows})
+    finally:
+        sw.lv_mod.run = real_run
+    counts = read_counts(modules)
+    want = {k: sum(got[k] for _, _, got, _ in phases) for k in KERNELS}
+    # each KAN point's two evals (train and test loss: forward only)
+    for p in points:
+        if p["flavor"] != "none":
+            key = "fused_rk_multistep_fwd" + ("" if p["flavor"] == "small"
+                                              else "_mid")
+            want[key] += 2
+    assert counts == want, f"sweep: launches {counts} != {want}"
+    for k in KERNELS:
+        total[k] += counts[k]
+
+    # checkpoint, restart, prune on restart
+    cfg = lv.LVConfig(impl="fused", solve_mode="shooting", segment_len=1,
+                      lr=1.5e-2, iters=128, eval_every=64,
+                      max_iters_per_call=64)
+    restart = []
+    with tempfile.TemporaryDirectory() as ckdir:
+        runs = (("checkpoint", cfg, {}),
+                ("restart", cfg, {"restart": True}),
+                ("prune on restart", dataclasses.replace(cfg, iters=64),
+                 {"restart": True, "prune_threshold": 1e9}))
+        outs = []
+        for name, c, kw in runs:
+            torch.cuda.synchronize()
+            reset_counts(modules)
+            t0 = time.perf_counter()
+            out = lv.run(c, device="cuda", checkpoint_dir=ckdir, **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = read_counts(modules)
+            want = expected_launches(c, n_train, n_save)
+            assert got == want, f"{name}: launches {got} != {want}"
+            for k in KERNELS:
+                total[k] += got[k]
+            outs.append(out)
+            restart.append({"run": name, "iters": c.iters,
+                            "history": len(out["loss_history"]),
+                            "width": out["model"].layers[0].out_dims,
+                            "steps": Checkpointer(ckdir).steps(),
+                            "last_loss": float(out["loss_history"][-1]),
+                            "seconds": secs,
+                            "launches": {k: v for k, v in got.items() if v}})
+        first, second, third = outs
+        n1 = len(first["loss_history"])
+        assert n1 == 128 and len(second["loss_history"]) == 256
+        assert len(third["loss_history"]) == 320
+        assert torch.equal(second["loss_history"][:n1],
+                           first["loss_history"])
+        assert len(second["eval_history"]) == 2 * len(first["eval_history"])
+        assert float(second["loss_history"][n1]) < \
+            float(first["loss_history"][0])
+        assert third["model"].layers[0].out_dims == 1
+        assert third["cfg"].layer_width == 1
+        assert Checkpointer(ckdir).steps() == [192, 256, 320]
+
+    # L-BFGS polish of the restart's chain on the fused fixed loss
+    model = second["model"]
+    pcfg = dataclasses.replace(cfg, solve_mode="fixed")
+    loss_fn, _, _ = lv.make_ode_fns(pcfg, model, second["data"])
+    torch.cuda.synchronize()
+    reset_counts(modules)
+    t0 = time.perf_counter()
+    res = pol.polish(loss_fn, model,
+                     pol.PolishConfig(iters=BASELINE_POLISH_ITERS))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = read_counts(modules)
+    n = res["evaluations"]
+    want = {k: 0 for k in KERNELS}
+    want["fused_rk_multistep_fwd"] = want["fused_rk_multistep_bwd"] = n
+    assert got == want, f"polish: launches {got} != {want}"
+    for k in KERNELS:
+        total[k] += got[k]
+    hist = res["loss_history"].cpu()
+    best = float(res["best_loss"])
+    assert math.isfinite(best) and best <= float(hist[0]), (best, hist[0])
+    polish = {"iters": BASELINE_POLISH_ITERS, "start_loss": float(hist[0]),
+              "best_loss": best, "evaluations": n,
+              "host_syncs": res["host_syncs"],
+              "syncs_per_iter": res["host_syncs"] / BASELINE_POLISH_ITERS,
+              "linesearch_steps": res["linesearch_steps"], "seconds": secs,
+              "ms_per_iter": 1e3 * secs / BASELINE_POLISH_ITERS,
+              "launches": {k: v for k, v in got.items() if v}}
+    finish_phase({"phase": "baselines_main_path", "flavors": flavors,
+                  "kernel_vs_plain": detail, "sweep_cut": SWEEP_CUT,
+                  "sweep": points, "restart": restart, "polish": polish,
+                  "launches": {k: v for k, v in total.items() if v},
+                  "card": card}, failures)
+    return total
+
+
 def phase_mid_timings(torch, rk, kp, card):
     """K2-m and K3-m against their plain versions at the main path's
     shapes: K2 at Burgers K = 1 (fixed mode, 180 an iteration each way)
@@ -3152,6 +3434,7 @@ def main() -> int:
     from kanodes_tpu_torch.experiments import lv_symbolic as lvs
     from kanodes_tpu_torch.experiments import pde_source as ps
     from kanodes_tpu_torch.experiments import pde_surrogate as sg
+    from kanodes_tpu_torch.experiments import sweep as sw
     from kanodes_tpu_torch.models import packed as pk
     from kanodes_tpu_torch.models.kdense import KANChain, KDense
     from kanodes_tpu_torch.ode.integrate import StepController
@@ -3161,6 +3444,7 @@ def main() -> int:
     from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
     from kanodes_tpu_torch.ops import rk_fused as rk
     from kanodes_tpu_torch.ops import rk_fused_wide as tw
+    from kanodes_tpu_torch.train import polish as pol
     from kanodes_tpu_torch.utils.precision import set_exact_f32
     import numpy as np
 
@@ -3205,6 +3489,8 @@ def main() -> int:
                                        card),
                    phase_lv_symbolic_main_path(torch, rk, lvs, modules, card,
                                                max_err),
+                   phase_baselines_main_path(torch, rk, kp, lv, sw, pol,
+                                             modules, card, max_err),
                    members_launches):
         for name in KERNELS:
             launches[name] += counts[name]

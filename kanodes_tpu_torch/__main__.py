@@ -4,9 +4,9 @@ Each command forwards argv unchanged to its module's own CLI, as
 ``python -m kanodes_tpu`` does: ``python -m kanodes_tpu_torch lv
 --iters=2000`` is ``python -m kanodes_tpu_torch.experiments.lv
 --iters=2000``, ``lv-symbolic`` runs ``experiments.lv_symbolic``,
-``source`` runs ``experiments.pde_source`` and ``surrogate`` runs
-``experiments.pde_surrogate``. Only the commands of the
-ported slices exist.
+``source`` runs ``experiments.pde_source``, ``surrogate`` runs
+``experiments.pde_surrogate`` and ``sweep`` runs ``experiments.sweep``.
+Only the commands of the ported slices exist.
 """
 
 from __future__ import annotations
@@ -19,8 +19,10 @@ MODULE_COMMANDS: dict[str, tuple[str, str]] = {
     "lv": ("kanodes_tpu_torch.experiments.lv",
            "LV KAN-ODE training (--solve_mode=fixed|shooting|adaptive, "
            "--impl=xla|fused|pallas, --rtol/--atol/--max_steps/--adjoint "
-           "for adaptive; KANODE_LV_* env + --key=value overrides, "
-           "--device=cuda|cpu, default cuda)"),
+           "for adaptive, --model=kan|mlp; KANODE_LV_* env + --key=value "
+           "overrides, --checkpoint to save to checkpoints/lv every chunk, "
+           "--restart to continue from there, --device=cuda|cpu, default "
+           "cuda)"),
     "lv-symbolic": ("kanodes_tpu_torch.experiments.lv_symbolic",
                     "LV sparse train -> prune -> retrain -> GP + SINDy "
                     "laws (--sparse_iters, --retrain_iters, "
@@ -40,6 +42,13 @@ MODULE_COMMANDS: dict[str, tuple[str, str]] = {
                   "shooting, --impl=xla|fused, --wide_kernels=1 for the "
                   "wide kernels at any width, --key=value overrides, "
                   "--device=cuda|cpu, default cuda)"),
+    "sweep": ("kanodes_tpu_torch.experiments.sweep",
+              "LV parameter-efficiency sweep, KAN vs MLP loss against size "
+              "(--points=kan,mlp[,kan3,mlp3], --n_params=64,52 to pick "
+              "points, --shooting_iters/--seg4_iters/--traj_iters budget, "
+              "--polish_iters=N L-BFGS iterations after each point, "
+              "--seed, --out=PATH for the JSON results, default "
+              "sweep_results_torch.json, --device=cuda|cpu, default cuda)"),
 }
 
 

@@ -1,0 +1,94 @@
+"""Serializable model specs: rebuild a model from a checkpoint (port of
+`kanodes_tpu/deploy/spec.py`, kinds "kan" and "mlp").
+
+The reference's checkpoints carry the network shape next to the weights
+(`size_KAN` in the .mat files, `LV_driver_KANODE.jl:252-272`), so that
+post-hoc tools can rebuild the model without the training script's
+constants. A spec is a small JSON-able dict naming the model family and
+its constructor arguments; `lv.run` stores it in
+`TrainState.extra["model_spec"]`. Parameters stay in the checkpoint.
+
+The port's KDense has no trainable grid (ROADMAP.md, M2), so a spec
+says `"trainable_grid": False`, JAX's default. The B-spline chain
+(M13) and the strain-limiting PINN (M14) are not ported: their kinds
+raise NotImplementedError. Export and the deploy CLI are M15.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+from kanodes_tpu_torch.models.kdense import KANChain, KDense
+from kanodes_tpu_torch.models.mlp import MLP
+
+_NOT_PORTED = {"bspline_kan": "M13 (models/bspline.py)",
+               "kanpinn": "M14 (pinn/model.py)"}
+
+
+def spec_of(model) -> dict[str, Any]:
+    """The spec dict of a live model: a chain of KDense layers or an
+    MLP."""
+    if isinstance(model, KANChain) and all(
+            isinstance(l, KDense) for l in model.layers):
+        l0 = model.layers[0]
+        if not isinstance(l0.basis, str):
+            raise TypeError(
+                "spec_of cannot serialize a callable basis; use a "
+                "named basis ('rbf'/'rswaf'/'iqf') for checkpoint->"
+                "deploy rebuilds")
+        # the spec records layer 0's attributes chain-wide; a
+        # heterogeneous chain would rebuild silently wrong
+        for k in ("grid_len", "basis", "normalizer", "grid_lims",
+                  "denominator", "base_act", "use_base_act"):
+            vals = {getattr(l, k) for l in model.layers}
+            if len(vals) != 1:
+                raise ValueError(
+                    f"spec_of needs homogeneous KDense layers; "
+                    f"attribute {k!r} differs across layers: {vals}")
+        widths = [l0.in_dims] + [l.out_dims for l in model.layers]
+        return {
+            "kind": "kan",
+            "widths": widths,
+            "grid_len": l0.grid_len,
+            "basis": l0.basis,
+            "normalizer": l0.normalizer,
+            "grid_lims": list(l0.grid_lims),
+            "denominator": l0.denominator,
+            "base_act": l0.base_act,
+            "use_base_act": l0.use_base_act,
+            "trainable_grid": False,
+        }
+    if isinstance(model, MLP):
+        return {
+            "kind": "mlp",
+            "widths": list(model.widths),
+            "activation": model.activation,
+            "final_activation": model.final_activation,
+            "use_bias": model.use_bias,
+        }
+    raise TypeError(f"no spec rule for model type {type(model).__name__}")
+
+
+def model_from_spec(spec: dict[str, Any], *, device=None):
+    """Rebuild a model (parameters zero, on `device`) from `spec_of`'s
+    output or a hand-written spec."""
+    kind = spec["kind"]
+    if kind == "kan":
+        if spec.get("trainable_grid"):
+            raise NotImplementedError(
+                "trainable_grid is not ported yet (ROADMAP.md, M2)")
+        kw = {k: spec[k] for k in ("basis", "normalizer", "denominator",
+                                   "base_act", "use_base_act") if k in spec}
+        if "grid_lims" in spec:
+            kw["grid_lims"] = tuple(spec["grid_lims"])
+        return KANChain.mlp_like(list(spec["widths"]),
+                                 grid_len=spec["grid_len"], device=device,
+                                 **kw)
+    if kind == "mlp":
+        kw = {k: spec[k] for k in ("activation", "final_activation",
+                                   "use_bias") if k in spec}
+        return MLP(tuple(spec["widths"]), device=device, **kw)
+    if kind in _NOT_PORTED:
+        raise NotImplementedError(f"model spec kind {kind!r} is not ported "
+                                  f"yet (ROADMAP.md, {_NOT_PORTED[kind]})")
+    raise ValueError(f"unknown model spec kind: {kind!r}")

@@ -26,11 +26,17 @@ mode. `sparse_on` adds the L1/entropy regularizer
 (`sparsify/regularization.py`) to the loss in every mode and impl, and
 `run(prune_threshold=)` prunes weak hidden nodes before training
 (`sparsify/prune.py`; the pipeline is `experiments/lv_symbolic.py`).
+`model="mlp"` trains the reference's MLP baseline (`models/mlp.py`) on
+the plain path, whatever `impl` says, as in JAX. `run(checkpoint_dir=,
+restart=)` saves a checkpoint after every chunk of the training schedule
+and continues from the latest one, extending its histories
+(`train/checkpoint.py`; the reference's `is_restart` flow).
 What lies outside this slice raises NotImplementedError naming its
 ROADMAP.md item.
 
 Run:  python -m kanodes_tpu_torch.experiments.lv [--key=value ...]
       [--device=cuda|cpu]   (default cuda; raises without a card)
+      [--checkpoint] [--restart]   (checkpoints/lv, as in JAX)
 """
 
 from __future__ import annotations
@@ -41,8 +47,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from kanodes_tpu_torch.interop import chain_params_from_numpy
+from kanodes_tpu_torch.interop import params_from_numpy
 from kanodes_tpu_torch.models.kdense import KANChain
+from kanodes_tpu_torch.models.mlp import MLP
 from kanodes_tpu_torch.ode.integrate import (StepController, odeint,
                                              odeint_fixed, odeint_members)
 from kanodes_tpu_torch.sparsify.regularization import l1_entropy_reg
@@ -66,7 +73,7 @@ class LVConfig:
     dt: float = 0.1
     u0: tuple[float, float] = (1.0, 1.0)
     # model
-    model: str = "kan"                 # kan (mlp, bspline_kan: later)
+    model: str = "kan"                 # kan | mlp (bspline_kan: later)
     layer_width: int = 10
     kan_widths: tuple[int, ...] | None = None
     grid_size: int = 5
@@ -104,7 +111,6 @@ class LVConfig:
 def _check_slice(cfg: LVConfig) -> None:
     """Raise on what this slice of the port does not run yet."""
     later = {
-        ("model", "mlp"): "M8 (models/mlp.py)",
         ("model", "bspline_kan"): "M13 (models/bspline.py)",
         ("impl", "fused_wide"): "'Not ported' (the fused_wide LV route); "
                                 "the wide kernels themselves are in "
@@ -115,14 +121,15 @@ def _check_slice(cfg: LVConfig) -> None:
             raise NotImplementedError(
                 f"LVConfig({field}={value!r}) is not ported yet "
                 f"(ROADMAP.md, {item})")
-    if cfg.model != "kan":
+    if cfg.model not in ("kan", "mlp"):
         raise ValueError(cfg.model)
     if cfg.impl not in ("xla", "fused", "pallas"):
         raise ValueError(f"impl must be 'xla', 'fused' or 'pallas', got "
                          f"{cfg.impl!r}")
     if cfg.solve_mode not in ("fixed", "shooting", "adaptive"):
         raise ValueError(f"unknown solve_mode {cfg.solve_mode!r}")
-    if (cfg.solve_mode == "adaptive" and cfg.impl != "fused"
+    if (cfg.solve_mode == "adaptive"
+            and (cfg.impl != "fused" or cfg.model != "kan")
             and cfg.adjoint in ("interpolating", "backsolve")):
         raise NotImplementedError(
             f"LVConfig(adjoint={cfg.adjoint!r}) is not ported yet "
@@ -151,8 +158,10 @@ def make_data(cfg: LVConfig, device="cuda") -> dict[str, Any]:
     }
 
 
-def make_model(cfg: LVConfig, device="cuda") -> KANChain:
+def make_model(cfg: LVConfig, device="cuda") -> KANChain | MLP:
     _check_slice(cfg)
+    if cfg.model == "mlp":
+        return MLP(cfg.mlp_widths, device=require_device(device))
     widths = (list(cfg.kan_widths) if cfg.kan_widths is not None
               else [2, cfg.layer_width, 2])
     return KANChain.mlp_like(widths, grid_len=cfg.grid_size,
@@ -161,11 +170,12 @@ def make_model(cfg: LVConfig, device="cuda") -> KANChain:
 
 
 @torch.no_grad()
-def init_params(cfg: LVConfig, model: KANChain,
-                generator: torch.Generator | None = None) -> KANChain:
+def init_params(cfg: LVConfig, model: KANChain | MLP,
+                generator: torch.Generator | None = None):
     """Glorot init scaled by `init_scale` (reference: glorot/1e5,
-    LV_driver_KANODE.jl:179), in place; the generator defaults to a CPU
-    generator seeded with `cfg.seed`."""
+    LV_driver_KANODE.jl:179), every parameter (an MLP's zero biases
+    too), in place; the generator defaults to a CPU generator seeded
+    with `cfg.seed`."""
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     model.init(generator)
@@ -208,8 +218,12 @@ def make_ode_fns(cfg: LVConfig, model: KANChain, data, *, reduce_fn=None,
     u0 = X[0]
     adaptive = cfg.solve_mode == "adaptive"
     members = adaptive and n_members is not None
-    use_fused = cfg.impl == "fused"
-    if n_members is not None and cfg.impl == "pallas":
+    # the kernels take KDense chains; an MLP runs the plain path (JAX:
+    # the fused and pallas routes only for model == "kan")
+    kan = cfg.model == "kan"
+    use_fused = cfg.impl == "fused" and kan
+    use_pallas = cfg.impl == "pallas" and kan
+    if n_members is not None and use_pallas:
         # K1 takes a packed chain in its medium flavor (a block a row);
         # past its caps refuse here on every device
         from kanodes_tpu_torch.ops._cuda import chain_apply_flavor
@@ -241,7 +255,7 @@ def make_ode_fns(cfg: LVConfig, model: KANChain, data, *, reduce_fn=None,
                                   cfg.bwd_precision)
             return x
 
-    if cfg.impl == "pallas":
+    if use_pallas:
         from kanodes_tpu_torch.ops.kdense_pallas import kan_chain_rhs
         rhs = kan_chain_rhs(model)
     else:
@@ -350,25 +364,56 @@ def run(cfg: LVConfig | None = None, params=None, *, device="cuda",
     """Train an LV neural ODE end to end on `device`; returns the
     `train()` dict plus cfg, model, data and predict.
 
-    `params`: per-layer `{"C", "W"}` numpy arrays to start from (e.g. a
-    JAX init, `interop.py`); default is `init_params` with `generator`.
-    `prune_threshold` prunes weak hidden nodes on the training states
-    before training (`sparsify/prune.py`; the reference's
-    `is_prune` flow, `LV_driver_KANODE.jl:146-170`): the returned
-    `model` and `cfg` carry the new width.
+    `params`: the parameters to start from: per-layer numpy arrays in
+    the JAX layout (`{"C", "W"}` for a KAN, `{"W", "b"}` for an MLP; a
+    JAX init, say, `interop.py`) or a name -> tensor dict (`out["params"]`
+    of an earlier run); default is `init_params` with `generator`.
+
+    `checkpoint_dir`: save a `TrainState` there after every chunk of the
+    schedule (`TrainConfig.max_iters_per_call`), at step = the restored
+    step + the history length so far, with the model's spec in
+    `extra["model_spec"]` (`deploy/spec.py`). `restart`: start from the
+    latest checkpoint there (if any): its parameters (a model of its
+    spec's widths), and its loss and eval histories, which the returned
+    ones extend. The optimizer state is not restored, as in JAX.
+    `prune_threshold` prunes weak hidden nodes (of the restored
+    parameters on a restart) before training (`sparsify/prune.py`; the
+    reference's `is_restart` / `is_prune` flow,
+    `LV_driver_KANODE.jl:18-25,146-170`): the returned `model` and `cfg`
+    carry the new width.
     """
     cfg = cfg or LVConfig()
     _check_slice(cfg)
-    if checkpoint_dir is not None or restart:
-        raise NotImplementedError("checkpoint_dir/restart are not ported "
-                                  "yet (ROADMAP.md, M8 checkpointing)")
     set_exact_f32()
     data = make_data(cfg, device)
     model = make_model(cfg, device)
+
+    # restart as LV_driver_KANODE.jl:146-160: reload the parameters AND
+    # the loss/test histories so the continued run extends them
+    ckptr = None
+    prev_loss = np.zeros((0,), np.float32)
+    prev_eval = np.zeros((0,), np.float32)
+    prev_step = 0
+    if checkpoint_dir is not None:
+        from kanodes_tpu_torch.train.checkpoint import Checkpointer
+        ckptr = Checkpointer(checkpoint_dir)
+        if restart and ckptr.latest_step() is not None:
+            st = ckptr.restore()
+            model, cfg = _restored_model(cfg, model, st, device)
+            params = {k: torch.from_numpy(v) for k, v in st["params"].items()}
+            prev_step = int(st.get("step", 0))
+            if st.get("loss_history") is not None:
+                prev_loss = np.asarray(st["loss_history"], np.float32)
+            if st.get("eval_history") is not None:
+                prev_eval = np.asarray(st["eval_history"], np.float32)
+
     if params is None:
         init_params(cfg, model, generator)
+    elif isinstance(params, dict):
+        with torch.no_grad():
+            model.load_state_dict(params)
     else:
-        chain_params_from_numpy(model, params)
+        params_from_numpy(model, params)
     if prune_threshold is not None:
         from kanodes_tpu_torch.sparsify.prune import prune
         res = prune(model, data["X"][:data["n_train"]],
@@ -379,10 +424,57 @@ def run(cfg: LVConfig | None = None, params=None, *, device="cuda",
     loss_fn, eval_fn, predict = make_ode_fns(cfg, model, data)
     tc = TrainConfig(lr=cfg.lr, iters=cfg.iters, eval_every=cfg.eval_every,
                      max_iters_per_call=cfg.max_iters_per_call)
+
+    on_chunk = None
+    if ckptr is not None:
+        from kanodes_tpu_torch.deploy.spec import spec_of
+        from kanodes_tpu_torch.train.checkpoint import TrainState
+        model_spec = spec_of(model)
+
+        def on_chunk(i, st):
+            losses = st["loss_history"].cpu().numpy()    # the chunk's sync
+            evals = st["eval_history"].cpu().numpy()
+            step = prev_step + len(losses)
+            ckptr.save(TrainState(
+                params=st["params"], step=step,
+                best_params=st["best_params"],
+                best_loss=float(st["best_loss"]),
+                loss_history=np.concatenate([prev_loss, losses]),
+                eval_history=np.concatenate([prev_eval, evals]),
+                # the spec rides along so post-hoc tools can rebuild the
+                # network (the reference's size_KAN in its .mat files)
+                extra={"model_spec": model_spec}))
+
     out = train(loss_fn, model, tc, eval_fn=eval_fn,
-                record_history=cfg.record_history)
+                record_history=cfg.record_history, on_chunk=on_chunk)
+    if ckptr is not None:
+        dev = out["loss_history"].device
+        out["loss_history"] = torch.cat(
+            [torch.from_numpy(prev_loss).to(dev), out["loss_history"]])
+        out["eval_history"] = torch.cat(
+            [torch.from_numpy(prev_eval).to(dev), out["eval_history"]])
     out.update(cfg=cfg, model=model, data=data, predict=predict)
     return out
+
+
+def _restored_model(cfg: LVConfig, model, st: dict, device):
+    """(model, cfg) for a restored checkpoint: a checkpoint of a pruned
+    run holds a narrower chain than cfg describes, so the model is
+    rebuilt from the stored spec when its widths differ."""
+    spec = (st.get("extra") or {}).get("model_spec")
+    if spec is None or spec["kind"] != cfg.model:
+        return model, cfg
+    from kanodes_tpu_torch.deploy.spec import model_from_spec, spec_of
+    if spec_of(model)["widths"] == list(spec["widths"]):
+        return model, cfg
+    model = model_from_spec(spec, device=require_device(device))
+    if cfg.model == "mlp":
+        return model, dataclasses.replace(cfg, mlp_widths=model.widths)
+    if cfg.kan_widths is not None:
+        return model, dataclasses.replace(cfg,
+                                          kan_widths=tuple(spec["widths"]))
+    return model, dataclasses.replace(cfg,
+                                      layer_width=model.layers[0].out_dims)
 
 
 def main(argv: list[str]) -> int:
@@ -395,14 +487,14 @@ def main(argv: list[str]) -> int:
     for a in argv:
         if a.startswith("--device="):
             device = a.split("=", 1)[1]
-    if "--checkpoint" in argv or "--restart" in argv:
-        raise NotImplementedError("--checkpoint/--restart are not ported "
-                                  "yet (ROADMAP.md, M8 checkpointing)")
     cfg = LVConfig(iters=10_000)
     cfg = override_from_env(cfg, "KANODE_LV_")
     cfg = override_from_args(cfg, argv)
     t0 = time.perf_counter()
-    out = run(cfg, device=device)
+    out = run(cfg, device=device,
+              checkpoint_dir=("checkpoints/lv" if "--checkpoint" in argv
+                              else None),
+              restart="--restart" in argv)
     last = float(out["loss_history"][-1])       # waits for the device
     dt = time.perf_counter() - t0
     print(f"train loss {last:.3e}  "

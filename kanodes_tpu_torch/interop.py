@@ -5,7 +5,10 @@ JAX run starts from the JAX params: `{"C": [I,G,O], "W": [I,O]}` as
 numpy arrays for one layer (`kanodes_tpu.models.KDense.init`), a list of
 such dicts for a chain (`KANChain.init`). S member inits become the port's packed chain
 (`models/packed.py`) with `packed_params_from_numpy`, laid out as JAX
-`pack_params` lays them; `packed.extract_member` goes the other way.
+`pack_params` lays them; `packed.extract_member` goes the other way. An
+MLP's are per-layer `{"W": [i,o], "b": [o]}` (`kanodes_tpu.models.MLP`):
+`mlp_params_from_numpy` / `mlp_params_to_numpy`; `params_from_numpy`
+picks by the model.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import numpy as np
 import torch
 from torch.nn.utils import parametrize
 
+from kanodes_tpu_torch.models.mlp import MLP
 from kanodes_tpu_torch.models.packed import pack_params
 
 
@@ -67,3 +71,44 @@ def packed_params_from_numpy(packed, chain, member_params) -> None:
     chain_params_from_numpy(packed, [
         {k: v.cpu().numpy() for k, v in p.items()}
         for p in pack_params(chain, member_params)])
+
+
+@torch.no_grad()
+def mlp_params_from_numpy(mlp, params) -> None:
+    """Copy per-layer `{"W", "b"}` arrays (JAX's MLP params) into the
+    MLP's parameters (on their device, as float32). Shapes must match."""
+    if len(params) != len(mlp.layers):
+        raise ValueError(f"{len(params)} param dicts for "
+                         f"{len(mlp.layers)} layers")
+    for layer, p in zip(mlp.layers, params):
+        names = ("W", "b") if layer.b is not None else ("W",)
+        if set(p) != set(names):
+            raise ValueError(f"layer keys {sorted(p)} != {list(names)}")
+        for name in names:
+            dst = getattr(layer, name)
+            src = np.array(p[name], dtype=np.float32)
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{name}: shape {src.shape} != "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(src).to(dst.device))
+
+
+def mlp_params_to_numpy(mlp) -> list[dict[str, np.ndarray]]:
+    """The MLP's parameters as per-layer `{"W", "b"}` numpy arrays."""
+    out = []
+    for layer in mlp.layers:
+        p = {"W": layer.W.detach().cpu().numpy().copy()}
+        if layer.b is not None:
+            p["b"] = layer.b.detach().cpu().numpy().copy()
+        out.append(p)
+    return out
+
+
+def params_from_numpy(model, params) -> None:
+    """JAX-layout per-layer arrays into `model`: an MLP's `{"W", "b"}`
+    or a KDense chain's `{"C", "W"}`."""
+    if isinstance(model, MLP):
+        mlp_params_from_numpy(model, params)
+    else:
+        chain_params_from_numpy(model, params)
+

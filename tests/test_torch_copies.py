@@ -99,7 +99,8 @@ _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|optax|kanodes_tpu)\b",
 def test_port_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    for sub in ("pde", "symbolic", "ops", "experiments", "models"):
+    for sub in ("pde", "symbolic", "ops", "experiments", "models", "deploy",
+                "train"):
         assert any(f.parent.name == sub for f in files), sub
     for path in files:
         text = path.read_text()
@@ -129,6 +130,11 @@ def test_port_imports_without_jax_in_a_fresh_process():
         "import kanodes_tpu_torch.utils.kernel_bounds\n"
         "import kanodes_tpu_torch.models.packed\n"
         "import kanodes_tpu_torch.experiments.lv_members\n"
+        "import kanodes_tpu_torch.experiments.sweep\n"
+        "import kanodes_tpu_torch.train.checkpoint\n"
+        "import kanodes_tpu_torch.train.polish\n"
+        "import kanodes_tpu_torch.models.mlp\n"
+        "import kanodes_tpu_torch.deploy.spec\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'optax' or m == 'kanodes_tpu'"
         " or m.startswith('kanodes_tpu.')]\n"

@@ -216,7 +216,7 @@ def test_profiler_needs_a_card():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(solve_mode="adaptive", adjoint="backsolve"), "M7"),
-    (dict(model="mlp"), "M8"),
+    (dict(model="mlp", solve_mode="adaptive", adjoint="backsolve"), "M7"),
     (dict(model="bspline_kan"), "M13"),
     (dict(impl="fused_wide"), "fused_wide"),
     (dict(solve_mode="adaptive", impl="pallas", adjoint="interpolating"),
@@ -230,12 +230,16 @@ def test_outside_the_slice_raises_naming_roadmap(kw, item):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(checkpoint_dir="ckpt"), "M8"),
-    (dict(restart=True), "M8"),
+    (dict(checkpoint_dir="ckpt"), "M13"),
+    (dict(checkpoint_dir="ckpt", restart=True), "M13"),
 ])
-def test_run_options_outside_the_slice_raise(kw, item):
+def test_run_options_outside_the_slice_raise(kw, item, tmp_path):
+    """run(checkpoint_dir=, restart=) are ported (M8); with a model
+    outside the slice they raise before anything is written."""
+    kw = dict(kw, checkpoint_dir=str(tmp_path / kw["checkpoint_dir"]))
     with pytest.raises(NotImplementedError, match=item):
-        T.run(T.LVConfig(iters=1), device="cpu", **kw)
+        T.run(T.LVConfig(model="bspline_kan", iters=1), device="cpu", **kw)
+    assert not (tmp_path / "ckpt").exists()
 
 
 def test_cli_runs_lv_on_cpu():

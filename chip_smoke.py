@@ -34,7 +34,17 @@ parameter-efficiency sweep's new shapes, grid 3 and [2,40,2]; three
 sweep points through `experiments.sweep.train_point(..., device=
 "cuda")`, cut in iterations; `lv.run` with a checkpoint directory, a
 restart and a prune on restart; the L-BFGS polish of `train/polish.py`
-on the fused fixed loss), checks from the launch counters that each
+on the fused fixed loss), the stacked 8-seed LV run of
+`scripts/lv_multiseed_vmapped.py` through `experiments.lv_members.
+run_stacked_phases(..., device="cuda")` (K2/K3 with a member axis under
+`torch.func.vmap`, one launch a call for all 8 seeds; its four phases cut
+in iterations, each seed's loss history held to its own sequential run)
+after the member-axis kernels are held to the unbatched launches bit for
+bit at S = 1, 3 and 8, and the packed trend sweep over the 8 KAN sweep
+points as one `HeteroPacked` chain through `experiments.sweep.
+packed_trend_sweep(..., device="cuda")` (the plain path, per-member
+learning rates and 10 packed L-BFGS iterations; cut in iterations),
+checks from the launch counters that each
 run went through its kernels, holds the adaptive kernel to its plain
 version again on the parameters that run ended with (train and eval
 grids), and times each kernel against its plain version with CUDA
@@ -129,8 +139,19 @@ K1_MID_KERNELS = {
     "kan_chain_apply_fwd_mid": ("kanodes_tpu/ops/kdense_pallas.py:213", _K1),
     "kan_chain_apply_bwd_mid": ("kanodes_tpu/ops/kdense_pallas.py:223", _K1),
 }
+# K2/K3 with a member axis (the stacked multi-seed layout under vmap): S
+# members in one launch, gridDim.y = S, the small flavor's kernels
+STACKED_KERNELS = {
+    "fused_rk_step_fwd_members": ("kanodes_tpu/ops/rk_fused.py:144", _RK),
+    "fused_rk_step_bwd_members": ("kanodes_tpu/ops/rk_fused.py:167", _RK),
+    "fused_rk_multistep_fwd_members": ("kanodes_tpu/ops/rk_fused.py:311",
+                                       _RK),
+    "fused_rk_multistep_bwd_members": ("kanodes_tpu/ops/rk_fused.py:346",
+                                       _RK),
+}
 KERNELS = {**LV_KERNELS, **SOURCE_KERNELS, **KDENSE_KERNELS, **WIDE_KERNELS,
-           **MEMBERS_KERNELS, **MID_KERNELS, **K1_MID_KERNELS}
+           **MEMBERS_KERNELS, **MID_KERNELS, **K1_MID_KERNELS,
+           **STACKED_KERNELS}
 
 
 def emit(obj) -> None:
@@ -3419,6 +3440,345 @@ def phase_kdense_timings(torch, kp, card):
                   "card": card})
     return timed[SINGLE_CASES[0].label]
 
+# the stacked multi-seed layout: member counts and the main path's shapes
+STACKED_S = (1, 3, 8)
+STACKED_STEP_ROWS = (34, 31)            # shooting L = 1 and L = 4
+STACKED_MULTISTEP = (34, 140)           # fixed loss and eval, K = 1
+# run_stacked_phases' four phases (10k / 6k / 7k / 7k at the script's
+# budget) cut to these iterations
+STACKED_PHASE_ITERS = (200, 50, 50, 50)
+STEP_NAMES = ("dx", "dc1", "dw1", "dc2", "dw2")
+
+
+def stacked_inputs(torch, rng, S, K):
+    """S members' LV params [S, ...] and states [S, K, 2] (member m's from
+    lv_inputs), on the card."""
+    xs, ps = zip(*(lv_inputs(rng, torch, K) for _ in range(S)))
+    return torch.stack(xs), [torch.stack(p) for p in zip(*ps)]
+
+
+def phase_stacked_kernels(torch, rk, spec, max_err):
+    """K2/K3's member axis at S = 1, 3, 8 on the LV chain (iqf): K2 at 34
+    and 31 rows with x shared by the members (an expanded view, member
+    stride 0) and batched, K3 at n = 34 and 140, K = 1, x0 shared. Each
+    member's outputs equal the unbatched launch's bit for bit; the whole
+    launch meets its plain version (`..._members_reference`) by the
+    existing rules: K2f elementwise, K3f the float64 rule, the backwards
+    GRAD_TOL."""
+    import numpy as np
+    rng = np.random.default_rng(19)
+    failures, detail = [], []
+    k = rk._consts(spec, "tsit5", 0.1)
+    for S in STACKED_S:
+        for K in STACKED_STEP_ROWS:
+            x, params = stacked_inputs(torch, rng, S, K)
+            gy = torch.randn_like(x)
+            for shared in (True, False):
+                xs = x[0].expand(S, K, 2) if shared else x
+                label = f"S={S} K={K} x {'shared' if shared else 'batched'}"
+                y = rk._launch_step_fwd_members(k, xs, params)
+                g = rk._launch_step_bwd_members(k, xs, params, gy)
+                for m in range(S):
+                    xm = xs[m].contiguous()
+                    pm = [p[m].contiguous() for p in params]
+                    want = (rk._launch_step_fwd(k, xm, pm),
+                            *rk._launch_step_bwd(k, xm, pm,
+                                                 gy[m].contiguous()))
+                    for name, a, b in zip(("y",) + STEP_NAMES, (y, *g),
+                                          want):
+                        if not torch.equal(a[m], b):
+                            failures.append(
+                                f"K2 {label} member {m} {name}: differs "
+                                f"from the unbatched launch by "
+                                f"{float((a[m] - b).abs().max()):.3e}")
+                y_ref = rk.fused_rk_step_members_reference(
+                    spec, "tsit5", 0.1, xs, *params)
+                e = assert_close(failures, f"K2f-members {label}", y, y_ref,
+                                 FWD_TOL)
+                max_err["fused_rk_step_fwd_members"] = max(
+                    max_err["fused_rk_step_fwd_members"], e)
+                g_ref = rk.fused_rk_step_bwd_members_reference(
+                    spec, "tsit5", 0.1, xs, *params, gy)
+                for name, a, b in zip(STEP_NAMES, g, g_ref):
+                    e = assert_close(failures, f"K2b-members {label} {name}",
+                                     a, b, GRAD_TOL)
+                    max_err["fused_rk_step_bwd_members"] = max(
+                        max_err["fused_rk_step_bwd_members"], e)
+                detail.append({"case": f"K2 {label}",
+                               "max_abs_err_fwd": float(
+                                   (y - y_ref).abs().max())})
+        for n in STACKED_MULTISTEP:
+            x, params = stacked_inputs(torch, rng, S, 1)
+            xs = x[0].expand(S, 1, 2)
+            gys = torch.randn((S, n, 1, 2), device="cuda") / n
+            label = f"S={S} n={n} K=1 x0 shared"
+            ys = rk._launch_multistep_fwd_members(k, n, xs, params)
+            g = rk._launch_multistep_bwd_members(k, n, xs, ys, params, gys)
+            for m in range(S):
+                pm = [p[m].contiguous() for p in params]
+                ym = rk._launch_multistep_fwd(k, n, xs[m].contiguous(), pm)
+                want = (ym, *rk._launch_multistep_bwd(
+                    k, n, xs[m].contiguous(), ym, pm, gys[m].contiguous()))
+                for name, a, b in zip(("ys",) + STEP_NAMES, (ys, *g), want):
+                    if not torch.equal(a[m], b):
+                        failures.append(
+                            f"K3 {label} member {m} {name}: differs from "
+                            f"the unbatched launch by "
+                            f"{float((a[m] - b).abs().max()):.3e}")
+            ys_ref = rk.fused_rk_multistep_members_reference(
+                spec, "tsit5", 0.1, n, xs, *params)
+            ys64 = rk.fused_rk_multistep_members_reference(
+                spec, "tsit5", 0.1, n, xs.double(),
+                *(p.double() for p in params))
+            d = f64_rule(failures, f"K3f-members {label}", ys, ys_ref, ys64)
+            max_err["fused_rk_multistep_fwd_members"] = max(
+                max_err["fused_rk_multistep_fwd_members"], d["max_abs_err"])
+            g_ref = rk.fused_rk_multistep_bwd_members_reference(
+                spec, "tsit5", 0.1, n, xs, ys, *params, gys)
+            for name, a, b in zip(STEP_NAMES, g, g_ref):
+                e = assert_close(failures, f"K3b-members {label} {name}", a,
+                                 b, GRAD_TOL)
+                max_err["fused_rk_multistep_bwd_members"] = max(
+                    max_err["fused_rk_multistep_bwd_members"], e)
+            detail.append({"case": f"K3 {label}", **d})
+    torch.cuda.synchronize()
+    finish_phase({"phase": "stacked_kernels", "S": list(STACKED_S),
+                  "chain": "[2,10,2] G=5 iqf tsit5 dt=0.1",
+                  "member_bits_equal_unbatched": not failures,
+                  "fwd_tol": FWD_TOL, "grad_tol": GRAD_TOL,
+                  "cases": detail}, failures)
+
+
+def phase_stacked_main_path(torch, lvm, modules, card):
+    """The stacked 8-seed LV run of scripts/lv_multiseed_vmapped.py on the
+    card (`lv_members.run_stacked_phases`): [2, 10, 2] G = 5 iqf, seeds
+    0-7 stacked, the script's four phases cut to STACKED_PHASE_ITERS.
+    Exact launches, whatever S is: one member-axis K2f and one K2b a
+    substep (L a shooting iteration), one K3f and one K3b a fixed
+    iteration, and the two final losses' K3f (n = 34 and 140); no
+    unbatched launch. Each seed's loss history within rtol 2e-4 of its own
+    sequential run (`run_sequential_phases`, the unbatched launches, whose
+    counts are checked too). Returns the stacked run's launches."""
+    from types import SimpleNamespace
+    phases = [(m, L, lr, n) for (m, L, lr, _), n in
+              zip(lvm.STACKED_PHASES, STACKED_PHASE_ITERS)]
+    seeds = tuple(range(8))
+    torch.cuda.synchronize()
+    reset_counts(modules)
+    t0 = time.perf_counter()
+    res = lvm.run_stacked_phases(phases, seeds, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts(modules)
+    want = {k: 0 for k in KERNELS}
+    want_seq = {k: 0 for k in KERNELS}
+    total = 0
+    for mode, L, _, n in phases:
+        iters, _ = train_blocks(SimpleNamespace(iters=n, eval_every=n),
+                                lvm.TrainConfig.max_iters_per_call)
+        total += iters
+        if mode == "shooting":
+            want["fused_rk_step_fwd_members"] += iters * L
+            want["fused_rk_step_bwd_members"] += iters * L
+            want_seq["fused_rk_step_fwd"] += len(seeds) * iters * L
+            want_seq["fused_rk_step_bwd"] += len(seeds) * iters * L
+        else:
+            want["fused_rk_multistep_fwd_members"] += iters
+            want["fused_rk_multistep_bwd_members"] += iters
+            want_seq["fused_rk_multistep_fwd"] += len(seeds) * iters
+            want_seq["fused_rk_multistep_bwd"] += len(seeds) * iters
+    want["fused_rk_multistep_fwd_members"] += 2     # the final two losses
+    assert counts == want, f"stacked phases: launches {counts} != {want}"
+    for name in STACKED_KERNELS:
+        assert counts[name] > 0, f"{name} never launched on the main path"
+    assert all(t.is_cuda for t in res["stacked"].parameters()), \
+        "a result left the card"
+    hist = res["loss_history"]
+    assert bool(torch.isfinite(hist).all()), "non-finite stacked loss"
+    for ph in res["phases"]:
+        first, best = (torch.tensor(ph["first_loss"]),
+                       torch.tensor(ph["best_loss"]))
+        assert bool((best < first).all()), \
+            f"stacked phase {ph['solve_mode']} L={ph['segment_len']}: " \
+            f"per-member best {best.tolist()} !< first {first.tolist()}"
+    reset_counts(modules)
+    seq = lvm.run_sequential_phases(phases, seeds, device="cuda")
+    torch.cuda.synchronize()
+    seq_counts = read_counts(modules)
+    assert seq_counts == want_seq, \
+        f"sequential runs: launches {seq_counts} != {want_seq}"
+    rel = ((hist - seq["loss_history"]).abs()
+           / seq["loss_history"].abs())
+    worst = float(rel.max())
+    assert worst <= 2e-4, f"stacked vs sequential loss histories: rtol " \
+                          f"{worst:.3e} > 2e-4"
+    emit({"phase": "stacked_main_path", "seeds": len(seeds),
+          "widths": [2, 10, 2], "basis": "iqf", "phases": res["phases"],
+          "runs": res["runs"], "iters_per_seed": total,
+          "seconds": seconds, "member_it_per_s": len(seeds) * total / seconds,
+          "sequential_seconds": seq["seconds"],
+          "sequential_member_it_per_s": len(seeds) * total / seq["seconds"],
+          "max_rel_diff_vs_sequential": worst,
+          "bit_equal_histories": bool(torch.equal(hist,
+                                                  seq["loss_history"])),
+          "launches": {k: v for k, v in counts.items() if v},
+          "card": card})
+    return counts
+
+
+# packed_trend_sweep's budget (10k / 6k / 6k) cut to these iterations
+TREND_ITERS = dict(shooting_iters=200, seg4_iters=50, traj_iters=15)
+TREND_POLISH = 10
+
+
+def phase_trend_packed_main_path(torch, lv, sw, modules, card):
+    """The packed trend sweep of scripts/lv_trend_packed.py on the card
+    (`sweep.packed_trend_sweep`): the 8 KAN_SWEEP points as one
+    HeteroPacked chain [16, 94, 16], G_max = 5, the plain path (no kernel
+    launch, as JAX's impl="xla" there), width-scaled per-member learning
+    rates (10 / layer_width) and TREND_POLISH packed L-BFGS iterations,
+    cut to TREND_ITERS. Every loss finite; each member's trajectory train
+    loss below its initial one; the polish never worse than its input
+    (within rtol 2e-4: the member chain sums in another order than the
+    packed one the polish minimizes). Returns the launches (none)."""
+    import dataclasses
+    points = sw.KAN_SWEEP
+    factors = [10.0 / p.layer_width for p in points]
+    initial = []
+    for p in points:
+        c = dataclasses.replace(sw.base_config(p), impl="xla",
+                                solve_mode="fixed")
+        m = lv.make_model(c, "cuda")
+        lv.init_params(c, m)
+        loss_fn, _, _ = lv.make_ode_fns(c, m, lv.make_data(c, "cuda"))
+        with torch.no_grad():
+            initial.append(float(loss_fn(m)))
+    phase_losses = []
+    torch.cuda.synchronize()
+    reset_counts(modules)
+    t0 = time.perf_counter()
+    out = sw.packed_trend_sweep(
+        points, lr_factors=factors, polish_iters=TREND_POLISH,
+        device="cuda",
+        on_phase=lambda i, o: phase_losses.append(
+            o["loss_history"].cpu()), **TREND_ITERS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts(modules)
+    assert not any(counts.values()), f"trend sweep launched {counts}"
+    for h in phase_losses:
+        assert bool(torch.isfinite(h).all()), "non-finite trend-sweep loss"
+    rows = out["results"]
+    for r, first in zip(rows, initial):
+        vals = [r["train_loss"], r["test_loss"], r["polished_train_loss"],
+                r["polished_test_loss"]]
+        assert all(math.isfinite(v) for v in vals), f"non-finite {r}"
+        assert r["train_loss"] < first, \
+            f"{r['n_params']} params: train {r['train_loss']:.3e} !< " \
+            f"initial {first:.3e}"
+        assert r["polished_train_loss"] <= r["train_loss"] * (1 + 2e-4), \
+            f"{r['n_params']} params: polish {r['polished_train_loss']:.3e}" \
+            f" > Adam's {r['train_loss']:.3e}"
+    emit({"phase": "trend_packed_main_path", "points": len(points),
+          "packed_widths": [16, 94, 16], "iters": TREND_ITERS,
+          "lr_factors": factors, "polish_iters": TREND_POLISH,
+          "initial_train_mse": initial, "results": rows,
+          "phase_seconds": out["phase_seconds"],
+          "polish_seconds": out["polish_seconds"],
+          "polish_host_syncs": out["polish_host_syncs"],
+          "polish_evaluations": out["polish_evaluations"],
+          "seconds": seconds, "card": card})
+    return counts
+
+
+def phase_stacked_timings(torch, rk, spec, card):
+    """The member-axis kernels at the stacked run's shapes, S = 8: K2 at
+    K = 34 (x shared, L = 1) and 31 (x batched, L = 4), K3 at n = 34, K =
+    1 (x0 shared), and K3f at the eval's n = 140 (an eval has no
+    backward); CUDA-event ms and the profiler's device µs of the one
+    member-axis launch against the same 8 members as 8 unbatched
+    launches, and its plain version (vmapped over the members) and bound
+    (`kernel_bounds.members`)."""
+    import numpy as np
+    from kanodes_tpu_torch.utils import kernel_bounds as kb
+    rng = np.random.default_rng(21)
+    dims = (spec.in_dims, spec.hidden, spec.out_dims, spec.grid_len)
+    k = rk._consts(spec, "tsit5", 0.1)
+    S, n_st = 8, k.n_slots
+    cases = {}
+    for K, shared in ((34, True), (31, False)):
+        x, params = stacked_inputs(torch, rng, S, K)
+        xs = x[0].expand(S, K, 2) if shared else x
+        gy = torch.randn_like(x)
+        one = [(xs[m].contiguous(), [p[m].contiguous() for p in params],
+                gy[m].contiguous()) for m in range(S)]
+        sh = K * 2 if shared else 0
+        cases[f"fused_rk_step_fwd_members K={K}"] = (
+            lambda xs=xs, params=params: rk._launch_step_fwd_members(
+                k, xs, params),
+            lambda one=one: [rk._launch_step_fwd(k, a, b) for a, b, _ in
+                             one],
+            lambda xs=xs, params=params: rk.fused_rk_step_members_reference(
+                spec, "tsit5", 0.1, xs, *params),
+            kb.bound(*kb.members(kb.rk_step_fwd(dims, K, n_st), S, sh)))
+        cases[f"fused_rk_step_bwd_members K={K}"] = (
+            lambda xs=xs, params=params, gy=gy: rk._launch_step_bwd_members(
+                k, xs, params, gy),
+            lambda one=one: [rk._launch_step_bwd(k, a, b, c) for a, b, c in
+                             one],
+            lambda xs=xs, params=params, gy=gy:
+                rk.fused_rk_step_bwd_members_reference(
+                    spec, "tsit5", 0.1, xs, *params, gy),
+            kb.bound(*kb.members(kb.rk_step_bwd(dims, K, n_st), S, sh)))
+    for n in STACKED_MULTISTEP:
+        x, params = stacked_inputs(torch, rng, S, 1)
+        xs = x[0].expand(S, 1, 2)
+        ys = rk._launch_multistep_fwd_members(k, n, xs, params)
+        gys = torch.randn_like(ys)
+        one = [(xs[m].contiguous(), [p[m].contiguous() for p in params],
+                ys[m].contiguous(), gys[m].contiguous()) for m in range(S)]
+        cases[f"fused_rk_multistep_fwd_members n={n}"] = (
+            lambda xs=xs, params=params, n=n:
+                rk._launch_multistep_fwd_members(k, n, xs, params),
+            lambda one=one, n=n: [rk._launch_multistep_fwd(k, n, a, b)
+                                  for a, b, _, _ in one],
+            lambda xs=xs, params=params, n=n:
+                rk.fused_rk_multistep_members_reference(
+                    spec, "tsit5", 0.1, n, xs, *params),
+            kb.bound(*kb.members(kb.rk_multistep_fwd(dims, 1, n, n_st), S,
+                                 2)))
+        if n != 34:
+            continue
+        cases[f"fused_rk_multistep_bwd_members n={n}"] = (
+            lambda xs=xs, params=params, ys=ys, gys=gys, n=n:
+                rk._launch_multistep_bwd_members(k, n, xs, ys, params, gys),
+            lambda one=one, n=n: [rk._launch_multistep_bwd(k, n, a, c, b, d)
+                                  for a, b, c, d in one],
+            lambda xs=xs, params=params, ys=ys, gys=gys, n=n:
+                rk.fused_rk_multistep_bwd_members_reference(
+                    spec, "tsit5", 0.1, n, xs, ys, *params, gys),
+            kb.bound(*kb.members(kb.rk_multistep_bwd(dims, 1, n, n_st), S,
+                                 2)))
+    out = {}
+    with torch.no_grad():
+        for label, (kern, unb, plain, b) in cases.items():
+            out[label] = {
+                **kernel_vs_plain_ms(torch, kern, plain, b, plain_reps=1),
+                "device_us": device_us(torch, kern),
+                "unbatched_x8_ms": cuda_ms(torch, unb, 20),
+                "unbatched_x8_device_us": device_us(torch, unb)}
+    emit({"phase": "stacked_timings", "S": S,
+          "shapes": "LV [2,10,2] G=5 iqf tsit5 dt=0.1; K2 K=34 x shared, "
+                    "K=31 x batched; K3 K=1 n=34, 140",
+          "kernels": out, "card": card})
+    # the kernels line: the main path's shapes (L = 1 shooting, the fixed
+    # loss)
+    return {name: out[f"{name} {shape}"] for name, shape in (
+        ("fused_rk_step_fwd_members", "K=34"),
+        ("fused_rk_step_bwd_members", "K=34"),
+        ("fused_rk_multistep_fwd_members", "n=34"),
+        ("fused_rk_multistep_bwd_members", "n=34"))}
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "kanodes_tpu_torch")):
@@ -3477,6 +3837,10 @@ def main() -> int:
     phase_kdense_single(torch, kp, max_err)
     phase_wide_kernels(torch, tw, kp, max_err)
     phase_members_kernels(torch, ra, StepController, max_err)
+    # the stacked multi-seed run's chain (scripts/lv_multiseed_vmapped.py)
+    iqf = kp.chain_spec_of(KANChain.mlp_like([2, 10, 2], grid_len=5,
+                                             basis="iqf"))
+    phase_stacked_kernels(torch, rk, iqf, max_err)
 
     modules = (rk, kp, ra, gb, tw)
     launches, finals = phase_main_path(torch, lv, modules, card)
@@ -3491,6 +3855,9 @@ def main() -> int:
                                                max_err),
                    phase_baselines_main_path(torch, rk, kp, lv, sw, pol,
                                              modules, card, max_err),
+                   phase_stacked_main_path(torch, lvm, modules, card),
+                   phase_trend_packed_main_path(torch, lv, sw, modules,
+                                                card),
                    members_launches):
         for name in KERNELS:
             launches[name] += counts[name]
@@ -3505,6 +3872,7 @@ def main() -> int:
     times.update(phase_wide_timings(torch, tw, kp, card))
     times.update(phase_members_timings(torch, lvm, ra, members_out, card))
     times.update(phase_mid_timings(torch, rk, kp, card))
+    times.update(phase_stacked_timings(torch, rk, iqf, card))
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -5,7 +5,8 @@ Each command forwards argv unchanged to its module's own CLI, as
 --iters=2000`` is ``python -m kanodes_tpu_torch.experiments.lv
 --iters=2000``, ``lv-symbolic`` runs ``experiments.lv_symbolic``,
 ``source`` runs ``experiments.pde_source``, ``surrogate`` runs
-``experiments.pde_surrogate`` and ``sweep`` runs ``experiments.sweep``.
+``experiments.pde_surrogate``, ``sweep`` runs ``experiments.sweep`` and
+``lv_members`` runs ``experiments.lv_members``.
 Only the commands of the ported slices exist.
 """
 
@@ -48,7 +49,18 @@ MODULE_COMMANDS: dict[str, tuple[str, str]] = {
               "points, --shooting_iters/--seg4_iters/--traj_iters budget, "
               "--polish_iters=N L-BFGS iterations after each point, "
               "--seed, --out=PATH for the JSON results, default "
-              "sweep_results_torch.json, --device=cuda|cpu, default cuda)"),
+              "sweep_results_torch.json, --device=cuda|cpu, default cuda; "
+              "--packed=1 trains the KAN points as one HeteroPacked chain, "
+              "with --lr_factors=width|f1,... and --polish_iters=N of the "
+              "packed L-BFGS)"),
+    "lv_members": ("kanodes_tpu_torch.experiments.lv_members",
+                   "LV ensembles: 8 members packed into one chain "
+                   "(--n_members, --phases=1 for the packed seed sweep, "
+                   "--profile=1), or --stacked: 8 seeds stacked and "
+                   "trained under vmap through K2/K3's member axis "
+                   "(--seeds, --phase_iters=a,b,c,d, --sequential=1 to "
+                   "time the seed-by-seed runs too); --device=cuda|cpu, "
+                   "default cuda"),
 }
 
 

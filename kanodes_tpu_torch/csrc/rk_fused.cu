@@ -61,12 +61,43 @@
 //     with its stage Jacobians, a warp or a block a row runs the
 //     recursion, then the records' dy1 and the parameter sums:
 //     kan_chain_multistep.cuh).
+//   * the member axis (the stacked multi-seed layout of JAX's
+//     `jax.vmap(loss_fn)`, where vmap adds a grid axis and each grid
+//     program reads its own member's parameters): the small flavor's K2f,
+//     K2b, K3f and K3b and the parameter sums take S members in ONE
+//     launch, gridDim.y = S, block (x, m) member m's rows. Every tensor
+//     is [S, ...] with the members one after another; the states x may
+//     be shared by every member (member stride 0: the data's segment
+//     starts and x0 are not batched). A block never straddles two
+//     members (it stages one member's parameters in shared memory), and
+//     each member runs the unbatched launch's per-row code and order of
+//     sums on its own slices, so its outputs equal that launch's bit for
+//     bit. The member axis is each kernel's `kMembers` instance: the
+//     unbatched launches keep the instance without the offsets (their
+//     registers and SASS). K3b, one block before, is S blocks.
 // Launches go on the caller's stream; nothing here allocates or syncs.
 
 #include "kan_chain_block.cuh"
 #include "kan_chain_multistep.cuh"
 
 namespace {
+
+// The member axis: member blockIdx.y's slices of [S, ...] parameters or
+// their cotangents (c1 | w1 | c2 | w2 of one member each), and the
+// offset of its slice of a tensor of `per` floats a member.
+template <typename T>
+__device__ inline void kc_member_params(T*& c1, T*& w1, T*& c2, T*& w2,
+                                        const ChainDims& d) {
+  const size_t m = blockIdx.y;
+  c1 += m * (size_t)(d.I * d.G * d.H);
+  w1 += m * (size_t)(d.I * d.H);
+  c2 += m * (size_t)(d.H * d.G * d.O);
+  w2 += m * (size_t)(d.H * d.O);
+}
+
+__device__ inline size_t kc_member_off(size_t per) {
+  return (size_t)blockIdx.y * per;
+}
 
 // Floats of K3f's dynamic shared memory: the parameters and, for each
 // warp, its row's stage input [I], stage values [S][I] and kf_chain_fwd's
@@ -81,10 +112,17 @@ __host__ __device__ inline size_t k3f_smem_floats(const ChainDims& d,
 // in the warp with no block barrier; state component q in lane q < I,
 // each chain evaluation spread over the lanes by kf_chain_fwd, lane h's
 // slices of the parameters in registers for the whole trajectory.
+template <bool kMembers>
 __global__ void __launch_bounds__(KW_LANES * KF_MAX_WARPS)
 rk_multistep_fwd_kernel(const float* x0, const float* c1, const float* w1,
                         const float* c2, const float* w2, float* ys, int K,
-                        int n_steps, ChainDims d, StepTab T) {
+                        int n_steps, long long x_mstride, ChainDims d,
+                        StepTab T) {
+  if (kMembers) {
+    x0 += kc_member_off((size_t)x_mstride);
+    kc_member_params(c1, w1, c2, w2, d);
+    ys += kc_member_off((size_t)n_steps * K * d.I);
+  }
   extern __shared__ float smem[];
   __shared__ WarpConsts wc;
   __shared__ unsigned char s_l2h[KC_MAX_H * KC_MAX_G];
@@ -147,13 +185,24 @@ rk_multistep_fwd_kernel(const float* x0, const float* c1, const float* w1,
 // of a group in chunks of `chunk` from the last; per chunk phase A over
 // every (row, step) by every warp, then phase B by the row warps
 // (kan_chain_warp.cuh); then the block's parameter sums.
+template <bool kMembers>
 __global__ void __launch_bounds__(KW_LANES * KW_MAX_WARPS)
 rk_multistep_bwd_kernel(const float* x0, const float* ys, const float* gys,
                         const float* c1, const float* w1, const float* c2,
                         const float* w2, float* dx0, float* dc1, float* dw1,
                         float* dc2, float* dw2, float* scratch, int K,
-                        int n_steps, int n_slots, int chunk, ChainDims d,
-                        StepTab T) {
+                        int n_steps, int n_slots, int chunk,
+                        long long x_mstride, ChainDims d, StepTab T) {
+  if (kMembers) {
+    x0 += kc_member_off((size_t)x_mstride);
+    ys += kc_member_off((size_t)n_steps * K * d.I);
+    gys += kc_member_off((size_t)n_steps * K * d.I);
+    dx0 += kc_member_off((size_t)K * d.I);
+    kc_member_params(c1, w1, c2, w2, d);
+    kc_member_params(dc1, dw1, dc2, dw2, d);
+    scratch += kc_member_off((size_t)n_steps * K * n_slots
+                             * kc_rec_layout(d.I, d.H, d.O, d.G).width);
+  }
   extern __shared__ float smem[];
   __shared__ WarpConsts c;
   const int warp = threadIdx.x / KW_LANES, lane = threadIdx.x % KW_LANES;
@@ -207,11 +256,20 @@ rk_multistep_bwd_kernel(const float* x0, const float* ys, const float* gys,
 // warp): K3b's phases at n = 1 in the row's own warp, so no block barrier
 // follows the set-up; the row's records at scratch + r * n_slots * width,
 // where K3b puts step 0's. Its parameter sums are the second launch.
+template <bool kMembers>
 __global__ void __launch_bounds__(KW_LANES * KW_MAX_WARPS)
 rk_step_adjoint_kernel(const float* x, const float* gy, const float* c1,
                        const float* w1, const float* c2, const float* w2,
                        float* dx, float* scratch, int K, int n_slots,
-                       ChainDims d, StepTab T) {
+                       long long x_mstride, ChainDims d, StepTab T) {
+  if (kMembers) {
+    x += kc_member_off((size_t)x_mstride);
+    gy += kc_member_off((size_t)K * d.I);
+    dx += kc_member_off((size_t)K * d.I);
+    kc_member_params(c1, w1, c2, w2, d);
+    scratch += kc_member_off((size_t)K * n_slots
+                             * kc_rec_layout(d.I, d.H, d.O, d.G).width);
+  }
   extern __shared__ float smem[];
   __shared__ WarpConsts c;
   const int warp = threadIdx.x / KW_LANES, lane = threadIdx.x % KW_LANES;
@@ -293,12 +351,18 @@ __device__ inline float* rk_param_operands(int p, const ChainDims& d,
 // records at a time (a multiple of 4) into shared memory, so that each
 // thread's chain of n_rec multiply-adds reads shared memory: from L2,
 // across the launch boundary, the chain took 33k cycles at K = 34
-// (PERF.md, the K2f/K2b trace).
+// (PERF.md, the K2f/K2b trace). Member blockIdx.y sums its own n_rec
+// records into its own cotangents.
+template <bool kMembers>
 __global__ void __launch_bounds__(KB_THREADS)
 rk_param_sums_kernel(const float* scratch, int n_rec, int chunk, ChainDims d,
                      float* dc1, float* dw1, float* dc2, float* dw2) {
   extern __shared__ float srec[];
   const RecLayout L = kc_rec_layout(d.I, d.H, d.O, d.G);
+  if (kMembers) {
+    scratch += kc_member_off((size_t)n_rec * L.width);
+    kc_member_params(dc1, dw1, dc2, dw2, d);
+  }
   int a_off = 0, b_off = 0;
   float* out = rk_param_operands(blockIdx.x * blockDim.x + threadIdx.x, d,
                                  L, dc1, dw1, dc2, dw2, a_off, b_off);
@@ -320,21 +384,26 @@ rk_param_sums_kernel(const float* scratch, int n_rec, int chunk, ChainDims d,
   if (out != nullptr) *out = acc;
 }
 
-// Launch K2b's parameter sums over n_rec records: chunks of as many
+// Launch K2b's parameter sums over n_rec records (of each of S members,
+// S > 0: the member axis; 0: one unbatched set): chunks of as many
 // records as KB_MAX_SMEM holds, a multiple of 4, at most n_rec rounded up.
 cudaError_t rk_launch_param_sums(const float* scratch, int n_rec,
                                  const ChainDims& d, float* dc1, float* dw1,
-                                 float* dc2, float* dw2, cudaStream_t st) {
+                                 float* dc2, float* dw2, cudaStream_t st,
+                                 int S = 0) {
   const int width = kc_rec_layout(d.I, d.H, d.O, d.G).width;
   const int fit = KB_MAX_SMEM / (int)(4 * sizeof(float) * width) * 4;
   const int need = (n_rec + 3) / 4 * 4;
   const int chunk = need < fit ? need : fit;
   const size_t smem = (size_t)chunk * width * sizeof(float);
-  cudaError_t err = kc_smem_opt_in(rk_param_sums_kernel, smem);
+  const auto kernel =
+      S > 0 ? rk_param_sums_kernel<true> : rk_param_sums_kernel<false>;
+  cudaError_t err = kc_smem_opt_in(kernel, smem);
   if (err != cudaSuccess) return err;
   const int n = kc_param_floats(d);
-  rk_param_sums_kernel<<<(n + KB_THREADS - 1) / KB_THREADS, KB_THREADS, smem,
-                         st>>>(scratch, n_rec, chunk, d, dc1, dw1, dc2, dw2);
+  kernel<<<dim3((n + KB_THREADS - 1) / KB_THREADS, S > 0 ? S : 1),
+           KB_THREADS, smem, st>>>(scratch, n_rec, chunk, d, dc1, dw1, dc2,
+                                   dw2);
   return cudaGetLastError();
 }
 
@@ -825,6 +894,84 @@ cudaError_t km_prepare(Kernel kernel, const ChainDims& d, int stages,
   return kc_smem_opt_in(kernel, smem);
 }
 
+// The small flavor's launchers over S members (gridDim.y, the kMembers
+// instances; S = 0: the unbatched launch, the instances without the
+// member offsets): x's member stride x_mstride (0: one x for every
+// member), every other tensor [S, ...].
+int rk_multistep_fwd_launch(const float* x0, const float* c1, const float* w1,
+                            const float* c2, const float* w2, float* ys,
+                            int K, int n_steps, int S, long long x_mstride,
+                            int warps, const ChainDims* d, const StepTab* T,
+                            void* stream) {
+  if (warps < 1 || warps > KF_MAX_WARPS || K < 1 || S < 0 || S > 65535
+      || x_mstride < 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = k3f_smem_floats(*d, T->stages, warps) * sizeof(float);
+  const auto kernel = S > 0 ? rk_multistep_fwd_kernel<true>
+                            : rk_multistep_fwd_kernel<false>;
+  cudaError_t err = kc_smem_opt_in(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (K + warps - 1) / warps;
+  kernel<<<dim3(blocks, S > 0 ? S : 1), warps * KW_LANES, smem,
+           (cudaStream_t)stream>>>(x0, c1, w1, c2, w2, ys, K, n_steps,
+                                   x_mstride, *d, *T);
+  return (int)cudaGetLastError();
+}
+
+// K2b over K rows of each member, `warps` rows a block (the wrapper's
+// step_bwd_plan), then the parameter sums over each member's K * n_slots
+// records in scratch.
+int rk_step_bwd_launch(const float* x, const float* gy, const float* c1,
+                       const float* w1, const float* c2, const float* w2,
+                       float* dx, float* dc1, float* dw1, float* dc2,
+                       float* dw2, float* scratch, int K, int n_slots, int S,
+                       long long x_mstride, int warps, const ChainDims* d,
+                       const StepTab* T, void* stream) {
+  if (warps < 1 || warps > KW_MAX_WARPS || K < 1 || S < 0 || S > 65535
+      || x_mstride < 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      kw_smem_floats(*d, warps, warps, 1, n_slots) * sizeof(float);
+  const auto kernel = S > 0 ? rk_step_adjoint_kernel<true>
+                            : rk_step_adjoint_kernel<false>;
+  cudaError_t err = kc_smem_opt_in(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  kernel<<<dim3((K + warps - 1) / warps, S > 0 ? S : 1), warps * KW_LANES,
+           smem, st>>>(x, gy, c1, w1, c2, w2, dx, scratch, K, n_slots,
+                       x_mstride, *d, *T);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)rk_launch_param_sums(scratch, K * n_slots, *d, dc1, dw1, dc2,
+                                   dw2, st, S);
+}
+
+// K3b, one block a member.
+int rk_multistep_bwd_launch(const float* x0, const float* ys,
+                            const float* gys, const float* c1,
+                            const float* w1, const float* c2,
+                            const float* w2, float* dx0, float* dc1,
+                            float* dw1, float* dc2, float* dw2,
+                            float* scratch, int K, int n_steps, int n_slots,
+                            int S, long long x_mstride, int warps, int chunk,
+                            const ChainDims* d, const StepTab* T,
+                            void* stream) {
+  if (warps < 1 || warps > KW_MAX_WARPS || chunk < 1 || S < 0 || S > 65535
+      || x_mstride < 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = kw_smem_floats(*d, warps, K < warps ? K : warps,
+                                     chunk, n_slots) * sizeof(float);
+  const auto kernel = S > 0 ? rk_multistep_bwd_kernel<true>
+                            : rk_multistep_bwd_kernel<false>;
+  cudaError_t err = kc_smem_opt_in(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(1, S > 0 ? S : 1), warps * KW_LANES, smem,
+           (cudaStream_t)stream>>>(x0, ys, gys, c1, w1, c2, w2, dx0, dc1, dw1,
+                                   dc2, dw2, scratch, K, n_steps, n_slots,
+                                   chunk, x_mstride, *d, *T);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // K2b's parameter sums for K1b's launches (kan_chain_apply.cu): the records'
@@ -859,16 +1006,8 @@ int kc_rk_multistep_fwd(const float* x0, const float* c1, const float* w1,
                         const float* c2, const float* w2, float* ys, int K,
                         int n_steps, int warps, const ChainDims* d,
                         const StepTab* T, void* stream) {
-  if (warps < 1 || warps > KF_MAX_WARPS || K < 1)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = k3f_smem_floats(*d, T->stages, warps) * sizeof(float);
-  cudaError_t err = kc_smem_opt_in(rk_multistep_fwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (K + warps - 1) / warps;
-  rk_multistep_fwd_kernel<<<blocks, warps * KW_LANES, smem,
-                            (cudaStream_t)stream>>>(x0, c1, w1, c2, w2, ys, K,
-                                                    n_steps, *d, *T);
-  return (int)cudaGetLastError();
+  return rk_multistep_fwd_launch(x0, c1, w1, c2, w2, ys, K, n_steps, 0, 0,
+                                 warps, d, T, stream);
 }
 
 // K2b over K rows, `warps` rows a block (the wrapper's step_bwd_plan),
@@ -878,26 +1017,8 @@ int kc_rk_step_bwd(const float* x, const float* gy, const float* c1,
                    float* dx, float* dc1, float* dw1, float* dc2, float* dw2,
                    float* scratch, int K, int n_slots, int warps,
                    const ChainDims* d, const StepTab* T, void* stream) {
-  if (warps < 1 || warps > KW_MAX_WARPS || K < 1)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      kw_smem_floats(*d, warps, warps, 1, n_slots) * sizeof(float);
-  cudaError_t err = kc_smem_opt_in(rk_step_adjoint_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  rk_step_adjoint_kernel<<<(K + warps - 1) / warps, warps * KW_LANES, smem,
-                           st>>>(x, gy, c1, w1, c2, w2, dx, scratch, K,
-                                 n_slots, *d, *T);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)rk_launch_param_sums(scratch, K * n_slots, *d, dc1, dw1, dc2,
-                                   dw2, st);
-}
-
-// K3f's dynamic shared memory for `warps` warps (the wrapper's
-// multistep_fwd_plan computes the same).
-int kc_multistep_fwd_smem_bytes(const ChainDims* d, int stages, int warps) {
-  return (int)(k3f_smem_floats(*d, stages, warps) * sizeof(float));
+  return rk_step_bwd_launch(x, gy, c1, w1, c2, w2, dx, dc1, dw1, dc2, dw2,
+                            scratch, K, n_slots, 0, 0, warps, d, T, stream);
 }
 
 int kc_rk_multistep_bwd(const float* x0, const float* ys, const float* gys,
@@ -906,17 +1027,56 @@ int kc_rk_multistep_bwd(const float* x0, const float* ys, const float* gys,
                         float* dc2, float* dw2, float* scratch, int K,
                         int n_steps, int n_slots, int warps, int chunk,
                         const ChainDims* d, const StepTab* T, void* stream) {
-  if (warps < 1 || warps > KW_MAX_WARPS || chunk < 1)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = kw_smem_floats(*d, warps, K < warps ? K : warps,
-                                     chunk, n_slots) * sizeof(float);
-  cudaError_t err = kc_smem_opt_in(rk_multistep_bwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  rk_multistep_bwd_kernel<<<1, warps * KW_LANES, smem,
-                            (cudaStream_t)stream>>>(
-      x0, ys, gys, c1, w1, c2, w2, dx0, dc1, dw1, dc2, dw2, scratch, K,
-      n_steps, n_slots, chunk, *d, *T);
-  return (int)cudaGetLastError();
+  return rk_multistep_bwd_launch(x0, ys, gys, c1, w1, c2, w2, dx0, dc1, dw1,
+                                 dc2, dw2, scratch, K, n_steps, n_slots, 0, 0,
+                                 warps, chunk, d, T, stream);
+}
+
+// The member axis: S members in one launch (x_mstride 0: one x for all;
+// scratch: each member's records after the previous member's).
+int kc_rk_multistep_fwd_members(const float* x0, const float* c1,
+                                const float* w1, const float* c2,
+                                const float* w2, float* ys, int K,
+                                int n_steps, int S, long long x_mstride,
+                                int warps, const ChainDims* d,
+                                const StepTab* T, void* stream) {
+  if (S < 1) return (int)cudaErrorInvalidValue;
+  return rk_multistep_fwd_launch(x0, c1, w1, c2, w2, ys, K, n_steps, S,
+                                 x_mstride, warps, d, T, stream);
+}
+
+int kc_rk_step_bwd_members(const float* x, const float* gy, const float* c1,
+                           const float* w1, const float* c2, const float* w2,
+                           float* dx, float* dc1, float* dw1, float* dc2,
+                           float* dw2, float* scratch, int K, int n_slots,
+                           int S, long long x_mstride, int warps,
+                           const ChainDims* d, const StepTab* T,
+                           void* stream) {
+  if (S < 1) return (int)cudaErrorInvalidValue;
+  return rk_step_bwd_launch(x, gy, c1, w1, c2, w2, dx, dc1, dw1, dc2, dw2,
+                            scratch, K, n_slots, S, x_mstride, warps, d, T,
+                            stream);
+}
+
+int kc_rk_multistep_bwd_members(const float* x0, const float* ys,
+                                const float* gys, const float* c1,
+                                const float* w1, const float* c2,
+                                const float* w2, float* dx0, float* dc1,
+                                float* dw1, float* dc2, float* dw2,
+                                float* scratch, int K, int n_steps,
+                                int n_slots, int S, long long x_mstride,
+                                int warps, int chunk, const ChainDims* d,
+                                const StepTab* T, void* stream) {
+  if (S < 1) return (int)cudaErrorInvalidValue;
+  return rk_multistep_bwd_launch(x0, ys, gys, c1, w1, c2, w2, dx0, dc1, dw1,
+                                 dc2, dw2, scratch, K, n_steps, n_slots, S,
+                                 x_mstride, warps, chunk, d, T, stream);
+}
+
+// K3f's dynamic shared memory for `warps` warps (the wrapper's
+// multistep_fwd_plan computes the same).
+int kc_multistep_fwd_smem_bytes(const ChainDims* d, int stages, int warps) {
+  return (int)(k3f_smem_floats(*d, stages, warps) * sizeof(float));
 }
 
 // Dynamic shared memory of K3b and K4b: K rows, `warps` warps, chunks of

@@ -31,6 +31,9 @@ the plain path, whatever `impl` says, as in JAX. `run(checkpoint_dir=,
 restart=)` saves a checkpoint after every chunk of the training schedule
 and continues from the latest one, extending its histories
 (`train/checkpoint.py`; the reference's `is_restart` flow).
+`make_stacked_fns` gives the stacked multi-seed layout's losses (JAX's
+`jax.vmap(loss_fn)`; impl="fused" runs K2/K3 with a member axis), and
+`make_ode_fns` takes a `models.packed.HeteroPacked` on the plain path.
 What lies outside this slice raises NotImplementedError naming its
 ROADMAP.md item.
 
@@ -202,7 +205,15 @@ def make_ode_fns(cfg: LVConfig, model: KANChain, data, *, reduce_fn=None,
     medium flavors (a block a row) take the packed chain, [16, 80, 16] at
     8 members, up to H <= 256.
     Without `n_members`, adaptive mode with a `reduce_fn` raises: one
-    shared controller would couple the members through dt."""
+    shared controller would couple the members through dt. A
+    `HeteroPacked` model (its `member_mean()` as `reduce_fn`) runs the
+    plain path only: impl="xla"."""
+    from kanodes_tpu_torch.models.packed import HeteroPacked
+    if isinstance(model, HeteroPacked) and cfg.impl != "xla":
+        raise ValueError(
+            f"HeteroPacked runs impl='xla' only, got {cfg.impl!r}: its "
+            f"per-row grids are outside the fused kernels' shared-grid "
+            f"contract")
     if reduce_fn is not None and cfg.sparse_on:
         raise ValueError("sparse_on adds a scalar regularizer; it does "
                          "not compose with a vector reduce_fn")
@@ -355,6 +366,38 @@ def make_ode_fns(cfg: LVConfig, model: KANChain, data, *, reduce_fn=None,
         return _reduce((predict(m, grid_all) - X) ** 2)
 
     return loss_fn, eval_fn, predict
+
+
+def make_stacked_fns(cfg: LVConfig, model: KANChain, data):
+    """(loss_fn, eval_fn, predict) of the stacked multi-seed layout:
+    `make_ode_fns`'s member loss and eval under `train.loop.vmap_members`,
+    each taking a `train.loop.Stacked` of `model` and returning [S] (JAX's
+    `jax.vmap(loss_fn)` over an `init_stacked` tree). impl="fused" runs
+    K2/K3 with a member axis: one launch a call for all S members. What
+    has no member axis yet raises NotImplementedError here, before any
+    launch (ROADMAP.md, 2a.4): impl="pallas" (K1), solve_mode="adaptive"
+    (K4; the plain adaptive loop's host control flow is not vmap-safe),
+    and a chain past K2/K3's small caps (their medium flavor)."""
+    from kanodes_tpu_torch.train.loop import vmap_members
+    _check_slice(cfg)
+    later = None
+    if cfg.solve_mode == "adaptive":
+        later = (f"solve_mode='adaptive' (impl={cfg.impl!r}: K4 has no "
+                 f"member axis and the plain adaptive loop's host control "
+                 f"flow is not vmap-safe)")
+    elif cfg.model == "kan" and cfg.impl == "pallas":
+        later = "impl='pallas' (K1 has no member axis)"
+    if later is not None:
+        raise NotImplementedError(f"a stacked multi-seed run with {later} "
+                                  f"is not ported yet (ROADMAP.md, 2a.4)")
+    if cfg.model == "kan" and cfg.impl == "fused":
+        from kanodes_tpu_torch.ode.tableaus import get_tableau
+        from kanodes_tpu_torch.ops.kdense_pallas import chain_spec_of
+        from kanodes_tpu_torch.ops.rk_fused import check_members_flavor
+        check_members_flavor(chain_spec_of(model),
+                             get_tableau("tsit5").stages)
+    loss_fn, eval_fn, predict = make_ode_fns(cfg, model, data)
+    return vmap_members(loss_fn), vmap_members(eval_fn), predict
 
 
 def run(cfg: LVConfig | None = None, params=None, *, device="cuda",

@@ -10,16 +10,25 @@ kernels (K2 in the shooting phases, K3 in the fixed one and in every
 eval), an MLP or a depth-3 chain on the plain path. Sizes train one
 after the other (their shapes differ).
 
-Not ported yet: `packed_trend_sweep`, all sizes packed into one chain
-(ROADMAP.md, M11.3), and `ensemble_seeds` (M11.5).
+`packed_trend_sweep` trains the 8 KAN points at once as ONE
+block-diagonal `HeteroPacked` chain on the plain path (as JAX forces
+impl="xla" there), optionally with per-member learning rates and the
+mask-aware packed L-BFGS (`train/packed_polish.py`); `ensemble_seeds`
+trains n same-shape replicas stacked (`train.loop.Stacked`) on one
+device (its `mesh=` is ROADMAP.md M16).
 
 Run:  python -m kanodes_tpu_torch.experiments.sweep [--points=kan,mlp]
       [--out=sweep_results_torch.json] [--device=cuda|cpu]
       [--shooting_iters=10000] [--seg4_iters=6000] [--traj_iters=6000]
       [--seed=0] [--n_params=64,52] [--polish_iters=0]
+      [--packed=1 [--lr_factors=width|f1,...,f8]]
 
 `--polish_iters=N` polishes each trained point with N L-BFGS iterations
 on its train loss (`polish_point`) and reports the polished losses.
+`--packed=1` runs `packed_trend_sweep` over the chosen KAN points
+instead (the port of scripts/lv_trend_packed.py; `--polish_iters=N` then
+polishes the packed members together), `--lr_factors=width` with
+scripts/lv_trend_packed.py's width-scaled factors 10 / layer_width.
 """
 
 from __future__ import annotations
@@ -230,17 +239,159 @@ def run_sweep(points=KAN_SWEEP + MLP_SWEEP, **kw) -> list[dict]:
     return results
 
 
-def packed_trend_sweep(*args, **kw):
-    """All trend points packed into one heterogeneous chain: not ported
-    yet."""
-    raise NotImplementedError("packed_trend_sweep is not ported yet "
-                              "(ROADMAP.md, M11.3: HeteroPacked)")
+def packed_trend_sweep(points=KAN_SWEEP, *, shooting_iters: int = 10_000,
+                       seg4_iters: int = 6_000, traj_iters: int = 6_000,
+                       seed: int = 0, lr_factors=None,
+                       polish_iters: int = 0, on_phase=None,
+                       device="cuda", member_params: list | None = None
+                       ) -> dict[str, Any]:
+    """The Fig-3C KAN d=2 trend sweep as ONE packed program on `device`.
+
+    The member chains (different hidden widths AND grid sizes) pack
+    block-diagonally into one `HeteroPacked` chain (variable-size blocks,
+    per-row grids), masked, and train together through the `train_point`
+    KAN curriculum (shooting L = 1, L = 4, fixed; a fresh Adam each
+    phase, as JAX) on the plain path with the per-member mean loss and
+    joint best-tracking. `lr_factors` trains member s under
+    Adam(lr * lr_factors[s]) (`train(lr_scales=)`). `polish_iters > 0`
+    appends the mask-aware packed L-BFGS (`polish_packed`) on the fixed
+    loss; each row then also carries polished_{train,test}_loss.
+    `member_params`: the members' per-layer `{"C", "W"}` numpy inits (JAX's,
+    say); default `lv.init_params` of each member with a CPU generator
+    seeded `seed`. `on_phase(i, out)` is called after phase i with its
+    `train()` dict.
+
+    Returns {"results": per-point dicts of run_sweep's schema (the
+    trajectory-protocol train/test losses of each extracted member),
+    "total_seconds" (training only), "phase_seconds", "n_members"} and,
+    with a polish, "polish_seconds", "polish_iters", "polish_host_syncs",
+    "polish_evaluations"."""
+    from kanodes_tpu_torch.interop import (chain_params_from_numpy,
+                                           chain_params_to_numpy,
+                                           hetero_params_from_numpy)
+    from kanodes_tpu_torch.models.packed import HeteroPacked, apply_mask
+    from kanodes_tpu_torch.train.loop import TrainConfig, train
+    from kanodes_tpu_torch.train.packed_polish import (PackedPolishConfig,
+                                                       polish_packed)
+    from kanodes_tpu_torch.utils.precision import set_exact_f32
+    if any(p.model != "kan" or p.kan_depth != 2 for p in points):
+        raise ValueError("packed trend sweep covers the 2-layer KAN "
+                         "points (MLPs have no packing analogue here)")
+    set_exact_f32()
+    cfgs = [lv_mod.LVConfig(model="kan", seed=seed,
+                            layer_width=p.layer_width,
+                            grid_size=p.grid_size, impl="xla")
+            for p in points]
+    base = cfgs[0]
+    data = lv_mod.make_data(base, device)
+    members = [lv_mod.make_model(c, device) for c in cfgs]
+    if member_params is None:
+        member_params = [chain_params_to_numpy(lv_mod.init_params(c, m))
+                         for c, m in zip(cfgs, members)]
+    hp = HeteroPacked(members)
+    hetero_params_from_numpy(hp, member_params)
+    apply_mask(hp.mask(), hp)
+    pdata = dict(data, X=hp.tile_state(data["X"]))
+    reduce_fn = hp.member_mean()
+    lr_scales = None if lr_factors is None else hp.lr_scales(lr_factors)
+    phases = [
+        dataclasses.replace(base, solve_mode="shooting", segment_len=1,
+                            lr=3e-3, iters=shooting_iters),
+        dataclasses.replace(base, solve_mode="shooting", segment_len=4,
+                            lr=1e-3, iters=seg4_iters),
+        dataclasses.replace(base, solve_mode="fixed", lr=3e-4,
+                            iters=traj_iters),
+    ]
+    t0 = time.perf_counter()
+    phase_secs = []
+    for pi, cfg in enumerate(phases):
+        loss_s, _, _ = lv_mod.make_ode_fns(cfg, hp, pdata,
+                                           reduce_fn=reduce_fn)
+        tp = time.perf_counter()
+        out = train(loss_s, hp, TrainConfig(lr=cfg.lr, iters=cfg.iters,
+                                            eval_every=cfg.iters),
+                    stacked=False, lr_scales=lr_scales)
+        out["loss_history"].cpu()                # waits for the device
+        phase_secs.append(time.perf_counter() - tp)
+        if on_phase is not None:
+            on_phase(pi, out)
+    total = time.perf_counter() - t0   # training only; the polish apart
+    trained = chain_params_to_numpy(hp)           # the masked values
+
+    polished, extra = None, {}
+    if polish_iters:
+        loss_v, _, _ = lv_mod.make_ode_fns(phases[-1], hp, pdata,
+                                           reduce_fn=reduce_fn)
+        tp = time.perf_counter()
+        pol = polish_packed(loss_v, hp, ids=hp.member_ids(), mask=hp.mask(),
+                            n_members=len(points),
+                            cfg=PackedPolishConfig(iters=polish_iters))
+        pol["best_loss"].cpu()                   # waits for the device
+        extra = {"polish_seconds": time.perf_counter() - tp,
+                 "polish_iters": polish_iters,
+                 "polish_host_syncs": pol["host_syncs"],
+                 "polish_evaluations": pol["evaluations"]}
+        polished = chain_params_to_numpy(hp)
+
+    def losses(model, cfg, params):
+        chain_params_from_numpy(model, params)
+        loss_fn, eval_fn, _ = lv_mod.make_ode_fns(
+            dataclasses.replace(cfg, solve_mode="fixed"), model, data)
+        with torch.no_grad():
+            return float(loss_fn(model)), float(eval_fn(model))
+
+    results = []
+    for s, (p, c, m) in enumerate(zip(points, cfgs, members)):
+        train_loss, test_loss = losses(m, c, hp.extract_member(trained, s))
+        row = {"model": "kan", "depth": 2, "layer_width": p.layer_width,
+               "grid_size": p.grid_size, "n_params": m.num_params(),
+               "train_loss": train_loss, "test_loss": test_loss}
+        if polished is not None:
+            row["polished_train_loss"], row["polished_test_loss"] = losses(
+                m, c, hp.extract_member(polished, s))
+        results.append(row)
+    return {"results": results, "total_seconds": total,
+            "phase_seconds": phase_secs, "n_members": len(points), **extra}
 
 
-def ensemble_seeds(*args, **kw):
-    """n same-shape replicas as one vmapped program: not ported yet."""
-    raise NotImplementedError("ensemble_seeds is not ported yet "
-                              "(ROADMAP.md, M11.5)")
+def ensemble_seeds(n: int = 8, *, iters: int = 5000, lr: float = 3e-3,
+                   mesh=None, device="cuda",
+                   member_params: list | None = None) -> dict[str, Any]:
+    """n same-shape LV KAN replicas (different inits) trained as ONE
+    stacked program on `device`: plain-path shooting, Adam(lr), `iters`
+    iterations (JAX's vmapped scan). `member_params`: a stacked tree of
+    [n, ...] numpy leaves to start from (JAX's draws, init scale
+    applied); default member s is `lv.init_params` with a CPU generator
+    seeded s. Returns {"params" (name -> [n, ...]), "final_losses" (the
+    loss at the last iteration), "test_losses"} as numpy. `mesh` (sharding
+    the members over devices) is ROADMAP.md M16."""
+    import numpy as np
+
+    from kanodes_tpu_torch.interop import stacked_params_from_numpy
+    from kanodes_tpu_torch.train.loop import (TrainConfig, init_stacked,
+                                              train)
+    from kanodes_tpu_torch.utils.precision import set_exact_f32
+    if mesh is not None:
+        raise NotImplementedError("ensemble_seeds(mesh=) is not ported yet "
+                                  "(ROADMAP.md, M16: multi-device)")
+    set_exact_f32()
+    base = lv_mod.LVConfig(solve_mode="shooting", lr=lr, impl="xla")
+    data = lv_mod.make_data(base, device)
+    model = lv_mod.make_model(base, device)
+    stacked = init_stacked(
+        model, lambda m, s: lv_mod.init_params(
+            base, m, torch.Generator().manual_seed(s)), range(n))
+    if member_params is not None:
+        stacked_params_from_numpy(stacked, member_params)
+    loss_fn, eval_fn, _ = lv_mod.make_stacked_fns(base, model, data)
+    out = train(loss_fn, stacked, TrainConfig(lr=lr, iters=iters,
+                                              eval_every=iters),
+                track_best=False, stacked=True)
+    with torch.no_grad():
+        test = eval_fn(stacked)
+    return {"params": {k: v.cpu().numpy() for k, v in out["params"].items()},
+            "final_losses": out["loss_history"][-1].cpu().numpy(),
+            "test_losses": np.asarray(test.cpu())}
 
 
 def reference_loss(r: dict) -> float | None:
@@ -259,7 +410,7 @@ def main(argv: list[str]) -> int:
     opts = {"points": "kan,mlp", "out": DEFAULT_OUT, "device": "cuda",
             "shooting_iters": "10000", "seg4_iters": "6000",
             "traj_iters": "6000", "seed": "0", "n_params": "",
-            "polish_iters": "0"}
+            "polish_iters": "0", "packed": "0", "lr_factors": ""}
     for a in argv:
         key, _, value = a.lstrip("-").partition("=")
         key = key.replace("-", "_")
@@ -268,6 +419,8 @@ def main(argv: list[str]) -> int:
                              + ", --".join(f"{k}=" for k in opts))
         opts[key] = value
     points = [p for name in opts["points"].split(",") for p in SWEEPS[name]]
+    if opts["packed"] == "1":       # the packed sweep covers the KAN d=2
+        points = [p for p in points if p.model == "kan" and p.kan_depth == 2]
     kw = {k: int(opts[k]) for k in ("shooting_iters", "seg4_iters",
                                      "traj_iters", "seed")}
     if opts["n_params"]:
@@ -276,6 +429,8 @@ def main(argv: list[str]) -> int:
                   if lv_mod.make_model(base_config(p), "cpu").num_params()
                   in wanted]
     polish_iters = int(opts["polish_iters"])
+    if opts["packed"] == "1":
+        return _main_packed(points, opts, kw, polish_iters)
     results = []
     for p in points:
         r = train_point(p, device=opts["device"], **kw)
@@ -300,6 +455,35 @@ def main(argv: list[str]) -> int:
             json.dump({"device": opts["device"], **kw,
                        "polish_iters": polish_iters, "results": results}, f,
                       indent=1)
+    return 0
+
+
+def _main_packed(points, opts: dict, kw: dict, polish_iters: int) -> int:
+    """`--packed=1`: packed_trend_sweep over `points`, then the JSON."""
+    import json
+    factors = None
+    if opts["lr_factors"] == "width":
+        # scripts/lv_trend_packed.py: larger members train colder
+        factors = [10.0 / p.layer_width for p in points]
+    elif opts["lr_factors"]:
+        factors = [float(f) for f in opts["lr_factors"].split(",")]
+    out = packed_trend_sweep(points, polish_iters=polish_iters,
+                             lr_factors=factors, device=opts["device"], **kw)
+    for r in out["results"]:
+        r["reference_loss"] = reference_loss(r)
+        pol = (f" polished {r['polished_train_loss']:.2e}"
+               if "polished_train_loss" in r else "")
+        print(f"[{r['n_params']:>4} params w={r['layer_width']:>2} "
+              f"g={r['grid_size']}] train {r['train_loss']:.2e} "
+              f"test {r['test_loss']:.2e}{pol}", flush=True)
+    print(f"one packed program, {out['total_seconds']:.1f}s training "
+          f"(phases " + ", ".join(f"{s:.1f}" for s in out["phase_seconds"])
+          + ")" + (f", polish {out['polish_seconds']:.1f}s "
+                   f"({out['polish_host_syncs']} syncs)"
+                   if polish_iters else ""), flush=True)
+    with open(opts["out"], "w") as f:
+        json.dump({"device": opts["device"], **kw, "packed": True,
+                   "lr_factors": factors, **out}, f, indent=1)
     return 0
 
 

@@ -1265,9 +1265,10 @@ STEP["warp-a-row K2f (K3f at n = 1) and K2b (K3b's phases at n = 1)"] = ({
         ("}\n\n// K3b: the rows in groups",
          "  K2T_WRITE();\n}\n\n// K3b: the rows in groups"),
         ("                       float* dx, float* scratch, int K, int n_slots,"
-         "\n                       ChainDims d, StepTab T) {\n",
+         "\n                       long long x_mstride, ChainDims d, StepTab T) {\n",
          "                       float* dx, float* scratch, int K, int n_slots,"
-         "\n                       ChainDims d, StepTab T) {\n  K2T_START();\n"),
+         "\n                       long long x_mstride, ChainDims d, StepTab T) {\n"
+         "  K2T_START();\n"),
         ("  kw_fill_terms(c, d, w, lane);\n  __syncthreads();\n"
          "  const int r = blockIdx.x * warps + warp;\n",
          "  kw_fill_terms(c, d, w, lane);\n  __syncthreads();\n  K2T(0);\n"

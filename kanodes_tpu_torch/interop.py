@@ -8,7 +8,10 @@ such dicts for a chain (`KANChain.init`). S member inits become the port's packe
 `pack_params` lays them; `packed.extract_member` goes the other way. An
 MLP's are per-layer `{"W": [i,o], "b": [o]}` (`kanodes_tpu.models.MLP`):
 `mlp_params_from_numpy` / `mlp_params_to_numpy`; `params_from_numpy`
-picks by the model.
+picks by the model. A stacked multi-seed tree (JAX's `init_stacked`: the
+chain's per-layer dicts with [S, ...] leaves) goes into the port's
+`train.loop.Stacked` with `stacked_params_from_numpy`, and S members of
+different widths into a `HeteroPacked` with `hetero_params_from_numpy`.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from kanodes_tpu_torch.models.mlp import MLP
 from kanodes_tpu_torch.models.packed import pack_params
 
 
-def _stored(layer, name: str) -> torch.Tensor:
+def stored_param(layer, name: str) -> torch.Tensor:
     """The parameter tensor itself: under a parametrization (the packed
     chain's mask) the original, not the value it reads as."""
     if parametrize.is_parametrized(layer, name):
@@ -29,12 +32,26 @@ def _stored(layer, name: str) -> torch.Tensor:
     return getattr(layer, name)
 
 
+def tree_per_param(chain, params, tree) -> list:
+    """A KDense chain's per-layer `{"C", "W"}` tree (a mask, member ids,
+    lr factors) laid against `params`, the chain's stored parameters in
+    `named_parameters()` order: each one's entry, or None where the tree
+    has none."""
+    if (len(tree) != len(chain.layers)
+            or not all(isinstance(d, dict) for d in tree)):
+        raise ValueError(f"expected {len(chain.layers)} per-layer "
+                         f"{{'C', 'W'}} dicts")
+    by_id = {id(stored_param(layer, k)): v
+             for layer, d in zip(chain.layers, tree) for k, v in d.items()}
+    return [by_id.get(id(p)) for p in params]
+
+
 @torch.no_grad()
 def kdense_params_from_numpy(layer, params) -> None:
     """Copy one layer's `{"C", "W"}` arrays into its parameters (on their
     device, as float32). Shapes must match exactly."""
     for name in ("C", "W"):
-        dst = _stored(layer, name)
+        dst = stored_param(layer, name)
         src = np.array(params[name], dtype=np.float32)   # writable copy
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"{name}: shape {src.shape} != "
@@ -112,3 +129,30 @@ def params_from_numpy(model, params) -> None:
     else:
         chain_params_from_numpy(model, params)
 
+
+
+@torch.no_grad()
+def stacked_params_from_numpy(stacked, tree) -> None:
+    """Copy a stacked tree (JAX's `init_stacked` layout: per-layer dicts
+    of [S, ...] arrays) into a `train.loop.Stacked` of a chain or MLP,
+    on its parameters' device, as float32. Shapes must match exactly."""
+    layers = stacked.members.layers
+    if len(tree) != len(layers):
+        raise ValueError(f"{len(tree)} param dicts for {len(layers)} layers")
+    for layer, p in zip(layers, tree):
+        for name, v in p.items():
+            dst = getattr(layer, name)
+            src = np.array(v, dtype=np.float32)
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{name}: shape {src.shape} != "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(src).to(dst.device))
+
+
+def hetero_params_from_numpy(hp, member_params) -> None:
+    """Copy S members' per-layer `{"C", "W"}` arrays (of their own
+    widths and grid sizes) into a `models.packed.HeteroPacked`, packed as
+    its `pack` lays them out (JAX `HeteroPacked.pack`)."""
+    chain_params_from_numpy(hp, [
+        {k: v.cpu().numpy() for k, v in p.items()}
+        for p in hp.pack(member_params)])

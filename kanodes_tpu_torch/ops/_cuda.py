@@ -149,7 +149,20 @@ class WideTab(ctypes.Structure):
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
+    # the member axis (S members a launch; x's member stride, 0 for one x):
+    # x0, c1, w1, c2, w2, ys, K, n_steps, S, x_mstride, warps, dims, tab,
+    # stream
+    "kc_rk_multistep_fwd_members": [_P] * 6 + [_I] * 3 + [_L, _I]
+    + [_P] * 3,
+    # x, gy, c1, w1, c2, w2, dx, dc1, dw1, dc2, dw2, scratch, K, n_slots, S,
+    # x_mstride, warps, dims, tab, stream
+    "kc_rk_step_bwd_members": [_P] * 12 + [_I] * 3 + [_L, _I] + [_P] * 3,
+    # x0, ys, gys, c1, w1, c2, w2, dx0, dc1, dw1, dc2, dw2, scratch, K,
+    # n_steps, n_slots, S, x_mstride, warps, chunk, dims, tab, stream
+    "kc_rk_multistep_bwd_members": [_P] * 13 + [_I] * 4 + [_L] + [_I] * 2
+    + [_P] * 3,
     # x, gy, c1, w1, c2, w2, dx, dc1, dw1, dc2, dw2, scratch, K, n_slots,
     # warps, dims, tab, stream
     "kc_rk_step_bwd": [_P] * 12 + [_I] * 3 + [_P] * 3,

@@ -30,6 +30,18 @@ plain versions of both flavors. `LAUNCHES` counts kernel launches, the
 medium flavor's under its own names (`..._mid`; a backward counts one,
 its later launches, the parameter sums among them, with it).
 
+The member axis (the stacked multi-seed layout): under `torch.func.vmap`
+over members, both ops' vmap rules run S members in ONE launch a call
+(`_FusedRKStepMembers`, `_FusedRKMultistepMembers`: the small flavor's
+kernels with gridDim.y = S, each member's outputs the unbatched launch's
+bit for bit), counted under `..._members` once a launch whatever S is.
+States that vmap does not batch (the data's segment starts, x0) are read
+by every member with a member stride of 0, not copied; their gradient is
+the member sum (autograd's, through the expanded view). A CPU tensor runs
+the plain version under `torch.func.vmap` over the members (batched ops,
+the `..._members_reference` functions). The medium flavor has no member axis
+yet: vmap over it raises NotImplementedError (ROADMAP.md, 2a.4).
+
 The reverse recursion of the backward (rk_fused.py:19-24):
     x_bar = g ;  kbar_i = dt * b_i * g
     for i = s-1 .. 0:
@@ -61,7 +73,10 @@ Tensor = torch.Tensor
 LAUNCHES = {"fused_rk_step_fwd": 0, "fused_rk_step_bwd": 0,
             "fused_rk_multistep_fwd": 0, "fused_rk_multistep_bwd": 0,
             "fused_rk_step_fwd_mid": 0, "fused_rk_step_bwd_mid": 0,
-            "fused_rk_multistep_fwd_mid": 0, "fused_rk_multistep_bwd_mid": 0}
+            "fused_rk_multistep_fwd_mid": 0, "fused_rk_multistep_bwd_mid": 0,
+            "fused_rk_step_fwd_members": 0, "fused_rk_step_bwd_members": 0,
+            "fused_rk_multistep_fwd_members": 0,
+            "fused_rk_multistep_bwd_members": 0}
 
 
 def reset_launch_counts() -> None:
@@ -107,7 +122,7 @@ class _Consts:
 
     def __init__(self, spec: ChainSpec, solver: str, dt: float):
         tab = get_tableau(solver)
-        self.spec = spec
+        self.spec, self.solver, self.dt = spec, solver, dt
         self.stages = tab.stages
         self.needed = _needed_stages(tab)
         self.dta = [[float(np.float32(dt * a)) for a in row] for row in tab.a]
@@ -392,18 +407,267 @@ def _launch_multistep_bwd(k: _Consts, n_steps: int, x0, ys, params, gys):
 
 
 # ---------------------------------------------------------------------------
+# the member axis: S members a launch (the vmap rules' kernels)
+# ---------------------------------------------------------------------------
+
+def check_members_flavor(spec: ChainSpec, stages: int) -> None:
+    """The member axis exists for the small flavor only; raise before any
+    launch otherwise."""
+    if _cuda.fused_rk_flavor(spec, stages) != "small":
+        raise NotImplementedError(
+            f"a member axis (torch.func.vmap over stacked members) for the "
+            f"medium flavor of K2/K3 ([{spec.in_dims}, {spec.hidden}, "
+            f"{spec.out_dims}] is past the small caps I, O <= "
+            f"{_cuda.MAX_I}, H <= {_cuda.MAX_H}) is not ported yet "
+            f"(ROADMAP.md, 2a.4)")
+
+
+def _members_x(x: Tensor) -> tuple[Tensor, int]:
+    """x [S, K, I] as the kernels read it: (a [S, K, I] or, where every
+    member reads one x (an expanded view, member stride 0), a [K, I]
+    contiguous tensor, its member stride in floats)."""
+    if x.stride(0) == 0:
+        return x[0].contiguous(), 0
+    x = x.contiguous()
+    return x, x.shape[1] * x.shape[2]
+
+
+def _check_members_launch(k: _Consts, x, params) -> tuple[int, int]:
+    """Validate a member-axis launch: the small flavor, x [S, K, I],
+    params [S, ...] of the chain's shapes; returns (S, K)."""
+    _check_rhs(k.spec)
+    check_members_flavor(k.spec, k.stages)
+    S = params[0].shape[0]
+    if x.dim() != 3 or x.shape[0] != S:
+        raise ValueError(f"member states {tuple(x.shape)} are not "
+                         f"[{S}, K, I]")
+    K = check_chain_launch(k.spec, x[0].contiguous(),
+                           [p[0] for p in params], 0, caps=False)
+    for p in params:
+        if p.shape[0] != S:
+            raise ValueError(f"member parameters lead with {p.shape[0]} "
+                             f"!= {S}")
+        _cuda.check_tensors(p)
+    if S > 65535:
+        raise ValueError(f"S={S} members > 65535 (gridDim.y)")
+    return S, K
+
+
+def _launch_step_fwd_members(k: _Consts, x, params):
+    S, K = _check_members_launch(k, x, params)
+    xb, xs = _members_x(x)
+    y = torch.empty((S, K, k.spec.in_dims), dtype=torch.float32,
+                    device=x.device)
+    dims, tab = k.structs()
+    plan = _cuda.multistep_fwd_plan(k.spec, K, k.stages)
+    with torch.cuda.device(x.device):
+        err = _cuda.library().kc_rk_multistep_fwd_members(
+            _ptr(xb), *map(_ptr, params), _ptr(y), K, 1, S, xs, plan.warps,
+            ctypes.byref(dims), ctypes.byref(tab), _stream())
+    _cuda.check(err, "fused_rk_step_fwd_members")
+    LAUNCHES["fused_rk_step_fwd_members"] += 1
+    return y
+
+
+def _launch_step_bwd_members(k: _Consts, x, params, gy):
+    S, K = _check_members_launch(k, x, params)
+    xb, xs = _members_x(x)
+    gy = gy.contiguous()
+    dx = torch.empty((S, K, k.spec.in_dims), dtype=torch.float32,
+                     device=x.device)
+    grads = [torch.empty_like(p) for p in params]
+    scratch = _scratch(k, S * K * k.n_slots, x)
+    dims, tab = k.structs()
+    plan = _cuda.step_bwd_plan(k.spec, K, k.n_slots)
+    with torch.cuda.device(x.device):
+        err = _cuda.library().kc_rk_step_bwd_members(
+            _ptr(xb), _ptr(gy), *map(_ptr, params), _ptr(dx),
+            *map(_ptr, grads), _ptr(scratch), K, k.n_slots, S, xs,
+            plan.warps, ctypes.byref(dims), ctypes.byref(tab), _stream())
+    _cuda.check(err, "fused_rk_step_bwd_members")
+    LAUNCHES["fused_rk_step_bwd_members"] += 1
+    return (dx, *grads)
+
+
+def _launch_multistep_fwd_members(k: _Consts, n_steps: int, x0, params):
+    S, K = _check_members_launch(k, x0, params)
+    xb, xs = _members_x(x0)
+    ys = torch.empty((S, n_steps, K, k.spec.in_dims), dtype=torch.float32,
+                     device=x0.device)
+    dims, tab = k.structs()
+    plan = _cuda.multistep_fwd_plan(k.spec, K, k.stages)
+    with torch.cuda.device(x0.device):
+        err = _cuda.library().kc_rk_multistep_fwd_members(
+            _ptr(xb), *map(_ptr, params), _ptr(ys), K, n_steps, S, xs,
+            plan.warps, ctypes.byref(dims), ctypes.byref(tab), _stream())
+    _cuda.check(err, "fused_rk_multistep_fwd_members")
+    LAUNCHES["fused_rk_multistep_fwd_members"] += 1
+    return ys
+
+
+def _launch_multistep_bwd_members(k: _Consts, n_steps: int, x0, ys, params,
+                                  gys):
+    S, K = _check_members_launch(k, x0, params)
+    xb, xs = _members_x(x0)
+    want = (S, n_steps, K, k.spec.in_dims)
+    ys, gys = ys.contiguous(), gys.contiguous()
+    if tuple(ys.shape) != want or tuple(gys.shape) != want:
+        raise ValueError(f"ys/gys shapes {tuple(ys.shape)}, "
+                         f"{tuple(gys.shape)} != {want}")
+    dx0 = torch.empty((S, K, k.spec.in_dims), dtype=torch.float32,
+                      device=x0.device)
+    grads = [torch.empty_like(p) for p in params]
+    scratch = _scratch(k, S * n_steps * K * k.n_slots, x0)
+    dims, tab = k.structs()
+    plan = _cuda.warp_adjoint_plan(k.spec, K, k.n_slots, n_steps)
+    with torch.cuda.device(x0.device):
+        err = _cuda.library().kc_rk_multistep_bwd_members(
+            _ptr(xb), _ptr(ys), _ptr(gys), *map(_ptr, params), _ptr(dx0),
+            *map(_ptr, grads), _ptr(scratch), K, n_steps, k.n_slots, S, xs,
+            plan.warps, plan.chunk, ctypes.byref(dims), ctypes.byref(tab),
+            _stream())
+    _cuda.check(err, "fused_rk_multistep_bwd_members")
+    LAUNCHES["fused_rk_multistep_bwd_members"] += 1
+    return (dx0, *grads)
+
+
+def _members_plain(fn, *members):
+    """The plain member axis: fn over each member's slices of `members`
+    (tensors [S, ...]) under `torch.func.vmap`, one batched op where the
+    unbatched plain version runs one (the states may be an expanded
+    view)."""
+    return torch.func.vmap(fn)(*members)
+
+
+def fused_rk_step_members_reference(spec: ChainSpec, solver: str, dt: float,
+                                    x, c1, w1, c2, w2):
+    """Plain PyTorch version of the member-axis step: member m's
+    `fused_rk_step_reference` on x[m] and its parameters, [S, K, I]
+    (vmapped over the members)."""
+    k = _consts(spec, solver, dt)
+    grid = _grid_of(k, x)
+    return _members_plain(lambda xm, *pm: _step_fwd_plain(k, xm, pm, grid),
+                          x, c1, w1, c2, w2)
+
+
+def fused_rk_step_bwd_members_reference(spec: ChainSpec, solver: str,
+                                        dt: float, x, c1, w1, c2, w2, gy):
+    """Plain version of the member-axis step's adjoint: (dx, dc1, dw1,
+    dc2, dw2), each [S, ...]."""
+    k = _consts(spec, solver, dt)
+    grid = _grid_of(k, x)
+    return _members_plain(lambda xm, gm, *pm: _step_bwd_plain(
+        k, xm, pm, grid, gm), x, gy, c1, w1, c2, w2)
+
+
+def fused_rk_multistep_members_reference(spec: ChainSpec, solver: str,
+                                         dt: float, n_steps: int, x0,
+                                         c1, w1, c2, w2):
+    """Plain version of the member-axis multistep, [S, n_steps, K, I]."""
+    k = _consts(spec, solver, dt)
+    grid = _grid_of(k, x0)
+    return _members_plain(lambda xm, *pm: _multistep_fwd_plain(
+        k, n_steps, xm, pm, grid), x0, c1, w1, c2, w2)
+
+
+def fused_rk_multistep_bwd_members_reference(spec: ChainSpec, solver: str,
+                                             dt: float, n_steps: int, x0,
+                                             ys, c1, w1, c2, w2, gys):
+    """Plain version of the member-axis reverse sweep: (dx0, dc1, dw1,
+    dc2, dw2), each [S, ...]."""
+    k = _consts(spec, solver, dt)
+    grid = _grid_of(k, x0)
+    return _members_plain(lambda xm, ym, gm, *pm: _multistep_bwd_plain(
+        k, n_steps, xm, ym, pm, grid, gm), x0, ys, gys, c1, w1, c2, w2)
+
+
+# ---------------------------------------------------------------------------
 # public differentiable ops
 # ---------------------------------------------------------------------------
 
-class _FusedRKStep(torch.autograd.Function):
+def _batched(t: Tensor, dim: int | None, S: int, view: bool = False
+             ) -> Tensor:
+    """A vmap rule's input with its member axis first, contiguous; an
+    unbatched one expanded, as a view (member stride 0) where `view`
+    (the states), else copied (the parameters)."""
+    if dim is None:
+        t = t.expand(S, *t.shape)
+        return t if view else t.contiguous()
+    return t.movedim(dim, 0).contiguous()
+
+
+class _FusedRKStepMembers(torch.autograd.Function):
+    """One RK step of S members: x [S, K, I] (an expanded view where the
+    members share x), params [S, ...]; one launch each way."""
+
     @staticmethod
-    def forward(ctx, k, x, c1, w1, c2, w2):
+    def forward(k, x, c1, w1, c2, w2):
         params = (c1, w1, c2, w2)
+        if _on_cuda(x, *params):
+            return _launch_step_fwd_members(k, x, params)
+        return fused_rk_step_members_reference(k.spec, k.solver, k.dt, x,
+                                               *params)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        k, x, *params = inputs
         ctx.k = k
         ctx.save_for_backward(x, *params)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, *params = ctx.saved_tensors
+        k = ctx.k
+        if _on_cuda(gy, x, *params):
+            grads = _launch_step_bwd_members(k, x, params, gy)
+        else:
+            grads = fused_rk_step_bwd_members_reference(
+                k.spec, k.solver, k.dt, x, *params, gy)
+        return (None, *grads)
+
+
+class _FusedRKMultistepMembers(torch.autograd.Function):
+    """n_steps RK steps of S members: ys [S, n_steps, K, I]."""
+
+    @staticmethod
+    def forward(k, n_steps, x0, c1, w1, c2, w2):
+        params = (c1, w1, c2, w2)
+        if _on_cuda(x0, *params):
+            return _launch_multistep_fwd_members(k, n_steps, x0, params)
+        return fused_rk_multistep_members_reference(
+            k.spec, k.solver, k.dt, n_steps, x0, *params)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        k, n_steps, x0, *params = inputs
+        ctx.k, ctx.n_steps = k, n_steps
+        ctx.save_for_backward(x0, output, *params)
+
+    @staticmethod
+    def backward(ctx, gys):
+        x0, ys, *params = ctx.saved_tensors
+        k, n = ctx.k, ctx.n_steps
+        if _on_cuda(gys, x0, *params):
+            grads = _launch_multistep_bwd_members(k, n, x0, ys, params, gys)
+        else:
+            grads = fused_rk_multistep_bwd_members_reference(
+                k.spec, k.solver, k.dt, n, x0, ys, *params, gys)
+        return (None, None, *grads)
+
+
+class _FusedRKStep(torch.autograd.Function):
+    @staticmethod
+    def forward(k, x, c1, w1, c2, w2):
+        params = (c1, w1, c2, w2)
         if _on_cuda(x, *params):
             return _launch_step_fwd(k, x, params)
         return _step_fwd_plain(k, x, params, _grid_of(k, x))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        k, x, *params = inputs
+        ctx.k = k
+        ctx.save_for_backward(x, *params)
 
     @staticmethod
     def backward(ctx, gy):
@@ -415,19 +679,29 @@ class _FusedRKStep(torch.autograd.Function):
             grads = _step_bwd_plain(k, x, params, _grid_of(k, x), gy)
         return (None, *grads)
 
+    @staticmethod
+    def vmap(info, in_dims, k, x, c1, w1, c2, w2):
+        # JAX's batching rule adds a grid axis; here one member-axis launch
+        check_members_flavor(k.spec, k.stages)
+        S = info.batch_size
+        args = [_batched(t, d, S, i == 0) for i, (t, d) in enumerate(
+            zip((x, c1, w1, c2, w2), in_dims[1:]))]
+        return _FusedRKStepMembers.apply(k, *args), 0
+
 
 class _FusedRKMultistep(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, k, n_steps, x0, c1, w1, c2, w2):
+    def forward(k, n_steps, x0, c1, w1, c2, w2):
         params = (c1, w1, c2, w2)
         if _on_cuda(x0, *params):
-            ys = _launch_multistep_fwd(k, n_steps, x0, params)
-        else:
-            ys = _multistep_fwd_plain(k, n_steps, x0, params,
-                                      _grid_of(k, x0))
+            return _launch_multistep_fwd(k, n_steps, x0, params)
+        return _multistep_fwd_plain(k, n_steps, x0, params, _grid_of(k, x0))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        k, n_steps, x0, *params = inputs
         ctx.k, ctx.n_steps = k, n_steps
-        ctx.save_for_backward(x0, ys, *params)
-        return ys
+        ctx.save_for_backward(x0, output, *params)
 
     @staticmethod
     def backward(ctx, gys):
@@ -439,6 +713,14 @@ class _FusedRKMultistep(torch.autograd.Function):
             grads = _multistep_bwd_plain(k, n, x0, ys, params,
                                          _grid_of(k, x0), gys)
         return (None, None, *grads)
+
+    @staticmethod
+    def vmap(info, in_dims, k, n_steps, x0, c1, w1, c2, w2):
+        check_members_flavor(k.spec, k.stages)
+        S = info.batch_size
+        args = [_batched(t, d, S, i == 0) for i, (t, d) in enumerate(
+            zip((x0, c1, w1, c2, w2), in_dims[2:]))]
+        return _FusedRKMultistepMembers.apply(k, n_steps, *args), 0
 
 
 def fused_rk_step(spec: ChainSpec, solver: str, dt: float,

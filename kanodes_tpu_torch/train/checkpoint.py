@@ -168,9 +168,10 @@ def select_members_from_history(param_history, metric_history):
     """Per-member `select_from_history` for multi-member runs: the
     metric is [n_snapshots, S] and every snapshot's leaves lead with the
     member axis S (stacked: [n_snapshots, S, ...]). Returns a list of S
-    (params, index, metric) triples, each member's argmin snapshot.
-    A trained stacked run needs `train(stacked=True)` (ROADMAP.md,
-    M11.1)."""
+    (params, index, metric) triples, each member's argmin snapshot. On a
+    stacked run's history (`train(vmap_members(loss_fn), Stacked, ...,
+    record_history=True)`) each pick's names drop `Stacked`'s "members."
+    prefix, so it loads into the member model."""
     metric = _as_numpy(metric_history)
     if metric.ndim != 2:
         raise ValueError(f"expected [n_snapshots, S] metric, "
@@ -181,5 +182,9 @@ def select_members_from_history(param_history, metric_history):
             hist_s = [_map(snap, lambda x: x[s]) for snap in param_history]
         else:
             hist_s = _map(param_history, lambda x: x[:, s])
-        out.append(select_from_history(hist_s, metric[:, s]))
+        params, idx, m = select_from_history(hist_s, metric[:, s])
+        if isinstance(params, dict):
+            params = {k.removeprefix("members."): v
+                      for k, v in params.items()}
+        out.append((params, idx, m))
     return out

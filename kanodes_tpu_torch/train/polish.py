@@ -32,8 +32,9 @@ backward of `loss_fn`: on the LV fused fixed loss one K3f and one K3b.
 
 `polish` tracks the best point as JAX's `_make_run` does: the point
 each iteration starts from, then the final point; it never returns worse
-than its input. `polish_members` (S members at once) waits for the
-stacked layout (ROADMAP.md, M11.4).
+than its input. `polish_members` (S stacked members at once, a vmapped
+zoom search) is not ported yet (ROADMAP.md, M11.4b); packed members
+polish together with `train/packed_polish.polish_packed`.
 """
 
 from __future__ import annotations
@@ -367,5 +368,7 @@ def polish(loss_fn: Callable[[nn.Module], Tensor], model: nn.Module,
 def polish_members(*args, **kw):
     """S members polished at once (one vmapped L-BFGS): not ported yet."""
     raise NotImplementedError("polish_members is not ported yet "
-                              "(ROADMAP.md, M11.4: it needs the stacked "
-                              "multi-seed layout)")
+                              "(ROADMAP.md, M11.4b: a vmapped zoom line "
+                              "search is a per-member state machine); "
+                              "packed members polish with "
+                              "train.packed_polish.polish_packed")

@@ -103,6 +103,16 @@ def rk_multistep_bwd(dims, K: int, n: int, evals: int) -> tuple[int, int]:
             (2 * n + 2) * K * I + 2 * chain_params(*dims))
 
 
+def members(counts: tuple[int, int], S: int,
+            shared_floats: int = 0) -> tuple[int, int]:
+    """The member axis: S members' work in one launch (K2/K3 under vmap),
+    S times one member's operations and floats, less the S - 1 extra
+    reads of an input every member shares (`shared_floats`: the states x
+    or x0, K * I floats, that vmap does not batch)."""
+    ops, floats = counts
+    return S * ops, S * floats - (S - 1) * shared_floats
+
+
 def adaptive_fwd(dims, K: int, T: int, n_iter: int, n_acc: int,
                  evals: int) -> tuple[int, int]:
     """K4f: n_iter controller iterations (f(x0) and the initial-dt
@@ -373,15 +383,30 @@ def table(n_adapt: int = 35, n_members: tuple[int, int] = (34, 140)
     mid_multi = [("8 packed LV members, 34 steps, K=1", pk, 34),
                  ("8 packed LV members, the eval's 140 steps, K=1", pk, 140),
                  ("Burgers, 180 steps (single launch), K=1", bu, 180)]
+    # the member axis (the stacked 8-seed LV run under vmap): 8 members
+    # of the LV chain in one launch, x shared (K * I floats) where vmap
+    # does not batch it (L = 1; L = 4's later steps take batched states)
+    stk = [("8 stacked members, K=34 (x shared)", 34, 34 * 2),
+           ("8 stacked members, K=31 (x batched)", 31, 0)]
+    stk_multi = [("8 stacked members, 34 steps, K=1 (x0 shared)", 34),
+                 ("8 stacked members, the eval's 140 steps, K=1", 140)]
     also = {
         "K2f": [(f"medium: {lbl}", *rk_step_fwd(d, K, s))
-                for lbl, d, K in mid_step],
+                for lbl, d, K in mid_step]
+        + [(lbl, *members(rk_step_fwd(lv, K, s), 8, sh))
+           for lbl, K, sh in stk],
         "K2b": [(f"medium: {lbl}", *rk_step_bwd(d, K, s))
-                for lbl, d, K in mid_step],
+                for lbl, d, K in mid_step]
+        + [(lbl, *members(rk_step_bwd(lv, K, s), 8, sh))
+           for lbl, K, sh in stk],
         "K3f": [(f"medium: {lbl}", *rk_multistep_fwd(d, 1, n, s))
-                for lbl, d, n in mid_multi],
+                for lbl, d, n in mid_multi]
+        + [(lbl, *members(rk_multistep_fwd(lv, 1, n, s), 8, 2))
+           for lbl, n in stk_multi],
         "K3b": [(f"medium: {lbl}", *rk_multistep_bwd(d, 1, n, s))
-                for lbl, d, n in mid_multi],
+                for lbl, d, n in mid_multi]
+        + [(lbl, *members(rk_multistep_bwd(lv, 1, n, s), 8, 2))
+           for lbl, n in stk_multi],
         "K5f": [(lbl, *graybox_step_fwd(nn, nN, kr, g, s))
                 for lbl, nn, nN, kr in GRAYBOX_SHAPES[1:]],
         "K5b": [(lbl, *graybox_step_bwd(nn, nN, kr, g, s))

@@ -179,19 +179,20 @@ def test_vector_train_checks():
     tc = tloop.TrainConfig(iters=1, eval_every=1)
     with pytest.raises(ValueError, match="grad_clip"):
         tloop.train(loss_fn, model, dataclasses.replace(tc, grad_clip=1.0))
-    with pytest.raises(NotImplementedError, match="M11 stacked"):
-        tloop.train(loss_fn, model, tc, stacked=True)
-    with pytest.raises(NotImplementedError, match="M11 per-member"):
+    # the stacked layout needs a vector loss; lr_scales a tree of factors
+    with pytest.raises(ValueError, match="vector loss"):
+        tloop.train(lambda m: loss_fn(m).sum(), model, tc, stacked=True)
+    with pytest.raises(ValueError, match="per-layer"):
         tloop.train(loss_fn, model, tc, lr_scales=[1.0, 2.0])
-    # every parameter leading with S is the stacked layout
+    # every parameter leading with S is the stacked layout (JAX's rule):
+    # per-member best-tracking
     stacked = torch.nn.Linear(3, S).requires_grad_()
     stacked.bias.data = torch.zeros(S)
-    with pytest.raises(NotImplementedError, match="stacked"):
-        tloop.train(lambda m: m.weight.sum(-1) + m.bias, stacked, tc)
-    for fn in (tloop.init_stacked, tloop.member_params,
-               tloop.clip_by_member_norm, tloop.stacked_lr_scales):
-        with pytest.raises(NotImplementedError, match="M11"):
-            fn()
+    out = tloop.train(lambda m: m.weight.sum(-1) + m.bias, stacked, tc)
+    assert out["best_loss"].shape == (S,)
+    assert tloop.member_params(out["best_params"], 1)["weight"].shape == (3,)
+    scales = tloop.stacked_lr_scales(stacked, [1.0, 2.0])
+    assert scales["weight"].shape == (S, 1)
 
 
 def test_make_ode_fns_checks():

@@ -44,6 +44,12 @@ bit at S = 1, 3 and 8, and the packed trend sweep over the 8 KAN sweep
 points as one `HeteroPacked` chain through `experiments.sweep.
 packed_trend_sweep(..., device="cuda")` (the plain path, per-member
 learning rates and 10 packed L-BFGS iterations; cut in iterations),
+the continuous adjoints (`lv.run` adaptive through `backsolve` and
+`interpolating` on pallas, K1 carrying the RHS in the forward solve and
+in the adjoint's augmented dynamics, and on xla; `odeint_adjoint` with a
+mask; their gradients at the seeded init against the plain chain's and
+the direct adjoint's; K1 on the trained parameters) with the cheby and
+fourier bases, AdamW and SGD, and the KDense options on the card,
 checks from the launch counters that each
 run went through its kernels, holds the adaptive kernel to its plain
 version again on the parameters that run ended with (train and eval
@@ -3780,6 +3786,288 @@ def phase_stacked_timings(torch, rk, spec, card):
         ("fused_rk_multistep_bwd_members", "n=34"))}
 
 
+# the continuous adjoints on the LV adaptive path: (impl, adjoint, iters);
+# an iteration takes 0.5-1.3 s on the card (host-bound, PERF.md), so the
+# runs are cut to keep the phase near a minute
+ADJOINT_RUNS = (("pallas", "backsolve", 16), ("pallas", "interpolating", 16),
+                ("xla", "backsolve", 8), ("xla", "interpolating", 8))
+GLOBAL_BASIS_ITERS = 32
+OPTIMIZER_ITERS = 32
+# between two adjoints' gradients (the JAX suite's, tests/test_ode.py:190)
+BETWEEN_TOL = dict(rtol=1e-3, atol=1e-6)
+
+
+def relative(tol, want):
+    """`tol` with its atol capped at rtol times want's largest entry, so
+    a tensor of small gradients (layer 1's ~1e-5 at the seeded init) is
+    held relatively too."""
+    return dict(rtol=tol["rtol"], atol=min(
+        tol["atol"], tol["rtol"] * float(want.abs().max())))
+
+
+def adjoint_cfg(lv, impl, adjoint, iters=1):
+    return lv.LVConfig(solve_mode="adaptive", impl=impl, adjoint=adjoint,
+                       lr=5e-3, iters=iters, eval_every=iters)
+
+
+def seeded_grads(torch, lv, cfg, data):
+    """The LV loss and its gradient at the seeded init (cfg.seed) on
+    cfg's route: (loss, [grads in named_parameters order], model)."""
+    model = lv.make_model(cfg, "cuda")
+    lv.init_params(cfg, model)
+    loss_fn, _, _ = lv.make_ode_fns(cfg, model, data)
+    loss = loss_fn(model)
+    loss.backward()
+    return (float(loss.detach()), [p.grad.clone() for p in model.parameters()],
+            model)
+
+
+def adjoint_evaluations(torch, integ, kp, cfg, model, data):
+    """(calls, calls under grad) of the right-hand side one loss and
+    gradient of the pallas route make: the same odeint as lv's predict,
+    with kan_chain_rhs wrapped to count. Every call is one K1f; a call
+    under grad is an adjoint VJP, one K1b."""
+    rhs = kp.kan_chain_rhs(model)
+    calls = [0, 0]
+
+    def counted(t, u, m):
+        calls[0] += 1
+        calls[1] += int(torch.is_grad_enabled())
+        return rhs(t, u, m)
+
+    n = data["n_train"]
+    ys = integ.odeint(counted, data["X"][0], data["ts"][:n], model,
+                      solver="tsit5", rtol=cfg.rtol, atol=cfg.atol,
+                      max_steps=max(cfg.max_steps, 2 * n),
+                      adjoint=cfg.adjoint)
+    torch.mean((ys - data["X"][:n]) ** 2).backward()
+    return calls
+
+
+def phase_adjoints_main_path(torch, lv, kp, integ, loop, modules, card,
+                             max_err):
+    """The continuous adjoints and the remaining basis, layer and
+    optimizer options on the card.
+
+    At the seeded init, on the LV adaptive loss: each adjoint's gradient
+    through K1 (pallas) against the plain chain's (xla, GRAD_TOL) and
+    against the direct adjoint's on the same route (BETWEEN_TOL), each
+    atol capped by `relative`; one
+    loss and gradient's K1f/K1b launches against the right-hand-side
+    evaluations its solves make (`adjoint_evaluations`). Then, counts
+    set to 0: `lv.run` adaptive through each ADJOINT_RUNS entry (every
+    loss below its first; K1 launched on pallas, no kernel on xla), K1
+    against its plain version at K = 1 on each pallas run's trained
+    parameters; `odeint_adjoint` with layer 1 masked (exact zero
+    cotangents, the rest the unmasked ones bit for bit); fixed-mode runs
+    on the cheby and fourier bases (plain) and cheby refused on pallas
+    as JAX refuses it; `train` with adamw and sgd on the fused fixed
+    loss (K3, exact launches); KDense without W, with a trainable grid
+    and KDense1 on the card against the CPU. Returns the launches;
+    its line gives the phase's seconds."""
+    import copy
+
+    import numpy as np
+    from kanodes_tpu_torch.models.kdense import KDense, KDense1
+    torch.cuda.synchronize()
+    t_phase = time.perf_counter()
+    failures, total = [], {k: 0 for k in KERNELS}
+    data = lv.make_data(lv.LVConfig(), "cuda")
+
+    # gradients at the seeded init, and one iteration's K1 launches
+    seeded = {(impl, adjoint): seeded_grads(
+        torch, lv, adjoint_cfg(lv, impl, adjoint), data)
+        for impl, adjoint in (("pallas", "direct"), ("pallas", "backsolve"),
+                              ("pallas", "interpolating"),
+                              ("xla", "backsolve"), ("xla", "interpolating"))}
+    grads = {}
+    for adjoint in ("backsolve", "interpolating"):
+        k, x, d = (seeded[i, a][1] for i, a in (
+            ("pallas", adjoint), ("xla", adjoint), ("pallas", "direct")))
+        grads[adjoint] = {
+            "loss": seeded["pallas", adjoint][0],
+            "vs_plain_max_abs": max(assert_close(
+                failures, f"{adjoint} K1 grad vs plain", a, b,
+                relative(GRAD_TOL, b)) for a, b in zip(k, x)),
+            "vs_direct_max_abs": max(assert_close(
+                failures, f"{adjoint} grad vs direct", a, b,
+                relative(BETWEEN_TOL, b)) for a, b in zip(k, d)),
+            "vs_direct_max_rel": max(
+                float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(k, d))}
+        cfg = adjoint_cfg(lv, "pallas", adjoint)
+        model = seeded["pallas", adjoint][2]
+        loss_fn, _, _ = lv.make_ode_fns(cfg, model, data)
+        torch.cuda.synchronize()
+        reset_counts(modules)
+        model.zero_grad()
+        loss_fn(model).backward()
+        torch.cuda.synchronize()
+        got = read_counts(modules)
+        calls, under_grad = adjoint_evaluations(torch, integ, kp, cfg, model,
+                                                data)
+        want = {k: 0 for k in KERNELS}
+        want["kan_chain_apply_fwd"], want["kan_chain_apply_bwd"] = \
+            calls, under_grad
+        if got != want:
+            failures.append(f"{adjoint}: one iteration's launches "
+                            f"{ {k: v for k, v in got.items() if v} } != "
+                            f"the evaluations' {calls} K1f, {under_grad} K1b")
+        for k in KERNELS:
+            total[k] += got[k]
+        grads[adjoint].update(evaluations=calls, vjp_evaluations=under_grad,
+                              launches={k: v for k, v in got.items() if v})
+
+    # lv.run through each adjoint, counts from 0
+    runs = []
+    for impl, adjoint, iters in ADJOINT_RUNS:
+        cfg = adjoint_cfg(lv, impl, adjoint, iters)
+        torch.cuda.synchronize()
+        reset_counts(modules)
+        out, secs = timed_run(torch, lv, cfg)
+        got = read_counts(modules)
+        losses = out["loss_history"].cpu()
+        assert losses.shape == (iters,) and bool(
+            torch.isfinite(losses).all()), losses
+        assert float(losses[-1]) < float(losses[0]), \
+            f"{impl}/{adjoint}: last loss {losses[-1]} !< first {losses[0]}"
+        k1 = got["kan_chain_apply_fwd"] + got["kan_chain_apply_bwd"]
+        assert (k1 > 0 and got["kan_chain_apply_bwd"] > 0) == (
+            impl == "pallas") and sum(got.values()) == k1, got
+        for k in KERNELS:
+            total[k] += got[k]
+        runs.append({"run": f"{impl}/adaptive {adjoint}", "iters": iters,
+                     "first_loss": float(losses[0]),
+                     "last_loss": float(losses[-1]),
+                     "best_loss": float(out["best_loss"]),
+                     "last_eval": float(out["eval_history"][-1]),
+                     "launches": {k: v for k, v in got.items() if v},
+                     "seconds": secs, "it_per_s": iters / secs})
+        if impl == "pallas":
+            model = out["model"]
+            spec = kp.chain_spec_of(model)
+            params = [t.detach() for t in kp.fused_params(model)]
+            rng = np.random.default_rng(200)
+            for i in (0, data["n_train"] // 2, data["n_train"] - 1):
+                x = data["X"][i:i + 1].contiguous()
+                gy = torch.tensor(rng.standard_normal((1, 2)),
+                                  dtype=torch.float32, device="cuda")
+                check_chain_apply(torch, kp, spec,
+                                  f"trained {adjoint} K=1 X[{i}]", x,
+                                  params, gy, max_err)
+
+    # odeint_adjoint with layer 1 masked, through K1
+    model = seeded["pallas", "backsolve"][2]
+    rhs = kp.kan_chain_rhs(model)
+    n = data["n_train"]
+    mask_grads = []
+    reset_counts(modules)
+    for mask in (None, {"layers.1": False}):
+        model.zero_grad()
+        ys = integ.odeint_adjoint(rhs, data["X"][0], data["ts"][:n], model,
+                                  adjoint_params=mask, rtol=1e-6, atol=1e-8,
+                                  max_steps=256)
+        torch.mean((ys - data["X"][:n]) ** 2).backward()
+        mask_grads.append({k: p.grad.clone()
+                           for k, p in model.named_parameters()})
+    got = read_counts(modules)
+    for k in KERNELS:
+        total[k] += got[k]
+    for k, g in mask_grads[1].items():
+        if k.startswith("layers.1."):
+            if not torch.equal(g, torch.zeros_like(g)):
+                failures.append(f"odeint_adjoint: masked {k} not zero")
+        elif not torch.equal(g, mask_grads[0][k]):
+            failures.append(f"odeint_adjoint: kept {k} differs from the "
+                            f"unmasked gradient")
+    masked = {"masked": ["layers.1"],
+              "launches": {k: v for k, v in got.items() if v}}
+
+    # the global bases, plain, and their refusal on pallas
+    bases = []
+    for basis in ("cheby", "fourier"):
+        cfg = lv.LVConfig(basis=basis, solve_mode="fixed", impl="xla",
+                          lr=1e-2, iters=GLOBAL_BASIS_ITERS,
+                          eval_every=GLOBAL_BASIS_ITERS)
+        reset_counts(modules)
+        out, secs = timed_run(torch, lv, cfg)
+        assert not any(read_counts(modules).values())
+        losses = out["loss_history"].cpu()
+        assert bool(torch.isfinite(losses).all()) and \
+            float(losses[-1]) < float(losses[0]), (basis, losses)
+        bases.append({"run": f"xla/fixed {basis}", "iters": cfg.iters,
+                      "first_loss": float(losses[0]),
+                      "last_loss": float(losses[-1]), "seconds": secs,
+                      "it_per_s": cfg.iters / secs})
+    try:
+        lv.run(lv.LVConfig(basis="cheby", impl="pallas", iters=1),
+               device="cuda")
+        failures.append("cheby on impl='pallas' ran; JAX refuses it")
+    except ValueError as e:
+        assert "local basis" in str(e), e
+
+    # adamw and sgd on the fused fixed loss
+    opts = []
+    for opt in ("adamw", "sgd"):
+        cfg = lv.LVConfig(impl="fused", solve_mode="fixed",
+                          iters=OPTIMIZER_ITERS, eval_every=OPTIMIZER_ITERS)
+        model = lv.make_model(cfg, "cuda")
+        lv.init_params(cfg, model)
+        loss_fn, eval_fn, _ = lv.make_ode_fns(cfg, model, data)
+        tc = loop.TrainConfig(lr=1e-2, iters=cfg.iters,
+                              eval_every=cfg.eval_every, optimizer=opt,
+                              weight_decay=1e-4 if opt == "adamw" else 0.0)
+        torch.cuda.synchronize()
+        reset_counts(modules)
+        t0 = time.perf_counter()
+        out = loop.train(loss_fn, model, tc, eval_fn=eval_fn)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = read_counts(modules)
+        want = expected_launches(cfg, data["n_train"], len(data["ts_host"]))
+        assert got == want, f"{opt}: launches {got} != {want}"
+        for k in KERNELS:
+            total[k] += got[k]
+        losses = out["loss_history"].cpu()
+        assert float(losses[-1]) < float(losses[0]), (opt, losses)
+        opts.append({"run": f"fused/fixed {opt}", "iters": cfg.iters,
+                     "first_loss": float(losses[0]),
+                     "last_loss": float(losses[-1]), "seconds": secs,
+                     "it_per_s": cfg.iters / secs})
+
+    # the M2 layers on the card against the CPU
+    layers = {"KDense no W": KDense(3, 4, 5, use_base_act=False),
+              "KDense trainable grid": KDense(3, 4, 5, trainable_grid=True,
+                                              basis="iqf"),
+              "KDense1": KDense1(3, 4, 6)}
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(64, 3, generator=gen)
+    gy = torch.randn(64, 4, generator=gen)
+    for label, layer in layers.items():
+        layer.init(gen)
+        out = []
+        for dev in ("cpu", "cuda"):
+            m = copy.deepcopy(layer).to(dev)
+            xd = x.clone().to(dev).requires_grad_()
+            y = m.apply(xd)
+            (y * gy.to(dev)).sum().backward()
+            out.append([t.detach().to("cpu", copy=True) for t in
+                        (y, xd.grad, *(p.grad for p in m.parameters()))])
+        assert_close(failures, f"{label} forward", out[1][0], out[0][0],
+                     FWD_TOL)
+        for a, b in zip(out[1][1:], out[0][1:]):
+            assert_close(failures, f"{label} gradient", a, b, GRAD_TOL)
+
+    finish_phase({"phase": "adjoints_main_path",
+                  "seeded_init_grads": grads, "runs": runs,
+                  "odeint_adjoint_mask": masked, "global_bases": bases,
+                  "optimizers": opts, "layers_vs_cpu": list(layers),
+                  "launches": {k: v for k, v in total.items() if v},
+                  "seconds": time.perf_counter() - t_phase,
+                  "card": card}, failures)
+    return total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "kanodes_tpu_torch")):
         raise SystemExit("chip_smoke.py: kanodes_tpu_torch/ is not beside "
@@ -3797,6 +4085,7 @@ def main() -> int:
     from kanodes_tpu_torch.experiments import sweep as sw
     from kanodes_tpu_torch.models import packed as pk
     from kanodes_tpu_torch.models.kdense import KANChain, KDense
+    from kanodes_tpu_torch.ode import integrate as integ
     from kanodes_tpu_torch.ode.integrate import StepController
     from kanodes_tpu_torch.ops import _cuda
     from kanodes_tpu_torch.ops import graybox_fused as gb
@@ -3804,6 +4093,7 @@ def main() -> int:
     from kanodes_tpu_torch.ops import rk_adaptive_fused as ra
     from kanodes_tpu_torch.ops import rk_fused as rk
     from kanodes_tpu_torch.ops import rk_fused_wide as tw
+    from kanodes_tpu_torch.train import loop
     from kanodes_tpu_torch.train import polish as pol
     from kanodes_tpu_torch.utils.precision import set_exact_f32
     import numpy as np
@@ -3858,6 +4148,8 @@ def main() -> int:
                    phase_stacked_main_path(torch, lvm, modules, card),
                    phase_trend_packed_main_path(torch, lv, sw, modules,
                                                 card),
+                   phase_adjoints_main_path(torch, lv, kp, integ, loop,
+                                            modules, card, max_err),
                    members_launches):
         for name in KERNELS:
             launches[name] += counts[name]

@@ -4,16 +4,35 @@ The JAX package `kanodes_tpu` stays the reference; every module here
 mirrors its counterpart's path and public names, and the tests hold
 each one against it. This package imports torch and numpy, never jax.
 
-Slice 1 (the LV KAN-ODE trainer, fixed and shooting modes):
+Its layers (the exports below are the JAX package's top-level names):
 
-  ode/         tableaus (copied), fixed-step `rk_step` / `odeint_fixed`
-  ops/         bases and normalizers, the 2-layer chain math, and the
-               fused RK-step / multistep CUDA kernels (csrc/) with their
-               plain PyTorch versions
-  models/      `KDense`, `KANChain` as nn.Modules
-  train/       Adam training loop, CLI config overrides (copied)
-  experiments/ the `lv` experiment
-  interop.py   numpy params <-> chain parameters
+  ode/         tableaus (copied), fixed-step and adaptive RK integrators
+               with every adjoint of the JAX package, `odeint_adjoint`
+  ops/         bases, normalizers and base activations, the chain math,
+               and the hand-written CUDA kernels (csrc/) with their plain
+               PyTorch versions
+  models/      `KDense`, `KDense1`, `KANChain`, `MLP`, packed chains
+  train/       the training loop (Adam, AdamW, SGD), L-BFGS polish,
+               checkpoints, CLI config overrides (copied)
+  experiments/ the LV, PDE and sweep experiments and their profilers
+  interop.py   numpy params <-> the port's parameters
 """
 
 __version__ = "0.1.0"
+
+from kanodes_tpu_torch.ops import basis as basis
+from kanodes_tpu_torch.models.kdense import KDense, KDense1, KANChain
+from kanodes_tpu_torch.models.mlp import MLP
+from kanodes_tpu_torch.ode.integrate import (odeint, odeint_adjoint,
+                                             odeint_fixed)
+
+__all__ = [
+    "basis",
+    "KDense",
+    "KDense1",
+    "KANChain",
+    "MLP",
+    "odeint",
+    "odeint_fixed",
+    "odeint_adjoint",
+]

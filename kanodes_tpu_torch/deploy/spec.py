@@ -8,10 +8,10 @@ constants. A spec is a small JSON-able dict naming the model family and
 its constructor arguments; `lv.run` stores it in
 `TrainState.extra["model_spec"]`. Parameters stay in the checkpoint.
 
-The port's KDense has no trainable grid (ROADMAP.md, M2), so a spec
-says `"trainable_grid": False`, JAX's default. The B-spline chain
-(M13) and the strain-limiting PINN (M14) are not ported: their kinds
-raise NotImplementedError. Export and the deploy CLI are M15.
+A "kan" spec records `use_base_act` and `trainable_grid` as JAX's
+does. The B-spline chain (M13) and the strain-limiting PINN (M14) are
+not ported: their kinds raise NotImplementedError. Export and the
+deploy CLI are M15.
 """
 
 from __future__ import annotations
@@ -39,7 +39,8 @@ def spec_of(model) -> dict[str, Any]:
         # the spec records layer 0's attributes chain-wide; a
         # heterogeneous chain would rebuild silently wrong
         for k in ("grid_len", "basis", "normalizer", "grid_lims",
-                  "denominator", "base_act", "use_base_act"):
+                  "denominator", "base_act", "use_base_act",
+                  "trainable_grid"):
             vals = {getattr(l, k) for l in model.layers}
             if len(vals) != 1:
                 raise ValueError(
@@ -56,7 +57,7 @@ def spec_of(model) -> dict[str, Any]:
             "denominator": l0.denominator,
             "base_act": l0.base_act,
             "use_base_act": l0.use_base_act,
-            "trainable_grid": False,
+            "trainable_grid": l0.trainable_grid,
         }
     if isinstance(model, MLP):
         return {
@@ -74,11 +75,9 @@ def model_from_spec(spec: dict[str, Any], *, device=None):
     output or a hand-written spec."""
     kind = spec["kind"]
     if kind == "kan":
-        if spec.get("trainable_grid"):
-            raise NotImplementedError(
-                "trainable_grid is not ported yet (ROADMAP.md, M2)")
         kw = {k: spec[k] for k in ("basis", "normalizer", "denominator",
-                                   "base_act", "use_base_act") if k in spec}
+                                   "base_act", "use_base_act",
+                                   "trainable_grid") if k in spec}
         if "grid_lims" in spec:
             kw["grid_lims"] = tuple(spec["grid_lims"])
         return KANChain.mlp_like(list(spec["widths"]),

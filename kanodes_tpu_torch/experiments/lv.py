@@ -19,10 +19,13 @@ kernel of `ops/kdense_pallas.py` inside the plain integrators;
 tensors and their plain versions on CPU tensors. `solve_mode="adaptive"`
 is the reference-faithful protocol: adaptive Tsit5 with a step
 controller, differentiated straight through the controller loop
-(`LV_driver_KANODE.jl:180-184`). `make_ode_fns(reduce_fn=, n_members=)`
-trains a packed ensemble (`models/packed.py`, driven by
-`experiments/lv_members.py`), one controller per member in adaptive
-mode. `sparse_on` adds the L1/entropy regularizer
+(`LV_driver_KANODE.jl:180-184`) or, with `adjoint="interpolating"` or
+`"backsolve"`, by a continuous adjoint (`ode/integrate.odeint`; on
+impl="pallas" the adjoint's augmented dynamics run K1 forward and
+backward at every evaluation; impl="fused" ignores `adjoint`, as JAX).
+`make_ode_fns(reduce_fn=, n_members=)` trains a packed ensemble
+(`models/packed.py`, driven by `experiments/lv_members.py`), one
+controller per member in adaptive mode. `sparse_on` adds the L1/entropy regularizer
 (`sparsify/regularization.py`) to the loss in every mode and impl, and
 `run(prune_threshold=)` prunes weak hidden nodes before training
 (`sparsify/prune.py`; the pipeline is `experiments/lv_symbolic.py`).
@@ -98,8 +101,8 @@ class LVConfig:
     rtol: float = 1e-6
     atol: float = 1e-8
     max_steps: int = 256
-    # adaptive-mode differentiation strategy: direct | direct_remat
-    # (interpolating, backsolve: later)
+    # adaptive-mode differentiation strategy: direct | direct_remat |
+    # interpolating | backsolve (ode/integrate.odeint adjoints)
     adjoint: str = "direct"
     # xla: plain torch ops + autograd | pallas: chain-RHS CUDA kernel |
     # fused: whole-RK-step kernels (fixed/shooting) or the whole-adaptive-
@@ -131,12 +134,6 @@ def _check_slice(cfg: LVConfig) -> None:
                          f"{cfg.impl!r}")
     if cfg.solve_mode not in ("fixed", "shooting", "adaptive"):
         raise ValueError(f"unknown solve_mode {cfg.solve_mode!r}")
-    if (cfg.solve_mode == "adaptive"
-            and (cfg.impl != "fused" or cfg.model != "kan")
-            and cfg.adjoint in ("interpolating", "backsolve")):
-        raise NotImplementedError(
-            f"LVConfig(adjoint={cfg.adjoint!r}) is not ported yet "
-            f"(ROADMAP.md, M7 {cfg.adjoint} adjoint)")
 
 
 def make_data(cfg: LVConfig, device="cuda") -> dict[str, Any]:

@@ -84,8 +84,10 @@ def profile(cfg: lv.LVConfig, iters: int = 20, warmup: int = 5,
     model = lv.make_model(cfg, device)
     lv.init_params(cfg, model)
     loss_fn, eval_fn, _ = lv.make_ode_fns(cfg, model, data)
-    return measure(f"{cfg.impl}/{cfg.solve_mode}", model, loss_fn, eval_fn,
-                   cfg.lr, iters, warmup, top)
+    run = f"{cfg.impl}/{cfg.solve_mode}"
+    if cfg.solve_mode == "adaptive" and cfg.impl != "fused":
+        run += f" {cfg.adjoint}"
+    return measure(run, model, loss_fn, eval_fn, cfg.lr, iters, warmup, top)
 
 
 def measure(run: str, model, loss_fn, eval_fn, lr: float, iters: int,

@@ -2,7 +2,9 @@
 
 Torch cannot reproduce `jax.random` init, so a run that must match a
 JAX run starts from the JAX params: `{"C": [I,G,O], "W": [I,O]}` as
-numpy arrays for one layer (`kanodes_tpu.models.KDense.init`), a list of
+numpy arrays for one layer (`kanodes_tpu.models.KDense.init`; no `W`
+without the base activation, `grid_offset` [G] and `log_h` [] with a
+trainable grid; `KDense1`'s `{"C": [I,G], "W": [I,O]}`), a list of
 such dicts for a chain (`KANChain.init`). S member inits become the port's packed chain
 (`models/packed.py`) with `packed_params_from_numpy`, laid out as JAX
 `pack_params` lays them; `packed.extract_member` goes the other way. An
@@ -46,11 +48,23 @@ def tree_per_param(chain, params, tree) -> list:
     return [by_id.get(id(p)) for p in params]
 
 
+def layer_param_names(layer) -> list[str]:
+    """The names of a KDense-like layer's parameters, in JAX's leaf
+    order: `C`, then `W` where it has one, then `grid_offset` and
+    `log_h` where its grid is trainable."""
+    return [n for n in ("C", "W", "grid_offset", "log_h")
+            if getattr(layer, n, None) is not None]
+
+
 @torch.no_grad()
 def kdense_params_from_numpy(layer, params) -> None:
-    """Copy one layer's `{"C", "W"}` arrays into its parameters (on their
-    device, as float32). Shapes must match exactly."""
-    for name in ("C", "W"):
+    """Copy one layer's arrays (`layer_param_names` of them) into its
+    parameters (on their device, as float32). Names and shapes must
+    match exactly."""
+    names = layer_param_names(layer)
+    if set(params) != set(names):
+        raise ValueError(f"layer keys {sorted(params)} != {names}")
+    for name in names:
         dst = stored_param(layer, name)
         src = np.array(params[name], dtype=np.float32)   # writable copy
         if tuple(src.shape) != tuple(dst.shape):
@@ -60,14 +74,15 @@ def kdense_params_from_numpy(layer, params) -> None:
 
 
 def kdense_params_to_numpy(layer) -> dict[str, np.ndarray]:
-    """One layer's parameters as `{"C", "W"}` numpy arrays."""
-    return {"C": layer.C.detach().cpu().numpy().copy(),
-            "W": layer.W.detach().cpu().numpy().copy()}
+    """One layer's parameters as numpy arrays, under JAX's names."""
+    return {n: getattr(layer, n).detach().cpu().numpy().copy()
+            for n in layer_param_names(layer)}
 
 
 def chain_params_from_numpy(chain, params) -> None:
-    """Copy per-layer `{"C", "W"}` arrays into the chain's parameters
-    (on their device, as float32). Shapes must match exactly."""
+    """Copy per-layer arrays (`{"C", "W"}`, say) into the chain's
+    parameters (on their device, as float32). Shapes must match
+    exactly."""
     if len(params) != len(chain.layers):
         raise ValueError(f"{len(params)} param dicts for "
                          f"{len(chain.layers)} layers")
@@ -76,7 +91,8 @@ def chain_params_from_numpy(chain, params) -> None:
 
 
 def chain_params_to_numpy(chain) -> list[dict[str, np.ndarray]]:
-    """The chain's parameters as per-layer `{"C", "W"}` numpy arrays."""
+    """The chain's parameters as per-layer numpy arrays (`{"C", "W"}`,
+    say)."""
     return [kdense_params_to_numpy(layer) for layer in chain.layers]
 
 

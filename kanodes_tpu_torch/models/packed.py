@@ -48,13 +48,21 @@ def _check(chain: KANChain) -> None:
     for l in chain.layers:
         if not isinstance(l, KDense):
             raise ValueError("packing supports KDense chains only")
+        if l.trainable_grid:
+            raise ValueError("a packed layer shares one grid; "
+                             "trainable_grid would couple members")
 
 
 def _ones(chain: KANChain, value: float = 1.0) -> list[dict]:
-    """Per-layer `{"C", "W"}` of a member chain's shapes, all `value`."""
-    return [{"C": torch.full((l.in_dims, l.grid_len, l.out_dims), value),
-             "W": torch.full((l.in_dims, l.out_dims), value)}
-            for l in chain.layers]
+    """Per-layer `{"C", "W"}` of a member chain's shapes, all `value`
+    (no `W` for a layer without the base activation)."""
+    out = []
+    for l in chain.layers:
+        p = {"C": torch.full((l.in_dims, l.grid_len, l.out_dims), value)}
+        if l.use_base_act:
+            p["W"] = torch.full((l.in_dims, l.out_dims), value)
+        out.append(p)
+    return out
 
 
 def _device(chain: KANChain) -> torch.device:
@@ -87,19 +95,24 @@ def pack_params(chain: KANChain, member_params: list) -> list[dict]:
 
     `member_params`: S lists of per-layer `{"C", "W"}` (tensors or numpy
     arrays, e.g. JAX inits). Returns per layer `{"C": [S*I, G, S*O], "W":
-    [S*I, S*O]}` float32 tensors on `chain`'s device, member s in the
-    block (s*I:(s+1)*I, s*O:(s+1)*O), exact zeros elsewhere."""
+    [S*I, S*O]}` float32 tensors on `chain`'s device (no `W` without the
+    base activation), member s in the block (s*I:(s+1)*I, s*O:(s+1)*O),
+    exact zeros elsewhere."""
     _check(chain)
     S, dev = len(member_params), _device(chain)
     packed = []
     for li, l in enumerate(chain.layers):
         I, G, O = l.in_dims, l.grid_len, l.out_dims
         C = torch.zeros((S * I, G, S * O), device=dev)
-        W = torch.zeros((S * I, S * O), device=dev)
         for s, mp in enumerate(member_params):
             C[s * I:(s + 1) * I, :, s * O:(s + 1) * O] = _f32(mp[li]["C"])
-            W[s * I:(s + 1) * I, s * O:(s + 1) * O] = _f32(mp[li]["W"])
-        packed.append({"C": C, "W": W})
+        p = {"C": C}
+        if l.use_base_act:
+            W = torch.zeros((S * I, S * O), device=dev)
+            for s, mp in enumerate(member_params):
+                W[s * I:(s + 1) * I, s * O:(s + 1) * O] = _f32(mp[li]["W"])
+            p["W"] = W
+        packed.append(p)
     return packed
 
 
@@ -112,8 +125,10 @@ def extract_member(chain: KANChain, packed_params: list, n_members: int,
     for li, l in enumerate(chain.layers):
         sI, sO = member * l.in_dims, member * l.out_dims
         p = packed_params[li]
-        out.append({"C": p["C"][sI:sI + l.in_dims, :, sO:sO + l.out_dims],
-                    "W": p["W"][sI:sI + l.in_dims, sO:sO + l.out_dims]})
+        m = {"C": p["C"][sI:sI + l.in_dims, :, sO:sO + l.out_dims]}
+        if l.use_base_act:
+            m["W"] = p["W"][sI:sI + l.in_dims, sO:sO + l.out_dims]
+        out.append(m)
     return out
 
 
@@ -168,7 +183,7 @@ def apply_mask(mask: list, packed: KANChain) -> KANChain:
         raise ValueError(f"{len(mask)} mask dicts for {len(packed.layers)} "
                          f"layers")
     for layer, m in zip(packed.layers, mask):
-        for name in ("C", "W"):
+        for name in ("C", "W") if layer.use_base_act else ("C",):
             if parametrize.is_parametrized(layer, name):
                 raise ValueError(f"{name} is masked already")
             want = tuple(getattr(layer, name).shape)
@@ -210,22 +225,23 @@ class HeteroKDense(nn.Module):
     grid sizes coexist in one product (a member with fewer grid points
     than G repeats its last center in the padded slots, whose C entries
     the mask zeroes). The bases broadcast x[..., I, 1] - grid[I, G]
-    (`ops/basis.py`). Parameters `C` [I, G, O] and `W` [I, O], zeros on
-    `device`."""
+    (`ops/basis.py`). Parameters `C` [I, G, O] and `W` [I, O] (none
+    without the base activation), zeros on `device`."""
 
     def __init__(self, in_dims: int, out_dims: int, grid_len: int,
                  grid_rows, h_rows, normalizer: str = "tanh",
-                 basis: str = "rbf", base_act: str = "swish", *,
-                 device=None):
+                 basis: str = "rbf", base_act: str = "swish",
+                 use_base_act: bool = True, *, device=None):
         super().__init__()
         self.in_dims, self.out_dims, self.grid_len = in_dims, out_dims, \
             grid_len
         self.normalizer, self.basis, self.base_act = normalizer, basis, \
             base_act
-        self.use_base_act = True
+        self.use_base_act = use_base_act
         self.C = nn.Parameter(torch.zeros(in_dims, grid_len, out_dims,
                                           device=device))
-        self.W = nn.Parameter(torch.zeros(in_dims, out_dims, device=device))
+        self.W = (nn.Parameter(torch.zeros(in_dims, out_dims, device=device))
+                  if use_base_act else None)
         self.register_buffer("grid_rows", _f32(grid_rows).to(device),
                              persistent=False)                  # [I, G]
         self.register_buffer("h_rows", _f32(h_rows).to(device),
@@ -242,7 +258,9 @@ class HeteroKDense(nn.Module):
         flat = bas.reshape(*bas.shape[:-2], self.in_dims * self.grid_len)
         y = flat @ self.C.reshape(self.in_dims * self.grid_len,
                                   self.out_dims)
-        return y + B.get_base_act(self.base_act)(x) @ self.W
+        if self.use_base_act:
+            y = y + B.get_base_act(self.base_act)(x) @ self.W
+        return y
 
     def forward(self, x: Tensor) -> Tensor:
         return self.apply(x)
@@ -294,7 +312,8 @@ class HeteroPacked(nn.Module):
             layers.append(HeteroKDense(
                 in_off[-1], out_off[-1], g_max, grid_rows, h_rows,
                 normalizer=ls[0].normalizer, basis=ls[0].basis,
-                base_act=ls[0].base_act, device=dev))
+                base_act=ls[0].base_act, use_base_act=ls[0].use_base_act,
+                device=dev))
             self.in_offs.append(tuple(in_off))
             self.out_offs.append(tuple(out_off))
         self.layers = nn.ModuleList(layers)
@@ -330,10 +349,13 @@ class HeteroPacked(nn.Module):
                 l = m.layers[li]
                 C[i0:i0 + l.in_dims, :l.grid_len, o0:o0 + l.out_dims] = \
                     _f32(member_params[s][li]["C"])
-                W[i0:i0 + l.in_dims, o0:o0 + l.out_dims] = \
-                    _f32(member_params[s][li]["W"])
-            packed.append({"C": C.to(layer.grid_rows.device),
-                           "W": W.to(layer.grid_rows.device)})
+                if layer.use_base_act:
+                    W[i0:i0 + l.in_dims, o0:o0 + l.out_dims] = \
+                        _f32(member_params[s][li]["W"])
+            p = {"C": C.to(layer.grid_rows.device)}
+            if layer.use_base_act:
+                p["W"] = W.to(layer.grid_rows.device)
+            packed.append(p)
         return packed
 
     def extract_member(self, packed_params: list, member: int) -> list[dict]:
@@ -343,9 +365,11 @@ class HeteroPacked(nn.Module):
         for li, l in enumerate(self.member_chains[member].layers):
             i0, o0 = self.in_offs[li][member], self.out_offs[li][member]
             p = packed_params[li]
-            out.append({"C": p["C"][i0:i0 + l.in_dims, :l.grid_len,
-                                    o0:o0 + l.out_dims],
-                        "W": p["W"][i0:i0 + l.in_dims, o0:o0 + l.out_dims]})
+            m = {"C": p["C"][i0:i0 + l.in_dims, :l.grid_len,
+                             o0:o0 + l.out_dims]}
+            if l.use_base_act:
+                m["W"] = p["W"][i0:i0 + l.in_dims, o0:o0 + l.out_dims]
+            out.append(m)
         return out
 
     def mask(self) -> list[dict]:

@@ -48,12 +48,13 @@ def node_scores(chain: KANChain, x: Tensor) -> np.ndarray:
 
 def _narrowed(layer: KDense, in_dims: int, out_dims: int) -> KDense:
     """A KDense like `layer` (grid, limits, denominator, basis,
-    normalizer, base activation, device) with other widths."""
+    normalizer, base activation, trainable grid, device) with other
+    widths."""
     return KDense(in_dims, out_dims, layer.grid_len,
                   normalizer=layer.normalizer, grid_lims=layer.grid_lims,
                   denominator=layer.denominator, basis=layer.basis,
                   base_act=layer.base_act, use_base_act=layer.use_base_act,
-                  device=layer.C.device)
+                  trainable_grid=layer.trainable_grid, device=layer.C.device)
 
 
 @torch.no_grad()
@@ -64,6 +65,12 @@ def prune(chain: KANChain, x: Tensor, threshold: float = 1e-2) -> PruneResult:
     x: [N, in_dims] sample states on the chain's device (the reference
     uses the training trajectory). Keeps at least one node.
     """
+    if not all(l.use_base_act for l in chain.layers):
+        # the JAX package's prune slices both layers' W before it looks
+        # at use_base_act (kanodes_tpu/sparsify/prune.py:69-75), so it
+        # raises on such a chain; so does the port
+        raise ValueError("prune needs W in both layers (use_base_act="
+                         "True), as the JAX package's prune does")
     scores = node_scores(chain, x)
     kept = np.where(scores > threshold)[0]
     if kept.size == 0:
@@ -78,5 +85,10 @@ def prune(chain: KANChain, x: Tensor, threshold: float = 1e-2) -> PruneResult:
     n1.W.copy_(l1.W[:, idx])
     n2.C.copy_(l2.C[idx, :, :])
     n2.W.copy_(l2.W[idx, :])
+    # the grid parameters act per layer, not per node: kept whole
+    for old, new in ((l1, n1), (l2, n2)):
+        if old.trainable_grid:
+            new.grid_offset.copy_(old.grid_offset)
+            new.log_h.copy_(old.log_h)
     return PruneResult(new_chain, chain_params_to_numpy(new_chain), kept,
                        scores)

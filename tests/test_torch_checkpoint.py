@@ -29,6 +29,7 @@ from kanodes_tpu.train.loop import TrainConfig as JTrainConfig
 from kanodes_tpu.train.loop import train as jtrain
 from kanodes_tpu_torch.deploy import spec as tspec
 from kanodes_tpu_torch.experiments import lv as T
+from kanodes_tpu_torch.interop import chain_params_to_numpy
 from kanodes_tpu_torch.models.kdense import KANChain
 from kanodes_tpu_torch.models.mlp import MLP
 from kanodes_tpu_torch.train.checkpoint import (Checkpointer, TrainState,
@@ -263,14 +264,26 @@ def test_specs_outside_the_port_raise_naming_roadmap(kind, item):
         tspec.model_from_spec({"kind": kind, "widths": [2, 10, 2]})
 
 
+@pytest.mark.parametrize("option", ["trainable_grid", "use_base_act"])
+def test_spec_layer_options_rebuild_as_jax(option):
+    """A JAX LV spec with a trainable grid (which raised before M2 was
+    ported) or without the base activation rebuilds a chain whose spec
+    and parameter layout are JAX's model_from_spec's."""
+    spec = dict(jspec.spec_of(J.make_model(J.LVConfig())),
+                **{option: option == "trainable_grid"})
+    got, want = tspec.model_from_spec(spec), jspec.model_from_spec(spec)
+    assert tspec.spec_of(got) == jspec.spec_of(want) == spec
+    wp = want.init(jax.random.PRNGKey(0))
+    assert [sorted(p) for p in chain_params_to_numpy(got)] == \
+        [sorted(p) for p in wp]
+    assert got.num_params() == want.num_params()
+
+
 def test_spec_rejects_what_jax_rejects():
     with pytest.raises(ValueError, match="unknown model spec kind"):
         tspec.model_from_spec({"kind": "nope"})
     with pytest.raises(TypeError, match="no spec rule"):
         tspec.spec_of(torch.nn.Linear(2, 2))
-    with pytest.raises(NotImplementedError, match="M2"):
-        tspec.model_from_spec(dict(jspec.spec_of(J.make_model(J.LVConfig())),
-                                   trainable_grid=True))
     chain = KANChain.mlp_like([2, 3, 2], grid_len=5)
     chain.layers[1].normalizer = "softsign"
     with pytest.raises(ValueError, match="homogeneous"):

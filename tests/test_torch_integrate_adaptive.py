@@ -1,7 +1,9 @@
 """The adaptive part of the port's `ode/integrate.py` held against the
 JAX package's: error norm, controller, initial dt, and `odeint` with the
 none / direct / direct_remat adjoints (values, step counts, gradients
-w.r.t. y0 and the params), the unreached fill and Hermite dense output.
+w.r.t. y0 and the params), the unreached fill and Hermite dense output,
+and the continuous adjoints on the same chain (their own suite is
+tests/test_torch_adjoints.py).
 
 Tolerances: ys rtol 1e-5 / atol 1e-6, gradients rtol 5e-4 / atol 1e-6
 (tests/test_rk_fused.py:36,62); step counts equal.
@@ -16,6 +18,8 @@ tests/test_rk_adaptive_fused.py), and the PI, dt0 and dense cases
 weights with ten times the curvature (noise 1.0) and rtol 1e-4 on few
 save points, where the controller itself sets every step.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -201,13 +205,16 @@ def test_controller_pieces_match_jax(lv_chain):
 
 
 def test_what_is_not_ported_raises(lv_chain):
+    """What the port refuses, it refuses as JAX does: the continuous
+    adjoints (ported, tests/test_torch_adjoints.py) take no
+    return_stats, and the interpolating one no dense output."""
     _, _, tc = lv_chain
     y0 = torch.tensor(U0)
     for adjoint in ("interpolating", "backsolve"):
-        with pytest.raises(NotImplementedError, match="M7"):
-            T.odeint(trhs, y0, TS, tc, adjoint=adjoint)
-    with pytest.raises(NotImplementedError, match="M7"):
-        T.odeint_adjoint(trhs, y0, TS, tc)
+        with pytest.raises(ValueError, match=f"unsupported with {adjoint}"):
+            T.odeint(trhs, y0, TS, tc, adjoint=adjoint, return_stats=True)
+    with pytest.raises(ValueError, match="dense"):
+        T.odeint(trhs, y0, TS, tc, adjoint="interpolating", dense=True)
     # odeint_members is ported (tests/test_torch_odeint_members.py); what
     # it does not take raises as the JAX function does
     with pytest.raises(ValueError, match="FSAL"):
@@ -216,3 +223,37 @@ def test_what_is_not_ported_raises(lv_chain):
         T.odeint(trhs, y0, TS, tc, solver="rk4", adjoint="direct")
     with pytest.raises(ValueError, match="dense"):
         T.odeint(trhs, y0, TS, tc, adjoint="direct", dense=True)
+
+
+@pytest.mark.parametrize("adjoint", ["interpolating", "backsolve",
+                                     "odeint_adjoint"])
+def test_continuous_adjoints_match_jax(lv_chain, adjoint):
+    """The continuous adjoints (which raised before they were ported) on
+    the [2,10,2] chain: values and y0 / C / W cotangents against JAX's
+    same adjoint; `odeint_adjoint` is backsolve."""
+    jc, jp, tc = lv_chain
+    cot = np.random.default_rng(0).standard_normal(
+        (len(TS),) + U0.shape).astype(np.float32)
+    kw = dict(rtol=1e-3, atol=1e-6, max_steps=96)
+    jfn, tfn = ((J.odeint_adjoint, T.odeint_adjoint)
+                if adjoint == "odeint_adjoint" else
+                (functools.partial(J.odeint, adjoint=adjoint),
+                 functools.partial(T.odeint, adjoint=adjoint)))
+
+    def jloss(p, y0_):
+        ys = jfn(jrhs_of(jc), y0_, jnp.asarray(TS), p, **kw)
+        return jnp.sum(ys * cot), ys
+
+    (_, ys_j), g_j = jax.value_and_grad(jloss, argnums=(0, 1),
+                                        has_aux=True)(jp, jnp.asarray(U0))
+    y0t = torch.tensor(U0, requires_grad=True)
+    tc.zero_grad()
+    ys_t = tfn(trhs, y0t, TS, tc, **kw)
+    (ys_t * torch.tensor(cot)).sum().backward()
+    np.testing.assert_allclose(ys_t.detach().numpy(), np.asarray(ys_j), **FWD)
+    np.testing.assert_allclose(y0t.grad.numpy(), np.asarray(g_j[1]), **GRAD)
+    for layer, g in zip(tc.layers, g_j[0]):
+        np.testing.assert_allclose(layer.C.grad.numpy(), np.asarray(g["C"]),
+                                   **GRAD)
+        np.testing.assert_allclose(layer.W.grad.numpy(), np.asarray(g["W"]),
+                                   **GRAD)

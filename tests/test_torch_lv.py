@@ -215,18 +215,41 @@ def test_profiler_needs_a_card():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(solve_mode="adaptive", adjoint="backsolve"), "M7"),
-    (dict(model="mlp", solve_mode="adaptive", adjoint="backsolve"), "M7"),
     (dict(model="bspline_kan"), "M13"),
     (dict(impl="fused_wide"), "fused_wide"),
-    (dict(solve_mode="adaptive", impl="pallas", adjoint="interpolating"),
-     "interpolating"),
-    (dict(solve_mode="adaptive", adjoint="interpolating"), "M7"),
     (dict(bwd_precision="bf16", impl="fused", iters=1), "bf16"),
 ])
 def test_outside_the_slice_raises_naming_roadmap(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         T.run(T.LVConfig(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(adjoint="backsolve"),
+    dict(model="mlp", adjoint="backsolve"),
+    dict(impl="pallas", adjoint="interpolating"),
+    dict(adjoint="interpolating"),
+], ids=["xla-backsolve", "mlp-backsolve", "pallas-interpolating",
+        "xla-interpolating"])
+def test_continuous_adjoint_runs_train(kw):
+    """lv.run in adaptive mode through a continuous adjoint (these four
+    configurations raised before the adjoints were ported): from one
+    init, its loss and eval histories against the direct adjoint's run
+    on the same route. The forwards are the same loop, and Adam's first
+    steps are the gradients' signs, which the adjoints share."""
+    cfg = dict(solve_mode="adaptive", iters=3, eval_every=3, lr=1e-2,
+               max_steps=96, rtol=1e-3, atol=1e-6, **kw)
+    out = T.run(T.LVConfig(**cfg), device="cpu",
+                generator=torch.Generator().manual_seed(0))
+    ref = T.run(T.LVConfig(**dict(cfg, adjoint="direct")), device="cpu",
+                generator=torch.Generator().manual_seed(0))
+    losses = out["loss_history"]
+    assert losses.shape == (3,) and bool(torch.isfinite(losses).all())
+    assert float(losses[-1]) < float(losses[0])
+    np.testing.assert_allclose(losses.numpy(), ref["loss_history"].numpy(),
+                               rtol=1e-4)
+    np.testing.assert_allclose(out["eval_history"].numpy(),
+                               ref["eval_history"].numpy(), rtol=1e-4)
 
 
 @pytest.mark.parametrize("kw,item", [

@@ -49,7 +49,19 @@ the continuous adjoints (`lv.run` adaptive through `backsolve` and
 in the adjoint's augmented dynamics, and on xla; `odeint_adjoint` with a
 mask; their gradients at the seeded init against the plain chain's and
 the direct adjoint's; K1 on the trained parameters) with the cheby and
-fourier bases, AdamW and SGD, and the KDense options on the card,
+fourier bases, AdamW and SGD, and the KDense options on the card, and
+the B-spline KAN and grid-refinement slice: the B-spline LV model
+through `lv.run(..., device="cuda")` in fixed mode and adaptively
+through both continuous adjoints (the plain route, as in JAX; their
+gradients at the seeded init against the direct adjoint's) and through
+`lv.run_grid_refinement`, the harness comparison of
+`experiments.bspline_lv.harness_compare`, the 1-D Allen-Cahn refit
+recipe of `experiments.ac_grid_refine.run_recipe` (K2-m at rk4 on the
+refined span after the refit; K2-m and K3-m held to plain there first),
+a wide-kernel Burgers surrogate through `pde_surrogate.
+run_grid_refinement` (K7f and K10 at the refined span), all cut in
+iterations, and last, after every timed phase, Kvaerno3's float64 truth
+validations (`pde.datagen.validate_truth_against_stiff`); it
 checks from the launch counters that each
 run went through its kernels, holds the adaptive kernel to its plain
 version again on the parameters that run ended with (train and eval
@@ -559,6 +571,7 @@ class WideCase(NamedTuple):
     basis: str = "rbf"
     normalizer: str = "softsign"
     seed: int = 0
+    lims: tuple = (-1.0, 1.0)
 
 
 # a small padded chain (Ipad > I over three blocks), then every shape the
@@ -596,6 +609,10 @@ WIDE_CASES = (
     WideCase("Burgers K=1 n=40, last-state cotangent", *_BUR, 1, 40,
              dense=False, seed=14),
     WideCase("Burgers K=4 n=40 (the shooting group)", *_BUR, 4, 40, seed=15),
+    # a grid refit's span (asymmetric, h = span / 4): K7f and K10 as the
+    # refined trajectory loss runs them
+    WideCase("Burgers refined span K=1 n=20, last-state cotangent", *_BUR,
+             1, 20, dense=False, seed=16, lims=(-0.8113, 0.9057)),
 )
 
 
@@ -604,7 +621,8 @@ def wide_case_inputs(torch, tw, kp, case, device="cuda"):
     import numpy as np
     rng = np.random.default_rng(case.seed)
     I, H, G = case.I, case.H, case.G
-    ws = tw.WideSpec(kp.ChainSpec(I, H, I, G, normalizer=case.normalizer,
+    ws = tw.WideSpec(kp.ChainSpec(I, H, I, G, grid_lims=case.lims,
+                                  normalizer=case.normalizer,
                                   basis=case.basis), case.block)
     lim = math.sqrt(6.0 / (I + H))
 
@@ -670,30 +688,30 @@ def finish_phase(line, failures):
 
 
 def check_multistep(torch, rk, spec, label, n, x0, params, gys, failures,
-                    max_err, dt=0.1):
+                    max_err, dt=0.1, solver="tsit5"):
     """K3f by the float64 rule and K3b against the plain backward and
-    autograd on one input (tsit5, step dt); K3f and K3b launched twice
+    autograd on one input (`solver`, step dt); K3f and K3b launched twice
     must repeat bit for bit. Past kan_chain.cuh's caps the launches are
     the medium flavor's (K3f-m, K3b-m). Returns K3f's detail."""
-    k = rk._consts(spec, "tsit5", dt)
+    k = rk._consts(spec, solver, dt)
     sfx, m = ("", "") if k.flavor == "small" else ("_mid", "-m")
     label = f"{m} {label}"
     ys = rk._launch_multistep_fwd(k, n, x0, params)
     if not torch.equal(ys, rk._launch_multistep_fwd(k, n, x0, params)):
         failures.append(f"K3f{label}: a second launch differs")
-    ys_ref = rk.fused_rk_multistep_reference(spec, "tsit5", dt, n, x0,
+    ys_ref = rk.fused_rk_multistep_reference(spec, solver, dt, n, x0,
                                              *params)
     ys64 = rk.fused_rk_multistep_reference(
-        spec, "tsit5", dt, n, x0.double(), *(p.double() for p in params))
+        spec, solver, dt, n, x0.double(), *(p.double() for p in params))
     detail = f64_rule(failures, f"K3f{label}", ys, ys_ref, ys64)
     max_err["fused_rk_multistep_fwd" + sfx] = max(
         max_err["fused_rk_multistep_fwd" + sfx], detail["max_abs_err"])
     g = rk._launch_multistep_bwd(k, n, x0, ys, params, gys)
-    g_ref = rk.fused_rk_multistep_bwd_reference(spec, "tsit5", dt, n, x0,
+    g_ref = rk.fused_rk_multistep_bwd_reference(spec, solver, dt, n, x0,
                                                 ys, *params, gys)
     xs = [t.clone().requires_grad_() for t in (x0, *params)]
     g_auto = torch.autograd.grad(
-        rk.fused_rk_multistep_reference(spec, "tsit5", dt, n, *xs), xs, gys)
+        rk.fused_rk_multistep_reference(spec, solver, dt, n, *xs), xs, gys)
     check_grads(failures, max_err, "fused_rk_multistep_bwd" + sfx,
                 f"K3b{label}", g, g_ref, g_auto)
     again = rk._launch_multistep_bwd(k, n, x0, ys, params, gys)
@@ -804,6 +822,11 @@ def phase_kernels(torch, rk, spec, rng, max_err):
                   "step": k2_detail, "multistep_fwd": k3f_detail}, failures)
 
 
+# the span JAX's 1-D Allen-Cahn refit chose
+# (artifacts/allen_cahn_grid_refine.json), to five digits
+AC_REFINED_LIMS = (-0.93277, 0.69833)
+
+
 class MidCase(NamedTuple):
     """A K2-m (n = 0: one step of K rows) or K3-m (n steps of K rows) case
     at a chain past kan_chain.cuh's caps, weights from U(-scale, scale)
@@ -817,6 +840,8 @@ class MidCase(NamedTuple):
     K: int
     n: int
     dt: float
+    solver: str = "tsit5"
+    lims: tuple = (-1.0, 1.0)
 
 
 # Burgers [41,10,41] G=5 and 1-D Allen-Cahn G=10 (softsign, rbf: the
@@ -860,6 +885,18 @@ MID_CASES = (
             4, 0.01),
     MidCase("two-round K3 n=3 K=1", (600, 2, 600), 2, "rbf", "tanh", 0.1, 1,
             3, 0.01),
+) + tuple(
+    # the 1-D Allen-Cahn grid-refinement recipe (scripts/ac_grid_refine.py):
+    # grid 5, rk4 at substeps 24 (step 0.1 / 24), before the refit on
+    # (-1, 1) and after it on an asymmetric span (JAX's recorded refit,
+    # h = span / 4 from the span): one trajectory row and the shooting
+    # group of four, and K3-m over one snapshot interval
+    MidCase(f"allen_cahn G=5 rk4 {label} {name}", _BUR_M, 5, "rbf",
+            "softsign", 0.1, K, n, 0.1 / 24, "rk4", lims)
+    for name, lims in (("(-1, 1)", (-1.0, 1.0)),
+                       ("refined span", AC_REFINED_LIMS))
+    for label, K, n in (("K2 K=1", 1, 0), ("K2 K=4", 4, 0),
+                        ("K3 n=24 K=1", 1, 24))
 )
 
 
@@ -867,8 +904,8 @@ def mid_case_inputs(torch, kp, case, seed, device="cuda"):
     """(spec, x [K, I], params) of a MidCase, numpy seed `seed`."""
     import numpy as np
     (I, H, O), G = case.widths, case.G
-    spec = kp.ChainSpec(I, H, O, G, normalizer=case.normalizer,
-                        basis=case.basis)
+    spec = kp.ChainSpec(I, H, O, G, grid_lims=case.lims,
+                        normalizer=case.normalizer, basis=case.basis)
     rng = np.random.default_rng(seed)
 
     def t(a):
@@ -887,7 +924,7 @@ def phase_mid_kernels(torch, rk, kp, max_err):
     failures, cases, k3f_detail = [], [], []
     for i, case in enumerate(MID_CASES):
         spec, x, params = mid_case_inputs(torch, kp, case, 40 + i)
-        k = rk._consts(spec, "tsit5", case.dt)
+        k = rk._consts(spec, case.solver, case.dt)
         assert k.flavor == "medium", (case.label, k.flavor)
         rng = np.random.default_rng(60 + i)
         if case.n:
@@ -896,12 +933,13 @@ def phase_mid_kernels(torch, rk, kp, max_err):
                 / (case.n * case.K), dtype=torch.float32, device="cuda")
             k3f_detail.append(check_multistep(
                 torch, rk, spec, case.label, case.n, x, params, gys,
-                failures, max_err, dt=case.dt))
+                failures, max_err, dt=case.dt, solver=case.solver))
         else:
             gy = torch.tensor(rng.standard_normal(tuple(x.shape)),
                               dtype=torch.float32, device="cuda")
             check_step_mid(torch, rk, spec, case.label, x, params, gy,
-                           failures, max_err, dt=case.dt)
+                           failures, max_err, dt=case.dt,
+                           solver=case.solver)
         cases.append(case.label)
     torch.cuda.synchronize()
     finish_phase({"phase": "kernel_vs_plain", "kernels": "K2-m, K3-m",
@@ -912,23 +950,23 @@ def phase_mid_kernels(torch, rk, kp, max_err):
 
 
 def check_step_mid(torch, rk, spec, label, x, params, gy, failures,
-                   max_err, dt=0.1):
+                   max_err, dt=0.1, solver="tsit5"):
     """K2f-m against its plain version (elementwise, FWD_TOL) and K2b-m
     against the plain backward and autograd (GRAD_TOL) on one input,
-    tsit5 at step dt; K2b-m launched twice must repeat bit for bit."""
-    k = rk._consts(spec, "tsit5", dt)
+    `solver` at step dt; K2b-m launched twice must repeat bit for bit."""
+    k = rk._consts(spec, solver, dt)
     assert k.flavor == "medium", (label, k.flavor)
     y = rk._launch_step_fwd(k, x, params)
-    y_ref = rk.fused_rk_step_reference(spec, "tsit5", dt, x, *params)
+    y_ref = rk.fused_rk_step_reference(spec, solver, dt, x, *params)
     e = assert_close(failures, f"K2f-m {label}", y, y_ref, FWD_TOL)
     max_err["fused_rk_step_fwd_mid"] = max(
         max_err["fused_rk_step_fwd_mid"], e)
     g = rk._launch_step_bwd(k, x, params, gy)
-    g_ref = rk.fused_rk_step_bwd_reference(spec, "tsit5", dt, x, *params,
+    g_ref = rk.fused_rk_step_bwd_reference(spec, solver, dt, x, *params,
                                            gy)
     xs = [t.clone().requires_grad_() for t in (x, *params)]
     g_auto = torch.autograd.grad(rk.fused_rk_step_reference(
-        spec, "tsit5", dt, *xs), xs, gy)
+        spec, solver, dt, *xs), xs, gy)
     check_grads(failures, max_err, "fused_rk_step_bwd_mid",
                 f"K2b-m {label}", g, g_ref, g_auto)
     again = rk._launch_step_bwd(k, x, params, gy)
@@ -3818,8 +3856,8 @@ def seeded_grads(torch, lv, cfg, data):
     loss_fn, _, _ = lv.make_ode_fns(cfg, model, data)
     loss = loss_fn(model)
     loss.backward()
-    return (float(loss.detach()), [p.grad.clone() for p in model.parameters()],
-            model)
+    return (float(loss.detach()), [p.grad.clone() for p in model.parameters()
+                                   if p.requires_grad], model)
 
 
 def adjoint_evaluations(torch, integ, kp, cfg, model, data):
@@ -4068,6 +4106,346 @@ def phase_adjoints_main_path(torch, lv, kp, integ, loop, modules, card,
     return total
 
 
+# -- the B-spline KAN and grid-refinement slice -------------------------------
+
+# bspline_lv_full's three runs (scripts/bspline_lv_full.py) cut to a few
+# iterations each; lv.run_grid_refinement at 30 iterations, a refit every
+# 10 (the plain B-spline path runs ~1-1.3 iterations a second on the card:
+# 300 would take ~4 minutes); the harness comparison's curriculum cut;
+# ac_grid_refine's phases after its full 200-iteration warmup and the
+# refit; a wide-kernel Burgers surrogate refit once; Kvaerno3's truth
+# validations at the JAX suite's sizes and thresholds
+# (tests/test_stiff.py:181-212)
+BSPLINE_FULL_ITERS = 3
+BSPLINE_GRID = dict(iters=30, update_every=10)
+HARNESS_CUT = (3, 3, 6)
+AC_PHASE_ITERS = (30, 30, 20)
+WIDE_REFIT = dict(problem="burgers", impl="fused", wide_kernels=True,
+                  iters=30, eval_every=30)
+WIDE_REFIT_AT = 15
+STIFF_CASES = (("allen_cahn_surrogate", dict(dx=0.1), 1e-15),
+               ("schrodinger", dict(dx=0.5, rtol=1e-10, atol=1e-12), 1e-17))
+# Kvaerno3's validations are host-bound (a step is one CUDA graph replay
+# and two host reads; ~9k steps for Schrodinger), so they run last, after
+# every timed phase, and time nothing else
+
+
+def phase_stiff_validations(torch, card):
+    """`datagen.validate_truth_against_stiff` of every STIFF_CASES entry on
+    the card in float64, each MSE under the JAX suite's threshold; one
+    line a case with its steps, seconds and steps a second."""
+    from kanodes_tpu_torch.pde.datagen import validate_truth_against_stiff
+    t_phase = time.perf_counter()
+    failures = []
+    for kind, kw, limit in STIFF_CASES:
+        t0 = time.perf_counter()
+        v = validate_truth_against_stiff(kind, device="cuda", **kw)
+        seconds = time.perf_counter() - t0
+        if not v["mse"] < limit:
+            failures.append(f"Kvaerno3 {kind}: mse {v['mse']} !< {limit}")
+        emit(dict(v, phase="stiff_validations", kind=kind,
+                  run=f"validate_truth_against_stiff {kind}", limit=limit,
+                  seconds=seconds, steps_per_s=v["n_iter"] / seconds,
+                  card=card, **kw))
+    emit({"phase": "stiff_validations", "run": "whole phase",
+          "seconds": time.perf_counter() - t_phase, "card": card,
+          "failures": failures})
+    assert not failures, "\n".join(failures)
+
+
+def model_loss_and_grads(torch, sg, cfg, data, model):
+    """The surrogate's training loss at `model` (its device, its span) and
+    its gradients: through the kernels on the card, through their plain
+    versions on a CPU copy."""
+    loss = sg.make_fns(cfg, model, data)[0](model)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return loss.detach().cpu(), [g.cpu() for g in grads]
+
+
+def hold_to_plain(torch, sg, cfg, data, model, label, failures):
+    """Loss and gradients through the kernels on the card against the
+    plain versions on a CPU copy of `model` (the surrogate phase's
+    tolerances); returns (kernel loss, plain loss)."""
+    import copy
+    lk, gk = model_loss_and_grads(torch, sg, cfg, data, model)
+    lp, gp = model_loss_and_grads(torch, sg, cfg, data,
+                                  copy.deepcopy(model).cpu())
+    assert_close(failures, f"{label}: kernel vs plain loss", lk, lp,
+                 dict(rtol=1e-4, atol=1e-9))
+    for a, b in zip(gk, gp):
+        assert_close(failures, f"{label}: kernel vs plain gradient", a, b,
+                     dict(rtol=2e-3, atol=1e-6))
+    return float(lk), float(lp)
+
+
+def refit_launches(sg, cfg, data, model):
+    """The launches a refit makes outside training: three trajectory
+    forwards (the prediction it samples, the snapshot loss before and the
+    one after). A one-iteration fixed run with one eval makes two
+    trajectory forwards (the eval's and the loss's) and one backward."""
+    want, _ = expected_surrogate_launches(
+        sg, dataclasses.replace(cfg, solve_mode="fixed", iters=1,
+                                eval_every=1), data, model)
+    return {k: (3 * v // 2 if "_fwd" in k else 0) for k, v in want.items()}
+
+
+def phase_refinement_main_path(torch, lv, sg, modules, card):
+    """The B-spline KAN and grid-refinement slice on the card.
+
+    B-spline LV (the plain route, as in JAX: no kernel launches): the
+    init's min-norm `curve2coeff` on the card against float64 `pinv` on
+    the host; bspline_lv_full's three runs through `lv.run(...,
+    device="cuda")` cut in iterations; at the seeded init the backsolve
+    and interpolating adjoints' gradients against the direct adjoint's
+    (BETWEEN_TOL); `lv.run_grid_refinement` (BSPLINE_GRID) with its
+    refits' loss pairs, and `update_grids` on the card against the CPU at
+    its trained parameters. The harness comparison (steps 1-7) at a cut
+    curriculum. The `ac_grid_refine` recipe: the 200-iteration shooting
+    warmup, the refit (its lims and errors beside JAX's record), then
+    shooting and fixed phases at rk4 on the refined span, each phase's
+    launches exactly what its schedule implies and K2-m launched after
+    the refit; loss and gradients through K2-m against plain at the
+    refined span. A wide-kernel Burgers surrogate refit once
+    (`pde_surrogate.run_grid_refinement`), exact launches, then K7f and
+    K10 at the refined span against plain (Kvaerno3's truth validations
+    are `phase_stiff_validations`, after the timed phases). Every run's
+    line has iterations, seconds and it/s. Returns the launches; the last
+    line gives the phase's seconds."""
+    import copy
+
+    import numpy as np
+    from kanodes_tpu_torch.experiments import ac_grid_refine as acg
+    from kanodes_tpu_torch.experiments import bspline_lv as bl
+    from kanodes_tpu_torch.models.bspline import BSplineKANChain
+    from kanodes_tpu_torch.ops import basis as B
+    torch.cuda.synchronize()
+    t_phase = time.perf_counter()
+    failures, total = [], {k: 0 for k in KERNELS}
+    zero = {k: 0 for k in KERNELS}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_counts(modules)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        counts = read_counts(modules)
+        for k in KERNELS:
+            total[k] += counts[k]
+        return res, counts, time.perf_counter() - t0
+
+    # -- curve2coeff's min-norm fit on the card --------------------------
+    chain = BSplineKANChain([2, 10, 2], grid_size=5, device="cuda")
+    chain.init(torch.Generator().manual_seed(0))
+    host = BSplineKANChain([2, 10, 2], grid_size=5)
+    host.init(torch.Generator().manual_seed(0))
+    layer = chain.layers[0]
+    k = layer.spline_order
+    pts = layer.grid[:, k:-k].T.double().cpu()
+    A = B.bspline_basis(pts, layer.grid.double().cpu(), k).transpose(0, 1)
+    u = torch.rand((6, 2, 10), generator=torch.Generator().manual_seed(5),
+                   dtype=torch.float64)
+    want = torch.linalg.pinv(A) @ u.transpose(0, 1)
+    got = layer.curve2coeff(pts.float().cuda(), u.float().cuda(),
+                            layer.grid).cpu().double()
+    tol = 1e-5 * float(want.abs().max())
+    err_min_norm = float((got - want).abs().max())
+    if err_min_norm > tol:
+        failures.append(f"curve2coeff on the card vs float64 pinv: "
+                        f"{err_min_norm} > {tol}")
+    err_init = max(float((a.detach().cpu() - b.detach()).abs().max())
+                   for a, b in zip(chain.parameters(), host.parameters()))
+    if err_init > 1e-5 * max(float(p.detach().abs().max())
+                             for p in host.parameters()):
+        failures.append(f"B-spline init card vs CPU: {err_init}")
+    emit({"phase": "refinement_main_path", "run": "curve2coeff",
+          "fit_rows_cols": list(A.shape[1:]), "max_abs_vs_pinv64":
+          err_min_norm, "tol": tol, "init_card_vs_cpu": err_init})
+
+    # -- bspline_lv_full cut ----------------------------------------------
+    for tag, cfg in bl.full_configs(BSPLINE_FULL_ITERS).items():
+        rec, counts, _ = counted(lambda: bl.run_one(tag, cfg, "cuda"))
+        assert counts == zero, f"{tag}: the B-spline route launched {counts}"
+        assert math.isfinite(rec["final_train"]), rec
+        assert rec["best_train"] < rec["first_train"], rec
+        rec.update(phase="refinement_main_path", run=f"bspline_lv {tag}",
+                   full_budget_s=bl.FULL_ITERS / rec["it_per_s"], card=card)
+        emit(rec)
+
+    # -- the adjoints at the seeded init ----------------------------------
+    grads = {}
+    for adjoint in ("direct", "backsolve", "interpolating"):
+        cfg = lv.LVConfig(model="bspline_kan", solve_mode="adaptive",
+                          adjoint=adjoint, rtol=1e-6, atol=1e-8,
+                          max_steps=96, iters=1, eval_every=1)
+        data = lv.make_data(cfg, "cuda")
+        t0 = time.perf_counter()
+        loss, g, _ = seeded_grads(torch, lv, cfg, data)
+        torch.cuda.synchronize()
+        grads[adjoint] = (loss, g, time.perf_counter() - t0)
+    errs = {}
+    for adjoint in ("backsolve", "interpolating"):
+        errs[adjoint] = 0.0
+        for a, b in zip(grads[adjoint][1], grads["direct"][1]):
+            errs[adjoint] = max(errs[adjoint], assert_close(
+                failures, f"B-spline {adjoint} vs direct gradient", a, b,
+                relative(BETWEEN_TOL, b)))
+    emit({"phase": "refinement_main_path", "run": "bspline adjoint grads",
+          "loss": {k: v[0] for k, v in grads.items()},
+          "seconds": {k: v[2] for k, v in grads.items()},
+          "max_abs_vs_direct": errs, "tol": BETWEEN_TOL, "card": card})
+
+    # -- lv.run_grid_refinement ---------------------------------------------
+    res, counts, seconds = counted(lambda: bl.grid_refinement(
+        BSPLINE_GRID["iters"], BSPLINE_GRID["update_every"], "cuda"))
+    assert counts == zero, f"lv grid refinement launched {counts}"
+    out = res.pop("out")
+    for pre, post in res["refits"]:
+        assert math.isfinite(post) and abs(post - pre) <= 0.05 * pre, \
+            (pre, post)
+    # one more refit at the trained parameters, on the card and on a CPU
+    # copy: the same knots, the same function
+    model = out["model"]
+    with torch.no_grad():
+        xs = out["predict"](model, out["data"]["ts_host"][
+            :out["data"]["n_train"]])
+        host = copy.deepcopy(model).cpu()
+        model.update_grids(xs)
+        host.update_grids(xs.cpu())
+        grid_err = max(float((a.grid.cpu() - b.grid).abs().max())
+                       for a, b in zip(model.layers, host.layers))
+        fn_err = assert_close(failures, "update_grids card vs CPU",
+                              model.apply(xs).cpu(), host.apply(xs.cpu()),
+                              FWD_TOL)
+    if grid_err > 1e-6:
+        failures.append(f"update_grids card vs CPU knots: {grid_err}")
+    emit(dict(res, phase="refinement_main_path",
+              run="lv.run_grid_refinement", seconds=seconds,
+              it_per_s=res["iters"] / seconds,
+              full_budget_s=10_000 / (res["iters"] / seconds),
+              update_grids_card_vs_cpu={"knots": grid_err, "values": fn_err},
+              card=card))
+
+    # -- the harness comparison (steps 1-7) ---------------------------------
+    rep, counts, seconds = counted(lambda: bl.harness_compare(HARNESS_CUT,
+                                                              "cuda"))
+    assert counts == zero, f"the harness launched {counts}"
+    summary = {name: {"mse": rep[name]["full"]["mse"],
+                      "test_mse": rep[name]["test_horizon"]["mse"],
+                      "noise_mse": [v["mse"] for v in
+                                    rep[name]["robustness"]["noise"].values()]}
+               for name in ("baseline", "optimized", "hybrid")}
+    for name, v in summary.items():
+        assert all(math.isfinite(x) for x in (v["mse"], v["test_mse"])), \
+            (name, v)
+    emit({"phase": "refinement_main_path", "run": "harness_compare",
+          "curriculum": list(HARNESS_CUT), "models": summary,
+          "edges_pruned": rep["optimized_pruned"]["edges_pruned"],
+          "blend_alpha": rep["blend_alpha"], "timing": rep["timing"],
+          "seconds": seconds, "card": card})
+
+    # -- the ac_grid_refine recipe, cut -------------------------------------
+    phases = acg.cut_phases(AC_PHASE_ITERS)
+    records = []
+
+    def on_phase(rec):
+        torch.cuda.synchronize()
+        rec["launches"] = read_counts(modules)
+        for k in KERNELS:
+            total[k] += rec["launches"][k]
+        reset_counts(modules)
+        records.append(rec)
+
+    torch.cuda.synchronize()
+    reset_counts(modules)
+    t0 = time.perf_counter()
+    res = acg.run_recipe(acg.REFIT_AT, phases, fixed_arm=False,
+                         device="cuda", on_phase=on_phase)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    model, data = res["model"], res["data"]
+    warm, refit, after = records[0], records[1], records[2:]
+    cfgs = [dataclasses.replace(acg.BASE, solve_mode=m, iters=n,
+                                eval_every=min(acg.BASE.eval_every, n))
+            for m, _, n in (("shooting", 0, acg.REFIT_AT), *phases)]
+    default = sg.make_model(acg.BASE, data, "cuda")
+    for rec, cfg, m in zip([warm] + after, cfgs,
+                           [default] + [model] * len(after)):
+        want, _ = expected_surrogate_launches(sg, cfg, data, m)
+        assert rec["launches"] == want, \
+            f"ac_grid_refine {rec['phase']}: {rec['launches']} != {want}"
+    assert refit["launches"] == refit_launches(sg, acg.BASE, data, model), \
+        refit["launches"]
+    for rec in after:
+        assert rec["launches"]["fused_rk_step_fwd_mid"] > 0 and \
+            rec["launches"]["fused_rk_step_bwd_mid"] > 0, rec
+    with open(os.path.join(REPO, "artifacts",
+                           "allen_cahn_grid_refine.json")) as f:
+        jax_refit = json.load(f)["refit"]
+    assert all(e < 1e-3 for e in res["refit"]["relative_refit_error"]), \
+        res["refit"]
+    from kanodes_tpu_torch.ops.kdense_pallas import chain_spec_of
+    refined = chain_spec_of(model)
+    plain = {}
+    for mode in ("shooting", "fixed"):
+        cfg = dataclasses.replace(acg.BASE, solve_mode=mode)
+        plain[mode] = hold_to_plain(torch, sg, cfg, data, model,
+                                    f"ac_grid_refine refined {mode}",
+                                    failures)
+    emit({"phase": "refinement_main_path", "run": "ac_grid_refine",
+          "solver": acg.BASE.rk_solver, "substeps": acg.BASE.substeps,
+          "refit": {k: res["refit"][k] for k in
+                    ("old_lims", "new_lims", "relative_refit_error",
+                     "eval_before", "eval_after")},
+          "jax_refit": {k: jax_refit[k] for k in
+                        ("new_lims", "relative_refit_error", "eval_before",
+                         "eval_after")},
+          "refined_h": refined.h,
+          "phases": [{k: v for k, v in r.items() if k != "launches"}
+                     | {"launches": {k: v for k, v in r["launches"].items()
+                                     if v}} for r in records],
+          "kernel_vs_plain_loss": plain, "seconds": seconds, "card": card})
+
+    # -- a wide-kernel surrogate refit -------------------------------------
+    cfg = sg.SurrogateConfig(**WIDE_REFIT)
+    out, counts, seconds = counted(lambda: sg.run_grid_refinement(
+        cfg, refit_points=(WIDE_REFIT_AT,), device="cuda"))
+    data, model = out["data"], out["model"]
+    want = {k: 0 for k in KERNELS}
+    first = sg.make_model(cfg, data, "cuda")
+    for n, m in ((WIDE_REFIT_AT, first),
+                 (cfg.iters - WIDE_REFIT_AT, model)):
+        w, _ = expected_surrogate_launches(
+            sg, dataclasses.replace(cfg, iters=n,
+                                    eval_every=min(cfg.eval_every, n)),
+            data, m)
+        for k in KERNELS:
+            want[k] += w[k]
+    for k, v in refit_launches(sg, cfg, data, model).items():
+        want[k] += v
+    assert counts == want, f"wide refit: launches {counts} != {want}"
+    losses = out["loss_history"].cpu()
+    assert bool(torch.isfinite(losses).all()), "non-finite wide refit loss"
+    (lk, lp), after_counts, _ = counted(lambda: hold_to_plain(
+        torch, sg, cfg, data, model, "wide refit refined fixed", failures))
+    assert after_counts["fused_rk_multistep_wide_fwd"] > 0 and \
+        after_counts["fused_rk_multistep_wide_bwd_lr"] > 0, after_counts
+    emit({"phase": "refinement_main_path", "run": "wide surrogate refit",
+          "problem": cfg.problem, "iters": cfg.iters,
+          "refit": out["refits"][0], "launches": {
+              k: v for k, v in counts.items() if v},
+          "launches_after_refit": {k: v for k, v in after_counts.items()
+                                   if v},
+          "kernel_loss": lk, "plain_loss": lp, "seconds": seconds,
+          "it_per_s": cfg.iters / seconds, "card": card})
+
+    torch.cuda.synchronize()
+    finish_phase({"phase": "refinement_main_path", "run": "whole phase",
+                  "seconds": time.perf_counter() - t_phase, "card": card},
+                 failures)
+    return total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "kanodes_tpu_torch")):
         raise SystemExit("chip_smoke.py: kanodes_tpu_torch/ is not beside "
@@ -4077,6 +4455,15 @@ def main() -> int:
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is "
                          "False; this smoke run needs a CUDA device")
     sys.path.insert(0, REPO)
+    from kanodes_tpu_torch.utils.precision import set_exact_f32
+
+    set_exact_f32()
+    return run_phases(torch, card_line())
+
+
+def run_phases(torch, card) -> int:
+    """Every phase after the environment checks (`main`)."""
+    import numpy as np
     from kanodes_tpu_torch.experiments import lv
     from kanodes_tpu_torch.experiments import lv_members as lvm
     from kanodes_tpu_torch.experiments import lv_symbolic as lvs
@@ -4095,11 +4482,6 @@ def main() -> int:
     from kanodes_tpu_torch.ops import rk_fused_wide as tw
     from kanodes_tpu_torch.train import loop
     from kanodes_tpu_torch.train import polish as pol
-    from kanodes_tpu_torch.utils.precision import set_exact_f32
-    import numpy as np
-
-    set_exact_f32()
-    card = card_line()
     nvcc = subprocess.run([_cuda._nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60, check=True)
     emit({"phase": "environment", "card": card, "torch": torch.__version__,
@@ -4150,6 +4532,7 @@ def main() -> int:
                                                 card),
                    phase_adjoints_main_path(torch, lv, kp, integ, loop,
                                             modules, card, max_err),
+                   phase_refinement_main_path(torch, lv, sg, modules, card),
                    members_launches):
         for name in KERNELS:
             launches[name] += counts[name]
@@ -4165,6 +4548,7 @@ def main() -> int:
     times.update(phase_members_timings(torch, lvm, ra, members_out, card))
     times.update(phase_mid_timings(torch, rk, kp, card))
     times.update(phase_stacked_timings(torch, rk, iqf, card))
+    phase_stiff_validations(torch, card)
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,

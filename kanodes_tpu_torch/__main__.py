@@ -5,8 +5,10 @@ Each command forwards argv unchanged to its module's own CLI, as
 --iters=2000`` is ``python -m kanodes_tpu_torch.experiments.lv
 --iters=2000``, ``lv-symbolic`` runs ``experiments.lv_symbolic``,
 ``source`` runs ``experiments.pde_source``, ``surrogate`` runs
-``experiments.pde_surrogate``, ``sweep`` runs ``experiments.sweep`` and
-``lv_members`` runs ``experiments.lv_members``.
+``experiments.pde_surrogate``, ``sweep`` runs ``experiments.sweep``,
+``lv_members`` runs ``experiments.lv_members``, ``bspline-lv`` runs
+``experiments.bspline_lv`` and ``ac-grid-refine`` runs
+``experiments.ac_grid_refine``.
 Only the commands of the ported slices exist.
 """
 
@@ -20,7 +22,7 @@ MODULE_COMMANDS: dict[str, tuple[str, str]] = {
     "lv": ("kanodes_tpu_torch.experiments.lv",
            "LV KAN-ODE training (--solve_mode=fixed|shooting|adaptive, "
            "--impl=xla|fused|pallas, --rtol/--atol/--max_steps/--adjoint "
-           "for adaptive, --model=kan|mlp; KANODE_LV_* env + --key=value "
+           "for adaptive, --model=kan|mlp|bspline_kan; KANODE_LV_* env + --key=value "
            "overrides, --checkpoint to save to checkpoints/lv every chunk, "
            "--restart to continue from there, --device=cuda|cpu, default "
            "cuda)"),
@@ -61,6 +63,20 @@ MODULE_COMMANDS: dict[str, tuple[str, str]] = {
                    "(--seeds, --phase_iters=a,b,c,d, --sequential=1 to "
                    "time the seed-by-seed runs too); --device=cuda|cpu, "
                    "default cuda"),
+    "bspline-lv": ("kanodes_tpu_torch.experiments.bspline_lv",
+                   "the B-spline LV recipes: --recipe=full (fixed direct, "
+                   "adaptive backsolve and interpolating adjoints, "
+                   "--iters=N each), --recipe=harness (the harness "
+                   "comparison, --curriculum=a,b,c iterations) or "
+                   "--recipe=grid (update_grid every --update_every "
+                   "iterations); --out=PATH, --device=cuda|cpu, default "
+                   "cuda"),
+    "ac-grid-refine": ("kanodes_tpu_torch.experiments.ac_grid_refine",
+                       "Allen-Cahn surrogate at grid 5: shooting warmup "
+                       "(--refit_at=N), grid-span refit, then the phases "
+                       "(--phases=a,b,c iterations) on the refined span, "
+                       "and the fixed-grid arm (--fixed_arm=0 to skip); "
+                       "--out=PATH, --device=cuda|cpu, default cuda"),
 }
 
 

@@ -1,5 +1,5 @@
 """Serializable model specs: rebuild a model from a checkpoint (port of
-`kanodes_tpu/deploy/spec.py`, kinds "kan" and "mlp").
+`kanodes_tpu/deploy/spec.py`, kinds "kan", "mlp" and "bspline_kan").
 
 The reference's checkpoints carry the network shape next to the weights
 (`size_KAN` in the .mat files, `LV_driver_KANODE.jl:252-272`), so that
@@ -9,25 +9,26 @@ its constructor arguments; `lv.run` stores it in
 `TrainState.extra["model_spec"]`. Parameters stay in the checkpoint.
 
 A "kan" spec records `use_base_act` and `trainable_grid` as JAX's
-does. The B-spline chain (M13) and the strain-limiting PINN (M14) are
-not ported: their kinds raise NotImplementedError. Export and the
-deploy CLI are M15.
+does; a "bspline_kan" spec its widths, grid size and spline order (the
+knot grid is state that `update_grid` moves: it is in the checkpoint's
+parameters, not the spec). The strain-limiting PINN (M14) is not ported:
+its kind raises NotImplementedError. Export and the deploy CLI are M15.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+from kanodes_tpu_torch.models.bspline import BSplineKAN, BSplineKANChain
 from kanodes_tpu_torch.models.kdense import KANChain, KDense
 from kanodes_tpu_torch.models.mlp import MLP
 
-_NOT_PORTED = {"bspline_kan": "M13 (models/bspline.py)",
-               "kanpinn": "M14 (pinn/model.py)"}
+_NOT_PORTED = {"kanpinn": "M14 (pinn/model.py)"}
 
 
 def spec_of(model) -> dict[str, Any]:
-    """The spec dict of a live model: a chain of KDense layers or an
-    MLP."""
+    """The spec dict of a live model: a chain of KDense layers, an MLP
+    or a B-spline chain."""
     if isinstance(model, KANChain) and all(
             isinstance(l, KDense) for l in model.layers):
         l0 = model.layers[0]
@@ -67,6 +68,22 @@ def spec_of(model) -> dict[str, Any]:
             "final_activation": model.final_activation,
             "use_bias": model.use_bias,
         }
+    if isinstance(model, BSplineKANChain) and all(
+            isinstance(l, BSplineKAN) for l in model.layers):
+        l0 = model.layers[0]
+        for k in ("grid_size", "spline_order"):
+            vals = {getattr(l, k) for l in model.layers}
+            if len(vals) != 1:
+                raise ValueError(
+                    f"spec_of needs homogeneous BSplineKAN layers; "
+                    f"attribute {k!r} differs across layers: {vals}")
+        widths = [l0.in_dims] + [l.out_dims for l in model.layers]
+        return {
+            "kind": "bspline_kan",
+            "widths": widths,
+            "grid_size": l0.grid_size,
+            "spline_order": l0.spline_order,
+        }
     raise TypeError(f"no spec rule for model type {type(model).__name__}")
 
 
@@ -87,6 +104,9 @@ def model_from_spec(spec: dict[str, Any], *, device=None):
         kw = {k: spec[k] for k in ("activation", "final_activation",
                                    "use_bias") if k in spec}
         return MLP(tuple(spec["widths"]), device=device, **kw)
+    if kind == "bspline_kan":
+        kw = {k: spec[k] for k in ("grid_size", "spline_order") if k in spec}
+        return BSplineKANChain(list(spec["widths"]), device=device, **kw)
     if kind in _NOT_PORTED:
         raise NotImplementedError(f"model spec kind {kind!r} is not ported "
                                   f"yet (ROADMAP.md, {_NOT_PORTED[kind]})")

@@ -29,8 +29,11 @@ controller per member in adaptive mode. `sparse_on` adds the L1/entropy regulari
 (`sparsify/regularization.py`) to the loss in every mode and impl, and
 `run(prune_threshold=)` prunes weak hidden nodes before training
 (`sparsify/prune.py`; the pipeline is `experiments/lv_symbolic.py`).
-`model="mlp"` trains the reference's MLP baseline (`models/mlp.py`) on
-the plain path, whatever `impl` says, as in JAX. `run(checkpoint_dir=,
+`model="mlp"` trains the reference's MLP baseline (`models/mlp.py`) and
+`model="bspline_kan"` the PyTorch flavor's efficient-kan B-spline chain
+(`models/bspline.py`, [2, layer_width, 2], grid_size intervals) on the
+plain path, whatever `impl` says, as in JAX; `run_grid_refinement`
+trains the B-spline chain with the reference's `update_grid` cadence. `run(checkpoint_dir=,
 restart=)` saves a checkpoint after every chunk of the training schedule
 and continues from the latest one, extending its histories
 (`train/checkpoint.py`; the reference's `is_restart` flow).
@@ -48,12 +51,14 @@ Run:  python -m kanodes_tpu_torch.experiments.lv [--key=value ...]
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
 import torch
 
 from kanodes_tpu_torch.interop import params_from_numpy
+from kanodes_tpu_torch.models.bspline import BSplineKANChain
 from kanodes_tpu_torch.models.kdense import KANChain
 from kanodes_tpu_torch.models.mlp import MLP
 from kanodes_tpu_torch.ode.integrate import (StepController, odeint,
@@ -79,7 +84,7 @@ class LVConfig:
     dt: float = 0.1
     u0: tuple[float, float] = (1.0, 1.0)
     # model
-    model: str = "kan"                 # kan | mlp (bspline_kan: later)
+    model: str = "kan"                 # kan | mlp | bspline_kan
     layer_width: int = 10
     kan_widths: tuple[int, ...] | None = None
     grid_size: int = 5
@@ -117,7 +122,6 @@ class LVConfig:
 def _check_slice(cfg: LVConfig) -> None:
     """Raise on what this slice of the port does not run yet."""
     later = {
-        ("model", "bspline_kan"): "M13 (models/bspline.py)",
         ("impl", "fused_wide"): "'Not ported' (the fused_wide LV route); "
                                 "the wide kernels themselves are in "
                                 "ops/rk_fused_wide.py",
@@ -127,7 +131,7 @@ def _check_slice(cfg: LVConfig) -> None:
             raise NotImplementedError(
                 f"LVConfig({field}={value!r}) is not ported yet "
                 f"(ROADMAP.md, {item})")
-    if cfg.model not in ("kan", "mlp"):
+    if cfg.model not in ("kan", "mlp", "bspline_kan"):
         raise ValueError(cfg.model)
     if cfg.impl not in ("xla", "fused", "pallas"):
         raise ValueError(f"impl must be 'xla', 'fused' or 'pallas', got "
@@ -158,10 +162,16 @@ def make_data(cfg: LVConfig, device="cuda") -> dict[str, Any]:
     }
 
 
-def make_model(cfg: LVConfig, device="cuda") -> KANChain | MLP:
+def make_model(cfg: LVConfig, device="cuda"):
     _check_slice(cfg)
     if cfg.model == "mlp":
         return MLP(cfg.mlp_widths, device=require_device(device))
+    if cfg.model == "bspline_kan":
+        # the PyTorch flavor's LV model: the efficient-kan B-spline chain
+        # ([2,10,2] grid 5, predator_prey.py:101)
+        return BSplineKANChain([2, cfg.layer_width, 2],
+                               grid_size=cfg.grid_size,
+                               device=require_device(device))
     widths = (list(cfg.kan_widths) if cfg.kan_widths is not None
               else [2, cfg.layer_width, 2])
     return KANChain.mlp_like(widths, grid_len=cfg.grid_size,
@@ -174,13 +184,16 @@ def init_params(cfg: LVConfig, model: KANChain | MLP,
                 generator: torch.Generator | None = None):
     """Glorot init scaled by `init_scale` (reference: glorot/1e5,
     LV_driver_KANODE.jl:179), every parameter (an MLP's zero biases
-    too), in place; the generator defaults to a CPU generator seeded
-    with `cfg.seed`."""
+    too) but the B-spline chain's knot grids, which are coordinates, not
+    weights (scaling them would collapse the knot span, as JAX notes), in
+    place; the generator defaults to a CPU generator seeded with
+    `cfg.seed`."""
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     model.init(generator)
-    for p in model.parameters():
-        p.mul_(cfg.init_scale)
+    for name, p in model.named_parameters():
+        if not (cfg.model == "bspline_kan" and name.endswith("grid")):
+            p.mul_(cfg.init_scale)
     return model
 
 
@@ -226,8 +239,9 @@ def make_ode_fns(cfg: LVConfig, model: KANChain, data, *, reduce_fn=None,
     u0 = X[0]
     adaptive = cfg.solve_mode == "adaptive"
     members = adaptive and n_members is not None
-    # the kernels take KDense chains; an MLP runs the plain path (JAX:
-    # the fused and pallas routes only for model == "kan")
+    # the kernels take KDense chains; an MLP and the B-spline chain run
+    # the plain path (JAX: the fused and pallas routes only for
+    # model == "kan")
     kan = cfg.model == "kan"
     use_fused = cfg.impl == "fused" and kan
     use_pallas = cfg.impl == "pallas" and kan
@@ -515,6 +529,74 @@ def _restored_model(cfg: LVConfig, model, st: dict, device):
                                           kan_widths=tuple(spec["widths"]))
     return model, dataclasses.replace(cfg,
                                       layer_width=model.layers[0].out_dims)
+
+
+def run_grid_refinement(cfg: LVConfig | None = None, *,
+                        update_every: int = 500, verbose: bool = False,
+                        device="cuda", params=None,
+                        generator: torch.Generator | None = None
+                        ) -> dict[str, Any]:
+    """The efficient-kan `update_grid` cadence on the B-spline LV model
+    (JAX `lv.run_grid_refinement`): train a block of `update_every`
+    iterations (a fresh Adam each block, as JAX), refit every layer's
+    knot grid to the quantiles of its current inputs along the predicted
+    train trajectory (the function-keeping lstsq refit), and go on; the
+    reference train loop's `model(x, update_grid=True)` rhythm
+    (`efficientkan.py:263-266`). `params`: JAX-layout arrays to start
+    from (`interop.bspline_params_from_numpy`), else `init_params` with
+    `generator`.
+
+    Returns run()'s keys (the histories concatenated over blocks) plus
+    `refits`, the (loss_before, loss_after) pair of every refit.
+    """
+    cfg = cfg or LVConfig(model="bspline_kan", iters=3000, lr=2e-3,
+                          init_scale=1.0)
+    if cfg.model != "bspline_kan":
+        raise ValueError("grid refinement applies to the B-spline chain")
+    set_exact_f32()
+    data = make_data(cfg, device)
+    model = make_model(cfg, device)
+    if params is None:
+        init_params(cfg, model, generator)
+    else:
+        params_from_numpy(model, params)
+    loss_fn, eval_fn, predict = make_ode_fns(cfg, model, data)
+    n = data["n_train"]
+    grid_train = (data["ts"] if cfg.solve_mode == "adaptive"
+                  else data["ts_host"])[:n]
+
+    n_blocks = max(cfg.iters // update_every, 1)
+    losses, evals, refits = [], [], []
+    best_loss, best_params = math.inf, None
+    for b in range(n_blocks):
+        out = train(loss_fn, model,
+                    TrainConfig(lr=cfg.lr, iters=update_every,
+                                eval_every=min(cfg.eval_every, update_every),
+                                max_iters_per_call=cfg.max_iters_per_call),
+                    eval_fn=eval_fn)
+        losses.append(out["loss_history"])
+        evals.append(out["eval_history"])
+        block_best = float(out["best_loss"])     # the block's one sync
+        if block_best < best_loss:
+            best_loss, best_params = block_best, out["best_params"]
+        if b < n_blocks - 1:
+            # knots -> quantiles of the states the RHS actually sees
+            with torch.no_grad():
+                xs = predict(model, grid_train)
+                pre = float(loss_fn(model))
+                model.update_grids(xs)
+                post = float(loss_fn(model))
+            refits.append((pre, post))
+            if verbose:
+                print(f"[lv-grid] block {b}: refit loss {pre:.3e} -> "
+                      f"{post:.3e}", flush=True)
+    return {"params": {k: v.detach().clone()
+                       for k, v in model.named_parameters()},
+            "best_params": best_params, "best_loss": best_loss,
+            "loss_history": torch.cat(losses),
+            "eval_history": torch.cat(evals),
+            "refits": refits, "cfg": cfg,
+            "model": model, "data": data, "predict": predict}
 
 
 def main(argv: list[str]) -> int:

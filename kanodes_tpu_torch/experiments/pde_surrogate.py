@@ -30,8 +30,10 @@ At these widths K2/K3 run their medium flavor, a block a row
 (`csrc/kan_chain_block.cuh`); a chain past its caps raises ValueError
 naming ROADMAP.md 2a. Kernels
 run on CUDA tensors and their plain versions on CPU tensors. The sharded
-path (`mesh=`), `run_grid_refinement` and `bwd_precision="bf16"` raise
-NotImplementedError naming their ROADMAP.md item.
+path (`mesh=`) and `bwd_precision="bf16"` raise NotImplementedError
+naming their ROADMAP.md item. `run_grid_refinement` refits the chain's
+grid span during training (`sparsify/grid_refine.py`), and the fused
+route then runs its kernels at the refined span.
 
 Run:  python -m kanodes_tpu_torch.experiments.pde_surrogate
       [--problem=burgers|allen_cahn|allen_cahn_2d|schrodinger]
@@ -381,10 +383,78 @@ def run(cfg: SurrogateConfig | None = None, params=None, *, device="cuda",
     return out
 
 
-def run_grid_refinement(cfg: SurrogateConfig | None = None, **kw):
-    raise NotImplementedError(
-        "run_grid_refinement is not ported yet (ROADMAP.md, M10's "
-        "remainder: sparsify/grid_refine.py)")
+def run_grid_refinement(cfg: SurrogateConfig | None = None, *,
+                        refit_points: tuple[int, ...] | None = None,
+                        verbose: bool = False, device="cuda", params=None,
+                        generator: torch.Generator | None = None
+                        ) -> dict[str, Any]:
+    """Train with the efficient-kan `update_grid` cadence on a KDense
+    surrogate chain (JAX `pde_surrogate.run_grid_refinement`): at each
+    iteration in `refit_points` (default: one refit at 10% of the
+    budget), refit the shared basis-grid span onto the normalized inputs
+    the current trajectory visits (`sparsify/grid_refine.
+    refine_kdense_chain_grid`) and rebuild the objectives on the refined
+    chain, so that the fused route runs its kernels with the new span's
+    constants (a new `ChainSpec`: grid_lims, h). A fresh Adam each block,
+    as in JAX.
+
+    Refits are early-training events: the lstsq projection between rbf
+    spaces on different centers perturbs the learned functions by an
+    O(1e-3)-relative floor, negligible early, dominant after convergence.
+
+    `params`: per-layer `{"C", "W"}` numpy arrays to start from, else the
+    chain's init drawn from `generator` (a CPU generator seeded with
+    `cfg.seed` if None). Returns run()'s keys for the last block (model,
+    params, histories concatenated over the blocks) plus `refits` (per
+    refit: old and new spans, the refit errors, the snapshot loss before
+    and after).
+    """
+    from kanodes_tpu_torch.sparsify.grid_refine import \
+        refine_kdense_chain_grid
+    cfg = cfg or SurrogateConfig(problem="allen_cahn")
+    _check_slice(cfg)
+    set_exact_f32()
+    if refit_points is None:
+        refit_points = (max(cfg.iters // 10, 1),)
+    data = make_data(cfg)
+    model = make_model(cfg, data, device)
+    if params is None:
+        model.init(generator if generator is not None
+                   else torch.Generator().manual_seed(cfg.seed))
+    else:
+        chain_params_from_numpy(model, params)
+
+    bounds = [p for p in sorted(refit_points) if p < cfg.iters]
+    blocks = np.diff([0] + bounds + [cfg.iters]).tolist()
+    losses, evals, refits = [], [], []
+    for bi, iters_b in enumerate(blocks):
+        cfg_block = dataclasses.replace(cfg, iters=int(iters_b))
+        train_loss, eval_loss, predict = make_fns(cfg_block, model, data)
+        tc = TrainConfig(lr=cfg.resolved_lr(), iters=int(iters_b),
+                         eval_every=min(cfg.eval_every, int(iters_b)),
+                         max_iters_per_call=cfg.resolved_chunk())
+        out = train(train_loss, model, tc, eval_fn=eval_loss)
+        losses.append(out["loss_history"])
+        evals.append(out["eval_history"])
+        if bi < len(blocks) - 1:
+            with torch.no_grad():
+                samples = predict(model)
+                before = float(eval_loss(model))
+                model, info = refine_kdense_chain_grid(model, samples)
+                _, eval_new, _ = make_fns(cfg_block, model, data)
+                after = float(eval_new(model))
+            info.update(eval_before=before, eval_after=after)
+            refits.append(info)
+            if verbose:
+                print(f"[refit @{sum(blocks[:bi + 1])}] lims "
+                      f"{info['old_lims']} -> {info['new_lims']}, eval "
+                      f"{before:.3e} -> {after:.3e} (refit err "
+                      f"{info['relative_refit_error']})", flush=True)
+    out.update(cfg=cfg, model=model, data=data, predict=predict,
+               refits=refits,
+               loss_history=torch.cat(losses),
+               eval_history=torch.cat(evals))
+    return out
 
 
 def main(argv: list[str]) -> int:

@@ -14,6 +14,10 @@ picks by the model. A stacked multi-seed tree (JAX's `init_stacked`: the
 chain's per-layer dicts with [S, ...] leaves) goes into the port's
 `train.loop.Stacked` with `stacked_params_from_numpy`, and S members of
 different widths into a `HeteroPacked` with `hetero_params_from_numpy`.
+A B-spline chain's are per-layer `{"base_w", "coeff", "grid", "scaler"}`
+(`kanodes_tpu.models.BSplineKANChain`), the knot grid included:
+`bspline_params_from_numpy` / `bspline_params_to_numpy`; a
+`HybridKANMLP`'s `{"gate", "kan", "mlp"}`: `hybrid_params_from_numpy`.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import numpy as np
 import torch
 from torch.nn.utils import parametrize
 
+from kanodes_tpu_torch.models.bspline import BSplineKANChain
+from kanodes_tpu_torch.models.hybrid import HybridKANMLP
 from kanodes_tpu_torch.models.mlp import MLP
 from kanodes_tpu_torch.models.packed import pack_params
 
@@ -137,11 +143,61 @@ def mlp_params_to_numpy(mlp) -> list[dict[str, np.ndarray]]:
     return out
 
 
+@torch.no_grad()
+def _copy_named(module, params, names) -> None:
+    """Copy the arrays `params[name]` into `module`'s tensors of those
+    names (on their device, as float32). Names and shapes must match."""
+    if set(params) != set(names):
+        raise ValueError(f"layer keys {sorted(params)} != {list(names)}")
+    for name in names:
+        dst = getattr(module, name)
+        src = np.array(params[name], dtype=np.float32)
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: shape {src.shape} != "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(src).to(dst.device))
+
+
+def bspline_params_from_numpy(chain, params) -> None:
+    """Copy per-layer `{"base_w", "coeff", "grid", "scaler"}` arrays (JAX's
+    B-spline chain params, the knot grid included; no scaler without the
+    standalone scaler) into the chain's tensors."""
+    if len(params) != len(chain.layers):
+        raise ValueError(f"{len(params)} param dicts for "
+                         f"{len(chain.layers)} layers")
+    for layer, p in zip(chain.layers, params):
+        _copy_named(layer, p, [n for n, _ in layer.named_parameters()])
+
+
+def bspline_params_to_numpy(chain) -> list[dict[str, np.ndarray]]:
+    """The chain's tensors as per-layer numpy arrays under JAX's names,
+    the current knot grid included."""
+    return [{n: p.detach().cpu().numpy().copy()
+             for n, p in layer.named_parameters()} for layer in chain.layers]
+
+
+@torch.no_grad()
+def hybrid_params_from_numpy(model, params) -> None:
+    """JAX's `HybridKANMLP` params `{"gate", "kan", "mlp"}` into the
+    port's model."""
+    if set(params) != {"gate", "kan", "mlp"}:
+        raise ValueError(f"hybrid keys {sorted(params)} != "
+                         f"['gate', 'kan', 'mlp']")
+    _copy_named(model, {"gate": params["gate"]}, ["gate"])
+    bspline_params_from_numpy(model.kan, params["kan"])
+    mlp_params_from_numpy(model.mlp, params["mlp"])
+
+
 def params_from_numpy(model, params) -> None:
-    """JAX-layout per-layer arrays into `model`: an MLP's `{"W", "b"}`
-    or a KDense chain's `{"C", "W"}`."""
+    """JAX-layout arrays into `model`: an MLP's `{"W", "b"}`, a B-spline
+    chain's `{"base_w", "coeff", "grid", "scaler"}`, a hybrid's `{"gate",
+    "kan", "mlp"}` or a KDense chain's `{"C", "W"}`."""
     if isinstance(model, MLP):
         mlp_params_from_numpy(model, params)
+    elif isinstance(model, BSplineKANChain):
+        bspline_params_from_numpy(model, params)
+    elif isinstance(model, HybridKANMLP):
+        hybrid_params_from_numpy(model, params)
     else:
         chain_params_from_numpy(model, params)
 

@@ -475,8 +475,10 @@ def _continuous(kind, f, tab, y0, ts, args, rtol, atol, dt0, max_steps,
 def _arg_tensors(args) -> list[Tensor]:
     """The tensors of `args` in the JAX package's leaf order: a module's
     parameters (`named_parameters`: per KDense layer C, W, then
-    grid_offset and log_h, JAX's sorted dict keys), a tensor, or the
-    leaves of a tuple of tensors; None has none."""
+    grid_offset and log_h; per B-spline layer base_w, coeff, grid,
+    scaler: JAX's sorted dict keys; a parameter that does not require
+    grad, as the B-spline knot grid, included), a tensor, or the leaves
+    of a tuple of tensors; None has none."""
     if args is None:
         return []
     if isinstance(args, nn.Module):
@@ -542,8 +544,9 @@ class _Adjoint:
             return self.f(t, y, self.args)
 
     def vjp(self, t, y, a_y):
-        """(f(t, y), a_y . df/dy, a_y . df/dargs over the differentiated
-        tensors), out of the graph; unused tensors get zeros."""
+        """(f(t, y), a_y . df/dy, a_y . df/dargs), out of the graph; the
+        tensors not differentiated (a module's parameters that do not
+        require grad) and unused ones get zeros."""
         with torch.enable_grad():
             y_ = _tmap(lambda v: v.detach().requires_grad_(), y)
             if isinstance(self.args, nn.Module) or self.args is None:
@@ -562,8 +565,11 @@ class _Adjoint:
                      if pairs else [None] * len(wrt))
         grads = [torch.zeros_like(w) if g is None else g
                  for g, w in zip(grads, wrt)]
+        it = iter(grads[self.n_y:])
+        args_bar = tuple(next(it) if d else torch.zeros_like(p)
+                         for p, d in zip(self.params, self.diff))
         return (_tmap(Tensor.detach, out),
-                _rebuild(y, iter(grads[:self.n_y])), tuple(grads[self.n_y:]))
+                _rebuild(y, iter(grads[:self.n_y])), args_bar)
 
     def forward(self, y0, ts):
         """The "none" loop; the interpolating adjoint records its
@@ -579,8 +585,10 @@ class _Adjoint:
         return _fill_unreached(st)
 
     def zero_args(self) -> tuple:
-        return tuple(torch.zeros_like(p) for p, d in
-                     zip(self.params, self.diff) if d)
+        """JAX's `zeros_like(args)`: a cotangent for every tensor of the
+        args, the ones not differentiated included (they stay zero, and
+        count in backsolve's augmented error norm, as in JAX)."""
+        return tuple(torch.zeros_like(p) for p in self.params)
 
     def backsolve(self, ts, ys, ys_bar):
         """JAX `_backsolve_bwd`: one adaptive solve of the augmented
@@ -686,10 +694,8 @@ class _AdjointSolve(torch.autograd.Function):
                 a_y, ts_bar, a_args = prob.interpolating(ts, ys, ys_bar)
         # masked tensors: the solved cotangent dropped (JAX's
         # stop_gradient outside the custom_vjp)
-        it = iter(a_args)
-        grads = [next(it) if d else None for d in prob.diff]
-        grads = [g if g is not None and k else torch.zeros_like(p)
-                 for g, k, p in zip(grads, prob.kept, prob.params)]
+        grads = [g if d and k else torch.zeros_like(p) for g, d, k, p in
+                 zip(a_args, prob.diff, prob.kept, prob.params)]
         return (None, ts_bar, *_leaves(a_y), *grads)
 
 

@@ -8,8 +8,8 @@ autograd differentiates them, and they are the reference the fused
 kernels' plain versions are built from. All bases broadcast
 `x[..., 1] against grid[G] -> [..., G]`. `gelu` is the tanh
 approximation, `jax.nn.gelu`'s default, in JAX's expression.
-
-`bspline_basis` is not ported yet (ROADMAP.md, M13).
+`bspline_basis` and `make_bspline_grid` are the B-spline layer's
+(`models/bspline.py`): Cox-de Boor on a per-feature padded knot grid.
 """
 
 from __future__ import annotations
@@ -211,3 +211,41 @@ def get_base_act(name_or_fn):
     if callable(name_or_fn):
         return name_or_fn
     return BASE_ACTS[name_or_fn]
+
+
+# ---------------------------------------------------------------------------
+# Cox-de Boor B-spline basis (efficientkan.py:78-111): a per-feature padded
+# knot grid [I, G + 2k + 1], bases of order k by recursion, so that the
+# quantile refit of `models/bspline.update_grid` can move the knots.
+# ---------------------------------------------------------------------------
+
+def bspline_basis(x: Tensor, grid: Tensor, k: int) -> Tensor:
+    """B-spline bases of order `k` (degree k) on a padded knot grid.
+
+    x: [..., I] inputs; grid: [I, G + 2k + 1] knots, ascending along the
+    last axis; returns [..., I, G + k] basis values (each row sums to 1
+    inside the grid)."""
+    x = x[..., None]                         # [..., I, 1]
+    # order 0: the indicator of the knot interval
+    b = ((x >= grid[..., :-1]) & (x < grid[..., 1:])).to(x.dtype)
+    for d in range(1, k + 1):
+        left_num = x - grid[..., : -(d + 1)]
+        left_den = grid[..., d:-1] - grid[..., : -(d + 1)]
+        right_num = grid[..., d + 1:] - x
+        right_den = grid[..., d + 1:] - grid[..., 1:-d]
+        b = (left_num / left_den) * b[..., :-1] \
+            + (right_num / right_den) * b[..., 1:]
+    return b
+
+
+def make_bspline_grid(in_dims: int, grid_size: int, k: int,
+                      grid_range: tuple[float, float] = (-1.0, 1.0),
+                      dtype=torch.float32, device=None) -> Tensor:
+    """Padded uniform knot grid, one row per input feature
+    (efficientkan.py:27-36): (arange(-k, G + k + 1) * h + lo) in `dtype`,
+    h = (hi - lo) / G, as JAX rounds it."""
+    lo, hi = grid_range
+    h = (hi - lo) / grid_size
+    knots = torch.arange(-k, grid_size + k + 1, dtype=dtype,
+                         device=device) * h + lo
+    return knots[None, :].repeat(in_dims, 1)

@@ -1,3 +1,2 @@
-"""Sparsity regularization, per-edge activations and pruning of KAN
-chains (port of `kanodes_tpu/sparsify/`; `grid_refine.py` waits for the
-B-spline model, ROADMAP.md M13)."""
+"""Sparsity regularization, per-edge activations, pruning and grid
+refinement of KAN chains (port of `kanodes_tpu/sparsify/`)."""

@@ -6,8 +6,8 @@ edges whose spline-coefficient magnitude falls below a threshold are
 zeroed via a persistent mask (soft pruning — shapes stay the same;
 contrast with the KDense `prune`, which repacks shapes,
 `sparsify/prune.py`). The layers are dicts of tensors: `coeff`
-[I, G+k, O], `base_w` [I, O] and optionally `scaler` [I, O]. The
-B-spline model itself waits for ROADMAP.md M13.
+[I, G+k, O], `base_w` [I, O] and optionally `scaler` [I, O] (a
+`models.bspline.BSplineKANChain`'s `param_dicts()`).
 """
 
 from __future__ import annotations

@@ -10,8 +10,9 @@ The PyTorch flavor's extra L2 / spline-smoothness terms
 (`optimized_kan.py:211-233`) are provided as well.
 
 Each term takes a model (its `parameters()`, in registration order: for
-a `KANChain` each layer's `C` then `W`, the JAX pytree's leaf order) or
-an iterable of tensors in place of the JAX pytree. The terms are plain
+a `KANChain` each layer's `C` then `W`, for a B-spline chain `base_w`,
+`coeff`, `grid`, `scaler`, the JAX pytree's leaf order) or an iterable
+of tensors in place of the JAX pytree. The terms are plain
 torch ops: autograd adds their gradient to whatever the loss's kernels
 write into the same parameters.
 """
@@ -24,10 +25,12 @@ from torch import nn
 Tensor = torch.Tensor
 
 
-def _leaves(params) -> list[Tensor]:
-    if isinstance(params, nn.Module):
-        return list(params.parameters())
-    return list(params)
+def _leaves(params, weights_only: bool = False) -> list[Tensor]:
+    leaves = (list(params.parameters()) if isinstance(params, nn.Module)
+              else list(params))
+    if weights_only:
+        leaves = [x for x in leaves if x.requires_grad]
+    return leaves
 
 
 def _abs(x: Tensor) -> Tensor:
@@ -51,20 +54,26 @@ def l1_entropy_reg(params, act_reg: float = 1.0, entropy_reg: float = 1.0,
     return act_reg * total + entropy_reg * entropy
 
 
-def l2_reg(params, weight: float = 1.0) -> Tensor:
-    """Sum of squares (optimized_kan.py:211-216)."""
-    sq = sum(torch.sum(x * x) for x in _leaves(params))
+def l2_reg(params, weight: float = 1.0, *,
+           weights_only: bool = False) -> Tensor:
+    """Sum of squares (optimized_kan.py:211-216). `weights_only` leaves
+    out the tensors that do not require grad: the B-spline knot grid,
+    coordinates rather than weights (`scripts/harness_compare.py`'s
+    `_weights_only`); by default every leaf counts, as in JAX."""
+    sq = sum(torch.sum(x * x) for x in _leaves(params, weights_only))
     return weight * sq
 
 
 def spline_smoothness_reg(kan_params, weight: float = 1.0) -> Tensor:
     """Second-difference penalty along each edge's grid coefficients
-    (optimized_kan.py:218-233). Accepts a chain (its layers' `C`) or a
-    list of dicts with the spline tensor under "C" (KDense, [I, G, O])
-    or "coeff" (B-spline layers, [I, G+k, O]) — the penalty runs over
-    the middle (grid) axis either way."""
+    (optimized_kan.py:218-233). Accepts a chain (its layers' `C`, or a
+    B-spline chain's `coeff`) or a list of dicts with the spline tensor
+    under "C" (KDense, [I, G, O]) or "coeff" (B-spline layers,
+    [I, G+k, O]) — the penalty runs over the middle (grid) axis either
+    way."""
     if isinstance(kan_params, nn.Module):
-        kan_params = [{"C": layer.C} for layer in kan_params.layers]
+        kan_params = [{"coeff": layer.coeff} if hasattr(layer, "coeff")
+                      else {"C": layer.C} for layer in kan_params.layers]
     total = 0.0
     for p in kan_params:
         C = p["C"] if "C" in p else p.get("coeff")

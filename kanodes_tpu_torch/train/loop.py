@@ -341,6 +341,14 @@ def train(loss_fn: Callable[[nn.Module], Tensor],
     "eval_history" [n_evals] or [n_evals, S].
     """
     names, params = zip(*model.named_parameters())
+    frozen = [n for n, p in zip(names, params) if not p.requires_grad]
+    if cfg.optimizer == "adamw" and cfg.weight_decay and frozen:
+        # optax's add_decayed_weights decays every leaf, JAX's
+        # stop_gradient ones (the B-spline knot grid) too; here a
+        # parameter that does not require grad takes no step
+        raise ValueError(f"adamw with weight_decay={cfg.weight_decay} "
+                         f"would leave {frozen} as they are, where JAX "
+                         f"decays them: not ported")
     scales = (None if lr_scales is None
               else _scales_of(model, names, params, lr_scales))
     opt = make_optimizer(cfg, params, scales)

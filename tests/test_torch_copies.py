@@ -2,8 +2,8 @@
 originals, and the port imports no JAX.
 
 The port copies `ode/tableaus.py`, `utils/host_rk.py`, `train/config.py`,
-`pde/datagen.py`, `symbolic/engine.py` with `native/symreg.cpp`, and
-`symbolic/sindy.py` instead of importing them: `import kanodes_tpu.<any>`
+`pde/datagen.py`, `symbolic/engine.py` with `native/symreg.cpp`,
+`symbolic/sindy.py` and `diag/metrics.py` instead of importing them: `import kanodes_tpu.<any>`
 runs `kanodes_tpu/__init__.py`, which imports jax, and the GPU host has
 no jax. A copy may differ from its original only where the original
 reaches JAX or the JAX package's paths.
@@ -17,6 +17,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -100,7 +101,7 @@ def test_port_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     for sub in ("pde", "symbolic", "ops", "experiments", "models", "deploy",
-                "train"):
+                "train", "diag", "sparsify"):
         assert any(f.parent.name == sub for f in files), sub
     for path in files:
         text = path.read_text()
@@ -135,6 +136,14 @@ def test_port_imports_without_jax_in_a_fresh_process():
         "import kanodes_tpu_torch.train.polish\n"
         "import kanodes_tpu_torch.models.mlp\n"
         "import kanodes_tpu_torch.deploy.spec\n"
+        "import kanodes_tpu_torch.models.bspline\n"
+        "import kanodes_tpu_torch.models.hybrid\n"
+        "import kanodes_tpu_torch.diag.metrics\n"
+        "import kanodes_tpu_torch.train.harness\n"
+        "import kanodes_tpu_torch.sparsify.grid_refine\n"
+        "import kanodes_tpu_torch.ode.stiff\n"
+        "import kanodes_tpu_torch.experiments.bspline_lv\n"
+        "import kanodes_tpu_torch.experiments.ac_grid_refine\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'optax' or m == 'kanodes_tpu'"
         " or m.startswith('kanodes_tpu.')]\n"
@@ -181,9 +190,18 @@ def test_cyclic_lap_and_lap2d_bitwise():
                                   jdatagen._lap2d_periodic_np(u, 0.125))
 
 
-def test_validate_truth_against_stiff_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="M13"):
-        datagen.validate_truth_against_stiff()
+def test_validate_truth_against_stiff_runs_as_jax():
+    """The stiff cross-check (it raised before M13), held by its output
+    (the copy test skips it: it solves in torch): at a coarse grid in
+    float64 the same disagreement as JAX's under enable_x64
+    (tests/test_torch_stiff.py holds a finer one)."""
+    with jax.enable_x64():
+        want = jdatagen.validate_truth_against_stiff("allen_cahn_surrogate",
+                                                     dx=0.5)
+    got = datagen.validate_truth_against_stiff("allen_cahn_surrogate",
+                                               dx=0.5, device="cpu")
+    assert got["mse"] == pytest.approx(want["mse"], rel=1e-3)
+    assert got["scale"] == want["scale"]
 
 
 def _top_level(path: Path, skip: set[str]) -> dict[str, str]:
@@ -198,6 +216,8 @@ def _top_level(path: Path, skip: set[str]) -> dict[str, str]:
                                                       ast.Constant):
             continue                                  # module docstring
         name = getattr(node, "name", None)
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            name = "import " + ",".join(a.name for a in node.names)
         if name is None and isinstance(node, ast.Assign):
             name = ",".join(ast.unparse(t) for t in node.targets)
         if name in skip:
@@ -215,14 +235,18 @@ def _top_level(path: Path, skip: set[str]) -> dict[str, str]:
 @pytest.mark.parametrize("copy,original,skip", [
     ("pde/datagen.py", "kanodes_tpu/pde/datagen.py",
      {"validate_truth_against_stiff"}),
+    ("diag/metrics.py", "kanodes_tpu/diag/metrics.py",
+     {"import jax", "Array"}),
     ("symbolic/sindy.py", "kanodes_tpu/symbolic/sindy.py", {"sindy_rhs"}),
     ("symbolic/engine.py", "kanodes_tpu/symbolic/engine.py",
      {"_HERE", "_SO", "_build"}),
 ])
 def test_copies_equal_their_originals(copy, original, skip):
     """Statement by statement, docstrings aside: datagen less the stiff
-    cross-check (ode/stiff.py, M13), sindy less `sindy_rhs` (a JAX model,
-    M12), the engine less its path constants and the build into them."""
+    cross-check (it solves in torch; held by its output), metrics less
+    JAX's import and its `Array` alias (numpy's here), sindy less
+    `sindy_rhs` (a JAX model, M12), the engine less its path constants
+    and the build into them."""
     got = _top_level(PORT / copy, skip)
     want = _top_level(ROOT / original, skip)
     assert list(got) == list(want)

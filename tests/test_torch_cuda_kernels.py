@@ -144,7 +144,8 @@ def test_k3m_matches_plain_on_the_mid_cases(card, index):
     failures, max_err = [], {k: 0.0 for k in chip_smoke.KERNELS}
     rk.reset_launch_counts()
     chip_smoke.check_multistep(torch, rk, spec, case.label, case.n, x,
-                               params, gys, failures, max_err, dt=case.dt)
+                               params, gys, failures, max_err, dt=case.dt,
+                               solver=case.solver)
     torch.cuda.synchronize()
     assert not failures, failures
     assert rk.LAUNCHES["fused_rk_multistep_fwd_mid"] == 2
@@ -1177,3 +1178,27 @@ def test_forward_plans_match_the_library(card, widths, grid_len, K):
     for layer, split in ((0, mf.layer1), (1, mf.layer2)):
         assert tuple(out[3 + 7 * layer:10 + 7 * layer]) == tuple(split)
     assert lib.mb_smem_bytes(dims, K, 7, 0) == mf.smem_bytes
+
+
+def test_graphed_kvaerno3_steps_equal_the_eager_loop(card, monkeypatch):
+    """On the card each adaptive Kvaerno3 step (`ode/stiff.py`) is one
+    CUDA graph of every masked Newton sweep: on a stiff system in float64
+    the solution and the step counts equal, bit for bit, the eager loop
+    that stops each Newton solve once settled."""
+    from kanodes_tpu_torch.ode import stiff
+
+    def f(t, y, args):
+        return torch.stack([-1000.0 * (y[0] - torch.cos(t)) - torch.sin(t),
+                            -y[1] + y[0] * y[1]])
+
+    y0 = torch.tensor([0.5, 1.0], dtype=torch.float64, device=card)
+    ts = torch.linspace(0.0, 1.0, 6, dtype=torch.float64, device=card)
+    kw = dict(adaptive=True, rtol=1e-8, atol=1e-10, newton_tol=1e-10,
+              return_stats=True)
+    ys_graph, st_graph = stiff.odeint_implicit(f, y0, ts, **kw)
+    monkeypatch.setattr(stiff, "_graphed_step", lambda f, y, args, it, tol: (
+        lambda t, y, dt: stiff._kvaerno3_step(f, t, y, dt, args, it, tol,
+                                              True)))
+    ys_eager, st_eager = stiff.odeint_implicit(f, y0, ts, **kw)
+    assert st_graph == st_eager and st_graph["success"]
+    assert torch.equal(ys_graph, ys_eager)

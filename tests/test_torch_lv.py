@@ -215,13 +215,24 @@ def test_profiler_needs_a_card():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(model="bspline_kan"), "M13"),
     (dict(impl="fused_wide"), "fused_wide"),
     (dict(bwd_precision="bf16", impl="fused", iters=1), "bf16"),
 ])
 def test_outside_the_slice_raises_naming_roadmap(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         T.run(T.LVConfig(**kw), device="cpu")
+
+
+def test_bspline_model_runs_with_a_kernel_impl():
+    """model="bspline_kan" (it raised before M13) with impl="fused":
+    the B-spline chain takes the plain route whatever impl says, as in
+    JAX, so the run equals the impl="xla" run's."""
+    cfg = dict(model="bspline_kan", iters=2, eval_every=2, lr=2e-3,
+               solve_mode="shooting", segment_len=2)
+    out = T.run(T.LVConfig(impl="fused", **cfg), device="cpu")
+    ref = T.run(T.LVConfig(impl="xla", **cfg), device="cpu")
+    assert torch.equal(out["loss_history"], ref["loss_history"])
+    assert bool(torch.isfinite(out["loss_history"]).all())
 
 
 @pytest.mark.parametrize("kw", [
@@ -252,17 +263,27 @@ def test_continuous_adjoint_runs_train(kw):
                                ref["eval_history"].numpy(), rtol=1e-4)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(checkpoint_dir="ckpt"), "M13"),
-    (dict(checkpoint_dir="ckpt", restart=True), "M13"),
-])
-def test_run_options_outside_the_slice_raise(kw, item, tmp_path):
-    """run(checkpoint_dir=, restart=) are ported (M8); with a model
-    outside the slice they raise before anything is written."""
-    kw = dict(kw, checkpoint_dir=str(tmp_path / kw["checkpoint_dir"]))
-    with pytest.raises(NotImplementedError, match=item):
-        T.run(T.LVConfig(model="bspline_kan", iters=1), device="cpu", **kw)
-    assert not (tmp_path / "ckpt").exists()
+@pytest.mark.parametrize("restart", [False, True],
+                         ids=["checkpoint", "restart"])
+def test_bspline_run_checkpoints_and_restarts(restart, tmp_path):
+    """run(checkpoint_dir=, restart=) with the B-spline model (these
+    raised before M13): a checkpoint holds the spec and the current knot
+    grid; a restart continues from it, extending the histories."""
+    from kanodes_tpu_torch.train.checkpoint import Checkpointer
+    ckpt = str(tmp_path / "ckpt")
+    cfg = T.LVConfig(model="bspline_kan", iters=2, eval_every=2, lr=2e-3,
+                     solve_mode="shooting")
+    first = T.run(cfg, device="cpu", checkpoint_dir=ckpt)
+    st = Checkpointer(ckpt).restore()
+    assert st["extra"]["model_spec"]["kind"] == "bspline_kan"
+    for name, p in first["model"].named_parameters():
+        np.testing.assert_array_equal(st["params"][name], p.detach().numpy())
+    assert "layers.0.grid" in st["params"]
+    if restart:
+        again = T.run(cfg, device="cpu", checkpoint_dir=ckpt, restart=True)
+        assert again["loss_history"].shape == (4,)
+        assert torch.equal(again["loss_history"][:2], first["loss_history"])
+        assert Checkpointer(ckpt).latest_step() == 4
 
 
 def test_cli_runs_lv_on_cpu():

@@ -230,8 +230,6 @@ def test_what_is_not_ported_raises_naming_its_roadmap_item():
         T.build_mesh(cfg)
     with pytest.raises(NotImplementedError, match="M16"):
         T.make_sharded_fns(cfg, model, data, None)
-    with pytest.raises(NotImplementedError, match="M10"):
-        T.run_grid_refinement(cfg)
     with pytest.raises(NotImplementedError, match="bf16"):
         T.make_fns(dataclasses.replace(cfg, impl="fused",
                                        bwd_precision="bf16"), model, data)

@@ -7,9 +7,10 @@ Each command forwards argv unchanged to its module's own CLI, as
 ``source`` runs ``experiments.pde_source``, ``surrogate`` runs
 ``experiments.pde_surrogate``, ``sweep`` runs ``experiments.sweep``,
 ``lv_members`` runs ``experiments.lv_members``, ``bspline-lv`` runs
-``experiments.bspline_lv`` and ``ac-grid-refine`` runs
-``experiments.ac_grid_refine``.
-Only the commands of the ported slices exist.
+``experiments.bspline_lv``, ``ac-grid-refine`` runs
+``experiments.ac_grid_refine`` and ``pinn`` runs ``pinn.train``; ``gates``
+calls ``diag.gates.main(args)`` and returns its exit code (0 PASS, 1
+FAIL, 2 bad usage). Only the commands of the ported slices exist.
 """
 
 from __future__ import annotations
@@ -77,6 +78,26 @@ MODULE_COMMANDS: dict[str, tuple[str, str]] = {
                        "(--phases=a,b,c iterations) on the refined span, "
                        "and the fixed-grid arm (--fixed_arm=0 to skip); "
                        "--out=PATH, --device=cuda|cpu, default cuda"),
+    "pinn": ("kanodes_tpu_torch.pinn.train",
+             "strain-limiting V-notch KAN-PINN (--julia preset, "
+             "--checkpoint[=dir], --resume, --out=diag.json, "
+             "--init=jax_seed42 for JAX's full-width init, "
+             "--device=cuda|cpu, default cuda)"),
+}
+
+
+def _gates(args: list[str]) -> int:
+    from kanodes_tpu_torch.diag.gates import main as gates_main
+    return gates_main(args)
+
+
+# command -> (function called with the rest of argv, returning the exit
+# code; one-line help)
+FUNC_COMMANDS: dict[str, tuple] = {
+    "gates": (_gates,
+              "PINN acceptance gates: <diagnostics.json> | "
+              "--checkpoint <dir> [--device=cuda|cpu] (exit 0 PASS / 1 "
+              "FAIL / 2 bad usage)"),
 }
 
 
@@ -84,6 +105,8 @@ def _usage() -> str:
     lines = ["usage: python -m kanodes_tpu_torch <command> [args...]", "",
              "commands:"]
     for name, (_, help_line) in sorted(MODULE_COMMANDS.items()):
+        lines.append(f"  {name:<12} {help_line}")
+    for name, (_, help_line) in sorted(FUNC_COMMANDS.items()):
         lines.append(f"  {name:<12} {help_line}")
     return "\n".join(lines)
 
@@ -103,6 +126,8 @@ def main(argv: list[str] | None = None) -> int:
         sys.argv = [module] + rest
         runpy.run_module(module, run_name="__main__", alter_sys=True)
         return 0
+    if cmd in FUNC_COMMANDS:
+        return int(FUNC_COMMANDS[cmd][0](rest))
     print(f"unknown command: {cmd!r}\n", file=sys.stderr)
     print(_usage(), file=sys.stderr)
     return 2

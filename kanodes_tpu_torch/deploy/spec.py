@@ -11,8 +11,9 @@ its constructor arguments; `lv.run` stores it in
 A "kan" spec records `use_base_act` and `trainable_grid` as JAX's
 does; a "bspline_kan" spec its widths, grid size and spline order (the
 knot grid is state that `update_grid` moves: it is in the checkpoint's
-parameters, not the spec). The strain-limiting PINN (M14) is not ported:
-its kind raises NotImplementedError. Export and the deploy CLI are M15.
+parameters, not the spec); a "kanpinn" spec the strain-limiting PINN's
+widths, basis count and center flavor. Export and the deploy CLI are
+M15.
 """
 
 from __future__ import annotations
@@ -22,13 +23,12 @@ from typing import Any
 from kanodes_tpu_torch.models.bspline import BSplineKAN, BSplineKANChain
 from kanodes_tpu_torch.models.kdense import KANChain, KDense
 from kanodes_tpu_torch.models.mlp import MLP
-
-_NOT_PORTED = {"kanpinn": "M14 (pinn/model.py)"}
+from kanodes_tpu_torch.pinn.model import KANPINN
 
 
 def spec_of(model) -> dict[str, Any]:
-    """The spec dict of a live model: a chain of KDense layers, an MLP
-    or a B-spline chain."""
+    """The spec dict of a live model: a chain of KDense layers, an MLP,
+    a B-spline chain or the KAN-PINN."""
     if isinstance(model, KANChain) and all(
             isinstance(l, KDense) for l in model.layers):
         l0 = model.layers[0]
@@ -84,6 +84,13 @@ def spec_of(model) -> dict[str, Any]:
             "grid_size": l0.grid_size,
             "spline_order": l0.spline_order,
         }
+    if isinstance(model, KANPINN):
+        return {
+            "kind": "kanpinn",
+            "widths": list(model.widths),
+            "n_basis": model.n_basis,
+            "trainable_centers": model.trainable_centers,
+        }
     raise TypeError(f"no spec rule for model type {type(model).__name__}")
 
 
@@ -107,7 +114,8 @@ def model_from_spec(spec: dict[str, Any], *, device=None):
     if kind == "bspline_kan":
         kw = {k: spec[k] for k in ("grid_size", "spline_order") if k in spec}
         return BSplineKANChain(list(spec["widths"]), device=device, **kw)
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(f"model spec kind {kind!r} is not ported "
-                                  f"yet (ROADMAP.md, {_NOT_PORTED[kind]})")
+    if kind == "kanpinn":
+        kw = {k: spec[k] for k in ("n_basis", "trainable_centers")
+              if k in spec}
+        return KANPINN(tuple(spec["widths"]), device=device, **kw)
     raise ValueError(f"unknown model spec kind: {kind!r}")

@@ -18,6 +18,9 @@ A B-spline chain's are per-layer `{"base_w", "coeff", "grid", "scaler"}`
 (`kanodes_tpu.models.BSplineKANChain`), the knot grid included:
 `bspline_params_from_numpy` / `bspline_params_to_numpy`; a
 `HybridKANMLP`'s `{"gate", "kan", "mlp"}`: `hybrid_params_from_numpy`.
+The strain-limiting PINN's (`kanodes_tpu.pinn.model.KANPINN`) are
+per-layer `{"coeff", "lin", "bias", "centers", "logwidth"}`:
+`pinn_params_from_numpy` / `pinn_params_to_numpy`.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from kanodes_tpu_torch.models.bspline import BSplineKANChain
 from kanodes_tpu_torch.models.hybrid import HybridKANMLP
 from kanodes_tpu_torch.models.mlp import MLP
 from kanodes_tpu_torch.models.packed import pack_params
+from kanodes_tpu_torch.pinn.model import LAYER_KEYS, KANPINN, load_params
 
 
 def stored_param(layer, name: str) -> torch.Tensor:
@@ -188,11 +192,28 @@ def hybrid_params_from_numpy(model, params) -> None:
     mlp_params_from_numpy(model.mlp, params["mlp"])
 
 
+def pinn_params_from_numpy(model, params) -> None:
+    """Copy per-layer `{"coeff", "lin", "bias", "centers", "logwidth"}`
+    arrays (JAX's `KANPINN` params, e.g. the pickled list of
+    `artifacts/pinn_adaptive_best_params.npy`) into the PINN's
+    parameters, on their device, in their dtype. Shapes must match."""
+    load_params(model, list(params))
+
+
+def pinn_params_to_numpy(model) -> list[dict[str, np.ndarray]]:
+    """The PINN's parameters as JAX's per-layer numpy dicts."""
+    return [{k: getattr(layer, k).detach().cpu().numpy().copy()
+             for k in LAYER_KEYS} for layer in model.layers]
+
+
 def params_from_numpy(model, params) -> None:
     """JAX-layout arrays into `model`: an MLP's `{"W", "b"}`, a B-spline
     chain's `{"base_w", "coeff", "grid", "scaler"}`, a hybrid's `{"gate",
-    "kan", "mlp"}` or a KDense chain's `{"C", "W"}`."""
-    if isinstance(model, MLP):
+    "kan", "mlp"}`, a PINN's `{"coeff", "lin", "bias", "centers",
+    "logwidth"}` or a KDense chain's `{"C", "W"}`."""
+    if isinstance(model, KANPINN):
+        pinn_params_from_numpy(model, params)
+    elif isinstance(model, MLP):
         mlp_params_from_numpy(model, params)
     elif isinstance(model, BSplineKANChain):
         bspline_params_from_numpy(model, params)

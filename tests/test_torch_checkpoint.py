@@ -258,8 +258,15 @@ def test_spec_of_equals_jax_and_rebuilds(kw):
 
 
 def test_specs_outside_the_port_raise_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="M14"):
-        tspec.model_from_spec({"kind": "kanpinn", "widths": [2, 10, 2]})
+    """Every JAX spec kind is ported since M14: the kanpinn kind, which
+    raised naming M14 before, rebuilds JAX's PINN; an unknown kind still
+    raises."""
+    spec = {"kind": "kanpinn", "widths": [2, 10, 2]}
+    got, want = tspec.model_from_spec(spec), jspec.model_from_spec(spec)
+    assert tspec.spec_of(got) == jspec.spec_of(want)
+    assert got.num_params() == want.num_params()
+    with pytest.raises(ValueError, match="unknown"):
+        tspec.model_from_spec({"kind": "no_such_kind", "widths": [2, 2]})
 
 
 def test_bspline_spec_rebuilds_as_jax():

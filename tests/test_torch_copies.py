@@ -3,7 +3,8 @@ originals, and the port imports no JAX.
 
 The port copies `ode/tableaus.py`, `utils/host_rk.py`, `train/config.py`,
 `pde/datagen.py`, `symbolic/engine.py` with `native/symreg.cpp`,
-`symbolic/sindy.py` and `diag/metrics.py` instead of importing them: `import kanodes_tpu.<any>`
+`symbolic/sindy.py`, `diag/metrics.py`, `pinn/geometry.py` and
+`diag/gates.py` instead of importing them: `import kanodes_tpu.<any>`
 runs `kanodes_tpu/__init__.py`, which imports jax, and the GPU host has
 no jax. A copy may differ from its original only where the original
 reaches JAX or the JAX package's paths.
@@ -144,6 +145,10 @@ def test_port_imports_without_jax_in_a_fresh_process():
         "import kanodes_tpu_torch.ode.stiff\n"
         "import kanodes_tpu_torch.experiments.bspline_lv\n"
         "import kanodes_tpu_torch.experiments.ac_grid_refine\n"
+        "import kanodes_tpu_torch.pinn.geometry, kanodes_tpu_torch.pinn.model\n"
+        "import kanodes_tpu_torch.pinn.losses, kanodes_tpu_torch.pinn.train\n"
+        "import kanodes_tpu_torch.diag.gates\n"
+        "import kanodes_tpu_torch.experiments.profile_pinn\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'optax' or m == 'kanodes_tpu'"
         " or m.startswith('kanodes_tpu.')]\n"
@@ -240,13 +245,17 @@ def _top_level(path: Path, skip: set[str]) -> dict[str, str]:
     ("symbolic/sindy.py", "kanodes_tpu/symbolic/sindy.py", {"sindy_rhs"}),
     ("symbolic/engine.py", "kanodes_tpu/symbolic/engine.py",
      {"_HERE", "_SO", "_build"}),
+    ("pinn/geometry.py", "kanodes_tpu/pinn/geometry.py", set()),
+    ("diag/gates.py", "kanodes_tpu/diag/gates.py",
+     {"evaluate_checkpoint", "main"}),
 ])
 def test_copies_equal_their_originals(copy, original, skip):
     """Statement by statement, docstrings aside: datagen less the stiff
     cross-check (it solves in torch; held by its output), metrics less
     JAX's import and its `Array` alias (numpy's here), sindy less
     `sindy_rhs` (a JAX model, M12), the engine less its path constants
-    and the build into them."""
+    and the build into them, geometry whole, the gates less the two
+    functions that take a device (held line by line below)."""
     got = _top_level(PORT / copy, skip)
     want = _top_level(ROOT / original, skip)
     assert list(got) == list(want)
@@ -266,6 +275,64 @@ def test_engine_build_differs_only_in_its_output_directory():
     assert got[2:] == want[1:]
     assert engine._SO == str(PORT / "native" / "build" / "libsymreg.so")
     assert engine._SRC == str(PORT / "native" / "symreg.cpp")
+
+
+# the lines by which the gates' two device-taking functions differ from
+# JAX's, `kanodes_tpu_torch` read as `kanodes_tpu` (docstrings included)
+GATES_ONLY_HERE = {
+    "evaluate_checkpoint": [
+        "                        step: int | None = None,",
+        '                        device="cuda") -> tuple[dict, dict]:',
+        "    from kanodes_tpu.utils.device import require_device",
+        "    model = KANPINN(cfg.widths, cfg.n_basis, cfg.trainable_centers,",
+        "                    device=require_device(device))",
+    ],
+    "main": [
+        "                                              [--device=cuda|cpu]",
+        "          stored best params on the device, then gate (the reference",
+        "          flow).",
+        '    device = "cuda"',
+        '    for a in [a for a in argv if a.startswith("--device=")]:',
+        '        device = a.split("=", 1)[1]',
+        "        argv = [b for b in argv if b != a]",
+        '              "<diagnostics.json> | --checkpoint <dir> [--step N] "',
+        '              "[--device=cuda|cpu]")',
+        "        res, diag = evaluate_checkpoint(argv[1], step=step, "
+        "device=device)",
+    ],
+}
+GATES_ONLY_THERE = {
+    "evaluate_checkpoint": [
+        "                        step: int | None = None) -> tuple[dict, "
+        "dict]:",
+        "    model = KANPINN(cfg.widths, cfg.n_basis, cfg.trainable_centers)",
+    ],
+    "main": [
+        "          stored best params, then gate (the reference flow).",
+        '              "<diagnostics.json> | --checkpoint <dir> [--step N]")',
+        "        res, diag = evaluate_checkpoint(argv[1], step=step)",
+    ],
+}
+
+
+@pytest.mark.parametrize("name", sorted(GATES_ONLY_HERE))
+def test_gates_differ_only_in_the_device(name):
+    """`evaluate_checkpoint` and `main` of the gates copy are JAX's, less
+    and plus exactly the lines that take the device (`--device=`, the
+    card unless "cpu" is asked for) and build the model on it."""
+    import difflib
+    import inspect
+
+    from kanodes_tpu.diag import gates as jgates
+    from kanodes_tpu_torch.diag import gates
+    got = inspect.getsource(getattr(gates, name)).replace(
+        "kanodes_tpu_torch", "kanodes_tpu").splitlines()
+    want = inspect.getsource(getattr(jgates, name)).splitlines()
+    diff = list(difflib.ndiff(want, got))
+    assert [d[2:] for d in diff if d.startswith("+ ")] == \
+        GATES_ONLY_HERE[name]
+    assert [d[2:] for d in diff if d.startswith("- ")] == \
+        GATES_ONLY_THERE[name]
 
 
 def test_symreg_source_copy_is_byte_equal():
